@@ -1,0 +1,248 @@
+"""BM25 scoring kernels: the dense per-clause scorer (K2,
+`score_text_clause`) and the candidate-buffer query phase (K1,
+`bm25_candidate`), each a CUDA kernel with its plain PyTorch version.
+
+A text clause gathers its terms' 128-wide posting blocks from the resident
+`[NBp, 128]` matrices and computes the BM25 partial per lane,
+
+    w * tf * (k1 + 1) / (tf + k1 * (1 - b + b * dl / avgdl)),
+
+with dl = length_table[norms[row][doc]] and the same operation order as
+opensearch_tpu.ops.bm25, so the float rounding is the reference's.
+
+Every function here takes a batch of B queries against one segment: per-lane
+inputs are `[B, QB]` and per-clause scalars `[B]`. A wrapper runs its plain
+version only for tensors on the CPU; for CUDA tensors it launches its kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from opensearch_tpu_torch.ops import _build
+from opensearch_tpu_torch.ops.topk import NEG_INF, pack_rows, stable_topk
+
+# sort key of a padding lane in the candidate buffer (above every doc id)
+CANDIDATE_PAD_DOC = 1 << 30
+CANDIDATE_MAX_LANES = 1 << 14
+CANDIDATE_MAX_TERMS = 16
+
+
+def idf(doc_count: int, doc_freq: int) -> float:
+    """Lucene BM25Similarity.idfExplain."""
+    return math.log(1.0 + (doc_count - doc_freq + 0.5) / (doc_freq + 0.5))
+
+
+def _lane_partials(seg: Dict[str, torch.Tensor], blk: Dict[str, torch.Tensor]):
+    """Gathered docs and BM25 partials of every lane, [B, QB, 128] each,
+    plus the real-lane mask (padding block lanes and -1 doc lanes false)."""
+    ids = blk["ids"]
+    lane_real = ids >= 0
+    safe_ids = torch.where(lane_real, ids, 0).long()
+    docs = seg["post_docs"][safe_ids]
+    tfs = seg["post_tf"][safe_ids]
+    valid = docs >= 0
+    safe_docs = torch.where(valid, docs, 0).long()
+    norm_bytes = seg["norms"][blk["row"].long()[:, None, None], safe_docs]
+    dl = seg["length_table"][norm_bytes.long()]
+    b = blk["b"][:, None, None]
+    k1 = blk["k1"][:, None, None]
+    denom = tfs + k1 * (1.0 - b + b * dl / blk["avgdl"][:, None, None])
+    partial = blk["w"][:, :, None] * tfs * (k1 + 1.0) / denom
+    return docs, partial, valid & lane_real[:, :, None]
+
+
+# ----------------------------------------------------------------- K2 -------
+
+def score_text_clause_plain(seg, blk):
+    """Plain version of K2: dense scores f32 [B, Dp] and hit counts i32
+    [B, Dp]. A doc's partials add in lane order, starting from 0, like the
+    reference's scatter-add: lanes are split into passes by their rank among
+    the earlier lanes of the same doc, so each pass adds to distinct docs and
+    pass r adds every doc's r-th partial."""
+    d_pad = seg["live"].shape[0]
+    docs, partial, real = _lane_partials(seg, blk)
+    bsz = docs.shape[0]
+    flat_docs = torch.where(real, docs, d_pad).reshape(bsz, -1).long()
+    flat_p = torch.where(real, partial, 0.0).reshape(bsz, -1)
+    flat_real = real.reshape(bsz, -1)
+    n = flat_docs.shape[1]
+    sdoc, order = torch.sort(flat_docs, dim=1, stable=True)
+    pos = torch.arange(n, device=docs.device).expand(bsz, n)
+    start = torch.ones_like(sdoc, dtype=torch.bool)
+    start[:, 1:] = sdoc[:, 1:] != sdoc[:, :-1]
+    run_start = torch.where(start, pos, 0).cummax(dim=1).values
+    rank = torch.empty_like(pos)
+    rank.scatter_(1, order, pos - run_start)
+    rank = torch.where(flat_real, rank, -1)
+    scores = torch.zeros(bsz, d_pad, dtype=torch.float32, device=docs.device)
+    hits = torch.zeros(bsz, d_pad, dtype=torch.int32, device=docs.device)
+    for r in range(int(rank.max().item()) + 1):
+        bi, li = (rank == r).nonzero(as_tuple=True)
+        di = flat_docs[bi, li]
+        scores[bi, di] += flat_p[bi, li]
+        hits[bi, di] += 1
+    return scores, hits
+
+
+def score_text_clause(seg, blk):
+    """K2: one text clause of B queries scored into dense per-doc vectors.
+    Replaces opensearch_tpu/ops/bm25.py:score_text_clause.
+
+    seg: device segment image (post_docs, post_tf, norms, length_table,
+    live). blk: ids i32 [B, QB] (-1 = padding lane), w f32 [B, QB], row i32
+    [B], avgdl / b / k1 f32 [B]. Returns (scores f32 [B, Dp], hits i32
+    [B, Dp]); hits counts the clause terms that matched each doc."""
+    if not seg["post_docs"].is_cuda:
+        return score_text_clause_plain(seg, blk)
+    ids = blk["ids"]
+    bsz, qb = ids.shape
+    d_pad = seg["live"].shape[0]
+    dev = ids.device
+    _require_image(seg, d_pad)
+    _require(ids, torch.int32, (bsz, qb), dev, "ids")
+    _require(blk["w"], torch.float32, (bsz, qb), dev, "w")
+    for key, dt in (("row", torch.int32), ("avgdl", torch.float32),
+                    ("b", torch.float32), ("k1", torch.float32)):
+        _require(blk[key], dt, (bsz,), dev, key)
+    scores = torch.empty(bsz, d_pad, dtype=torch.float32, device=dev)
+    hits = torch.empty(bsz, d_pad, dtype=torch.int32, device=dev)
+    fn = _build.entry("score_text_clause", [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+    code = fn(_build.ptr(ids), _build.ptr(blk["w"]), _build.ptr(blk["row"]),
+              _build.ptr(blk["avgdl"]), _build.ptr(blk["b"]),
+              _build.ptr(blk["k1"]), _build.ptr(seg["post_docs"]),
+              _build.ptr(seg["post_tf"]), _build.ptr(seg["norms"]),
+              _build.ptr(seg["length_table"]), bsz, qb, d_pad,
+              seg["post_docs"].shape[0], _build.ptr(scores),
+              _build.ptr(hits), _build.stream_of(dev))
+    _build.LAUNCHES["score_text_clause"] += 1
+    _build.check("score_text_clause", code)
+    return scores, hits
+
+
+# ----------------------------------------------------------------- K1 -------
+
+def bm25_candidate_plain(seg, blk, n_terms: int, constant: bool, k: int,
+                         min_score: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 (the reference's build_candidate_query_phase
+    `one`, batched): the clause's lanes sorted stably by doc, a backward
+    window of n_terms lanes summed at each run's end (p[end] + p[end-1] +
+    ..., the reference's float order), eligibility, and the top-k of the
+    buffer with ties to the lowest lane. Returns the packed rows f32
+    [B, 2k+1]: k scores | k doc ids (int32 bits) | total."""
+    docs, partial, real = _lane_partials(seg, blk)
+    bsz = docs.shape[0]
+    dev = docs.device
+    doc_key = torch.where(real, docs, CANDIDATE_PAD_DOC).reshape(bsz, -1)
+    part = torch.where(real, partial, 0.0).reshape(bsz, -1)
+    hit = real.reshape(bsz, -1).to(torch.int32)
+    n = doc_key.shape[1]
+    sdoc, order = torch.sort(doc_key, dim=1, stable=True)
+    spart = torch.gather(part, 1, order)
+    shit = torch.gather(hit, 1, order)
+    is_end = torch.ones_like(sdoc, dtype=torch.bool)
+    is_end[:, :-1] = sdoc[:, :-1] != sdoc[:, 1:]
+    run_score, run_hits = spart, shit
+    for j in range(1, n_terms):
+        same = torch.zeros_like(is_end)
+        same[:, j:] = sdoc[:, :-j] == sdoc[:, j:]
+        prev_part = torch.zeros_like(spart)
+        prev_part[:, j:] = spart[:, :-j]
+        prev_hit = torch.zeros_like(shit)
+        prev_hit[:, j:] = shit[:, :-j]
+        run_score = run_score + torch.where(same, prev_part, 0.0)
+        run_hits = run_hits + torch.where(same, prev_hit, 0)
+    matches = run_hits >= blk["min_hits"][:, None]
+    score = blk["boost"][:, None].expand(bsz, n) if constant else run_score
+    valid_end = is_end & (sdoc < CANDIDATE_PAD_DOC)
+    safe_end = torch.where(valid_end, sdoc, 0).long()
+    eligible = valid_end & matches & seg["live"][safe_end] \
+        & seg["root"][safe_end] & (score >= min_score[:, None])
+    total = eligible.sum(dim=1, dtype=torch.int32)
+    masked = torch.where(eligible, score, NEG_INF)
+    k_eff = min(k, n)
+    top_scores, top_lane = stable_topk(masked, k_eff)
+    top_docs = torch.gather(sdoc, 1, top_lane).to(torch.int32)
+    if k_eff < k:
+        top_scores = torch.cat([top_scores, torch.full(
+            (bsz, k - k_eff), NEG_INF, device=dev)], dim=1)
+        top_docs = torch.cat([top_docs, torch.zeros(
+            bsz, k - k_eff, dtype=torch.int32, device=dev)], dim=1)
+    return pack_rows(top_scores, top_docs, total)
+
+
+def bm25_candidate(seg, blk, n_terms: int, constant: bool, k: int,
+                   min_score: torch.Tensor) -> torch.Tensor:
+    """K1: the candidate-buffer query phase of B single-text-clause queries
+    against one segment. Replaces opensearch_tpu/search/executor.py:
+    build_candidate_query_phase (`one`, family bm25_candidate).
+
+    blk: ids i32 [B, QB] with QB a power of two and QB*128 <= 16384, w f32
+    [B, QB]; per query row, min_hits i32, avgdl / b / k1 / boost f32 [B].
+    min_score f32 [B]. n_terms <= 16 is the clause's distinct-term count,
+    the longest run one doc can have. Returns f32 [B, 2k+1] packed rows."""
+    if not seg["post_docs"].is_cuda:
+        return bm25_candidate_plain(seg, blk, n_terms, constant, k,
+                                    min_score)
+    ids = blk["ids"]
+    bsz, qb = ids.shape
+    d_pad = seg["live"].shape[0]
+    dev = ids.device
+    if qb < 8 or qb & (qb - 1) or qb * 128 > CANDIDATE_MAX_LANES:
+        raise ValueError(f"bm25_candidate takes QB a power of two in "
+                         f"[8, {CANDIDATE_MAX_LANES // 128}], got {qb}")
+    if not 1 <= n_terms <= CANDIDATE_MAX_TERMS:
+        raise ValueError(f"bm25_candidate takes 1..{CANDIDATE_MAX_TERMS} "
+                         f"terms, got {n_terms}")
+    _require_image(seg, d_pad)
+    _require(ids, torch.int32, (bsz, qb), dev, "ids")
+    _require(blk["w"], torch.float32, (bsz, qb), dev, "w")
+    for key, dt in (("row", torch.int32), ("avgdl", torch.float32),
+                    ("b", torch.float32), ("k1", torch.float32),
+                    ("min_hits", torch.int32), ("boost", torch.float32)):
+        _require(blk[key], dt, (bsz,), dev, key)
+    _require(min_score, torch.float32, (bsz,), dev, "min_score")
+    out = torch.empty(bsz, 2 * k + 1, dtype=torch.float32, device=dev)
+    fn = _build.entry("bm25_candidate", [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    code = fn(_build.ptr(ids), _build.ptr(blk["w"]), _build.ptr(blk["row"]),
+              _build.ptr(blk["avgdl"]), _build.ptr(blk["b"]),
+              _build.ptr(blk["k1"]), _build.ptr(blk["min_hits"]),
+              _build.ptr(blk["boost"]), _build.ptr(min_score),
+              _build.ptr(seg["post_docs"]), _build.ptr(seg["post_tf"]),
+              _build.ptr(seg["norms"]), _build.ptr(seg["length_table"]),
+              _build.ptr(seg["live"]), _build.ptr(seg["root"]),
+              bsz, qb, d_pad, n_terms, int(bool(constant)), k,
+              _build.ptr(out), _build.stream_of(dev))
+    _build.LAUNCHES["bm25_candidate"] += 1
+    _build.check("bm25_candidate", code)
+    return out
+
+
+# ------------------------------------------------------------- helpers ------
+
+def _require(t: torch.Tensor, dtype, shape, device, what: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"[{what}] must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _require_image(seg, d_pad: int) -> None:
+    dev = seg["post_docs"].device
+    nb = seg["post_docs"].shape[0]
+    _require(seg["post_docs"], torch.int32, (nb, 128), dev, "post_docs")
+    _require(seg["post_tf"], torch.float32, (nb, 128), dev, "post_tf")
+    _require(seg["norms"], torch.int32, (seg["norms"].shape[0], d_pad), dev,
+             "norms")
+    _require(seg["length_table"], torch.float32, (256,), dev, "length_table")
+    _require(seg["live"], torch.bool, (d_pad,), dev, "live")
+    _require(seg["root"], torch.bool, (d_pad,), dev, "root")

@@ -1,0 +1,116 @@
+"""Device-resident segment: the card's image of a sealed columnar segment
+(the BM25 subset of opensearch_tpu.ops.device_segment).
+
+Layout, with the reference's dtypes, power-of-two padding buckets and fill
+values:
+- `post_docs` int32 / `post_tf` float32 `[NBp, 128]`, padded -1 / 0, and
+  `post_bound` float32 `[NBp]` (seal-time block score bounds, 0 padding);
+- `norms` int32 `[F, Dp]`, one row per normed text field (row index in
+  `DeviceSegmentMeta.norm_rows`), and `length_table` float32 `[256]`;
+- `live`, `root` bool `[Dp]`, `parent_ptr`, `nested_path` int32 `[Dp]`.
+
+The image is built host-side in numpy and uploaded once to the chosen
+device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, Segment,
+                                                block_score_bounds,
+                                                pad_bucket)
+
+
+@dataclass(frozen=True)
+class DeviceSegmentMeta:
+    """Static shape/layout facts of one uploaded segment."""
+    seg_id: str
+    num_docs: int
+    d_pad: int
+    nb_pad: int
+    norm_rows: Tuple[Tuple[str, int], ...]   # field -> row in norms stack
+    block_bounds: bool = True
+
+    def norm_row(self, field: str) -> Optional[int]:
+        for f, r in self.norm_rows:
+            if f == field:
+                return r
+        return None
+
+    def compile_key(self) -> tuple:
+        """Every shape-shaping fact of the image, seg_id excluded: two
+        segments equal on this key run the same kernel configurations."""
+        return (self.num_docs, self.d_pad, self.nb_pad, self.norm_rows,
+                self.block_bounds)
+
+
+def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
+                                         DeviceSegmentMeta]:
+    """The host numpy image of a segment and its static meta."""
+    d_pad = pad_bucket(max(seg.num_docs, 1))
+    nb = seg.post_docs.shape[0]
+    nb_pad = pad_bucket(nb, minimum=8)
+
+    post_docs = np.full((nb_pad, seg.post_docs.shape[1]), -1, dtype=np.int32)
+    post_docs[:nb] = seg.post_docs
+    post_tf = np.zeros((nb_pad, seg.post_tf.shape[1]), dtype=np.float32)
+    post_tf[:nb] = seg.post_tf
+    post_bound = np.zeros(nb_pad, dtype=np.float32)
+    post_bound[:nb] = block_score_bounds(seg)
+
+    norm_fields = sorted(seg.norms.keys())
+    norms = np.zeros((max(len(norm_fields), 1), d_pad), dtype=np.int32)
+    for row, fname in enumerate(norm_fields):
+        norms[row, :seg.num_docs] = seg.norms[fname]
+
+    live = np.zeros(d_pad, dtype=bool)
+    live[:seg.num_docs] = seg.live
+    root = np.zeros(d_pad, dtype=bool)
+    root[:seg.num_docs] = seg.root
+    parent_ptr = np.full(d_pad, -1, dtype=np.int32)
+    parent_ptr[:seg.num_docs] = seg.parent_ptr
+    # every row of this slice is a root document: path ordinal -1
+    nested_path = np.full(d_pad, -1, dtype=np.int32)
+
+    arrays = {
+        "post_docs": post_docs,
+        "post_tf": post_tf,
+        "post_bound": post_bound,
+        "norms": norms,
+        "length_table": LENGTH_TABLE.copy(),
+        "live": live,
+        "root": root,
+        "parent_ptr": parent_ptr,
+        "nested_path": nested_path,
+    }
+    meta = DeviceSegmentMeta(
+        seg_id=seg.seg_id, num_docs=seg.num_docs, d_pad=d_pad, nb_pad=nb_pad,
+        norm_rows=tuple((f, i) for i, f in enumerate(norm_fields)))
+    return arrays, meta
+
+
+def upload_segment(seg: Segment, device: torch.device
+                   ) -> Tuple[Dict[str, torch.Tensor], DeviceSegmentMeta]:
+    """Build a segment's image and upload it once to `device`."""
+    arrays, meta = segment_image(seg)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}, \
+        meta
+
+
+def live_mask(seg: Segment, d_pad: int) -> np.ndarray:
+    """The padded `live` leaf for a segment whose deletes changed."""
+    live = np.zeros(d_pad, dtype=bool)
+    live[:seg.num_docs] = seg.live
+    return live
+
+
+def tree_nbytes(tree) -> int:
+    """Total tensor bytes of a device image."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return int(tree.numel() * tree.element_size())
