@@ -1,20 +1,27 @@
-"""Schema layer for the BM25 slice: `text` and `keyword` mappings and JSON
-document parsing (the subset of opensearch_tpu.index.mapper the port needs).
+"""Schema layer: field mappings and JSON document parsing (the subset of
+opensearch_tpu.index.mapper the port needs).
 
 - text fields    -> analyzed terms feeding blocked postings (+ field length
                     for norms)
-- keyword fields -> exact values feeding postings (term / terms queries)
+- keyword fields -> exact values feeding postings (term / terms queries) and
+                    an ordinal doc-value column (terms aggs, ranges)
+- numeric/date/boolean -> f64 doc-value columns; range/term queries compile
+                    to rank compares on the column. Booleans also index
+                    "true"/"false" postings and an ordinal column.
 
 Objects map to dotted sub-fields and `fields` declares multi-fields, as in
 the reference. Other field types are not ported yet: mapping one raises a
 mapper_parsing_exception instead of indexing it differently. Dynamic
-mapping maps a JSON string to `text` with a `.keyword` sub-field, as the
-reference does; a dynamic value of any other type raises for the same
-reason.
+mapping follows the reference: a JSON string maps to `text` with a
+`.keyword` sub-field (or `date` when it looks like one), an integer to
+`long`, a float to `float` and a boolean to `boolean`.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
+import functools
+import math
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -25,9 +32,74 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
 
 TEXT_TYPES = {"text"}
 KEYWORD_TYPES = {"keyword"}
-PORTED_TYPES = TEXT_TYPES | KEYWORD_TYPES
+NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float"}
+DATE_TYPES = {"date"}
+BOOL_TYPES = {"boolean"}
+PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES | DATE_TYPES
+                | BOOL_TYPES)
 DEFAULT_MAPPING_LIMIT = 1000  # index.mapping.total_fields.limit default
-_DATE_PREFIX = re.compile(r"^\d{4}-\d{2}-\d{2}")
+
+_INT_BOUNDS = {
+    "byte": (-2 ** 7, 2 ** 7 - 1),
+    "short": (-2 ** 15, 2 ** 15 - 1),
+    "integer": (-2 ** 31, 2 ** 31 - 1),
+    "long": (-2 ** 63, 2 ** 63 - 1),
+}
+
+
+def parse_date_millis(value: Any, fmt: Optional[str] = None) -> int:
+    """Parse a date into epoch milliseconds: the reference's default
+    `strict_date_optional_time||epoch_millis`, plus `epoch_second`."""
+    if isinstance(value, bool):
+        raise MapperParsingError(f"failed to parse date field [{value}]")
+    if isinstance(value, (int, float)):
+        n = int(value)
+        return n * 1000 if fmt == "epoch_second" else n
+    text = str(value).strip()
+    if fmt in ("epoch_millis", "epoch_second") \
+            or re.fullmatch(r"-?\d{10,}", text):
+        try:
+            n = int(text)
+            return n * 1000 if fmt == "epoch_second" else n
+        except ValueError:
+            pass
+    # ISO-8601 family: yyyy, yyyy-MM, yyyy-MM-dd, optional time and zone
+    t = text.replace("Z", "+00:00")
+    for pattern in (None, "%Y-%m", "%Y"):
+        try:
+            if pattern is None:
+                dt = _dt.datetime.fromisoformat(t)
+            else:
+                dt = _dt.datetime.strptime(t, pattern)
+            if dt.tzinfo is None:
+                dt = dt.replace(tzinfo=_dt.timezone.utc)
+            return int(dt.timestamp() * 1000)
+        except ValueError:
+            continue
+    raise MapperParsingError(
+        f"failed to parse date field [{value}] with format "
+        f"[{fmt or 'strict_date_optional_time||epoch_millis'}]")
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def format_date_millis(millis: int) -> str:
+    """Epoch millis -> `yyyy-MM-ddTHH:mm:ss.SSSZ` (memoized: histogram
+    renders format the same bucket keys for every query)."""
+    dt = _dt.datetime.fromtimestamp(millis / 1000.0, tz=_dt.timezone.utc)
+    return dt.strftime("%Y-%m-%dT%H:%M:%S.") \
+        + f"{dt.microsecond // 1000:03d}Z"
+
+
+def _parse_boolish(value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    text = str(value).strip().lower()
+    if text == "true":
+        return True
+    if text in ("false", ""):
+        return False
+    raise MapperParsingError(f"Failed to parse value [{value}] as only "
+                             f"[true] or [false] are allowed.")
 
 
 @dataclass
@@ -37,6 +109,8 @@ class MappedFieldType:
     analyzer: str = "standard"
     search_analyzer: Optional[str] = None
     index: bool = True
+    doc_values: bool = True
+    fmt: Optional[str] = None            # date format
     ignore_above: Optional[int] = None
     null_value: Any = None
 
@@ -48,6 +122,73 @@ class MappedFieldType:
     def is_keyword(self) -> bool:
         return self.type in KEYWORD_TYPES
 
+    @property
+    def is_numeric(self) -> bool:
+        return self.type in NUMERIC_TYPES
+
+    @property
+    def is_date(self) -> bool:
+        return self.type in DATE_TYPES
+
+    @property
+    def is_bool(self) -> bool:
+        return self.type in BOOL_TYPES
+
+    @property
+    def has_ordinals(self) -> bool:
+        """Fields whose doc values are ordinal-encoded strings."""
+        return self.is_keyword or self.is_bool
+
+    def parse_numeric(self, value: Any) -> float:
+        """Doc-value columns are float64, so integer fields keep exact
+        values up to 2**53, as in the reference; the bounds checks are
+        exact regardless."""
+        if isinstance(value, bool):
+            raise MapperParsingError(
+                f"failed to parse field [{self.name}] of type "
+                f"[{self.type}]: boolean value not allowed")
+        if self.type in _INT_BOUNDS:
+            if isinstance(value, int):
+                n = value
+            elif isinstance(value, str) \
+                    and re.fullmatch(r"-?\d+", value.strip()):
+                n = int(value.strip())
+            else:
+                try:
+                    num = float(value)
+                except (TypeError, ValueError) as e:
+                    raise MapperParsingError(
+                        f"failed to parse field [{self.name}] of type "
+                        f"[{self.type}] value [{value}]") from e
+                if math.isnan(num) or math.isinf(num):
+                    raise MapperParsingError(
+                        f"[{self.type}] supports only finite values, but "
+                        f"got [{value}]")
+                n = int(num)  # coerce: truncate decimals
+            lo, hi = _INT_BOUNDS[self.type]
+            if not lo <= n <= hi:
+                raise MapperParsingError(
+                    f"Value [{value}] is out of range for a {self.type}")
+            return float(n)
+        try:
+            num = float(value)
+        except (TypeError, ValueError) as e:
+            raise MapperParsingError(
+                f"failed to parse field [{self.name}] of type [{self.type}] "
+                f"value [{value}]") from e
+        if math.isnan(num) or math.isinf(num):
+            raise MapperParsingError(f"[{self.type}] supports only finite "
+                                     f"values, but got [{value}]")
+        return num
+
+    def to_comparable(self, value: Any) -> float:
+        """A query value in the doc-value column's domain."""
+        if self.is_date:
+            return float(parse_date_millis(value, self.fmt))
+        if self.is_bool:
+            return 1.0 if _parse_boolish(value) else 0.0
+        return self.parse_numeric(value)
+
 
 @dataclass
 class ParsedField:
@@ -55,6 +196,7 @@ class ParsedField:
     terms: Optional[List[Tuple[str, int]]] = None  # analyzed (term, position)
     length: int = 0                                 # token count for norms
     exact_values: Optional[List[str]] = None        # keyword exact terms
+    numeric_values: Optional[List[float]] = None    # numeric/date/bool values
 
 
 @dataclass
@@ -128,6 +270,8 @@ class MapperService:
             name=full_name, type=ftype, analyzer=analyzer,
             search_analyzer=spec.get("search_analyzer"),
             index=bool(spec.get("index", True)),
+            doc_values=bool(spec.get("doc_values", True)),
+            fmt=spec.get("format"),
             ignore_above=spec.get("ignore_above"),
             null_value=spec.get("null_value"))
         for sub_name, sub_spec in spec.get("fields", {}).items():
@@ -167,13 +311,24 @@ class MapperService:
                     f"[{name}] within [_doc] is not allowed")
             return
         sample = value[0] if isinstance(value, list) and value else value
-        if isinstance(sample, str) and not _DATE_PREFIX.match(sample):
-            self._put_field(name, {"type": "text", "fields": {
-                "keyword": {"type": "keyword", "ignore_above": 256}}})
-            return
-        raise MapperParsingError(
-            f"dynamic field [{name}] needs a field type opensearch_tpu_torch "
-            f"does not map yet (value [{sample!r}])")
+        if isinstance(sample, bool):
+            self._put_field(name, {"type": "boolean"})
+        elif isinstance(sample, int):
+            self._put_field(name, {"type": "long"})
+        elif isinstance(sample, float):
+            self._put_field(name, {"type": "float"})
+        elif isinstance(sample, str):
+            try:
+                parse_date_millis(sample)
+                looks_like_date = bool(
+                    re.match(r"^\d{4}-\d{2}-\d{2}", sample))
+            except MapperParsingError:
+                looks_like_date = False
+            if looks_like_date:
+                self._put_field(name, {"type": "date"})
+            else:
+                self._put_field(name, {"type": "text", "fields": {
+                    "keyword": {"type": "keyword", "ignore_above": 256}}})
 
     def _parse_value(self, name: str, value: Any,
                      out: Dict[str, ParsedField],
@@ -208,7 +363,7 @@ class MapperService:
                     base += toks[-1][1] + 1 + 100
             pf.terms = terms
             pf.length = len(terms)
-        else:
+        elif ft.is_keyword:
             vals = pf.exact_values or []
             for v in values:
                 s = str(v)
@@ -217,6 +372,20 @@ class MapperService:
                     continue
                 vals.append(s)
             pf.exact_values = vals
+        elif ft.is_numeric:
+            nums = pf.numeric_values or []
+            nums.extend(ft.parse_numeric(v) for v in values)
+            pf.numeric_values = nums
+        elif ft.is_date:
+            nums = pf.numeric_values or []
+            nums.extend(float(parse_date_millis(v, ft.fmt)) for v in values)
+            pf.numeric_values = nums
+        elif ft.is_bool:
+            bools = [_parse_boolish(v) for v in values]
+            pf.numeric_values = (pf.numeric_values or []) + [
+                1.0 if b else 0.0 for b in bools]
+            pf.exact_values = (pf.exact_values or []) + [
+                "true" if b else "false" for b in bools]
 
     def get_field(self, name: str) -> Optional[MappedFieldType]:
         return self.field_types.get(name)

@@ -1,17 +1,21 @@
-"""Immutable columnar segments for the BM25 slice (the subset of
-opensearch_tpu.index.segment the port needs).
+"""Immutable columnar segments (the subset of opensearch_tpu.index.segment
+the port needs).
 
 Postings are blocked CSR: one global `[num_blocks, 128]` int32 doc-id matrix
 plus a parallel float32 term-frequency matrix, padded with -1 / 0. A
 (field, term) entry of the term dictionary points at a contiguous run of
 blocks. Norms are Lucene's SmallFloat bytes, decoded at score time through
-the 256-entry LENGTH_TABLE. Deletes are a liveness bitmap. The layout is
+the 256-entry LENGTH_TABLE. Doc values are value-pair columns sorted by
+doc: numeric/date/boolean values rank-encoded into a sorted f64 `unique`
+table (`DocValuesColumn`), keyword values ordinal-encoded into a sorted
+dictionary (`OrdinalsColumn`). Deletes are a liveness bitmap. The layout is
 byte-for-byte the reference's, so `segment_from_arrays` can carry a sealed
 reference segment across unchanged.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -54,6 +58,22 @@ LENGTH_TABLE = np.array([smallfloat_byte4_to_int(b) for b in range(256)],
 
 def _pad_to(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
+
+
+def ident_pairs(col) -> bool:
+    """True when a doc-value column's (doc, value) pairs are the identity
+    layout (single-valued dense column: doc k <-> lane k, -1 tail): device
+    code then slices or pads per-lane results into doc space instead of
+    gathering and scattering. Memoized on the (immutable) column."""
+    cached = getattr(col, "_ident_pairs", None)
+    if cached is not None:
+        return cached
+    d = col.doc_ids
+    nv = int((d >= 0).sum())
+    out = bool(np.array_equal(d[:nv], np.arange(nv, dtype=d.dtype))
+               and (d[nv:] < 0).all())
+    col._ident_pairs = out
+    return out
 
 
 def pad_bucket(n: int, minimum: int = 128) -> int:
@@ -128,6 +148,37 @@ class FieldStats:
     sum_doc_freq: int = 0
 
 
+@dataclass
+class DocValuesColumn:
+    """Value-pair doc values of one numeric/date/boolean field: (doc, value)
+    pairs sorted by doc. `value_ords` rank-encodes each value into `unique`
+    (sorted distinct f64s); device code sees only the int32 ranks, and
+    range bounds become ranks through a host searchsorted."""
+    doc_ids: np.ndarray      # int32 [NV]
+    values: np.ndarray       # float64 [NV] exact values (host only)
+    exists: np.ndarray       # bool [D]
+    counts: np.ndarray       # int32 [D] values per doc
+    value_ords: np.ndarray   # int32 [NV] rank into `unique`
+    unique: np.ndarray       # float64 [U] sorted distinct values (host)
+
+
+@dataclass
+class OrdinalsColumn:
+    """Ordinal-encoded string doc values: a sorted dictionary and (doc, ord)
+    pairs sorted by doc."""
+    doc_ids: np.ndarray      # int32 [NV]
+    ords: np.ndarray         # int32 [NV]
+    exists: np.ndarray       # bool [D]
+    dictionary: List[str]    # ord -> term, lexicographically sorted
+    ord_hashes: np.ndarray   # uint64 [card] hash per dictionary entry
+
+
+def _hash64(s: str) -> int:
+    """Stable 64-bit hash of a dictionary entry (seal time)."""
+    return int.from_bytes(hashlib.blake2b(s.encode("utf-8"),
+                                          digest_size=8).digest(), "little")
+
+
 class Segment:
     """A sealed, immutable columnar segment (host numpy representation)."""
 
@@ -138,7 +189,9 @@ class Segment:
                  post_docs: np.ndarray, post_tf: np.ndarray,
                  norms: Dict[str, np.ndarray],
                  field_stats: Dict[str, FieldStats],
-                 parent_ptr: Optional[np.ndarray] = None):
+                 parent_ptr: Optional[np.ndarray] = None,
+                 numeric_dv: Optional[Dict[str, DocValuesColumn]] = None,
+                 ordinal_dv: Optional[Dict[str, OrdinalsColumn]] = None):
         self.seg_id = seg_id
         self.num_docs = num_docs
         self.doc_ids = doc_ids
@@ -148,6 +201,8 @@ class Segment:
         self.post_tf = post_tf              # float32 [NB, BLOCK]
         self.norms = norms                  # field -> uint8 [D]
         self.field_stats = field_stats
+        self.numeric_dv = numeric_dv or {}
+        self.ordinal_dv = ordinal_dv or {}
         self.live = np.ones(num_docs, dtype=bool)
         # block-join layout: parent row per row (-1 = root). This slice
         # indexes root documents only, so every row is a root.
@@ -189,6 +244,10 @@ def segment_from_arrays(arrays: dict) -> Segment:
     - field_stats: {field: (doc_count, sum_total_term_freq, sum_doc_freq)}
     - live: bool [num_docs] (optional, default all live)
     - parent_ptr: int32 [num_docs] (optional, default all roots)
+    - numeric_dv: {field: {doc_ids, values, exists, counts, value_ords,
+      unique}} (optional): DocValuesColumn fields as arrays
+    - ordinal_dv: {field: {doc_ids, ords, exists, dictionary,
+      ord_hashes}} (optional): OrdinalsColumn fields
     """
     n = int(arrays["num_docs"])
     post_docs = np.ascontiguousarray(arrays["post_docs"], dtype=np.int32)
@@ -213,11 +272,57 @@ def segment_from_arrays(arrays: dict) -> Segment:
     field_stats = {f: FieldStats(*map(int, v))
                    for f, v in arrays["field_stats"].items()}
     parent_ptr = arrays.get("parent_ptr")
+    numeric_dv = {}
+    for f, c in (arrays.get("numeric_dv") or {}).items():
+        col = DocValuesColumn(
+            doc_ids=np.ascontiguousarray(c["doc_ids"], dtype=np.int32),
+            values=np.ascontiguousarray(c["values"], dtype=np.float64),
+            exists=np.ascontiguousarray(c["exists"], dtype=bool),
+            counts=np.ascontiguousarray(c["counts"], dtype=np.int32),
+            value_ords=np.ascontiguousarray(c["value_ords"], dtype=np.int32),
+            unique=np.ascontiguousarray(c["unique"], dtype=np.float64))
+        nv = col.doc_ids.shape[0]
+        if col.values.shape != (nv,) or col.value_ords.shape != (nv,) \
+                or col.exists.shape != (n,) or col.counts.shape != (n,):
+            raise ValueError(f"numeric doc values of [{f}] have mismatched "
+                             f"shapes")
+        if nv and (col.doc_ids.min() < 0 or col.doc_ids.max() >= n
+                   or np.any(np.diff(col.doc_ids) < 0)
+                   or col.value_ords.min() < 0
+                   or col.value_ords.max() >= len(col.unique)):
+            raise ValueError(f"numeric doc values of [{f}] must be (doc, "
+                             f"rank) pairs sorted by doc, inside the "
+                             f"segment and the unique table")
+        numeric_dv[f] = col
+    ordinal_dv = {}
+    for f, c in (arrays.get("ordinal_dv") or {}).items():
+        dictionary = [str(t) for t in c["dictionary"]]
+        col = OrdinalsColumn(
+            doc_ids=np.ascontiguousarray(c["doc_ids"], dtype=np.int32),
+            ords=np.ascontiguousarray(c["ords"], dtype=np.int32),
+            exists=np.ascontiguousarray(c["exists"], dtype=bool),
+            dictionary=dictionary,
+            ord_hashes=np.ascontiguousarray(
+                c["ord_hashes"] if c.get("ord_hashes") is not None
+                else [_hash64(t) for t in dictionary], dtype=np.uint64))
+        nv = col.doc_ids.shape[0]
+        if col.ords.shape != (nv,) or col.exists.shape != (n,):
+            raise ValueError(f"ordinal doc values of [{f}] have mismatched "
+                             f"shapes")
+        if nv and (col.doc_ids.min() < 0 or col.doc_ids.max() >= n
+                   or np.any(np.diff(col.doc_ids) < 0)
+                   or col.ords.min() < 0
+                   or col.ords.max() >= len(dictionary)):
+            raise ValueError(f"ordinal doc values of [{f}] must be (doc, "
+                             f"ord) pairs sorted by doc, inside the segment "
+                             f"and the dictionary")
+        ordinal_dv[f] = col
     seg = Segment(str(arrays["seg_id"]), n, list(arrays["doc_ids"]),
                   list(arrays["sources"]), term_dict, post_docs, post_tf,
                   norms, field_stats,
                   parent_ptr=None if parent_ptr is None
-                  else np.asarray(parent_ptr, dtype=np.int32))
+                  else np.asarray(parent_ptr, dtype=np.int32),
+                  numeric_dv=numeric_dv, ordinal_dv=ordinal_dv)
     live = arrays.get("live")
     if live is not None:
         seg.live = np.array(live, dtype=bool)
@@ -238,6 +343,8 @@ class SegmentBuilder:
         # (field, term) -> [(doc_ord, tf)] in insertion (= doc) order
         self._postings: Dict[Tuple[str, str], List[Tuple[int, int]]] = {}
         self._field_lengths: Dict[str, Dict[int, int]] = {}
+        self._numeric: Dict[str, List[Tuple[int, float]]] = {}
+        self._ordinal_raw: Dict[str, List[Tuple[int, str]]] = {}
         self._field_stats: Dict[str, FieldStats] = {}
 
     def __len__(self):
@@ -253,9 +360,9 @@ class SegmentBuilder:
         self.sources.append(doc.source)
         for field, pf in doc.fields.items():
             ft = self.mapper.get_field(field)
-            if ft is None or not ft.index:
+            if ft is None:
                 continue
-            if pf.terms is not None:
+            if pf.terms is not None and ft.index:
                 tf_map: Dict[str, int] = {}
                 for term, _pos in pf.terms:
                     tf_map[term] = tf_map.get(term, 0) + 1
@@ -268,16 +375,24 @@ class SegmentBuilder:
                 stats.sum_total_term_freq += pf.length
                 stats.sum_doc_freq += len(tf_map)
             if pf.exact_values is not None:
-                seen = set()
-                for v in pf.exact_values:
-                    if v not in seen:
-                        seen.add(v)
-                        self._postings.setdefault((field, v), []).append(
-                            (ord_, 1))
-                stats = self._field_stats.setdefault(field, FieldStats())
-                stats.doc_count += 1
-                stats.sum_total_term_freq += len(pf.exact_values)
-                stats.sum_doc_freq += len(seen)
+                if ft.index:
+                    seen = set()
+                    for v in pf.exact_values:
+                        if v not in seen:
+                            seen.add(v)
+                            self._postings.setdefault((field, v),
+                                                      []).append((ord_, 1))
+                    stats = self._field_stats.setdefault(field,
+                                                         FieldStats())
+                    stats.doc_count += 1
+                    stats.sum_total_term_freq += len(pf.exact_values)
+                    stats.sum_doc_freq += len(seen)
+                if ft.doc_values and ft.has_ordinals:
+                    raw = self._ordinal_raw.setdefault(field, [])
+                    raw.extend((ord_, v) for v in pf.exact_values)
+            if pf.numeric_values is not None and ft.doc_values:
+                nums = self._numeric.setdefault(field, [])
+                nums.extend((ord_, v) for v in pf.numeric_values)
         return ord_
 
     def seal(self) -> Segment:
@@ -319,6 +434,43 @@ class SegmentBuilder:
                 arr[ord_] = smallfloat_int_to_byte4(length)
             norms[field] = arr
 
+        # numeric doc values: (doc, value) pairs, stable-sorted by doc
+        numeric_dv: Dict[str, DocValuesColumn] = {}
+        for field, pairs in self._numeric.items():
+            pairs.sort(key=lambda p: p[0])
+            doc_arr = np.fromiter((d for d, _ in pairs), dtype=np.int32,
+                                  count=len(pairs))
+            val_arr = np.fromiter((v for _, v in pairs), dtype=np.float64,
+                                  count=len(pairs))
+            exists = np.zeros(n_docs, dtype=bool)
+            if len(doc_arr):
+                exists[doc_arr] = True
+            counts = np.bincount(doc_arr, minlength=n_docs).astype(np.int32)
+            unique, value_ords = np.unique(val_arr, return_inverse=True)
+            numeric_dv[field] = DocValuesColumn(
+                doc_arr, val_arr, exists, counts,
+                value_ords.astype(np.int32).reshape(-1), unique)
+
+        # ordinal doc values: sorted dictionary, (doc, ord) pairs
+        ordinal_dv: Dict[str, OrdinalsColumn] = {}
+        for field, pairs in self._ordinal_raw.items():
+            dictionary = sorted({v for _, v in pairs})
+            ord_of = {v: i for i, v in enumerate(dictionary)}
+            pairs.sort(key=lambda p: p[0])
+            doc_arr = np.fromiter((d for d, _ in pairs), dtype=np.int32,
+                                  count=len(pairs))
+            ords = np.fromiter((ord_of[v] for _, v in pairs),
+                               dtype=np.int32, count=len(pairs))
+            exists = np.zeros(n_docs, dtype=bool)
+            if len(doc_arr):
+                exists[doc_arr] = True
+            hashes = np.array([_hash64(v) for v in dictionary],
+                              dtype=np.uint64) \
+                if dictionary else np.zeros(0, dtype=np.uint64)
+            ordinal_dv[field] = OrdinalsColumn(doc_arr, ords, exists,
+                                               dictionary, hashes)
+
         return Segment(self.seg_id, n_docs, list(self.doc_ids),
                        list(self.sources), term_dict, post_docs, post_tf,
-                       norms, self._field_stats)
+                       norms, self._field_stats, numeric_dv=numeric_dv,
+                       ordinal_dv=ordinal_dv)

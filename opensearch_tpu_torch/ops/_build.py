@@ -22,8 +22,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk")
-# --fmad=false: no multiply-add contraction, so each kernel rounds its BM25
+KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
+           "pairs_match", "binned_popcount", "binned_reduce")
+# --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,308 @@
+"""Binned reductions of the aggregation engine: the popcount counter (K5,
+`binned_popcount`) and the CSR reducer (K6, `binned_reduce`), each a CUDA
+kernel with its plain PyTorch version, plus the static layouts they read.
+
+Both reduce per-lane contributions into bins whose lane assignment is
+static for an aggregation plan and a segment (`bin_lanes`: int32 [n], a
+lane outside [0, total) belongs to no bin), while the contribution's
+eligibility is dynamic per query: lane l of query b counts when
+mask[b][doc(l)] (and pmask[b][doc(l)]) holds, with doc(l) = doc_ids[l] on a
+pairs layout and l itself on the identity and doc-space layouts. The static
+side is built once per (plan, segment):
+
+- `lane_bits`: the bin bitmasks int32 [total, n/32] of the popcount route
+  (bit j of word w = lane 32w + j, the reference's `_pack_bits` order);
+- `BinCSR`: the binned lanes grouped by bin, in lane order inside a bin,
+  cut into chunks of at most CSR_CHUNK lanes that never cross a bin.
+
+A wrapper runs its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, Sequence
+
+import torch
+
+from opensearch_tpu_torch.ops import _build
+
+CSR_CHUNK = 256          # lanes per K6 chunk (one warp's share)
+POPCOUNT_MAX_CARD = 12288  # K5's shared bin counters: 48 KB
+NEEDS_BITS = {"cnt": 1, "sum": 2, "sumsq": 4, "min": 8, "max": 16}
+POS_INF = float("inf")
+NEG_INF = float("-inf")
+
+
+# ------------------------------------------------------------ static side
+
+def lane_bits(bin_lanes: torch.Tensor, total: int) -> torch.Tensor:
+    """Per-bin lane bitmasks of a static lane->bin map: int32 [total, n/32]
+    holding the u32 bit patterns. Distinct lanes of one word set distinct
+    bits, so an integer add is an OR."""
+    n = bin_lanes.shape[0]
+    nw = n // 32
+    dev = bin_lanes.device
+    lanes = torch.arange(n, device=dev)
+    ok = (bin_lanes >= 0) & (bin_lanes < total)
+    sel = lanes[ok]
+    idx = bin_lanes[ok].long() * nw + sel // 32
+    words = torch.zeros(total * nw, dtype=torch.int64, device=dev)
+    words.index_add_(0, idx, torch.ones_like(sel) << (sel % 32))
+    words = torch.where(words >= (1 << 31), words - (1 << 32), words)
+    return words.to(torch.int32).reshape(total, nw)
+
+
+@dataclass
+class BinCSR:
+    """The binned lanes of a static lane->bin map grouped by bin."""
+    total: int
+    lane_order: torch.Tensor    # int32 [nnz] lanes, by bin, lane order kept
+    sorted_bins: torch.Tensor   # int32 [nnz] the bin of each of those lanes
+    chunk_start: torch.Tensor   # int32 [nch + 1] offsets into lane_order
+    bin_chunk: torch.Tensor     # int32 [total + 1] first chunk of each bin
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_start.shape[0] - 1
+
+
+def bin_csr(bin_lanes: torch.Tensor, total: int,
+            chunk: int = CSR_CHUNK) -> BinCSR:
+    """Group the lanes of bin_lanes (int32 [n]) by bin with a stable sort
+    and cut each bin's run into chunks of at most `chunk` lanes."""
+    dev = bin_lanes.device
+    ok = (bin_lanes >= 0) & (bin_lanes < total)
+    lanes = ok.nonzero(as_tuple=True)[0]
+    bins = bin_lanes[lanes].long()
+    bins, order = torch.sort(bins, stable=True)
+    lane_order = lanes[order]
+    counts = torch.bincount(bins, minlength=total)[:total]
+    per_bin = (counts + chunk - 1) // chunk
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    bin_chunk = torch.cat([zero, torch.cumsum(per_bin, 0)])
+    bin_start = torch.cat([zero, torch.cumsum(counts, 0)])[:-1]
+    nch = int(bin_chunk[-1].item())
+    chunk_bin = torch.repeat_interleave(
+        torch.arange(total, device=dev), per_bin, output_size=nch)
+    j = torch.arange(nch, device=dev)
+    starts = bin_start[chunk_bin] + (j - bin_chunk[chunk_bin]) * chunk
+    chunk_start = torch.cat([starts, torch.full(
+        (1,), lane_order.shape[0], dtype=torch.int64, device=dev)])
+    return BinCSR(total, lane_order.to(torch.int32).contiguous(),
+                  bins.to(torch.int32),
+                  chunk_start.to(torch.int32).contiguous(),
+                  bin_chunk.to(torch.int32).contiguous())
+
+
+# ----------------------------------------------------------------- K5 -------
+
+def pack_bits(ok: torch.Tensor) -> torch.Tensor:
+    """bool [B, n] -> int64 [B, n/32] words, bit j of word w = lane
+    32w + j."""
+    bsz, n = ok.shape
+    shifts = torch.arange(32, device=ok.device, dtype=torch.int64)
+    return (ok.reshape(bsz, n // 32, 32).to(torch.int64) << shifts).sum(-1)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each value in [0, 2^32) held in an int64 tensor."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _gather_ok(mask, pmask, doc_ids, n: int):
+    """The dynamic eligibility of n lanes, bool [B, n]."""
+    d_pad = mask.shape[1]
+    docs = torch.arange(n, device=mask.device) if doc_ids is None \
+        else doc_ids.long()
+    valid = (docs >= 0) & (docs < d_pad)
+    safe = torch.where(valid, docs, 0)
+    ok = mask[:, safe] & valid
+    if pmask is not None:
+        ok = ok & pmask[:, safe]
+    return ok
+
+
+def binned_popcount_plain(mask, pmask, doc_ids, n: int, binbits, card: int):
+    """Plain version of K5: counts[b][bin] = sum over words w of
+    popcount(pack(ok[b])[w] & binbits[bin][w]). Returns int32 [B, card]."""
+    words = pack_bits(_gather_ok(mask, pmask, doc_ids, n))
+    bits = binbits.to(torch.int64) & 0xFFFFFFFF
+    out = torch.empty(mask.shape[0], card, dtype=torch.int32,
+                      device=mask.device)
+    for b in range(card):
+        out[:, b] = popcount32(words & bits[b]).sum(1).to(torch.int32)
+    return out
+
+
+def binned_popcount(mask, pmask, doc_ids, n: int, binbits, card: int):
+    """K5: per-bin counts of each query's eligible lanes. Replaces
+    opensearch_tpu/search/aggs/engine.py:_pack_bits + the popcount route of
+    _binned_sums and the fused bucket_bits / presence_bits kinds.
+
+    mask / pmask bool [B, Dp] (pmask may be None); doc_ids int32 [n] or
+    None (lane k is doc k); n % 32 == 0; binbits int32 [card, n/32] (u32
+    bit patterns). Returns int32 [B, card]."""
+    if not mask.is_cuda:
+        return binned_popcount_plain(mask, pmask, doc_ids, n, binbits, card)
+    dev = mask.device
+    bsz, d_pad = mask.shape
+    if n % 32 or n <= 0:
+        raise ValueError(f"binned_popcount takes a positive lane count that "
+                         f"is a multiple of 32, got {n}")
+    if not 0 < card <= POPCOUNT_MAX_CARD:
+        raise ValueError(f"binned_popcount takes 1..{POPCOUNT_MAX_CARD} "
+                         f"bins, got {card}")
+    _require(mask, torch.bool, (bsz, d_pad), dev, "mask")
+    if pmask is not None:
+        _require(pmask, torch.bool, (bsz, d_pad), dev, "pmask")
+    if doc_ids is None:
+        if n > d_pad:
+            raise ValueError(f"identity lanes exceed Dp: {n} > {d_pad}")
+    else:
+        _require(doc_ids, torch.int32, (n,), dev, "doc_ids")
+    _require(binbits, torch.int32, (card, n // 32), dev, "binbits")
+    out = torch.empty(bsz, card, dtype=torch.int32, device=dev)
+    null = ctypes.c_void_p(0)
+    fn = _build.entry("binned_popcount", [ctypes.c_void_p] * 2
+                      + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p])
+    code = fn(_build.ptr(mask), null if pmask is None else _build.ptr(pmask),
+              d_pad, null if doc_ids is None else _build.ptr(doc_ids), n,
+              _build.ptr(binbits), card, bsz, _build.ptr(out),
+              _build.stream_of(dev))
+    _build.LAUNCHES["binned_popcount"] += 1
+    _build.check("binned_popcount", code)
+    return out
+
+
+# ----------------------------------------------------------------- K6 -------
+
+def binned_reduce_plain(csr: BinCSR, mask, pmask, doc_ids, values,
+                        cval: float, needs: Sequence[str], bsz: int
+                        ) -> Dict[str, torch.Tensor]:
+    """Plain version of K6: the same per-bin statistics by index_add_ and
+    scatter_reduce_ over the CSR's lanes (empty bins: count 0, sums 0, min
+    +inf, max -inf)."""
+    dev = csr.lane_order.device
+    lanes = csr.lane_order.long()
+    bins = csr.sorted_bins.long().expand(bsz, -1)
+    total = csr.total
+    if mask is None:
+        ok = torch.ones(bsz, lanes.shape[0], dtype=torch.bool, device=dev)
+    else:
+        docs = csr.lane_order if doc_ids is None else doc_ids[lanes]
+        ok = _gather_ok(mask, pmask, docs, lanes.shape[0])
+    v = values[lanes] if values is not None else torch.full(
+        (lanes.shape[0],), cval, dtype=torch.float32, device=dev)
+    v = v.expand(bsz, -1)
+    out: Dict[str, torch.Tensor] = {}
+    if "cnt" in needs:
+        out["cnt"] = torch.zeros(bsz, total, dtype=torch.int32,
+                                 device=dev).scatter_add_(
+            1, bins, ok.to(torch.int32))
+    if "sum" in needs:
+        out["sum"] = torch.zeros(bsz, total, dtype=torch.float32,
+                                 device=dev).scatter_add_(
+            1, bins, torch.where(ok, v, 0.0))
+    if "sumsq" in needs:
+        out["sumsq"] = torch.zeros(bsz, total, dtype=torch.float32,
+                                   device=dev).scatter_add_(
+            1, bins, torch.where(ok, v * v, 0.0))
+    if "min" in needs:
+        out["min"] = torch.full((bsz, total), POS_INF, device=dev) \
+            .scatter_reduce_(1, bins, torch.where(ok, v, POS_INF), "amin")
+    if "max" in needs:
+        out["max"] = torch.full((bsz, total), NEG_INF, device=dev) \
+            .scatter_reduce_(1, bins, torch.where(ok, v, NEG_INF), "amax")
+    return out
+
+
+def binned_reduce(csr: BinCSR, mask, pmask, doc_ids, values, cval: float,
+                  needs: Sequence[str], bsz: int) -> Dict[str, torch.Tensor]:
+    """K6: per-bin count / sum / sumsq / min / max of each query's eligible
+    lanes over a static CSR. Replaces the one-hot GEMM and scatter routes
+    of opensearch_tpu/search/aggs/engine.py:_binned_sums, the metric kinds'
+    min / max scatters and the bucket kinds' child-bin scatter-max.
+
+    mask / pmask bool [B, Dp] or None (mask None: every lane counts, one
+    query); doc_ids int32 [n] or None (lane k is doc k); values f32 [n] or
+    None (every lane contributes cval). Returns {need: [B, total]} with
+    int32 counts and f32 statistics."""
+    dev = csr.lane_order.device
+    if dev.type != "cuda":
+        return binned_reduce_plain(csr, mask, pmask, doc_ids, values, cval,
+                                   needs, bsz)
+    unknown = set(needs) - set(NEEDS_BITS)
+    if unknown:
+        raise ValueError(f"binned_reduce computes {sorted(NEEDS_BITS)}, "
+                         f"got {sorted(unknown)}")
+    total = csr.total
+    nch = csr.n_chunks
+    d_pad = 0
+    if mask is not None:
+        d_pad = mask.shape[1]
+        _require(mask, torch.bool, (bsz, d_pad), dev, "mask")
+        if pmask is not None:
+            _require(pmask, torch.bool, (bsz, d_pad), dev, "pmask")
+    elif pmask is not None or bsz != 1:
+        raise ValueError("binned_reduce without a mask takes one query and "
+                         "no pmask")
+    else:
+        d_pad = 1 << 30     # no mask: doc ids only need to be >= 0
+    if doc_ids is not None:
+        _require(doc_ids, torch.int32, (doc_ids.shape[0],), dev, "doc_ids")
+    if values is not None:
+        _require(values, torch.float32, (values.shape[0],), dev, "values")
+    _require(csr.lane_order, torch.int32, (csr.lane_order.shape[0],), dev,
+             "lane_order")
+    _require(csr.chunk_start, torch.int32, (nch + 1,), dev, "chunk_start")
+    _require(csr.bin_chunk, torch.int32, (total + 1,), dev, "bin_chunk")
+    bits = 0
+    out: Dict[str, torch.Tensor] = {}
+    for name in needs:
+        bits |= NEEDS_BITS[name]
+        out[name] = torch.empty(bsz, total, device=dev,
+                                dtype=torch.int32 if name == "cnt"
+                                else torch.float32)
+    scratch = torch.empty(5 * max(bsz * nch, 1), dtype=torch.int32,
+                          device=dev)
+    null = ctypes.c_void_p(0)
+
+    def p(name):
+        return _build.ptr(out[name]) if name in out else null
+    fn = _build.entry("binned_reduce", [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p, ctypes.c_float,
+                                        ctypes.c_int, ctypes.c_int]
+                      + [ctypes.c_void_p] * 7)
+    code = fn(_build.ptr(csr.lane_order), csr.lane_order.shape[0],
+              _build.ptr(csr.chunk_start), nch,
+              _build.ptr(csr.bin_chunk), total,
+              null if mask is None else _build.ptr(mask),
+              null if pmask is None else _build.ptr(pmask), d_pad,
+              null if doc_ids is None else _build.ptr(doc_ids),
+              null if values is None else _build.ptr(values), float(cval),
+              bits, bsz, _build.ptr(scratch), p("cnt"), p("sum"),
+              p("sumsq"), p("min"), p("max"), _build.stream_of(dev))
+    _build.LAUNCHES["binned_reduce"] += 1
+    _build.check("binned_reduce", code)
+    return out
+
+
+def _require(t: torch.Tensor, dtype, shape, device, what: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"[{what}] must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device} (contiguous={t.is_contiguous()})")

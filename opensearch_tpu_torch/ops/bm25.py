@@ -1,6 +1,7 @@
-"""BM25 scoring kernels: the dense per-clause scorer (K2,
+"""BM25 scoring kernels -- the dense per-clause scorer (K2,
 `score_text_clause`) and the candidate-buffer query phase (K1,
-`bm25_candidate`), each a CUDA kernel with its plain PyTorch version.
+`bm25_candidate`) -- and the doc-value filter kernel (K4, `pairs_match`),
+each a CUDA kernel with its plain PyTorch version.
 
 A text clause gathers its terms' 128-wide posting blocks from the resident
 `[NBp, 128]` matrices and computes the BM25 partial per lane,
@@ -223,6 +224,96 @@ def bm25_candidate(seg, blk, n_terms: int, constant: bool, k: int,
     _build.LAUNCHES["bm25_candidate"] += 1
     _build.check("bm25_candidate", code)
     return out
+
+
+# ----------------------------------------------------------------- K4 -------
+
+def _pairs_to_docs_plain(hit, doc_ids, d_pad: int, ident: bool):
+    """Per-pair hit flags bool [B, n] -> per-doc bool [B, d_pad]: a slice
+    or a false padding on the identity layout, else an OR into each pair's
+    doc."""
+    bsz, n = hit.shape
+    if ident:
+        if n >= d_pad:
+            return hit[:, :d_pad].contiguous()
+        return torch.cat([hit, torch.zeros(bsz, d_pad - n, dtype=torch.bool,
+                                           device=hit.device)], dim=1)
+    out = torch.zeros(bsz, d_pad, dtype=torch.bool, device=hit.device)
+    bi, li = hit.nonzero(as_tuple=True)
+    out[bi, doc_ids[li].long()] = True
+    return out
+
+
+def pairs_match_plain(doc_ids, ords, d_pad: int, ident: bool, lo=None,
+                      hi=None, ord_mask=None):
+    """Plain version of K4: a pair hits when its doc id is valid and its
+    rank lies in [lo[b], hi[b]) (or ord_mask[b][ord] holds); a doc matches
+    when any of its pairs hits. Returns bool [B, d_pad]."""
+    pair_valid = doc_ids >= 0
+    if ord_mask is None:
+        hit = (ords[None, :] >= lo[:, None]) & (ords[None, :] < hi[:, None])
+    else:
+        hit = ord_mask[:, ords.long()]
+    return _pairs_to_docs_plain(hit & pair_valid[None, :], doc_ids, d_pad,
+                                ident)
+
+
+def pairs_match(doc_ids, ords, d_pad: int, ident: bool, lo=None, hi=None,
+                ord_mask=None):
+    """K4: a doc-value filter over a value-pair column for B queries.
+    Replaces opensearch_tpu/ops/bm25.py:_pairs_to_docs with its callers
+    range_match_on_ranks and ordinal_terms_match.
+
+    doc_ids / ords int32 [NVp] (doc -1 = padding lane); either lo / hi
+    int32 [B] (rank in [lo, hi)) or ord_mask bool [B, Up] (ords index it).
+    ident: the column is the identity layout (lane k holds doc k). Returns
+    bool [B, d_pad]."""
+    if not doc_ids.is_cuda:
+        return pairs_match_plain(doc_ids, ords, d_pad, ident, lo, hi,
+                                 ord_mask)
+    dev = doc_ids.device
+    n = doc_ids.shape[0]
+    _require(doc_ids, torch.int32, (n,), dev, "doc_ids")
+    _require(ords, torch.int32, (n,), dev, "ords")
+    if ord_mask is None:
+        bsz = lo.shape[0]
+        _require(lo, torch.int32, (bsz,), dev, "lo")
+        _require(hi, torch.int32, (bsz,), dev, "hi")
+        up = 0
+    else:
+        bsz, up = ord_mask.shape
+        _require(ord_mask, torch.bool, (bsz, up), dev, "ord_mask")
+    if ident and n > d_pad:
+        raise ValueError(f"an identity column has at most Dp lanes, got "
+                         f"{n} > {d_pad}")
+    out = torch.empty(bsz, d_pad, dtype=torch.bool, device=dev)
+    null = ctypes.c_void_p(0)
+    fn = _build.entry("pairs_match", [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] * 2)
+    code = fn(_build.ptr(doc_ids), _build.ptr(ords), n,
+              null if lo is None else _build.ptr(lo),
+              null if hi is None else _build.ptr(hi),
+              null if ord_mask is None else _build.ptr(ord_mask), up, bsz,
+              d_pad, int(bool(ident)), _build.ptr(out), _build.stream_of(dev))
+    _build.LAUNCHES["pairs_match"] += 1
+    _build.check("pairs_match", code)
+    return out
+
+
+def range_match_on_ranks(doc_ids, ords, lo_rank, hi_rank, d_pad: int,
+                         ident: bool = False):
+    """Doc matches if ANY of its values has rank in [lo_rank, hi_rank)
+    (int32 [B] each); rank bounds come from the host's searchsorted over
+    the column's sorted unique values."""
+    return pairs_match(doc_ids, ords, d_pad, ident, lo=lo_rank, hi=hi_rank)
+
+
+def ordinal_terms_match(doc_ids, ords, ord_mask, d_pad: int,
+                        ident: bool = False):
+    """Doc matches if ANY of its ordinals is in the query's set (ord_mask
+    bool [B, Up] over the field's dictionary or value ranks)."""
+    return pairs_match(doc_ids, ords, d_pad, ident, ord_mask=ord_mask)
 
 
 # ------------------------------------------------------------- helpers ------

@@ -7,7 +7,12 @@ values:
   `post_bound` float32 `[NBp]` (seal-time block score bounds, 0 padding);
 - `norms` int32 `[F, Dp]`, one row per normed text field (row index in
   `DeviceSegmentMeta.norm_rows`), and `length_table` float32 `[256]`;
-- `live`, `root` bool `[Dp]`, `parent_ptr`, `nested_path` int32 `[Dp]`.
+- `live`, `root` bool `[Dp]`, `parent_ptr`, `nested_path` int32 `[Dp]`;
+- `numeric[field]`: value-pair leaves `doc_ids` / `val_ords` int32 and
+  `values_f32` float32 `[NVp]` (padded -1 / 0 / 0), per-doc `exists` bool,
+  `min_rank` / `max_rank` int32 `[Dp]` (INT32_MAX / -1 where absent), and
+  the rank -> value decode table `unique_f32` `[Up]`;
+- `ordinal[field]`: `doc_ids` / `ords` int32 `[NVp]` and `exists` `[Dp]`.
 
 The image is built host-side in numpy and uploaded once to the chosen
 device.
@@ -25,6 +30,16 @@ from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, Segment,
                                                 block_score_bounds,
                                                 pad_bucket)
 
+INT32_MAX = np.int32(2 ** 31 - 1)
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _to_f32_finite(values: np.ndarray) -> np.ndarray:
+    """float64 -> float32, saturating at the f32 range instead of
+    overflowing to inf (metric kernels over the decode tables never see
+    inf)."""
+    return np.clip(values, -_F32_MAX, _F32_MAX).astype(np.float32)
+
 
 @dataclass(frozen=True)
 class DeviceSegmentMeta:
@@ -34,6 +49,8 @@ class DeviceSegmentMeta:
     d_pad: int
     nb_pad: int
     norm_rows: Tuple[Tuple[str, int], ...]   # field -> row in norms stack
+    numeric_fields: Tuple[str, ...] = ()
+    ordinal_fields: Tuple[str, ...] = ()
     block_bounds: bool = True
 
     def norm_row(self, field: str) -> Optional[int]:
@@ -46,7 +63,7 @@ class DeviceSegmentMeta:
         """Every shape-shaping fact of the image, seg_id excluded: two
         segments equal on this key run the same kernel configurations."""
         return (self.num_docs, self.d_pad, self.nb_pad, self.norm_rows,
-                self.block_bounds)
+                self.numeric_fields, self.ordinal_fields, self.block_bounds)
 
 
 def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
@@ -87,10 +104,53 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
         "root": root,
         "parent_ptr": parent_ptr,
         "nested_path": nested_path,
+        "numeric": {},
+        "ordinal": {},
     }
+
+    for fname, col in seg.numeric_dv.items():
+        nv = len(col.doc_ids)
+        nv_pad = pad_bucket(max(nv, 1))
+        doc_ids = np.full(nv_pad, -1, dtype=np.int32)
+        doc_ids[:nv] = col.doc_ids
+        val_ords = np.zeros(nv_pad, dtype=np.int32)
+        val_ords[:nv] = col.value_ords
+        values_f32 = np.zeros(nv_pad, dtype=np.float32)
+        values_f32[:nv] = _to_f32_finite(col.values)
+        exists = np.zeros(d_pad, dtype=bool)
+        exists[:seg.num_docs] = col.exists
+        min_rank = np.full(d_pad, INT32_MAX, dtype=np.int32)
+        max_rank = np.full(d_pad, -1, dtype=np.int32)
+        if nv:
+            np.minimum.at(min_rank, col.doc_ids, col.value_ords)
+            np.maximum.at(max_rank, col.doc_ids, col.value_ords)
+        u_pad = pad_bucket(max(len(col.unique), 1), minimum=8)
+        unique_f32 = np.zeros(u_pad, dtype=np.float32)
+        unique_f32[:len(col.unique)] = _to_f32_finite(col.unique)
+        arrays["numeric"][fname] = {
+            "doc_ids": doc_ids, "val_ords": val_ords,
+            "values_f32": values_f32, "exists": exists,
+            "min_rank": min_rank, "max_rank": max_rank,
+            "unique_f32": unique_f32,
+        }
+
+    for fname, col in seg.ordinal_dv.items():
+        nv = len(col.doc_ids)
+        nv_pad = pad_bucket(max(nv, 1))
+        doc_ids = np.full(nv_pad, -1, dtype=np.int32)
+        doc_ids[:nv] = col.doc_ids
+        ords = np.zeros(nv_pad, dtype=np.int32)
+        ords[:nv] = col.ords
+        exists = np.zeros(d_pad, dtype=bool)
+        exists[:seg.num_docs] = col.exists
+        arrays["ordinal"][fname] = {"doc_ids": doc_ids, "ords": ords,
+                                    "exists": exists}
+
     meta = DeviceSegmentMeta(
         seg_id=seg.seg_id, num_docs=seg.num_docs, d_pad=d_pad, nb_pad=nb_pad,
-        norm_rows=tuple((f, i) for i, f in enumerate(norm_fields)))
+        norm_rows=tuple((f, i) for i, f in enumerate(norm_fields)),
+        numeric_fields=tuple(sorted(seg.numeric_dv)),
+        ordinal_fields=tuple(sorted(seg.ordinal_dv)))
     return arrays, meta
 
 
@@ -98,8 +158,13 @@ def upload_segment(seg: Segment, device: torch.device
                    ) -> Tuple[Dict[str, torch.Tensor], DeviceSegmentMeta]:
     """Build a segment's image and upload it once to `device`."""
     arrays, meta = segment_image(seg)
-    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}, \
-        meta
+    return _tree_to(arrays, device), meta
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(device)
 
 
 def live_mask(seg: Segment, d_pad: int) -> np.ndarray:

@@ -1,0 +1,960 @@
+"""Aggregation engine: builder tree -> per-segment `AggPlan` -> batched
+device partials (the subset of opensearch_tpu.search.aggs.engine the port
+needs: `terms`, `histogram`, `date_histogram`, `filter`, the `min` / `max`
+/ `sum` / `avg` / `stats` / `extended_stats` / `value_count` metrics and
+`cardinality`).
+
+Every bucket aggregation becomes a lookup from the field's value rank (or
+keyword ordinal) to a bucket, a segment-STATIC lane -> bin assignment, and
+a masked binned reduction into flat [parent_card * own_card] bins. Bucket
+membership is factored as in the reference: the bin a (doc, value) lane
+lands in is static for a plan and a segment, while every query-dependent
+condition lives in a dynamic mask. The static side (bin lanes, popcount
+bitmasks, CSRs, child bins) is built once per (plan, segment) and kept on
+the segment (`agg_statics`); per query only the masks move:
+
+- bool contributions (bucket counts, doc counts, presence) with at most
+  AGG_GEMM_MAX_BINS bins and at most AGG_POPCOUNT_MAX_ELEMS lane-bins go
+  through K5 `binned_popcount`, the reference's popcount route;
+- every other reduction -- f32 sums and sums of squares (the reference's
+  one-hot GEMM and scatter routes), min / max, counts over many bins, and
+  the static child-bin max -- goes through K6 `binned_reduce`.
+
+Plans evaluate for a batch of B queries: the eligibility mask is bool
+[B, Dp] and every partial is [B, bins].
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import hashlib
+import re
+from collections import OrderedDict
+from dataclasses import dataclass, field as dc_field, replace as dc_replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
+                                                ParsingError,
+                                                QueryShardError)
+from opensearch_tpu_torch.index.mapper import (MapperService,
+                                               format_date_millis)
+from opensearch_tpu_torch.index.segment import (Segment, ident_pairs,
+                                                pad_bucket)
+from opensearch_tpu_torch.ops.binned import (BinCSR, bin_csr,
+                                             binned_popcount, binned_reduce,
+                                             lane_bits)
+from opensearch_tpu_torch.search import dsl
+from opensearch_tpu_torch.search.aggs.parse import AggNode
+from opensearch_tpu_torch.search.compile import Compiler, Plan
+from opensearch_tpu_torch.search.plan_eval import _eval_plan
+
+MAX_AGG_BINS = 1 << 24  # guard for presence / child-bin bins
+# bool reductions with at most this many bins take the popcount route ...
+AGG_GEMM_MAX_BINS = 256
+# ... (the reference's one-hot GEMM bound on lanes x bins: f32 sums over
+# more elements take its scatter route; both routes are K6 here)
+AGG_GEMM_MAX_ELEMS = 1 << 25
+# ... and at most this many lanes x bins
+AGG_POPCOUNT_MAX_ELEMS = 1 << 30
+
+# Input arrays that are segment/node-static by construction (host-computed
+# lookup tables): their content is part of the plan signature, so one
+# signature group shares them. The port reads them on the host when it
+# builds the static side, so they never ride the per-batch envelope.
+CONST_INPUT_KEYS = frozenset({"table", "doc_bucket"})
+
+# static sides kept per segment (least recently used first out): a
+# dashboard repeats a handful of agg shapes, and at 10M docs one static
+# side holds a few hundred MB of device memory
+STATICS_PER_SEGMENT = 8
+
+_FIXED_MS = {"ms": 1, "1ms": 1, "s": 1000, "1s": 1000, "second": 1000,
+             "m": 60000, "1m": 60000, "minute": 60000,
+             "h": 3600000, "1h": 3600000, "hour": 3600000,
+             "d": 86400000, "1d": 86400000, "day": 86400000,
+             "w": 604800000, "1w": 604800000, "week": 604800000}
+
+
+@dataclass
+class AggPlan:
+    """Compiled aggregation node for one segment."""
+    name: str
+    kind: str
+    static: tuple = ()
+    inputs: Dict[str, np.ndarray] = dc_field(default_factory=dict)
+    children: List["AggPlan"] = dc_field(default_factory=list)
+    query_plan: Optional[Plan] = None      # filter aggs
+    render: Dict[str, Any] = dc_field(default_factory=dict)  # host-only
+    # segment-static arrays of the fused bucket_bits / presence_bits kinds
+    # (their content is hashed into sig())
+    const_inputs: Dict[str, np.ndarray] = dc_field(default_factory=dict)
+
+    def sig(self):
+        cached = getattr(self, "_sig", None)
+        if cached is not None:
+            return cached
+
+        def digest(v):
+            return hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+
+        def leaf_sig(k, v):
+            if k in CONST_INPUT_KEYS:
+                return (k, v.shape, str(v.dtype), digest(v))
+            return (k, v.shape, str(v.dtype))
+
+        out = (self.kind, self.static,
+               tuple(sorted(leaf_sig(k, v) for k, v in self.inputs.items())),
+               self.query_plan.sig() if self.query_plan is not None else None,
+               tuple(c.sig() for c in self.children),
+               tuple(sorted((k, v.shape, str(v.dtype), digest(v))
+                            for k, v in self.const_inputs.items())))
+        object.__setattr__(self, "_sig", out)
+        return out
+
+    def flatten_inputs(self, out):
+        out.append({k: v for k, v in self.inputs.items()
+                    if k not in CONST_INPUT_KEYS})
+        if self.query_plan is not None:
+            self.query_plan.flatten_inputs(out)
+        for c in self.children:
+            c.flatten_inputs(out)
+        return out
+
+
+@dataclass(frozen=True)
+class _Ctx:
+    mapper: MapperService
+    seg: Segment
+    meta: Any
+    compiler: Compiler
+    d_pad: int
+    # True only while compiling a top-level agg node: the precondition of
+    # the fused bucket_bits / presence_bits kinds
+    root: bool = False
+    fused: bool = True
+
+
+def compile_aggs(nodes: List[AggNode], mapper: MapperService, seg: Segment,
+                 meta, compiler: Compiler,
+                 allow_fused: bool = True) -> List[AggPlan]:
+    ctx = _Ctx(mapper, seg, meta, compiler, pad_bucket(max(seg.num_docs, 1)),
+               fused=allow_fused)
+    return [_compile_node(n, ctx, root=True) for n in nodes]
+
+
+def _num_col(ctx: _Ctx, field: str):
+    return ctx.seg.numeric_dv.get(field)
+
+
+def _bucket_lookup_plan(node: AggNode, ctx: _Ctx, kind: str,
+                        bucket_of_rank: np.ndarray, card: int,
+                        render: dict) -> AggPlan:
+    u_pad = pad_bucket(max(len(bucket_of_rank), 1), minimum=8)
+    table = np.full(u_pad, -1, dtype=np.int32)
+    table[:len(bucket_of_rank)] = bucket_of_rank
+    children = [_compile_node(c, ctx) for c in node.children]
+    col = (ctx.seg.ordinal_dv.get(node.field)
+           if kind == "bucket_ord" else _num_col(ctx, node.field))
+    return AggPlan(name=node.name, kind=kind,
+                   static=(node.field, card,
+                           col is not None and ident_pairs(col)),
+                   inputs={"table": table},
+                   children=children, render=render)
+
+
+# ------------------------------------------------- fused leaf bucketing
+#
+# Root-level bucket aggregations with no sub-aggregations compile to ONE
+# popcount reduction against per-bucket lane bitmasks computed on the host
+# at (agg, segment) compile time.
+
+def _pack_lane_bits(bins: np.ndarray, card: int, n_pad: int) -> np.ndarray:
+    """Host bit-pack: lane -> bin assignment (int, <0 = none) -> uint32
+    [card, n_pad/32] per-bucket lane masks, bit j of word w = lane
+    w*32 + j."""
+    words = np.zeros((card, n_pad // 32), dtype=np.uint32)
+    lanes = np.nonzero((bins >= 0) & (bins < card))[0].astype(np.int64)
+    if len(lanes):
+        np.bitwise_or.at(
+            words, (bins[lanes], lanes // 32),
+            np.left_shift(np.uint32(1), (lanes % 32).astype(np.uint32)))
+    return words
+
+
+def _fused_gate(ctx: _Ctx, node: AggNode, card: int, nv_pad: int) -> bool:
+    return (ctx.root and ctx.fused and not node.children and card >= 1
+            and card <= AGG_GEMM_MAX_BINS and nv_pad % 32 == 0
+            and card * nv_pad <= AGG_POPCOUNT_MAX_ELEMS)
+
+
+def _fused_bits_plan(node: AggNode, ctx: _Ctx, col, src: str,
+                     lane_bins: np.ndarray, card: int, render: dict,
+                     kind: str = "bucket_bits") -> AggPlan:
+    nv_pad = pad_bucket(max(len(col.doc_ids), 1))
+    bins = np.full(nv_pad, -1, dtype=np.int64)
+    bins[:len(lane_bins)] = lane_bins
+    binbits = _pack_lane_bits(bins, card, nv_pad)
+    return AggPlan(node.name, kind,
+                   static=(node.field, card, ident_pairs(col), src),
+                   const_inputs={"binbits": binbits}, render=render)
+
+
+def _parse_duration_ms(v) -> int:
+    """Date-histogram offset: "1h" / "-30m" / raw millis."""
+    if isinstance(v, (int, float)) and not isinstance(v, bool):
+        return int(v)
+    s = str(v).strip()
+    sign = 1
+    if s[:1] in ("+", "-"):
+        sign = -1 if s[0] == "-" else 1
+        s = s[1:]
+    if s in _FIXED_MS:
+        return sign * _FIXED_MS[s]
+    if s[-2:] == "ms" and s[:-2].isdigit():
+        return sign * int(s[:-2])
+    if s[:-1].isdigit() and s[-1:] in "smhdw":
+        return sign * int(s[:-1]) * _FIXED_MS[s[-1]]
+    if s.isdigit():
+        return sign * int(s)
+    raise ParsingError(f"failed to parse [offset]: [{v}]")
+
+
+def _parse_time_zone(tz) -> int:
+    """time_zone -> fixed UTC offset in ms. Fixed offsets exact; named
+    zones use their standard offset at a representative instant."""
+    if tz in (None, "", "UTC", "Z"):
+        return 0
+    s = str(tz)
+    m = re.match(r"^([+-])(\d{1,2})(?::?(\d{2}))?$", s)
+    if m:
+        sign = -1 if m.group(1) == "-" else 1
+        return sign * (int(m.group(2)) * 3600_000
+                       + int(m.group(3) or 0) * 60_000)
+    try:
+        from zoneinfo import ZoneInfo
+        off = ZoneInfo(s).utcoffset(
+            _dt.datetime(2024, 1, 15, tzinfo=_dt.timezone.utc))
+        return int(off.total_seconds() * 1000)
+    except (KeyError, ValueError, OSError, ImportError):
+        raise ParsingError(f"failed to parse time zone [{tz}]")
+
+
+def hist_step_shift(body: dict, kind: str):
+    """(step, shift) of a fixed-interval histogram / date_histogram body,
+    where bucket key = floor((v + shift) / step) * step - shift; None for
+    calendar intervals."""
+    if kind == "histogram":
+        interval = float(body.get("interval", 0) or 0)
+        if interval <= 0:
+            return None
+        return interval, -float(body.get("offset", 0.0))
+    unit = str(body.get("calendar_interval") or body.get("fixed_interval")
+               or body.get("interval") or "")
+    if unit in _FIXED_MS:
+        step = _FIXED_MS[unit]
+    elif unit[:-1].isdigit() and unit[-1:] in "smhdw":
+        step = int(unit[:-1]) * _FIXED_MS[unit[-1]]
+    else:
+        return None
+    shift = (_parse_time_zone(body.get("time_zone"))
+             - _parse_duration_ms(body.get("offset", 0)))
+    return step, shift
+
+
+def _compile_node(node: AggNode, ctx: _Ctx, root: bool = False) -> AggPlan:
+    fn = _COMPILERS.get(node.type)
+    if fn is None:
+        raise QueryShardError(f"aggregation type [{node.type}] is not "
+                              f"supported")
+    if ctx.root != root:
+        ctx = dc_replace(ctx, root=root)
+    return fn(node, ctx)
+
+
+# ----------------------------------------------------------------- buckets
+
+def _c_terms(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    if field is None:
+        raise ParsingError(f"[terms] aggregation [{node.name}] requires a "
+                           f"field")
+    ocol = ctx.seg.ordinal_dv.get(field)
+    if ocol is not None:
+        card = max(len(ocol.dictionary), 1)
+        children = [_compile_node(c, ctx) for c in node.children]
+        return AggPlan(node.name, "bucket_ord",
+                       static=(field, card, ident_pairs(ocol)),
+                       children=children,
+                       render={"keys": list(ocol.dictionary),
+                               "body": node.body, "kind": "terms"})
+    col = _num_col(ctx, field)
+    if col is None:
+        return AggPlan(node.name, "empty", render={"body": node.body,
+                                                   "kind": "terms",
+                                                   "keys": []})
+    card = max(len(col.unique), 1)
+    bucket_of_rank = np.arange(len(col.unique), dtype=np.int32)
+    ft = ctx.mapper.get_field(field)
+    keys = [_render_numeric_key(v, ft) for v in col.unique]
+    return _bucket_lookup_plan(node, ctx, "bucket_num", bucket_of_rank, card,
+                               render={"keys": keys, "body": node.body,
+                                       "kind": "terms"})
+
+
+def _render_numeric_key(v: float, ft) -> Any:
+    if ft is not None and ft.is_bool:
+        return bool(v)
+    if ft is not None and ft.is_date:
+        return int(v)
+    return int(v) if float(v).is_integer() else float(v)
+
+
+def _c_histogram(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    interval = node.body.get("interval")
+    if not field or not interval:
+        raise ParsingError("[histogram] requires [field] and [interval]")
+    interval = float(interval)
+    if interval <= 0:
+        raise ParsingError("[interval] must be > 0")
+    offset = float(node.body.get("offset", 0.0))
+    col = _num_col(ctx, field)
+    if col is None or len(col.unique) == 0:
+        return AggPlan(node.name, "empty",
+                       render={"body": node.body, "kind": "histogram",
+                               "interval": interval, "offset": offset,
+                               "step": interval, "shift": -offset,
+                               "keys": []})
+    lo_key = np.floor((col.unique[0] - offset) / interval)
+    buckets = np.floor((col.unique - offset) / interval) - lo_key
+    card = int(buckets[-1]) + 1
+    keys = [float(lo_key + i) * interval + offset for i in range(card)]
+    render = {"keys": keys, "body": node.body, "kind": "histogram",
+              "step": interval, "shift": -offset}
+    nv_pad = pad_bucket(max(len(col.doc_ids), 1))
+    if _fused_gate(ctx, node, card, nv_pad):
+        lane_bins = buckets.astype(np.int64)[col.value_ords]
+        return _fused_bits_plan(node, ctx, col, "numeric", lane_bins, card,
+                                render)
+    return _bucket_lookup_plan(node, ctx, "bucket_num",
+                               buckets.astype(np.int32), card, render)
+
+
+def _calendar_boundaries(lo_ms: float, hi_ms: float, unit: str) -> List[int]:
+    """Host-generated calendar-aware bucket boundaries (month / quarter /
+    year)."""
+    start = _dt.datetime.fromtimestamp(lo_ms / 1000.0, tz=_dt.timezone.utc)
+    out = []
+    if unit in ("M", "1M", "month"):
+        cur = start.replace(day=1, hour=0, minute=0, second=0,
+                            microsecond=0)
+        step_months = 1
+    elif unit in ("q", "1q", "quarter"):
+        cur = start.replace(month=((start.month - 1) // 3) * 3 + 1, day=1,
+                            hour=0, minute=0, second=0, microsecond=0)
+        step_months = 3
+    else:  # year
+        cur = start.replace(month=1, day=1, hour=0, minute=0, second=0,
+                            microsecond=0)
+        step_months = 12
+    while cur.timestamp() * 1000 <= hi_ms:
+        out.append(int(cur.timestamp() * 1000))
+        month = cur.month - 1 + step_months
+        cur = cur.replace(year=cur.year + month // 12, month=month % 12 + 1)
+    out.append(int(cur.timestamp() * 1000))
+    return out
+
+
+def _c_date_histogram(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    interval = (node.body.get("calendar_interval")
+                or node.body.get("fixed_interval")
+                or node.body.get("interval"))
+    if not field or not interval:
+        raise ParsingError("[date_histogram] requires [field] and an "
+                           "interval")
+    # shift = tz - offset: a timestamp's bucket ordinal is
+    # floor((ts + shift) / step) and its UTC key ordinal * step - shift
+    tz = _parse_time_zone(node.body.get("time_zone"))
+    off = _parse_duration_ms(node.body.get("offset", 0))
+    shift = tz - off
+    col = _num_col(ctx, field)
+    unit = str(interval)
+    fixed = hist_step_shift(node.body, "date_histogram")
+    empty_render = {"body": node.body, "kind": "date_histogram",
+                    "keys": [], "interval": interval}
+    if fixed is not None:
+        empty_render["step"], empty_render["shift"] = fixed
+    else:
+        empty_render["calendar"] = True
+    if col is None or len(col.unique) == 0:
+        return AggPlan(node.name, "empty", render=empty_render)
+    if fixed is not None:
+        step, _ = fixed
+        b_abs = np.floor((col.unique + shift) / step).astype(np.int64)
+        lo_key = int(b_abs[0])
+        buckets = b_abs - lo_key
+        card = int(buckets[-1]) + 1
+        keys = [(lo_key + i) * step - shift for i in range(card)]
+        render = {"keys": keys, "body": node.body, "kind": "date_histogram",
+                  "step": step, "shift": shift}
+    else:
+        bounds = _calendar_boundaries(float(col.unique[0]) + shift,
+                                      float(col.unique[-1]) + shift, unit)
+        bounds = [b - shift for b in bounds]
+        buckets = np.searchsorted(np.asarray(bounds, dtype=np.float64),
+                                  col.unique, side="right") - 1
+        card = len(bounds) - 1
+        keys = bounds[:-1]
+        render = {"keys": keys, "body": node.body, "kind": "date_histogram",
+                  "calendar": True}
+    render["keys_str"] = [format_date_millis(int(k)) for k in keys]
+    nv_pad = pad_bucket(max(len(col.doc_ids), 1))
+    if _fused_gate(ctx, node, card, nv_pad):
+        lane_bins = buckets.astype(np.int64)[col.value_ords]
+        return _fused_bits_plan(node, ctx, col, "numeric", lane_bins, card,
+                                render)
+    return _bucket_lookup_plan(node, ctx, "bucket_num",
+                               buckets.astype(np.int32), card, render)
+
+
+def _c_filter(node: AggNode, ctx: _Ctx) -> AggPlan:
+    qnode = dsl.parse_query(node.body if node.body else {"match_all": {}})
+    qplan = ctx.compiler.compile(qnode, ctx.seg, ctx.meta)
+    children = [_compile_node(c, ctx) for c in node.children]
+    return AggPlan(node.name, "filter", query_plan=qplan, children=children,
+                   render={"kind": "filter"})
+
+
+# ----------------------------------------------------------------- metrics
+
+# which device partials each metric render consumes (reduce._merge_metric);
+# cnt also powers the has-any-value null handling for min/max/avg
+_METRIC_NEEDS = {
+    "min": ("cnt", "min"), "max": ("cnt", "max"), "avg": ("cnt", "sum"),
+    "sum": ("cnt", "sum"), "value_count": ("cnt",),
+    "stats": ("cnt", "max", "min", "sum"),
+    "extended_stats": ("cnt", "max", "min", "sum", "sumsq"),
+}
+
+
+def _c_metric(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    if field is None:
+        raise ParsingError(f"[{node.type}] aggregation [{node.name}] "
+                           f"requires a field")
+    render = {"kind": node.type, "body": node.body}
+    needs = _METRIC_NEEDS[node.type]
+    if field in ctx.seg.numeric_dv:
+        ft = ctx.mapper.get_field(field)
+        render["is_date"] = bool(ft is not None and ft.is_date)
+        missing = node.body.get("missing")
+        return AggPlan(node.name, "metric_num",
+                       static=(field, needs,
+                               ident_pairs(ctx.seg.numeric_dv[field]),
+                               None if missing is None else float(missing)),
+                       render=render)
+    if node.body.get("missing") is not None \
+            and field not in ctx.seg.ordinal_dv:
+        # no value of the field in the segment: every doc contributes the
+        # missing substitute
+        return AggPlan(node.name, "metric_missing_only",
+                       static=(needs, float(node.body["missing"])),
+                       render=render)
+    if field in ctx.seg.ordinal_dv and node.type == "value_count":
+        return AggPlan(node.name, "count_ord",
+                       static=(field, ident_pairs(ctx.seg.ordinal_dv[field])),
+                       render=render)
+    return AggPlan(node.name, "empty", render=render)
+
+
+def _c_cardinality(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    if field is None:
+        raise ParsingError("[cardinality] aggregation requires a field")
+    render = {"kind": "cardinality", "body": node.body}
+    if field in ctx.seg.ordinal_dv:
+        col = ctx.seg.ordinal_dv[field]
+        card = max(len(col.dictionary), 1)
+        render["keys"] = list(col.dictionary)
+        nv_pad = pad_bucket(max(len(col.doc_ids), 1))
+        if _fused_gate(ctx, node, card, nv_pad):
+            return _fused_bits_plan(node, ctx, col, "ordinal",
+                                    col.ords.astype(np.int64), card, render,
+                                    kind="presence_bits")
+        return AggPlan(node.name, "presence_ord",
+                       static=(field, card, ident_pairs(col)),
+                       render=render)
+    if field in ctx.seg.numeric_dv:
+        col = ctx.seg.numeric_dv[field]
+        u = col.unique
+        render["values"] = u
+        card = max(len(u), 1)
+        nv_pad = pad_bucket(max(len(col.doc_ids), 1))
+        if _fused_gate(ctx, node, card, nv_pad):
+            return _fused_bits_plan(node, ctx, col, "numeric",
+                                    col.value_ords.astype(np.int64), card,
+                                    render, kind="presence_bits")
+        return AggPlan(node.name, "presence_num",
+                       static=(field, card, ident_pairs(col)),
+                       render=render)
+    return AggPlan(node.name, "empty", render=render)
+
+
+_COMPILERS = {
+    "terms": _c_terms,
+    "histogram": _c_histogram,
+    "date_histogram": _c_date_histogram,
+    "filter": _c_filter,
+    "min": _c_metric, "max": _c_metric, "sum": _c_metric, "avg": _c_metric,
+    "value_count": _c_metric, "stats": _c_metric, "extended_stats": _c_metric,
+    "cardinality": _c_cardinality,
+}
+
+
+def unsupported_aggs(nodes: Sequence[AggNode]) -> Optional[str]:
+    """The first aggregation type in the tree that is not ported."""
+    for n in nodes:
+        if n.type not in _COMPILERS:
+            return n.type
+        if n.pipelines:
+            return n.pipelines[0].type
+        sub = unsupported_aggs(n.children)
+        if sub is not None:
+            return sub
+    return None
+
+
+# ------------------------------------------------------------ static side
+
+class _Bins:
+    """A static lane -> bin map (int32 [n], lanes outside [0, total) drop)
+    and, built on first use, its K5 bitmasks and K6 CSR."""
+
+    def __init__(self, lanes: torch.Tensor, total: int):
+        self.lanes = lanes.to(torch.int32).contiguous()
+        self.total = total
+        self._bits: Optional[torch.Tensor] = None
+        self._csr: Optional[BinCSR] = None
+
+    @property
+    def n(self) -> int:
+        return self.lanes.shape[0]
+
+    def bits(self) -> torch.Tensor:
+        if self._bits is None:
+            self._bits = lane_bits(self.lanes, self.total)
+        return self._bits
+
+    def csr(self) -> BinCSR:
+        if self._csr is None:
+            self._csr = bin_csr(self.lanes, self.total)
+        return self._csr
+
+
+class AggStatics:
+    """The static side of one (agg plan list, segment, device): one dict
+    per agg node, in evaluation order."""
+
+    def __init__(self):
+        self.nodes: List[Dict[str, Any]] = []
+        self._next = 0
+
+    def start(self) -> "AggStatics":
+        self._next = 0
+        return self
+
+    def node(self) -> Dict[str, Any]:
+        if self._next == len(self.nodes):
+            self.nodes.append({})
+        out = self.nodes[self._next]
+        self._next += 1
+        return out
+
+
+def agg_statics(seg: Segment, plans: List[AggPlan], device) -> AggStatics:
+    """The cached static side of `plans` on segment `seg` (kept on the
+    segment, STATICS_PER_SEGMENT entries, least recently used out)."""
+    cache = getattr(seg, "_agg_statics", None)
+    if cache is None:
+        cache = seg._agg_statics = OrderedDict()
+    key = (tuple(p.sig() for p in plans), str(device))
+    st = cache.get(key)
+    if st is None:
+        st = cache[key] = AggStatics()
+        while len(cache) > STATICS_PER_SEGMENT:
+            cache.popitem(last=False)
+    else:
+        cache.move_to_end(key)
+    return st.start()
+
+
+def _take_doc(arr: torch.Tensor, safe_doc: torch.Tensor, ident: bool):
+    """arr[safe_doc], or a slice on the identity layout (lane k <-> doc k;
+    tail lanes then carry arr[k] for padding k, which the static bin_ok
+    masks)."""
+    if ident:
+        n = safe_doc.shape[0]
+        m = arr.shape[-1]
+        if n == m:
+            return arr
+        if n < m:
+            return arr[..., :n]
+    return arr[safe_doc]
+
+
+def _pairs_bins(node: dict, col, ords, pbin, card: int, total: int,
+                ident: bool, table=None, base_card: bool = True) -> _Bins:
+    """Static bins of a pairs-space node: lane -> parent bucket * card +
+    own bucket (or the parent bucket alone when base_card is False)."""
+    bins = node.get("bins")
+    if bins is not None:
+        return bins
+    doc_ids = col["doc_ids"]
+    valid = doc_ids >= 0
+    safe_doc = torch.where(valid, doc_ids, 0).long()
+    if table is not None:
+        b = torch.from_numpy(table).to(doc_ids.device)[ords.long()]
+        bin_ok = valid & (b >= 0)
+    elif ords is not None:
+        b = ords
+        bin_ok = valid
+    else:
+        b = torch.zeros_like(doc_ids)
+        bin_ok = valid
+    lanes = b
+    if pbin is not None:
+        pb = _take_doc(pbin, safe_doc, ident)
+        bin_ok = bin_ok & (pb >= 0)
+        lanes = pb * card + b if base_card else pb
+    node["bins"] = bins = _Bins(torch.where(bin_ok, lanes, total), total)
+    node["safe_doc"] = torch.where(bin_ok, safe_doc, -1)
+    return bins
+
+
+def _doc_bins(node: dict, pbin, parent_card: int, d_pad: int, dev,
+              drop=None) -> _Bins:
+    """Static bins of a doc-space node: doc -> its parent bucket (bucket 0
+    at the root), docs in `drop` excluded."""
+    bins = node.get("bins")
+    if bins is not None:
+        return bins
+    lanes = torch.zeros(d_pad, dtype=torch.int32, device=dev) \
+        if pbin is None else torch.where(pbin >= 0, pbin, parent_card)
+    if drop is not None:
+        lanes = torch.where(drop, parent_card, lanes)
+    node["bins"] = bins = _Bins(lanes, parent_card)
+    return bins
+
+
+def _child_bins(node: dict, bins: _Bins, d_pad: int) -> torch.Tensor:
+    """Per-doc child bucket from the static pair structure: the max bin of
+    the doc's binned lanes, -1 for none (K6 max with one bin per doc)."""
+    child = node.get("child_bin")
+    if child is not None:
+        return child
+    if bins.total > MAX_AGG_BINS:
+        raise IllegalArgumentError(
+            f"a bucket aggregation with sub-aggregations needs "
+            f"{bins.total} bins (> {MAX_AGG_BINS}); reduce the bucket count")
+    doc_of_lane = node["safe_doc"]
+    per_doc = _Bins(doc_of_lane, d_pad)
+    binned = binned_reduce(per_doc.csr(), None, None, None,
+                           bins.lanes.to(torch.float32), 0.0, ("max",), 1)
+    mx = binned["max"][0]
+    child = torch.where(mx > float("-inf"), mx, -1.0).to(torch.int32)
+    node["child_bin"] = child
+    return child
+
+
+def binned_route(n: int, total: int, need: str) -> str:
+    """The reference's reduction route for one statistic over n lanes
+    into `total` static bins: "popcount" (bool counts, K5 here), "gemm"
+    (the one-hot matmul) or "scatter"; the last two are K6 here, as are
+    min / max ("scatter")."""
+    if need in ("min", "max") or total > AGG_GEMM_MAX_BINS:
+        return "scatter"
+    if need == "cnt" and n % 32 == 0 \
+            and n * total <= AGG_POPCOUNT_MAX_ELEMS:
+        return "popcount"
+    return "gemm" if n * total <= AGG_GEMM_MAX_ELEMS else "scatter"
+
+
+def _binned_sums(bins: _Bins, mask, pmask, doc_ids, needs: Sequence[str],
+                 values=None, cval: float = 0.0) -> Dict[str, torch.Tensor]:
+    """Per-bin statistics of each query's eligible lanes, routed by shape
+    as the reference routes them: counts over at most AGG_GEMM_MAX_BINS bins
+    and AGG_POPCOUNT_MAX_ELEMS lane-bins take the popcount route (K5);
+    everything else -- f32 sums (the one-hot GEMM and scatter routes),
+    min / max, counts over many bins -- takes K6."""
+    if pmask is mask:
+        pmask = None
+    out: Dict[str, torch.Tensor] = {}
+    rest = list(needs)
+    if "cnt" in rest and binned_route(bins.n, bins.total, "cnt") \
+            == "popcount":
+        out["cnt"] = binned_popcount(mask, pmask, doc_ids, bins.n,
+                                     bins.bits(), bins.total)
+        rest.remove("cnt")
+    if rest:
+        out.update(binned_reduce(bins.csr(), mask, pmask, doc_ids, values,
+                                 cval, rest, mask.shape[0]))
+    return out
+
+
+# ---------------------------------------------------------------- device eval
+
+def eval_aggs(plans: List[AggPlan], seg: Dict, inputs: List[Dict],
+              cursor: List[int], mask: torch.Tensor, outs: List,
+              statics: AggStatics) -> None:
+    """Evaluate the collection program for B queries. mask: the eligible
+    docs bool [B, Dp] (the queries' result sets). Appends each node's
+    partials dict ([B, bins] tensors) to `outs` in traversal order.
+
+    The context (pbin, pmask, parent_card) is the reference's factored
+    bucket context: `pbin` int32 [Dp] the parent bucket of each doc (-1 =
+    none; static, None at the root), `pmask` bool [B, Dp] the accumulated
+    dynamic parent condition (None at the root)."""
+    ctx = (None, None, 1)
+    for plan in plans:
+        _eval_agg(plan, seg, inputs, cursor, mask, ctx, outs, statics)
+
+
+def _and_pmask(pmask, extra):
+    return extra if pmask is None else (pmask & extra)
+
+
+def _eval_agg(plan: AggPlan, seg: Dict, inputs: List[Dict],
+              cursor: List[int], mask, ctx, outs: List,
+              statics: AggStatics) -> None:
+    my = inputs[cursor[0]]
+    cursor[0] += 1
+    node = statics.node()
+    d_pad = seg["live"].shape[0]
+    dev = seg["live"].device
+    bsz = mask.shape[0]
+    kind = plan.kind
+    pbin, pmask, parent_card = ctx
+
+    def children(child_ctx):
+        for c in plan.children:
+            _eval_agg(c, seg, inputs, cursor, mask, child_ctx, outs, statics)
+
+    if kind == "empty":
+        outs.append({})
+        if plan.children:
+            if "pbin" not in node:
+                node["pbin"] = torch.full((d_pad,), -1, dtype=torch.int32,
+                                          device=dev)
+            children((node["pbin"], pmask, parent_card))
+        return
+
+    if kind in ("bucket_bits", "presence_bits"):
+        # fused leaf bucketing: the bin bitmasks were built at compile
+        field, card, ident, src = plan.static
+        col = seg[src][field]
+        bits = node.get("binbits")
+        if bits is None:
+            bits = node["binbits"] = torch.from_numpy(
+                plan.const_inputs["binbits"].view(np.int32)).to(dev)
+        counts = binned_popcount(mask, pmask, None if ident
+                                 else col["doc_ids"],
+                                 col["doc_ids"].shape[0], bits, card)
+        outs.append({"counts": counts} if kind == "bucket_bits"
+                    else {"present": counts > 0})
+        return
+
+    if kind in ("bucket_ord", "bucket_num"):
+        field, card, ident = plan.static
+        is_ord = kind == "bucket_ord"
+        col = seg["ordinal" if is_ord else "numeric"][field]
+        total = parent_card * card
+        bins = _pairs_bins(node, col, col["ords"] if is_ord
+                           else col["val_ords"], pbin, card, total, ident,
+                           table=None if is_ord else plan.inputs["table"])
+        doc_ids = None if ident else col["doc_ids"]
+        counts = _binned_sums(bins, mask, pmask, doc_ids, ("cnt",))["cnt"]
+        outs.append({"counts": counts})
+        if plan.children:
+            child_bin = _child_bins(node, bins, d_pad)
+            children((child_bin, _and_pmask(pmask, mask), total))
+        return
+
+    if kind == "filter":
+        _scores, matches = _eval_plan(plan.query_plan, seg, inputs, cursor,
+                                      bsz)
+        bins = _doc_bins(node, pbin, parent_card, d_pad, dev)
+        counts = _binned_sums(bins, matches & mask, pmask, None,
+                              ("cnt",))["cnt"]
+        outs.append({"counts": counts})
+        children((pbin, _and_pmask(pmask, mask & matches), parent_card))
+        return
+
+    if kind == "metric_missing_only":
+        needs, missing = plan.static
+        bins = _doc_bins(node, pbin, parent_card, d_pad, dev)
+        res = _binned_sums(bins, mask, pmask, None, needs, cval=missing)
+        outs.append({k: res[k] for k in needs})
+        return
+
+    if kind == "metric_num":
+        field, needs, ident, missing = plan.static
+        col = seg["numeric"][field]
+        bins = _pairs_bins(node, col, None, pbin, 1, parent_card, ident,
+                           base_card=False)
+        out = _binned_sums(bins, mask, pmask, None if ident
+                           else col["doc_ids"], needs,
+                           values=col["values_f32"])
+        if missing is not None:
+            # docs WITHOUT the field contribute the substitute value
+            sub = node.setdefault("missing", {})
+            mbins = _doc_bins(sub, pbin, parent_card, d_pad, dev,
+                              drop=col["exists"])
+            res = _binned_sums(mbins, mask, pmask, None, needs, cval=missing)
+            for k in needs:
+                if k == "min":
+                    out[k] = torch.minimum(out[k], res[k])
+                elif k == "max":
+                    out[k] = torch.maximum(out[k], res[k])
+                else:
+                    out[k] = out[k] + res[k]
+        outs.append({k: out[k] for k in needs})
+        return
+
+    if kind == "count_ord":
+        field, ident = plan.static
+        col = seg["ordinal"][field]
+        bins = _pairs_bins(node, col, None, pbin, 1, parent_card, ident,
+                           base_card=False)
+        outs.append(_binned_sums(bins, mask, pmask, None if ident
+                                 else col["doc_ids"], ("cnt",)))
+        return
+
+    if kind in ("presence_ord", "presence_num"):
+        field, card, ident = plan.static
+        is_ord = kind == "presence_ord"
+        col = seg["ordinal" if is_ord else "numeric"][field]
+        total = parent_card * card
+        if total > MAX_AGG_BINS:
+            raise IllegalArgumentError(
+                f"aggregation [{plan.name}] needs {total} bins "
+                f"(> {MAX_AGG_BINS}); reduce bucket count or cardinality")
+        bins = _pairs_bins(node, col, col["ords"] if is_ord
+                           else col["val_ords"], pbin, card, total, ident)
+        hist = _binned_sums(bins, mask, pmask, None if ident
+                            else col["doc_ids"], ("cnt",))["cnt"]
+        outs.append({"present": hist > 0})
+        return
+
+    raise QueryShardError(f"aggregation kind [{kind}] is not supported by "
+                          f"opensearch_tpu_torch yet")
+
+
+# ------------------------------------------------------- envelope layout
+
+_OUT_DTYPE = {"counts": "int32", "cnt": "int32", "present": "bool",
+              "sum": "float32", "sumsq": "float32", "min": "float32",
+              "max": "float32"}
+
+
+def agg_out_layout(plans: List[AggPlan]) -> Tuple[tuple, int]:
+    """Host-side layout of one query's agg partials -- for each eval_aggs
+    output dict, its sorted keys with shapes and dtypes -- derived from the
+    plans' statics alone. Returns (layout, width in 32-bit words)."""
+    entries: List[tuple] = []
+
+    def put(names, size):
+        entries.append(tuple((k, (size,), _OUT_DTYPE[k])
+                             for k in sorted(names)))
+
+    def walk(p: AggPlan, parent_card: int):
+        kind = p.kind
+        if kind == "empty":
+            entries.append(())
+            for c in p.children:
+                walk(c, parent_card)
+        elif kind in ("bucket_bits", "presence_bits"):
+            put(["counts" if kind == "bucket_bits" else "present"],
+                p.static[1])
+        elif kind in ("bucket_ord", "bucket_num"):
+            total = parent_card * p.static[1]
+            put(["counts"], total)
+            for c in p.children:
+                walk(c, total)
+        elif kind == "filter":
+            put(["counts"], parent_card)
+            for c in p.children:
+                walk(c, parent_card)
+        elif kind == "metric_missing_only":
+            put(p.static[0], parent_card)
+        elif kind == "metric_num":
+            put(p.static[1], parent_card)
+        elif kind == "count_ord":
+            put(["cnt"], parent_card)
+        elif kind in ("presence_ord", "presence_num"):
+            put(["present"], parent_card * p.static[1])
+        else:
+            raise QueryShardError(f"aggregation kind [{kind}] is not "
+                                  f"supported by opensearch_tpu_torch yet")
+
+    for p in plans:
+        walk(p, 1)
+    width = sum(int(np.prod(s)) for e in entries for _, s, _ in e)
+    return tuple(entries), width
+
+
+def _flatten_agg_out(out: Dict[str, Any]) -> List[Any]:
+    """Deterministic (sorted-key) leaf order of one eval_aggs output dict:
+    the device-side packer and the host-side unpacker agree on it."""
+    return [out[k] for k in sorted(out)]
+
+
+def pack_agg_rows(outs: List[dict], out_layout, bsz: int,
+                  device) -> torch.Tensor:
+    """The agg partials of B queries bit-cast into one f32 [B, W] tail
+    (ints and bools as int32 bits), in `out_layout` order."""
+    pieces = []
+    for out, entry in zip(outs, out_layout):
+        if tuple(sorted(out)) != tuple(k for k, _, _ in entry):
+            raise AssertionError(f"agg partials {sorted(out)} do not match "
+                                 f"the layout {entry}")
+        for v, (_k, shape, _dt) in zip(_flatten_agg_out(out), entry):
+            v = v.reshape(bsz, -1)
+            if v.shape[1] != shape[0]:
+                raise AssertionError(f"agg partial of width {v.shape[1]}, "
+                                     f"layout says {shape[0]}")
+            if v.dtype == torch.bool:
+                v = v.to(torch.int32)
+            if v.dtype != torch.float32:
+                v = v.to(torch.int32).view(torch.float32)
+            pieces.append(v)
+    if not pieces:
+        return torch.empty(bsz, 0, dtype=torch.float32, device=device)
+    return torch.cat(pieces, dim=1)
+
+
+def _decode_agg_row(row: np.ndarray, out_layout) -> List[dict]:
+    """Invert the f32 packing of one query row's agg tail back into
+    eval_aggs-ordered output dicts."""
+    outs = []
+    off = 0
+    for entry in out_layout:
+        d = {}
+        for key, shape, dtype in entry:
+            n = int(np.prod(shape)) if shape else 1
+            piece = row[off:off + n]
+            off += n
+            if dtype == "float32":
+                arr = piece
+            elif dtype == "bool":
+                arr = piece.view(np.int32).astype(np.bool_)
+            else:
+                arr = piece.view(np.int32)
+                if dtype != "int32":
+                    arr = arr.astype(dtype)
+            d[key] = arr.reshape(shape)
+        outs.append(d)
+    return outs

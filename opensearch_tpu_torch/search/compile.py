@@ -1,23 +1,32 @@
-"""Query compilation for the BM25 slice: DSL tree -> per-segment `Plan`
-(the subset of opensearch_tpu.search.compile the port needs).
+"""Query compilation: DSL tree -> per-segment `Plan` (the subset of
+opensearch_tpu.search.compile the port needs).
 
 A plan's leaves carry host numpy inputs (posting block ids, idf weights,
-clause scalars); its structure (kind, static, children) is what selects the
-kernels. Every node's evaluated scores are zero where its matches are false,
-so combinators compose by plain arithmetic.
+clause scalars, rank bounds, rank masks); its structure (kind, static,
+children) is what selects the kernels. Every node's evaluated scores are
+zero where its matches are false, so combinators compose by plain
+arithmetic. Numeric, date and boolean values become int32 ranks into the
+column's sorted f64 `unique` table on the host (searchsorted), so the
+device compares ranks only.
 """
 
 from __future__ import annotations
 
+import bisect
+import datetime as _dt
+import re
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from opensearch_tpu_torch.analysis.registry import analyze_query_text
 from opensearch_tpu_torch.common.errors import QueryShardError
-from opensearch_tpu_torch.index.mapper import MapperService, MappedFieldType
-from opensearch_tpu_torch.index.segment import Segment, pad_bucket
+from opensearch_tpu_torch.index.mapper import (MapperService,
+                                               MappedFieldType,
+                                               parse_date_millis)
+from opensearch_tpu_torch.index.segment import (Segment, ident_pairs,
+                                                pad_bucket)
 from opensearch_tpu_torch.ops.bm25 import idf as bm25_idf
 from opensearch_tpu_torch.ops.device_segment import DeviceSegmentMeta
 from opensearch_tpu_torch.search import dsl
@@ -34,6 +43,14 @@ class Plan:
     static: tuple = ()
     inputs: Dict[str, np.ndarray] = dc_field(default_factory=dict)
     children: List["Plan"] = dc_field(default_factory=list)
+
+    def sig(self):
+        """Structure and input shapes: two plans equal on this run the
+        same kernels on same-shaped inputs."""
+        return (self.kind, self.static,
+                tuple(sorted((k, v.shape, str(v.dtype))
+                             for k, v in self.inputs.items())),
+                tuple(c.sig() for c in self.children))
 
     def flatten_inputs(self, out: List[Dict[str, np.ndarray]]):
         out.append(self.inputs)
@@ -63,6 +80,8 @@ class ShardStats:
 
     def __init__(self, segments: Sequence[Segment]):
         self.segments = list(segments)
+        # per-snapshot memo of compiled (agg spec, segment) plans
+        self.memo: Dict[Any, Any] = {}
         self._field: Dict[str, Tuple[int, int]] = {}
         self._idf: Dict[Tuple[str, str], float] = {}
         for seg in segments:
@@ -181,21 +200,118 @@ class Compiler:
                                  node.boost, constant=False)
 
     def _c_TermQuery(self, node: dsl.TermQuery, seg, meta) -> Plan:
-        if self.mapper.get_field(node.field) is None:
+        ft = self.mapper.get_field(node.field)
+        if ft is None:
             return MATCH_NONE
-        weighted, _ = self._weighted(node.field, [str(node.value)],
-                                     node.boost)
+        if ft.is_numeric or ft.is_date:
+            return self._numeric_term(seg, node.field, ft, [node.value],
+                                      node.boost)
+        value = str(node.value)
+        if ft.is_bool:
+            value = "true" if node.value in (True, "true") else "false"
+        weighted, _ = self._weighted(node.field, [value], node.boost)
         return self._text_clause(seg, meta, node.field, weighted, 1,
                                  node.boost, constant=False)
 
     def _c_TermsQuery(self, node: dsl.TermsQuery, seg, meta) -> Plan:
-        if self.mapper.get_field(node.field) is None:
+        ft = self.mapper.get_field(node.field)
+        if ft is None:
             return MATCH_NONE
+        if ft.is_numeric or ft.is_date:
+            return self._numeric_term(seg, node.field, ft,
+                                      list(node.values), node.boost)
+        values = [("true" if v in (True, "true") else "false") if ft.is_bool
+                  else str(v) for v in node.values]
         # terms is constant-score in the reference
-        weighted = [(v, 1.0) for v in dict.fromkeys(
-            str(v) for v in node.values)]
+        weighted = [(v, 1.0) for v in dict.fromkeys(values)]
         return self._text_clause(seg, meta, node.field, weighted, 1,
                                  node.boost, constant=True)
+
+    def _numeric_term(self, seg: Segment, field: str, ft: MappedFieldType,
+                      values: List[Any], boost: float) -> Plan:
+        """Exact numeric / date match: a bool mask over the column's value
+        ranks, built on the host."""
+        col = seg.numeric_dv.get(field)
+        if col is None or len(col.unique) == 0:
+            return MATCH_NONE
+        mask = np.zeros(pad_bucket(len(col.unique), 8), dtype=bool)
+        for v in values:
+            target = ft.to_comparable(v)
+            i = int(np.searchsorted(col.unique, target))
+            if i < len(col.unique) and col.unique[i] == target:
+                mask[i] = True
+        return Plan("num_terms", static=(field, ident_pairs(col)),
+                    inputs={"mask": mask, "boost": _f32(boost)})
+
+    def _c_RangeQuery(self, node: dsl.RangeQuery, seg, meta) -> Plan:
+        ft = self.mapper.get_field(node.field)
+        if ft is None:
+            return MATCH_NONE
+        if ft.is_keyword:
+            col = seg.ordinal_dv.get(node.field)
+            if col is None:
+                return MATCH_NONE
+            lo = 0 if node.gte is None and node.gt is None else (
+                bisect.bisect_left(col.dictionary, str(node.gte))
+                if node.gte is not None
+                else bisect.bisect_right(col.dictionary, str(node.gt)))
+            hi = len(col.dictionary) \
+                if node.lte is None and node.lt is None else (
+                    bisect.bisect_right(col.dictionary, str(node.lte))
+                    if node.lte is not None
+                    else bisect.bisect_left(col.dictionary, str(node.lt)))
+            return Plan("range_ord", static=(node.field, ident_pairs(col)),
+                        inputs={"lo": _i32(lo), "hi": _i32(hi),
+                                "boost": _f32(node.boost)})
+        col = seg.numeric_dv.get(node.field)
+        if col is None:
+            return MATCH_NONE
+
+        def bound(value, round_up=False):
+            if ft.is_date and isinstance(value, str) \
+                    and ("now" in value or "||" in value):
+                value = _resolve_date_math(value, round_up=round_up)
+            return ft.to_comparable(value)
+
+        lo_rank = 0
+        hi_rank = len(col.unique)
+        if node.gte is not None:
+            lo_rank = int(np.searchsorted(col.unique, bound(node.gte),
+                                          "left"))
+        elif node.gt is not None:
+            lo_rank = int(np.searchsorted(
+                col.unique, bound(node.gt, round_up=True), "right"))
+        if node.lte is not None:
+            hi_rank = int(np.searchsorted(
+                col.unique, bound(node.lte, round_up=True), "right"))
+        elif node.lt is not None:
+            hi_rank = int(np.searchsorted(col.unique, bound(node.lt),
+                                          "left"))
+        return Plan("range_num", static=(node.field, ident_pairs(col)),
+                    inputs={"lo": _i32(lo_rank), "hi": _i32(hi_rank),
+                            "boost": _f32(node.boost)})
+
+    def _c_ExistsQuery(self, node: dsl.ExistsQuery, seg, meta) -> Plan:
+        field = node.field
+        if field in seg.numeric_dv:
+            return Plan("exists", static=("numeric", field),
+                        inputs={"boost": _f32(node.boost)})
+        if field in seg.ordinal_dv:
+            return Plan("exists", static=("ordinal", field),
+                        inputs={"boost": _f32(node.boost)})
+        row = meta.norm_row(field)
+        if row is not None:
+            return Plan("exists", static=("norms", row),
+                        inputs={"boost": _f32(node.boost)})
+        return MATCH_NONE
+
+    def _c_DisMaxQuery(self, node: dsl.DisMaxQuery, seg, meta) -> Plan:
+        children = [self.compile(c, seg, meta) for c in node.queries]
+        if not children:
+            return MATCH_NONE
+        return Plan("dis_max", inputs={"tie": _f32(node.tie_breaker),
+                                       "boost": _f32(node.boost)},
+                    children=children)
 
     def _c_MatchAllQuery(self, node, seg, meta) -> Plan:
         return _match_all(node.boost)
@@ -225,3 +341,30 @@ class Compiler:
         else:
             msm = 0
         return self._bool_plan(must, filt, should, must_not, msm, node.boost)
+
+
+def _resolve_date_math(expr: str, round_up: bool = False) -> Any:
+    """Minimal date math: 'now', 'now-7d', 'now/d', '<date>||-1M/d'.
+    `round_up` gives the END of the rounded unit (gt and lte bounds round
+    up, gte and lt round down, as DateMathParser does)."""
+    if "||" in expr:
+        base_str, math = expr.split("||", 1)
+        base = parse_date_millis(base_str)
+    elif expr.startswith("now"):
+        base = int(_dt.datetime.now(_dt.timezone.utc).timestamp() * 1000)
+        math = expr[3:]
+    else:
+        return expr
+    units_ms = {"s": 1000, "m": 60000, "h": 3600000, "H": 3600000,
+                "d": 86400000, "w": 7 * 86400000, "M": 30 * 86400000,
+                "y": 365 * 86400000}
+    for m in re.finditer(r"([+\-/])(\d*)([smhHdwMy])", math):
+        op, num, unit = m.groups()
+        if op == "/":
+            base = (base // units_ms[unit]) * units_ms[unit]
+            if round_up:
+                base += units_ms[unit] - 1
+        else:
+            delta = int(num or 1) * units_ms[unit]
+            base = base + delta if op == "+" else base - delta
+    return base

@@ -1,10 +1,12 @@
 """The search controller for one shard (the subset of
-opensearch_tpu.search.controller the BM25 slice needs).
+opensearch_tpu.search.controller the port needs).
 
 A single-shard score-sorted `_search` runs as the msearch envelope at B=1,
-as the reference's does: `from`/`size` (k = from + size, bounded by
-`index.max_result_window`), `hits.total` {value, relation}, `max_score` and
-`_source`, with the doc-id ascending tie-break finished on the host."""
+as the reference's does (opensearch_tpu/search/controller.py:431-448),
+aggregations included: `from`/`size` (k = from + size, bounded by
+`index.max_result_window`), `hits.total` {value, relation}, `max_score`,
+`_source` and `aggregations`, with the doc-id ascending tie-break finished
+on the host."""
 
 from __future__ import annotations
 

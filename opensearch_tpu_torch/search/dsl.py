@@ -1,7 +1,8 @@
-"""Query DSL for the BM25 slice: `match`, `term`, `terms`, `match_all`,
-`match_none` and `bool` (the subset of opensearch_tpu.search.dsl the port
-needs), with the reference's REST wire shapes and error types. Any other
-query kind raises the reference's parsing error."""
+"""Query DSL: `match`, `term`, `terms` (text, keyword, numeric, date and
+boolean values), `range`, `exists`, `match_all`, `match_none`, `bool` and
+`dis_max` (the subset of opensearch_tpu.search.dsl the port needs), with
+the reference's REST wire shapes and error types. Any other query kind
+raises the reference's parsing error."""
 
 from __future__ import annotations
 
@@ -45,6 +46,28 @@ class TermQuery(QueryNode):
 class TermsQuery(QueryNode):
     field: str = ""
     values: Sequence[Any] = ()
+
+
+@dataclass
+class RangeQuery(QueryNode):
+    field: str = ""
+    gte: Any = None
+    gt: Any = None
+    lte: Any = None
+    lt: Any = None
+    fmt: Optional[str] = None
+    time_zone: Optional[str] = None
+
+
+@dataclass
+class ExistsQuery(QueryNode):
+    field: str = ""
+
+
+@dataclass
+class DisMaxQuery(QueryNode):
+    queries: List[QueryNode] = dc_field(default_factory=list)
+    tie_breaker: float = 0.0
 
 
 @dataclass
@@ -121,6 +144,46 @@ def parse_query(q: Any) -> QueryNode:
         if not isinstance(values, (list, tuple)):
             raise ParsingError("[terms] query requires an array of terms")
         return TermsQuery(field=field, values=list(values), boost=boost)
+
+    if name == "range":
+        field, spec = _field_body(body, "range")
+        if not isinstance(spec, dict):
+            raise ParsingError("[range] query malformed")
+        # `relation` shapes range-typed fields only, which are not ported:
+        # on the ported types it is accepted and has no effect
+        known = {"gte", "gt", "lte", "lt", "boost", "format", "time_zone",
+                 "from", "to", "include_lower", "include_upper", "relation"}
+        unknown = set(spec) - known
+        if unknown:
+            raise ParsingError(f"[range] query does not support "
+                               f"[{sorted(unknown)[0]}]")
+        gte, gt = spec.get("gte"), spec.get("gt")
+        lte, lt = spec.get("lte"), spec.get("lt")
+        if "from" in spec:  # legacy shape
+            if spec.get("include_lower", True):
+                gte = spec["from"]
+            else:
+                gt = spec["from"]
+        if "to" in spec:
+            if spec.get("include_upper", True):
+                lte = spec["to"]
+            else:
+                lt = spec["to"]
+        return RangeQuery(field=field, gte=gte, gt=gt, lte=lte, lt=lt,
+                          fmt=spec.get("format"),
+                          time_zone=spec.get("time_zone"),
+                          boost=float(spec.get("boost", 1.0)))
+
+    if name == "exists":
+        if "field" not in body:
+            raise ParsingError("[exists] must be provided with a [field]")
+        return ExistsQuery(field=body["field"],
+                           boost=float(body.get("boost", 1.0)))
+
+    if name == "dis_max":
+        return DisMaxQuery(queries=_as_list(body.get("queries")),
+                           tie_breaker=float(body.get("tie_breaker", 0.0)),
+                           boost=float(body.get("boost", 1.0)))
 
     if name == "bool":
         return BoolQuery(

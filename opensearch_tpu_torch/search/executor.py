@@ -1,20 +1,24 @@
-"""Search execution for the BM25 slice: the shard reader, the msearch
-envelope and the two device query phases (the subset of
-opensearch_tpu.search.executor the port needs).
+"""Search execution: the shard reader, the msearch envelope and the device
+query phases (the subset of opensearch_tpu.search.executor the port
+needs).
 
 `multi_search` groups same-shaped score-sorted queries and runs each group
 against each segment as one batch: the group's plan inputs pack into ONE
 pinned int32 host buffer that uploads once (the leaves are views of it on
 the device), the kernel class is chosen per group exactly as the reference
 chooses it (`_candidate_kernel_fits`), and every group's packed result rows
-come back to the host in ONE device-to-host copy per batch. The host then
-merges segments (score desc, segment asc, doc asc) and renders responses in
-the reference's JSON shape.
+come back to the host in ONE device-to-host copy per batch. Bodies with
+aggregations always take the dense path: the aggregation pass reads the
+dense eligibility mask, and its partials are bit-cast onto the same packed
+f32 rows, so an agg batch is still one copy. The host then merges segments
+(score desc, segment asc, doc asc), reduces the agg partials and renders
+responses in the reference's JSON shape.
 """
 
 from __future__ import annotations
 
 import fnmatch
+import json
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -24,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                OpenSearchTpuError)
+                                                OpenSearchTpuError,
+                                                QueryShardError)
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.segment import Segment, pad_bucket
 from opensearch_tpu_torch.ops.bm25 import (CANDIDATE_MAX_LANES,
@@ -35,6 +40,15 @@ from opensearch_tpu_torch.ops.device_segment import (DeviceSegmentMeta,
                                                      upload_segment)
 from opensearch_tpu_torch.ops.topk import NEG_INF, masked_topk, unpack_rows
 from opensearch_tpu_torch.search import dsl
+from opensearch_tpu_torch.search.aggs.engine import (_decode_agg_row,
+                                                     agg_out_layout,
+                                                     agg_statics,
+                                                     compile_aggs, eval_aggs,
+                                                     pack_agg_rows,
+                                                     unsupported_aggs)
+from opensearch_tpu_torch.search.aggs.parse import parse_aggs
+from opensearch_tpu_torch.search.aggs.reduce import (decode_outputs,
+                                                     reduce_aggs)
 from opensearch_tpu_torch.search.compile import (Compiler, Plan, ShardStats,
                                                  plan_struct)
 from opensearch_tpu_torch.search.plan_eval import _eval_plan
@@ -219,6 +233,33 @@ def build_batched_query_phase(plan: Plan, meta: DeviceSegmentMeta, k: int):
     return run
 
 
+def build_batched_agg_query_phase(plan: Plan, meta: DeviceSegmentMeta,
+                                  k: int, agg_plans, seg_host: Segment):
+    """B same-shaped queries WITH aggregations against one segment: plan
+    evaluation, the masked top-k (K3; k=0 gives the size-0 totals), then
+    the aggregation pass over the dense eligibility mask. Every agg partial
+    is bit-cast to f32 and appended to the packed hit row, so the group
+    still fetches as ONE [B, 2k+1+W] array. Returns (rows, out_layout)."""
+    out_layout, _width = agg_out_layout(agg_plans)
+
+    def run(seg, inputs, min_score):
+        bsz = min_score.shape[0]
+        cursor = [0]
+        scores, matches = _eval_plan(plan, seg, inputs, cursor, bsz)
+        d_pad = seg["live"].shape[0]
+        in_seg = torch.arange(d_pad, device=scores.device) < meta.num_docs
+        eligible = matches & seg["live"] & seg["root"] & in_seg \
+            & (scores >= min_score[:, None])
+        rows = masked_topk(scores, eligible, seg["live"], seg["root"],
+                           meta.num_docs, min_score, min(k, d_pad))
+        outs: List[dict] = []
+        eval_aggs(agg_plans, seg, inputs, cursor, eligible, outs,
+                  agg_statics(seg_host, agg_plans, scores.device))
+        tail = pack_agg_rows(outs, out_layout, bsz, scores.device)
+        return torch.cat([rows, tail], dim=1)
+    return run, out_layout
+
+
 def _envelope_runner(plan: Plan, meta: DeviceSegmentMeta, k: int):
     if _envelope_kernel(plan) == "candidate":
         return build_candidate_query_phase(plan, k)
@@ -228,7 +269,7 @@ def _envelope_runner(plan: Plan, meta: DeviceSegmentMeta, k: int):
 # --------------------------------------------------------------- responses
 
 _BATCHABLE_KEYS = frozenset({"query", "size", "from", "min_score", "sort",
-                             "_source"})
+                             "_source", "aggs", "aggregations"})
 
 
 def _msearch_batchable(body: dict) -> bool:
@@ -308,8 +349,8 @@ class SearchExecutor:
             extra = sorted(set(body) - _BATCHABLE_KEYS)
             raise IllegalArgumentError(
                 f"request {'keys ' + str(extra) if extra else 'sort'} "
-                f"not supported by opensearch_tpu_torch yet: this slice "
-                f"serves score-sorted query/size/from/min_score/_source "
+                f"not supported by opensearch_tpu_torch yet: it serves "
+                f"score-sorted query/size/from/min_score/_source/aggs "
                 f"bodies")
         node = dsl.parse_query(body.get("query"))
         size = _req_int(body, "size", 10)
@@ -326,7 +367,16 @@ class SearchExecutor:
                 f"more efficient way to request large data sets. This "
                 f"limit can be set by changing the "
                 f"[index.max_result_window] index level setting.")
-        return i, body, node, size, from_, _req_min_score(body)
+        agg_spec = body.get("aggs") or body.get("aggregations")
+        agg_nodes = parse_aggs(agg_spec)
+        missing = unsupported_aggs(agg_nodes)
+        if missing is not None:
+            raise QueryShardError(
+                f"aggregation type [{missing}] is not supported")
+        agg_json = json.dumps(agg_spec, sort_keys=True, default=str) \
+            if agg_nodes else None
+        return (i, body, node, size, from_, _req_min_score(body), agg_nodes,
+                agg_json)
 
     def _run_batch(self, batchable, responses, start: float,
                    raise_item_errors: bool) -> None:
@@ -335,13 +385,20 @@ class SearchExecutor:
         dev = self.reader.torch_device
         groups: Dict[Any, List[int]] = {}
         plans_by_i: Dict[int, List[Optional[Plan]]] = {}
+        aggs_by_i: Dict[int, list] = {}
         flats_by_i: Dict[int, List[Optional[list]]] = {}
         entry_by_i = {e[0]: e for e in batchable}
-        for i, body, node, size, from_, _ms in batchable:
+        for i, body, node, size, from_, _ms, agg_nodes, agg_json \
+                in batchable:
             try:
                 plans = [compiler.compile(node, seg, meta)
                          if seg.num_docs else None
                          for seg, (_a, meta) in zip(segments, device)]
+                agg_plans = [
+                    self._agg_plans(stats, compiler, agg_nodes, agg_json,
+                                    seg, meta)
+                    if agg_nodes and seg.num_docs else []
+                    for seg, (_a, meta) in zip(segments, device)]
             except OpenSearchTpuError as e:
                 if raise_item_errors:
                     raise
@@ -350,12 +407,21 @@ class SearchExecutor:
             # no tie overfetch: per-segment top-k (score desc, doc asc)
             # merges to the exact global page
             k = 0 if from_ + size == 0 else max(from_ + size, 10)
-            if all(p is None or p.kind == "match_none" for p in plans):
+            if not agg_nodes and all(p is None or p.kind == "match_none"
+                                     for p in plans):
+                # nothing can match: no device work (an agg body still
+                # runs, for its empty buckets)
                 responses[i] = _base_response(
                     int((time.monotonic() - start) * 1000), 0, None, [])
                 continue
-            flats = [p.flatten_inputs([]) if p is not None else None
-                     for p in plans]
+            flats = []
+            for p, aplans in zip(plans, agg_plans):
+                flat = None
+                if p is not None:
+                    flat = p.flatten_inputs([])
+                    for ap in aplans:
+                        ap.flatten_inputs(flat)
+                flats.append(flat)
             struct = tuple(plan_struct(p) if p is not None else None
                            for p in plans)
             shape_sig = tuple(
@@ -363,13 +429,17 @@ class SearchExecutor:
                     (key, v.shape, v.dtype.num)
                     for d in f for key, v in d.items())
                 for f in flats)
+            agg_sig = tuple(tuple(ap.sig() for ap in aplans)
+                            for aplans in agg_plans) if agg_nodes else None
             plans_by_i[i] = plans
             flats_by_i[i] = flats
-            groups.setdefault((struct, shape_sig, min(k, 1 << 16)),
+            if agg_nodes:
+                aggs_by_i[i] = agg_plans
+            groups.setdefault((struct, agg_sig, shape_sig, min(k, 1 << 16)),
                               []).append(i)
 
         pending = []
-        for (_struct, _shape, k_fetch), idxs in groups.items():
+        for (_struct, agg_sig, _shape, k_fetch), idxs in groups.items():
             min_scores = np.asarray([entry_by_i[i][5] for i in idxs],
                                     dtype=np.float32)
             for seg_i, (seg, (arrays, meta)) in enumerate(
@@ -383,28 +453,58 @@ class SearchExecutor:
                 leaves = unpack_leaves(buf.to(dev, non_blocking=True),
                                        layout)
                 k_seg = min(k_fetch, pad_bucket(max(seg.num_docs, 1)))
-                run = _envelope_runner(plans_by_i[idxs[0]][seg_i], meta,
-                                       k_seg)
-                out = run(arrays, unflatten_inputs(treedef, leaves[:-1]),
-                          leaves[-1])
-                pending.append((idxs, seg_i, k_seg, out))
-        if not pending:
-            return
-        fetched = _fetch_rows([p[3] for p in pending])
-        self._respond(pending, fetched, entry_by_i, segments, responses,
-                      start)
+                plan0 = plans_by_i[idxs[0]][seg_i]
+                inputs = unflatten_inputs(treedef, leaves[:-1])
+                if agg_sig is not None:
+                    run, out_layout = build_batched_agg_query_phase(
+                        plan0, meta, k_seg, aggs_by_i[idxs[0]][seg_i], seg)
+                else:
+                    run = _envelope_runner(plan0, meta, k_seg)
+                    out_layout = None
+                out = run(arrays, inputs, leaves[-1])
+                pending.append((idxs, seg_i, k_seg, out, out_layout))
+        if pending:
+            fetched = _fetch_rows([p[3] for p in pending])
+            self._respond(pending, fetched, entry_by_i, aggs_by_i, segments,
+                          responses, start)
+        for i in plans_by_i:
+            if responses[i] is None:
+                # every segment of the snapshot is empty
+                responses[i] = _base_response(
+                    int((time.monotonic() - start) * 1000), 0, None, [])
+                if i in aggs_by_i:
+                    responses[i]["aggregations"] = {}
 
-    def _respond(self, pending, fetched, entry_by_i, segments, responses,
-                 start: float) -> None:
+    def _agg_plans(self, stats: ShardStats, compiler: Compiler, agg_nodes,
+                   agg_json: str, seg: Segment, meta: DeviceSegmentMeta):
+        """Compiled agg plans of one (agg spec, segment), memoized on the
+        snapshot's stats: a dashboard's repeated agg shapes skip the
+        per-query bucket-table work."""
+        key = ("aggc", id(seg), agg_json)
+        plans = stats.memo.get(key)
+        if plans is None:
+            plans = stats.memo[key] = compile_aggs(
+                agg_nodes, self.reader.mapper, seg, meta, compiler)
+        return plans
+
+    def _respond(self, pending, fetched, entry_by_i, aggs_by_i, segments,
+                 responses, start: float) -> None:
         per_query_segs: Dict[int, list] = {}
         per_query_total: Dict[int, int] = {}
-        for (idxs, seg_i, k_seg, _), packed in zip(pending, fetched):
+        per_query_decoded: Dict[int, list] = {}
+        for (idxs, seg_i, k_seg, _, out_layout), packed in zip(pending,
+                                                               fetched):
             scores_b, idx_b, total_b = unpack_rows(packed, k_seg)
             totals = total_b.tolist()
             for row, i in enumerate(idxs):
                 per_query_total[i] = per_query_total.get(i, 0) + totals[row]
                 per_query_segs.setdefault(i, []).append(
                     (seg_i, scores_b[row], idx_b[row]))
+                if out_layout is not None:
+                    outs = _decode_agg_row(packed[row, 2 * k_seg + 1:],
+                                           out_layout)
+                    per_query_decoded.setdefault(i, []).append(
+                        decode_outputs(aggs_by_i[i][seg_i], outs))
         took_ms = int((time.monotonic() - start) * 1000)
         index_name = self.reader.index_name
         for i, seg_results in per_query_segs.items():
@@ -448,6 +548,9 @@ class SearchExecutor:
                 hits.append(h)
             responses[i] = _base_response(took_ms, per_query_total[i],
                                           max_score, hits)
+            if i in aggs_by_i:
+                responses[i]["aggregations"] = reduce_aggs(
+                    per_query_decoded.get(i, []))
 
 
 def _fetch_rows(outs: List[torch.Tensor]) -> List[np.ndarray]:

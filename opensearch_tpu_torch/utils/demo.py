@@ -3,9 +3,9 @@
 
 An msmarco-passage-shaped workload (zipfian vocabulary, ~60-token passages)
 made from a seed: `synth_docs` draws the reference's exact random stream, so
-one seed gives the same documents in both packages. The port maps only
-`text` and `keyword` fields so far, so `DEMO_MAPPING` and `build_shards`
-index the `body` and `tag` fields of those documents.
+one seed gives the same documents in both packages. `DEMO_MAPPING` and
+`build_shards` index every field of those documents: `body` (text), `tag`
+(keyword), `views` (integer) and `ts` (date).
 """
 
 from __future__ import annotations
@@ -17,13 +17,16 @@ import numpy as np
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.segment import (FieldStats, Segment,
                                                 SegmentBuilder, TermMeta,
-                                                _pad_to,
+                                                _hash64, _pad_to,
+                                                segment_from_arrays,
                                                 smallfloat_int_to_byte4)
 
 DEMO_MAPPING = {
     "properties": {
         "body": {"type": "text"},
         "tag": {"type": "keyword"},
+        "views": {"type": "integer"},
+        "ts": {"type": "date"},
     }
 }
 
@@ -59,15 +62,77 @@ def build_shards(n_docs: int, n_shards: int = 1, vocab_size: int = 5000,
                  avg_len: int = 60, seed: int = 42,
                  mapper: Optional[MapperService] = None,
                  ) -> Tuple[MapperService, List[Segment]]:
-    """Route synthetic docs (their body and tag) round-robin into n_shards
-    sealed segments."""
+    """Route synthetic docs round-robin into n_shards sealed segments."""
     mapper = mapper or MapperService(DEMO_MAPPING)
     docs = synth_docs(n_docs, vocab_size, avg_len, seed)
     builders = [SegmentBuilder(mapper, f"s{i}") for i in range(n_shards)]
     for i, d in enumerate(docs):
-        builders[i % n_shards].add(mapper.parse_document(
-            f"d{i}", {"body": d["body"], "tag": d["tag"]}))
+        builders[i % n_shards].add(mapper.parse_document(f"d{i}", d))
     return mapper, [b.seal() for b in builders]
+
+
+# the structured fields of DEMO_MAPPING (every aggregation body reads only
+# these)
+STRUCTURED_MAPPING = {
+    "properties": {
+        "tag": {"type": "keyword"},
+        "views": {"type": "integer"},
+        "ts": {"type": "date"},
+    }
+}
+BASE_TS = 1700000000000  # 2023-11-14T22:13:20Z, synth_docs' first instant
+N_TAGS = 16
+
+
+def structured_columns(n_docs: int, seed: int = 42):
+    """Per-doc tag index, views and ts drawn from synth_docs'
+    distributions (16 tags uniform, views uniform in [0, 10000), ts uniform
+    over 90 days from BASE_TS), vectorized: int64 arrays of n_docs each."""
+    rng = np.random.default_rng(seed)
+    tag = rng.integers(0, N_TAGS, n_docs)
+    views = rng.integers(0, 10000, n_docs)
+    ts = BASE_TS + rng.integers(0, 90 * 86400_000, n_docs)
+    return tag, views, ts
+
+
+def structured_segment(n_docs: int, seed: int = 42, seg_id: str = "s0"
+                       ) -> Tuple[MapperService, Segment]:
+    """One sealed segment of n_docs docs with only the structured fields
+    ({tag: keyword, views: integer, ts: date}, every doc one value of
+    each), built from numpy columns through segment_from_arrays: the
+    million-doc counterpart of sealing {"tag", "views", "ts"} documents
+    one by one. No text field, so the postings are one empty block."""
+    mapper = MapperService(STRUCTURED_MAPPING)
+    tag, views, ts = structured_columns(n_docs, seed)
+    names = [f"cat{i}" for i in range(N_TAGS)]
+    dictionary = sorted(names)
+    ord_of_tag = np.array([dictionary.index(t) for t in names], np.int32)
+    docs = np.arange(n_docs, dtype=np.int32)
+    ones = np.ones(n_docs, dtype=bool)
+
+    def numeric(values):
+        unique, ranks = np.unique(values.astype(np.float64),
+                                  return_inverse=True)
+        return {"doc_ids": docs, "values": values.astype(np.float64),
+                "exists": ones, "counts": np.ones(n_docs, np.int32),
+                "value_ords": ranks.astype(np.int32).reshape(-1),
+                "unique": unique}
+    arrays = {
+        "seg_id": seg_id, "num_docs": n_docs,
+        "doc_ids": [f"d{i}" for i in range(n_docs)],
+        "sources": [None] * n_docs,
+        "term_dict": {},
+        "post_docs": np.full((1, 128), -1, np.int32),
+        "post_tf": np.zeros((1, 128), np.float32),
+        "norms": {}, "field_stats": {},
+        "numeric_dv": {"views": numeric(views), "ts": numeric(ts)},
+        "ordinal_dv": {"tag": {
+            "doc_ids": docs, "ords": ord_of_tag[tag], "exists": ones,
+            "dictionary": dictionary,
+            "ord_hashes": np.array([_hash64(t) for t in dictionary],
+                                   np.uint64)}},
+    }
+    return mapper, segment_from_arrays(arrays)
 
 
 def query_terms(n_queries: int, vocab_size: int = 5000, seed: int = 7,

@@ -1,16 +1,33 @@
 """Shared parity helpers for the tests that hold opensearch_tpu_torch against
-opensearch_tpu (no tests here): the seeded corpus, the request bodies, and
+opensearch_tpu (no tests here): the seeded corpora, the request bodies, and
 the response comparison that ignores `took`.
 
-Comparison contract: doc ids, order, totals and `_source` exactly; `_score`
-and `max_score` to rtol 1e-6 (the port computes every score with the
-reference's operation order, so in practice they agree exactly)."""
+Comparison contract for hits: doc ids, order, totals and `_source` exactly;
+`_score` and `max_score` to rtol 1e-6 (the port computes every score with
+the reference's operation order, so in practice they agree exactly).
+
+Contract for aggregation outputs:
+- exact: bucket keys, `key_as_string`, `doc_count`, bucket order,
+  `sum_other_doc_count`, `doc_count_error_upper_bound`, `value_count`,
+  `cardinality`, `min` / `max` (an f32 min or max does not depend on the
+  order it is taken in) and `hits.total`;
+- float sums (`sum`, `avg`, `stats.sum` / `stats.avg`) are f32 sums in the
+  reference. Over a bin of n values v, any summation order lies within
+  n * 2^-24 * sum|v| of the exact sum (`f32_sum_bound`); the port's value
+  must lie within that bound of an f64 host sum of the same values. Where
+  two f32 sums are compared with each other, each is within the bound of
+  the exact sum, so they are within twice the bound of each other;
+- in the test corpora every summed value is an integer and every partial
+  sum stays below 2^24, so f32 sums are exact in any order: the tests
+  demand equality with the reference (`assert_same_response` is exact
+  unless it is handed per-path bounds).
+"""
 
 from __future__ import annotations
 
 import json
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -147,29 +164,176 @@ def msearch_ndjson(index: str, bodies: List[dict]) -> str:
     return "\n".join(lines) + "\n"
 
 
-def assert_same_response(got: Any, want: Any, path: str = "") -> None:
-    """Structural equality, `took` ignored, scores to SCORE_RTOL."""
+F32_SUM_EPS = 2.0 ** -24
+
+
+def f32_sum_bound(n: int, abs_sum: float) -> float:
+    """How far an f32 sum of n values, taken in any order, may lie from
+    the exact sum: n * 2^-24 * sum|v|."""
+    return n * F32_SUM_EPS * abs_sum
+
+
+def assert_same_response(got: Any, want: Any, path: str = "",
+                         agg_sum_tol: Optional[Dict[str, float]] = None
+                         ) -> None:
+    """Structural equality, `took` ignored, scores to SCORE_RTOL.
+    agg_sum_tol maps the path of an aggregation's f32 sum or average (as
+    this function spells paths, e.g. ".aggregations.t.buckets[0].a.value")
+    to its absolute bound; every other value compares exactly."""
     if isinstance(want, dict):
         assert isinstance(got, dict), f"{path}: {got!r} is not a dict"
         keys = set(want) - {"took"}
         assert set(got) - {"took"} == keys, \
             f"{path}: keys {sorted(set(got))} != {sorted(set(want))}"
         for key in keys:
-            assert_same_response(got[key], want[key], f"{path}.{key}")
+            assert_same_response(got[key], want[key], f"{path}.{key}",
+                                 agg_sum_tol)
         return
     if isinstance(want, list):
         assert isinstance(got, list) and len(got) == len(want), \
             f"{path}: {got!r} != {want!r}"
         for i, (g, w) in enumerate(zip(got, want)):
-            assert_same_response(g, w, f"{path}[{i}]")
+            assert_same_response(g, w, f"{path}[{i}]", agg_sum_tol)
         return
     if isinstance(want, float) and path.endswith(("_score", "max_score")):
         assert isinstance(got, float), f"{path}: {got!r} != {want!r}"
         assert math.isclose(got, want, rel_tol=SCORE_RTOL, abs_tol=0.0), \
             f"{path}: {got!r} != {want!r}"
         return
+    if agg_sum_tol is not None and path in agg_sum_tol:
+        assert isinstance(got, float) and isinstance(want, float), \
+            f"{path}: {got!r} != {want!r}"
+        assert abs(got - want) <= agg_sum_tol[path], \
+            f"{path}: {got!r} and {want!r} differ by more than " \
+            f"{agg_sum_tol[path]}"
+        return
     assert got == want and type(got) is type(want), \
         f"{path}: {got!r} != {want!r}"
+
+
+# ------------------------------------------------ the structured corpus
+
+# the reference's DEMO_MAPPING: a text body and structured tag/views/ts
+DOCS_MAPPING = {"mappings": {"properties": {
+    "body": {"type": "text"},
+    "tag": {"type": "keyword"},
+    "views": {"type": "integer"},
+    "ts": {"type": "date"},
+}}}
+DOCS_N = 5000
+
+
+def docs_corpus(n_docs: int = DOCS_N, seed: int = 42) -> List[dict]:
+    """The demo corpus (synth_docs) with a few multi-valued `tag`s and a
+    few docs without `views`, so the keyword and integer columns leave the
+    identity layout."""
+    docs = synth_docs(n_docs, VOCAB, 60, seed)
+    for i in range(7, n_docs, 97):
+        docs[i]["tag"] = [docs[i]["tag"], f"cat{(i // 97) % 16}",
+                          "multi"]
+    for i in range(11, n_docs, 89):
+        del docs[i]["views"]
+    return docs
+
+
+def load_docs_index(node, index: str = "docs", n_docs: int = DOCS_N) -> None:
+    """The structured corpus over two refreshes (two segments) with
+    re-indexed docs and deletes in between, through either package's REST
+    surface."""
+    docs = docs_corpus(n_docs)
+    half = n_docs // 2
+    assert node.request("PUT", f"/{index}", DOCS_MAPPING)["_status"] == 200
+    first = {f"d{i}": docs[i] for i in range(half)}
+    res = node.request("POST", "/_bulk", bulk_ndjson(index, first))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+    second = {f"d{i}": docs[i] for i in range(half, n_docs)}
+    second.update({f"d{i}": docs[i + 1] for i in range(3, half, 151)})
+    deletes = [f"d{i}" for i in range(5, n_docs, 173)]
+    res = node.request("POST", "/_bulk", bulk_ndjson(index, second, deletes))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+
+
+BASE_TS = 1700000000000
+DAY_MS = 86400_000
+
+
+def bench_agg_bodies(mode: str, n: int = 64) -> List[dict]:
+    """bench.py's agg body families, from np.random.RandomState(13):
+    `agg_terms` (a bool.filter range on views, then terms tag size 20 with
+    an avg views sub-aggregation) and `date_hist` (a range on ts, then a
+    1d date_histogram and a cardinality of tag)."""
+    import numpy as np
+    rng = np.random.RandomState(13)
+    if mode == "agg_terms":
+        bounds = rng.permutation(9000)[:n]
+        return [{"size": 0,
+                 "query": {"bool": {"filter": [
+                     {"range": {"views": {"gte": int(b)}}}]}},
+                 "aggs": {"by_tag": {"terms": {"field": "tag", "size": 20},
+                                     "aggs": {"avg_v": {"avg": {
+                                         "field": "views"}}}}}}
+                for b in bounds]
+    spans = 1 + 79 * rng.permutation(n) / max(n, 1)
+    return [{"size": 0,
+             "query": {"range": {"ts": {"lt": int(BASE_TS + s * DAY_MS)}}},
+             "aggs": {"per_day": {"date_histogram": {
+                 "field": "ts", "fixed_interval": "1d"}},
+                 "uniq": {"cardinality": {"field": "tag"}}}}
+            for s in spans]
+
+
+# name -> _search body over the structured corpus; together they take
+# every aggregation kind and every doc-value filter of the port
+AGG_BODIES: Dict[str, dict] = {
+    "bench_terms": bench_agg_bodies("agg_terms", 2)[0],
+    "bench_date_hist": bench_agg_bodies("date_hist", 2)[1],
+    "terms_metrics": {"size": 3, "query": {"match": {"body": "w00011"}},
+                      "aggs": {"tags": {"terms": {"field": "tag",
+                                                  "size": 5},
+                                        "aggs": {
+                          "st": {"stats": {"field": "views"}},
+                          "mx": {"max": {"field": "ts"}},
+                          "vc": {"value_count": {"field": "tag"}}}}}},
+    "histogram_filter": {"size": 0,
+                         "query": {"terms": {"tag": ["cat1", "cat2",
+                                                     "multi"]}},
+                         "aggs": {"h": {"histogram": {"field": "views",
+                                                      "interval": 1000}},
+                                  "f": {"filter": {"range": {"views": {
+                                      "lt": 2000}}},
+                                      "aggs": {"s": {"sum": {
+                                          "field": "views"}}}},
+                                  "mn": {"min": {"field": "views"}}}},
+    "date_hist_sub": {"size": 0,
+                      "query": {"range": {"ts": {
+                          "gte": "2023-12-01||-1d/d",
+                          "lt": "2024-01-01"}}},
+                      "aggs": {"w": {"date_histogram": {
+                          "field": "ts", "calendar_interval": "week"},
+                          "aggs": {"u": {"cardinality": {
+                              "field": "views"}},
+                              "a": {"avg": {"field": "views"}}}}}},
+    "missing_metric": {"size": 0, "query": {"exists": {"field": "views"}},
+                       "aggs": {"m": {"avg": {"field": "views",
+                                              "missing": 5}},
+                                "t": {"terms": {"field": "views",
+                                                "size": 3}},
+                                "c": {"cardinality": {"field": "tag"}}}},
+}
+
+
+def agg_msearch_bodies(b: int = 32) -> List[dict]:
+    """B agg bodies of mixed shapes for one _msearch: both bench families
+    and the AGG_BODIES shapes."""
+    fam = bench_agg_bodies("agg_terms", b) + bench_agg_bodies("date_hist", b)
+    extra = list(AGG_BODIES.values())
+    out = []
+    for i in range(b):
+        out.append(extra[i % len(extra)] if i % 4 == 3
+                   else fam[(i * 7) % len(fam)])
+    return out
 
 
 def segment_arrays(seg) -> dict:
@@ -190,4 +354,13 @@ def segment_arrays(seg) -> dict:
                         for f, st in seg.field_stats.items()},
         "live": seg.live.copy(),
         "parent_ptr": seg.parent_ptr.copy(),
+        "numeric_dv": {f: {"doc_ids": c.doc_ids, "values": c.values,
+                           "exists": c.exists, "counts": c.counts,
+                           "value_ords": c.value_ords, "unique": c.unique}
+                       for f, c in seg.numeric_dv.items()},
+        "ordinal_dv": {f: {"doc_ids": c.doc_ids, "ords": c.ords,
+                           "exists": c.exists,
+                           "dictionary": list(c.dictionary),
+                           "ord_hashes": c.ord_hashes}
+                       for f, c in seg.ordinal_dv.items()},
     }

@@ -87,12 +87,24 @@ def test_device_images_are_equal(pair, source):
         tseg = segment_from_arrays(segment_arrays(jseg))
     jimg, jmeta = j_upload(jseg)
     timg, tmeta = upload_segment(tseg, torch.device("cpu"))
-    assert set(IMAGE_KEYS) <= set(jimg) and set(timg) == set(IMAGE_KEYS)
+    # the flat leaves, plus the doc-value subtrees (keyword columns here)
+    assert set(IMAGE_KEYS) <= set(jimg) \
+        and set(timg) == set(IMAGE_KEYS) | {"numeric", "ordinal"}
     for key in IMAGE_KEYS:
         want = np.asarray(jimg[key])
         got = timg[key].numpy()
         assert got.dtype == want.dtype and got.shape == want.shape, key
         np.testing.assert_array_equal(got, want, err_msg=key)
+    for kind in ("numeric", "ordinal"):
+        assert set(timg[kind]) == set(jimg[kind]), kind
+        for field, leaves in jimg[kind].items():
+            assert set(timg[kind][field]) == set(leaves), (kind, field)
+            for leaf, want in leaves.items():
+                got = timg[kind][field][leaf].numpy()
+                want = np.asarray(want)
+                assert got.dtype == want.dtype \
+                    and got.shape == want.shape, (kind, field, leaf)
+                np.testing.assert_array_equal(got, want)
     assert (tmeta.num_docs, tmeta.d_pad, tmeta.nb_pad, tmeta.norm_rows) == \
         (jmeta.num_docs, jmeta.d_pad, jmeta.nb_pad, jmeta.norm_rows)
 
