@@ -7,10 +7,12 @@ card:  python3 chip_smoke.py
 Phases, each printing what it finds; any failure exits nonzero:
  1. build the CUDA kernels from opensearch_tpu_torch/ops/csrc (in
     parallel), print the build times and the card's name and power limit;
-    make the 1M-passage corpus of the BM25 scale phase and the 10M-doc
-    structured segment of the aggregation scale phase (set-up);
+    make the 1M-passage corpus of the BM25 scale phase, the 10M-doc
+    structured segment of the aggregation scale phase and the two k-NN
+    corpora (set-up);
  2. run every kernel on the card at its main path's shapes and hold it
-    against its plain PyTorch version on the same inputs: K1
+    against its plain PyTorch version on the same inputs (the k-NN kernels
+    as below): K1
     bm25_candidate, K2 score_text_clause, K3 masked_topk at Dp = 2^20 (ids,
     hits and totals exactly, scores within SCORE_ATOL: both sides round
     every BM25 operation once, the kernels build with --fmad=false); K4
@@ -25,7 +27,7 @@ Phases, each printing what it finds; any failure exits nonzero:
     segments, deletes, multi-valued tags, docs without views), the parity
     bodies and the aggregation bodies through `_search` and a B=32
     `_msearch` each; every response must equal Node(device="cpu")'s (the
-    plain versions), and every kernel K1-K6 must have launched during this
+    plain versions), and every kernel K1-K9 must have launched during this
     run;
  4. BM25 scale: one shard of 1,000,000 passages from build_shards_fast
     served through SearchExecutor at B=1 and B=32, sample pages checked
@@ -34,7 +36,25 @@ Phases, each printing what it finds; any failure exits nonzero:
     bench.py's agg_terms and date_hist body families at B=1 and B=32:
     p50/p99 wall times, queries/s, image bytes and the profiler's busy
     share; sampled responses checked against an f64 numpy oracle and
-    against the plain versions.
+    against the plain versions;
+ 6. k-NN exact cell: the SIFT-shaped clustered corpus (1,000,000 x 128,
+    l2) in one segment, 640 queries at k=10 through SearchExecutor at B=1
+    and B=32: walls, queries/s, image bytes, busy share, recall@10 against
+    an f64 numpy brute force (f32 ties listed);
+ 7. k-NN IVF cell: the GloVe-shaped clustered corpus (1,183,514 x 100,
+    cosinesimil), its IVF (nlist 256) sealed on the card by K9 and timed,
+    served at nprobes 32 like phase 6, recall@10 against the exact
+    kernel's pages (>= 0.9).
+
+Phase 2 also holds K7 knn_exact (and its top-k mark) at B=32 x 2^20 x 128
+in the three spaces, and K8 ivf_probe (with its block ranking launch) and
+K9 kmeans_step at phase 7's shapes, on the whole GloVe-shaped corpus,
+against their plain versions bit for bit (K7 and K8 at B=32; K9 in each
+of the seal's 10 steps, whose means also lie within n * 2^-24 * sum|x|
+of the f64 means), and phase 7 seals those very centroids again. Phase 3 adds a
+5,000-vector index with exact, IVF, filtered and bool k-NN bodies; its
+launch window opens before the indices load, since sealing the IVF lists
+runs K9.
 
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
 per-kernel tables) under DIR. The card's name and power limit are printed in
@@ -48,6 +68,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +84,9 @@ AGG_SCALE_DOCS = 10_000_000   # one shard of a 165M-doc nyc_taxis index
 AGG_BATCH = 32
 AGG_BODIES_PER_FAMILY = 64
 F32_SUM_EPS = 2.0 ** -24
+SIFT_SHAPE = (1_000_000, 128)      # ann-benchmarks sift-128-euclidean
+GLOVE_SHAPE = (1_183_514, 100)     # ann-benchmarks glove-100-angular
+KNN_QUERIES = 640
 
 
 def log(*args):
@@ -305,10 +329,22 @@ def phase_serving(torch, np, device=None):
     cpu = Node(device="cpu")
     if gpu.device.type != (device or "cuda"):
         raise AssertionError(f"Node() resolved to {gpu.device}")
+    # the k-NN path starts at indexing: a refresh seals the IVF lists of
+    # `v_ivf` (K9), so the launch window opens before the loads
+    _build.reset_launches()
+    t_load = time.perf_counter()
     for node in (gpu, cpu):
         parity.load_index(node, "passages", n_docs=5000)
         parity.load_docs_index(node, "docs", n_docs=parity.DOCS_N)
+        parity.load_vecs_index(node, "vecs", n_docs=parity.VECS_N)
+        if node is gpu:
+            log(f"serving: three indices loaded on the card in "
+                f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
     payload = parity.msearch_ndjson("passages", parity.msearch_bodies(32))
+    knn_bodies = parity.knn_bodies()
+    knn_payload = parity.msearch_ndjson("vecs",
+                                        parity.knn_msearch_bodies(32))
+    knn_names = sorted(knn_bodies)
     agg_bodies = dict(parity.AGG_BODIES)
     for mode in ("agg_terms", "date_hist"):
         for j, b in enumerate(parity.bench_agg_bodies(mode, 3)):
@@ -317,7 +353,6 @@ def phase_serving(torch, np, device=None):
                                         parity.agg_msearch_bodies(32))
     names = sorted(parity.SEARCH_BODIES)
     agg_names = sorted(agg_bodies)
-    _build.reset_launches()
     t0 = time.perf_counter()
     got = {n: gpu.request("POST", "/passages/_search",
                           parity.SEARCH_BODIES[n]) for n in names}
@@ -325,12 +360,17 @@ def phase_serving(torch, np, device=None):
     got_a = {n: gpu.request("POST", "/docs/_search", agg_bodies[n])
              for n in agg_names}
     got_am = gpu.request("POST", "/_msearch", agg_payload)
+    got_k = {n: gpu.request("POST", "/vecs/_search", knn_bodies[n])
+             for n in knn_names}
+    got_km = gpu.request("POST", "/_msearch", knn_payload)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log(f"serving: {len(names)} BM25 _search + one B=32 _msearch, "
-        f"{len(agg_names)} agg _search + one B=32 agg _msearch on the card "
-        f"in {wall * 1e3:.3f} ms; launches {json.dumps(launches)}")
+        f"{len(agg_names)} agg _search + one B=32 agg _msearch, "
+        f"{len(knn_names)} knn _search + one B=32 knn _msearch on the card "
+        f"in {wall * 1e3:.3f} ms; launches (loads included) "
+        f"{json.dumps(launches)}")
     for n in names:
         if got[n]["_status"] != 200:
             raise AssertionError(f"_search {n}: {got[n]}")
@@ -347,12 +387,25 @@ def phase_serving(torch, np, device=None):
     parity.assert_same_response(got_am, cpu.request("POST", "/_msearch",
                                                     agg_payload),
                                 "agg msearch")
+    for n in knn_names:
+        if got_k[n]["_status"] != 200 or not got_k[n]["hits"]["hits"]:
+            raise AssertionError(f"knn _search {n}: {got_k[n]}")
+        parity.assert_same_response(
+            got_k[n], cpu.request("POST", "/vecs/_search", knn_bodies[n]), n)
+    parity.assert_same_response(got_km, cpu.request("POST", "/_msearch",
+                                                    knn_payload),
+                                "knn msearch")
+    for node in (gpu, cpu):
+        seg = node.indices.get("vecs").shards[0].engine.segments[0]
+        if seg.vector_dv["v_ivf"].ivf is None:
+            raise AssertionError("the vecs index sealed no IVF index")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    log(f"serving: {len(names) + 32} BM25 pages and {len(agg_names) + 32} "
-        f"agg responses equal the plain versions'")
+    log(f"serving: {len(names) + 32} BM25 pages, {len(agg_names) + 32} "
+        f"agg responses and {len(knn_names) + 32} knn pages equal the plain "
+        f"versions'")
     return launches
 
 
@@ -575,6 +628,215 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
     del arrays, elig
     torch.cuda.empty_cache()
     return results
+
+
+def _bound(nbytes: float, ops: float):
+    """(bound ms, what bounds it) for the bytes a function must move and
+    the f32 operations it must do."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def knn_corpora(np):
+    """The k-NN cells' corpora (set-up): the SIFT-shaped 1M x 128 and the
+    GloVe-shaped 1,183,514 x 100 clustered corpora, each with its
+    queries from the same stream."""
+    from opensearch_tpu_torch.utils.demo import clustered_vectors
+    out = {}
+    for name, (n, dims) in (("sift", SIFT_SHAPE), ("glove", GLOVE_SHAPE)):
+        t0 = time.perf_counter()
+        out[name] = clustered_vectors(n, dims, n_queries=KNN_QUERIES)
+        log(f"{name} corpus: {n} x {dims} clustered vectors and "
+            f"{KNN_QUERIES} queries in {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
+    """K7-K9 against their plain versions: K7 on B queries x the SIFT-shaped
+    corpus padded to Dp = 2^20 in the three spaces (and B=1 in l2), its
+    top-k mark after K3; K9's 10 seal steps, K8's block ranking and K8 at
+    B queries on the whole GloVe-shaped corpus (cosine, nlist 256,
+    nprobes 32), as the IVF cell runs them. Leaves the sealed IVFIndex in
+    corpora["glove_ivf"]."""
+    from opensearch_tpu_torch.index.segment import pad_bucket
+    from opensearch_tpu_torch.ops import knn, topk
+    results = {}
+
+    def record(name, shape, kern, plain, library, nbytes, ops, check):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not all(_same_bits(torch, g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name} {shape}: two runs differ")
+        err = check(got, want)
+        bound, by = _bound(nbytes, ops)
+        rec = {"shape": shape, "max_abs_err": err,
+               "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "library_ms": None if library is None
+               else graph_ms(torch, library),
+               "bound_ms": bound, "bound_by": by}
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+        return rec
+
+    def same_bits(got, want):
+        for g, w in zip(got, want):
+            if not _same_bits(torch, g, w):
+                raise AssertionError("kernel and plain version differ")
+        return 0.0
+
+    # K7 on the SIFT-shaped corpus, zero rows past the 1M docs
+    vecs, queries = corpora["sift"]
+    n, dims = vecs.shape
+    d_pad = pad_bucket(n)
+    vectors = torch.zeros(d_pad, dims, device=dev)
+    vectors[:n] = torch.from_numpy(vecs).to(dev)
+    q32 = torch.from_numpy(queries[:bsz]).to(dev)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for space, q in (("l2", q32), ("cosinesimil", q32),
+                     ("innerproduct", q32), ("l2", q32[:1].contiguous())):
+        b = q.shape[0]
+        record("knn_exact", f"B={b} Dp={d_pad} dims={dims} {space}",
+               lambda q=q, space=space: (knn.exact_knn_scores(vectors, q,
+                                                              space),),
+               lambda q=q, space=space: (knn.exact_knn_scores_plain(
+                   vectors, q, space),),
+               lambda q=q: torch.matmul(q, vectors.t()),
+               4 * d_pad * dims + 4 * b * dims + 4 * b * d_pad,
+               2 * b * d_pad * dims + 2 * d_pad * dims, same_bits)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    # knn_topk_mark on K7's l2 scores after K3 (k = 10, eligible: the docs)
+    scores = knn.exact_knn_scores(vectors, q32, "l2")
+    live = torch.arange(d_pad, device=dev) < n
+    eligible = live[None, :].expand(bsz, d_pad).contiguous()
+    k = 10
+    packed = topk.masked_topk(scores, eligible, live, live, d_pad,
+                              torch.full((bsz,), float("-inf"), device=dev),
+                              k)
+    record("knn_topk_mark", f"B={bsz} Dp={d_pad} k={k}",
+           lambda: knn.knn_topk_mark(packed, scores, k),
+           lambda: knn.knn_topk_mark_plain(packed, scores, k),
+           None, 5 * bsz * d_pad + 4 * bsz * (2 * k + 1) + 4 * bsz * k, 0,
+           same_bits)
+    del scores, eligible, packed, vectors
+
+    # K8 and K9 on the whole GloVe-shaped corpus, as the IVF cell runs
+    # them: K9's 10 seal steps from the reference's initial centroids, then
+    # K8 at B=32 over the index they build
+    vecs, queries = corpora["glove"]
+    n, dims = vecs.shape
+    nlist = 256
+    data = torch.from_numpy(vecs).to(dev)
+    init = torch.from_numpy(vecs[np.random.RandomState(17).choice(
+        n, size=nlist, replace=False)]).to(dev)
+    x = data.double()
+    abs_x = x.abs()
+
+    def within_bound(got, want):
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError("K9 assignments differ from the plain "
+                                 "version's")
+        if not _same_bits(torch, got[0], want[0]):
+            raise AssertionError("K9 means differ from the plain version's "
+                                 "(both sum in one chunked member order)")
+        a = got[1].long()
+        sums = torch.zeros(nlist, dims, dtype=torch.float64,
+                           device=dev).index_add_(0, a, x)
+        abss = torch.zeros_like(sums).index_add_(0, a, abs_x)
+        cnt = torch.bincount(a, minlength=nlist).double()[:, None]
+        ok = cnt[:, 0] > 0
+        exact = sums[ok] / cnt[ok]
+        # a mean of c members: the f32 sum within c * 2^-24 * sum|x|,
+        # over c, plus the division's rounding
+        bound = F32_SUM_EPS * abss[ok] + 2 * F32_SUM_EPS * exact.abs()
+        for side in (got[0], want[0]):
+            if not bool(((side[ok].double() - exact).abs() <= bound).all()):
+                raise AssertionError("K9 means outside n * 2^-24 * sum|x|")
+        return float((got[0] - want[0]).abs().max().item())
+    rec = record("kmeans_step", f"n={n} nlist={nlist} dims={dims} (library: "
+                 f"the assignment alone, cdist + argmin)",
+                 lambda: knn.kmeans_step(data, init),
+                 lambda: knn.kmeans_step_plain(data, init),
+                 lambda: torch.cdist(data, init).argmin(1),
+                 4 * n * dims + 8 * nlist * dims + 4 * n,
+                 2 * n * nlist * dims + 2 * n * dims, within_bound)
+    rec["split_ms"] = device_split_ms(torch,
+                                      lambda: knn.kmeans_step(data, init))
+    log(f"kmeans_step device ms per call by launch: "
+        f"{json.dumps(rec['split_ms'])}")
+    cent, errs = init, []
+    for _ in range(10):
+        got = knn.kmeans_step(data, cent)
+        errs.append(within_bound(got, knn.kmeans_step_plain(data, cent)))
+        cent = got[0]
+    rec["max_abs_err"] = max([rec["max_abs_err"], *errs])
+    ivf = knn.build_ivf(vecs, np.ones(n, bool), nlist=nlist, nprobe=32,
+                        device=dev)
+    if not np.array_equal(cent.cpu().numpy(), ivf.centroids):
+        raise AssertionError("build_ivf's centroids are not the 10 checked "
+                             "K9 steps'")
+    log(f"kmeans_step: the seal's 10 steps equal the plain steps bit for "
+        f"bit (means within the f64 bound); build_ivf sealed those "
+        f"centroids")
+    corpora["glove_ivf"] = ivf
+    del x, abs_x, data
+    packed_np, ids_np = knn.pack_ivf_lists(vecs, ivf.lists)
+    pv, pi = (torch.from_numpy(packed_np).to(dev),
+              torch.from_numpy(ids_np).to(dev))
+    del packed_np, ids_np
+    cent = torch.from_numpy(ivf.centroids).to(dev)
+    bc = torch.from_numpy(ivf.block_centroid).to(dev)
+    nb = bc.shape[0]
+    d = pad_bucket(n)
+    gq = torch.from_numpy(queries[:bsz]).to(dev)
+    record("ivf_block_keys", f"B={bsz} nlist={nlist} blocks={nb} "
+           f"dims={dims}",
+           lambda: (knn.ivf_block_keys(cent, bc, gq),),
+           lambda: (knn.ivf_block_keys_plain(cent, bc, gq),), None,
+           4 * nlist * dims + 4 * nb + 4 * bsz * dims + 4 * bsz * nb,
+           2 * bsz * nlist * dims + 2 * nlist * dims, same_bits)
+    budget = knn.ivf_budget(32, nlist, nb)
+    rows = bsz * budget * 256
+    for space in ("cosinesimil", "l2", "innerproduct"):
+        record("ivf_probe", f"B={bsz} n={n} dims={dims} nlist={nlist} "
+               f"blocks={nb} budget={budget} d={d} {space}",
+               lambda space=space: knn.ivf_knn_scores(pv, pi, cent, bc, d,
+                                                      gq, space, 32),
+               lambda space=space: knn.ivf_knn_scores_plain(
+                   pv, pi, cent, bc, d, gq, space, 32),
+               None,
+               rows * (4 * dims + 4) + 4 * nlist * dims + 4 * nb
+               + 4 * bsz * dims + 5 * bsz * d,
+               4 * rows * dims + 2 * bsz * nlist * dims + 2 * nlist * dims,
+               same_bits)
+    del pv, pi
+    torch.cuda.empty_cache()
+    return results
+
+
+def device_split_ms(torch, fn, reps: int = 5):
+    """Device ms per call of each CUDA kernel that `fn` launches, from a
+    torch.profiler (CUPTI) trace of `reps` calls; {} when the trace holds
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(evt, "self_device_time_total", 0.0) or 0.0)
+        name = (re.findall(r"(\w+)\(", evt.key) or [evt.key[:40]])[0]
+        out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
 
 
 def phase_scale(torch, np, mapper, seg, dev, out_dir=None):
@@ -812,6 +1074,166 @@ def phase_agg_scale(torch, np, mapper, seg, dev, out_dir=None,
     return out
 
 
+def _exact_recall(np, vecs, queries, pages, k: int = 10):
+    """recall@k of l2 pages against an f64 numpy brute force. A page doc
+    outside the f64 top-k counts as a tie (listed, not hidden) when its
+    f64 distance lies within the f32 bound of the k-th's: each side of
+    |v|^2 - 2 v.q + |q|^2 within dims * 2^-24 * (|v|^2 + 2 |v|.|q| + |q|^2)
+    of the exact one."""
+    v64 = vecs.astype(np.float64)
+    vn = (v64 * v64).sum(axis=1)
+    dims = vecs.shape[1]
+    hits, ties = 0, []
+    for lo in range(0, len(queries), 32):
+        q = queries[lo:lo + 32].astype(np.float64)
+        d2 = vn[None, :] - 2.0 * (q @ v64.T) + (q * q).sum(axis=1)[:, None]
+        for r in range(len(q)):
+            top = np.argpartition(d2[r], k)[:k]
+            want = set(top.tolist())
+            got = pages[lo + r]
+            hits += len(want & set(got))
+            kth = top[np.argmax(d2[r][top])]
+
+            def bound(i):
+                adot = float(np.abs(v64[i]) @ np.abs(q[r]))
+                return dims * F32_SUM_EPS * (vn[i] + 2 * adot
+                                             + float(q[r] @ q[r]))
+            for i in set(got) - want:
+                if d2[r][i] - d2[r][kth] <= bound(i) + bound(kth):
+                    ties.append((lo + r, int(i), int(kth),
+                                 float(d2[r][i] - d2[r][kth])))
+                else:
+                    raise AssertionError(
+                        f"query {lo + r}: doc {i} is not among the f64 "
+                        f"top-{k} and no f32 tie")
+    return hits / (k * len(queries)), ties
+
+
+def phase_knn_cell(torch, np, cell: str, corpora, dev, card: str,
+                   out_dir=None, bsz: int = 32, singles: int = 300):
+    """One k-NN cell served through SearchExecutor: `exact`, the
+    SIFT-shaped 1M x 128 l2 scan, or `ivf`, the GloVe-shaped 1,183,514 x
+    100 cosine IVF (nlist 256, nprobes 32) sealed on the card. B=1
+    `_search` and B=32 `_msearch` walls, queries/s, image bytes, the
+    profiler's busy share, recall@10, two pages against the plain
+    versions."""
+    from opensearch_tpu_torch.ops import _build, knn
+    from opensearch_tpu_torch.search.executor import (SearchExecutor,
+                                                      ShardReader)
+    from opensearch_tpu_torch.utils.demo import vector_segment
+    parity = _parity()
+    vecs, queries = corpora["sift" if cell == "exact" else "glove"]
+    n, dims = vecs.shape
+    out = {}
+    _build.reset_launches()
+    if cell == "ivf":
+        space = "cosinesimil"
+        t0 = time.perf_counter()
+        ivf = knn.build_ivf(vecs, np.ones(n, bool), nlist=256, nprobe=32,
+                            device=dev)
+        torch.cuda.synchronize()
+        out["seal_s"] = time.perf_counter() - t0
+        log(f"knn {cell}: IVF sealed on the card in {out['seal_s']:.3f} s "
+            f"({ivf.lists.shape[0]} blocks of 256, nlist {ivf.nlist}, "
+            f"{_build.LAUNCHES['kmeans_step']} K9 steps); card: {card}")
+        checked = corpora.get("glove_ivf")
+        if checked is not None and not (
+                np.array_equal(ivf.centroids, checked.centroids)
+                and np.array_equal(ivf.lists, checked.lists)):
+            raise AssertionError("the cell's seal differs from the index "
+                                 "whose K8/K9 launches phase 2 checked")
+        mapper, seg = vector_segment(vecs, space, ivf=ivf, seg_id="glove0")
+    else:
+        space = "l2"
+        mapper, seg = vector_segment(vecs, space, seg_id="sift0")
+    reader = ShardReader(mapper, dev, index_name=f"knn_{cell}")
+    t0 = time.perf_counter()
+    reader.add_segment(seg)
+    torch.cuda.synchronize()
+    out["image_bytes"] = reader.device_bytes()
+    log(f"knn {cell}: image of {n} x {dims} uploaded in "
+        f"{time.perf_counter() - t0:.3f} s: {out['image_bytes']} bytes "
+        f"(Dp={reader.device[0][1].d_pad})")
+    ex = SearchExecutor(reader)
+    bodies = [{"query": {"knn": {"vec": {"vector": q.tolist(), "k": 10}}},
+               "size": 10} for q in queries]
+    ex.search(bodies[0])
+    ex.multi_search(bodies[:bsz])
+    torch.cuda.synchronize()
+    single = []
+    for b in bodies[:singles]:
+        t = time.perf_counter()
+        ex.search(b)
+        single.append((time.perf_counter() - t) * 1e3)
+    batches, pages = [], []
+    for lo in range(0, len(bodies), bsz):
+        t = time.perf_counter()
+        resp = ex.multi_search(bodies[lo:lo + bsz])
+        batches.append((time.perf_counter() - t) * 1e3)
+        pages += [[int(h["_id"][1:]) for h in r["hits"]["hits"]]
+                  for r in resp["responses"]]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"knn {cell}: launches {json.dumps(launches)}")
+    _require_launched(launches, ("masked_topk", "knn_topk_mark")
+                      + (("ivf_probe", "ivf_block_keys", "kmeans_step")
+                         if cell == "ivf"
+                         else ("knn_exact",)), f"k-NN {cell}")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+    out.update({"search_p50_ms": pct(single, 50),
+                "search_p99_ms": pct(single, 99),
+                "msearch32_p50_ms": pct(batches, 50),
+                "msearch32_p99_ms": pct(batches, 99),
+                "msearch32_qps": bsz * 1e3 / pct(batches, 50)})
+    log(f"knn {cell}: B=1 _search wall ms p50 {out['search_p50_ms']:.3f} "
+        f"p99 {out['search_p99_ms']:.3f} over {len(single)}; B={bsz} "
+        f"_msearch wall ms p50 {out['msearch32_p50_ms']:.3f} p99 "
+        f"{out['msearch32_p99_ms']:.3f} over {len(batches)} batches "
+        f"({out['msearch32_qps']:.1f} queries/s at p50); card: {card}")
+    out.update(profile_waves(torch, ex, bodies[:6 * bsz], out_dir,
+                             f"knn_{cell}"))
+    if cell == "exact":
+        t0 = time.perf_counter()
+        recall, ties = _exact_recall(np, vecs, queries, pages)
+        out["recall_at_10"] = recall
+        out["f32_ties"] = ties
+        log(f"knn exact: recall@10 {recall} against an f64 brute force "
+            f"over {len(pages)} queries ({time.perf_counter() - t0:.3f} s); "
+            f"f32 ties {ties}")
+        if recall + len(ties) / (10 * len(pages)) < 1.0:
+            raise AssertionError("exact recall@10 below 1.0")
+    else:
+        exact_pages = []
+        for lo in range(0, len(bodies), bsz):
+            resp = ex.multi_search([
+                {"query": {"knn": {"vec": {
+                    **b["query"]["knn"]["vec"],
+                    "filter": {"match_all": {}}}}}, "size": 10}
+                for b in bodies[lo:lo + bsz]])
+            exact_pages += [{int(h["_id"][1:]) for h in r["hits"]["hits"]}
+                            for r in resp["responses"]]
+        recall = float(np.mean([len(set(p) & e) / 10
+                                for p, e in zip(pages, exact_pages)]))
+        out["recall_at_10"] = recall
+        log(f"knn ivf: recall@10 {recall} against the exact kernel's pages "
+            f"over {len(pages)} queries (nprobes 32 of 256 lists)")
+        if recall < 0.9:
+            raise AssertionError(f"IVF recall@10 {recall} < 0.9")
+    # two pages against the plain versions (the same segment on the CPU)
+    cpu_reader = ShardReader(mapper, "cpu", index_name=f"knn_{cell}")
+    cpu_reader.add_segment(seg)
+    cpu_ex = SearchExecutor(cpu_reader)
+    for b in bodies[:2]:
+        parity.assert_same_response(ex.search(b), cpu_ex.search(b),
+                                    f"knn {cell}")
+    log(f"knn {cell}: 2 sampled pages equal the plain versions'")
+    del cpu_reader, cpu_ex, reader, ex
+    torch.cuda.empty_cache()
+    return out
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -908,11 +1330,13 @@ def main(argv) -> int:
         f"built in {time.perf_counter() - t0:.3f} s")
     arrays, meta = upload_segment(seg, dev)
     agg_mapper, agg_seg = agg_segment(np, AGG_SCALE_DOCS)
+    corpora = knn_corpora(np)
 
     # phase 2: kernels against their plain versions on the card
     results = phase_kernels(torch, np, seg, mapper, arrays, meta, dev)
     del arrays
     results.update(phase_agg_kernels(torch, np, agg_mapper, agg_seg, dev))
+    results.update(phase_knn_kernels(torch, np, corpora, dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -922,12 +1346,19 @@ def main(argv) -> int:
     agg_scale = phase_agg_scale(torch, np, agg_mapper, agg_seg, dev,
                                 out_dir)
     log("agg scale: " + json.dumps(agg_scale))
+    del agg_seg
+    # phases 6 and 7: the k-NN cells
+    for cell in ("exact", "ivf"):
+        res = phase_knn_cell(torch, np, cell, corpora, dev, card, out_dir)
+        log(f"knn {cell}: " + json.dumps(res))
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
     # identity range, K5 the fused cardinality, K6 the avg sums)
     pick = {"bm25_candidate": 4, "score_text_clause": 1, "masked_topk": 4,
-            "pairs_match": 0, "binned_popcount": 0, "binned_reduce": 0}
+            "pairs_match": 0, "binned_popcount": 0, "binned_reduce": 0,
+            "knn_exact": 0, "knn_topk_mark": 0, "ivf_probe": 0,
+            "ivf_block_keys": 0, "kmeans_step": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -943,9 +1374,19 @@ def main(argv) -> int:
             "opensearch_tpu/search/aggs/engine.py:1108"),
         "binned_reduce": ("opensearch_tpu_torch/ops/csrc/binned_reduce.cu",
                           "opensearch_tpu/search/aggs/engine.py:1146"),
+        "knn_exact": ("opensearch_tpu_torch/ops/csrc/knn_exact.cu",
+                      "opensearch_tpu/ops/knn.py:38"),
+        "knn_topk_mark": ("opensearch_tpu_torch/ops/csrc/knn_exact.cu",
+                          "opensearch_tpu/ops/knn.py:68"),
+        "ivf_probe": ("opensearch_tpu_torch/ops/csrc/ivf_probe.cu",
+                      "opensearch_tpu/ops/knn.py:200"),
+        "ivf_block_keys": ("opensearch_tpu_torch/ops/csrc/ivf_probe.cu",
+                           "opensearch_tpu/ops/knn.py:218"),
+        "kmeans_step": ("opensearch_tpu_torch/ops/csrc/kmeans_step.cu",
+                        "opensearch_tpu/ops/knn.py:120"),
     }
     kernels = []
-    for name in _build.KERNELS:
+    for name in _build.LAUNCHES:
         rec = results[name][pick[name]]
         src, replaces = meta_of[name]
         kernels.append({"name": name, "route": "cuda", "source": src,

@@ -38,8 +38,13 @@ class EngineResult:
 
 
 class InternalEngine:
-    def __init__(self, mapper: MapperService, primary_term: int = 1):
+    def __init__(self, mapper: MapperService, primary_term: int = 1,
+                 device=None):
+        """`device` is where a refresh builds what sealing computes (the
+        IVF k-means of ANN vector fields): the card unless the caller names
+        another."""
         self.mapper = mapper
+        self.device = device
         self.primary_term = primary_term
         self._lock = threading.RLock()
         self._seg_counter = 0
@@ -119,7 +124,7 @@ class InternalEngine:
                 self._pending_seal_deletes = []
             new_seg: Optional[Segment] = None
             if len(self.builder):
-                new_seg = self.builder.seal()
+                new_seg = self.builder.seal(device=self.device)
                 # within-buffer supersession: only the last ord per id
                 # stays live, and none of an id deleted after it
                 for ord_ in range(new_seg.num_docs):

@@ -8,6 +8,9 @@ opensearch_tpu.index.mapper the port needs).
 - numeric/date/boolean -> f64 doc-value columns; range/term queries compile
                     to rank compares on the column. Booleans also index
                     "true"/"false" postings and an ordinal column.
+- knn_vector / dense_vector -> one [dims] f32 row per doc in a matrix
+                    column, searched by `knn` (exact scan, or an IVF probe
+                    over lists built at seal time).
 
 Objects map to dotted sub-fields and `fields` declares multi-fields, as in
 the reference. Other field types are not ported yet: mapping one raises a
@@ -35,8 +38,9 @@ KEYWORD_TYPES = {"keyword"}
 NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float"}
 DATE_TYPES = {"date"}
 BOOL_TYPES = {"boolean"}
+VECTOR_TYPES = {"knn_vector", "dense_vector"}
 PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES | DATE_TYPES
-                | BOOL_TYPES)
+                | BOOL_TYPES | VECTOR_TYPES)
 DEFAULT_MAPPING_LIMIT = 1000  # index.mapping.total_fields.limit default
 
 _INT_BOUNDS = {
@@ -111,6 +115,11 @@ class MappedFieldType:
     index: bool = True
     doc_values: bool = True
     fmt: Optional[str] = None            # date format
+    dims: int = 0                        # vectors
+    similarity_space: str = "l2"         # l2 | cosinesimil | innerproduct
+    knn_method: str = "exact"            # exact | ivf (hnsw maps to ivf)
+    knn_nlist: int = 128                 # ivf: number of centroids
+    knn_nprobe: int = 0                  # ivf: default probes (0 -> nlist/8)
     ignore_above: Optional[int] = None
     null_value: Any = None
 
@@ -133,6 +142,10 @@ class MappedFieldType:
     @property
     def is_bool(self) -> bool:
         return self.type in BOOL_TYPES
+
+    @property
+    def is_vector(self) -> bool:
+        return self.type in VECTOR_TYPES
 
     @property
     def has_ordinals(self) -> bool:
@@ -197,6 +210,7 @@ class ParsedField:
     length: int = 0                                 # token count for norms
     exact_values: Optional[List[str]] = None        # keyword exact terms
     numeric_values: Optional[List[float]] = None    # numeric/date/bool values
+    vector: Optional[List[float]] = None            # knn_vector row
 
 
 @dataclass
@@ -262,16 +276,35 @@ class MapperService:
             raise IllegalArgumentError(
                 f"Limit of total fields [{self.total_fields_limit}] has been "
                 f"exceeded")
+        dims = 0
+        if ftype in VECTOR_TYPES:
+            dims = int(spec.get("dimension", spec.get("dims", 0)))
+            if dims <= 0:
+                raise MapperParsingError(
+                    f"dimension must be set for vector field [{full_name}]")
         analyzer = spec.get("analyzer", "standard")
         if not self.analysis.has(analyzer):
             raise MapperParsingError(
                 f"analyzer [{analyzer}] has not been configured in mappings")
+        method_spec = spec.get("method", {}) or {}
+        space = method_spec.get("space_type", spec.get("space_type", "l2"))
+        # HNSW's graph walk has no dense equivalent: it maps to IVF
+        method_name = method_spec.get("name", "exact")
+        if method_name in ("hnsw", "ivf"):
+            method_name = "ivf"
+        method_params = method_spec.get("parameters", {}) or {}
         self.field_types[full_name] = MappedFieldType(
             name=full_name, type=ftype, analyzer=analyzer,
             search_analyzer=spec.get("search_analyzer"),
             index=bool(spec.get("index", True)),
             doc_values=bool(spec.get("doc_values", True)),
             fmt=spec.get("format"),
+            dims=dims,
+            similarity_space=space,
+            knn_method=method_name,
+            knn_nlist=int(method_params.get("nlist", 128)),
+            knn_nprobe=int(method_params.get("nprobes",
+                                             method_params.get("nprobe", 0))),
             ignore_above=spec.get("ignore_above"),
             null_value=spec.get("null_value"))
         for sub_name, sub_spec in spec.get("fields", {}).items():
@@ -386,6 +419,19 @@ class MapperService:
                 1.0 if b else 0.0 for b in bools]
             pf.exact_values = (pf.exact_values or []) + [
                 "true" if b else "false" for b in bools]
+        elif ft.is_vector:
+            if isinstance(value, list) and all(isinstance(v, (int, float))
+                                               for v in value):
+                vec = [float(v) for v in value]
+            else:
+                raise MapperParsingError(
+                    f"failed to parse vector field [{name}]: expected array "
+                    f"of numbers")
+            if len(vec) != ft.dims:
+                raise MapperParsingError(
+                    f"Vector dimension mismatch for field [{name}]: "
+                    f"expected {ft.dims}, got {len(vec)}")
+            pf.vector = vec
 
     def get_field(self, name: str) -> Optional[MappedFieldType]:
         return self.field_types.get(name)

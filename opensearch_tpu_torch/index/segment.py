@@ -8,7 +8,9 @@ blocks. Norms are Lucene's SmallFloat bytes, decoded at score time through
 the 256-entry LENGTH_TABLE. Doc values are value-pair columns sorted by
 doc: numeric/date/boolean values rank-encoded into a sorted f64 `unique`
 table (`DocValuesColumn`), keyword values ordinal-encoded into a sorted
-dictionary (`OrdinalsColumn`). Deletes are a liveness bitmap. The layout is
+dictionary (`OrdinalsColumn`). Vectors are a dense f32 `[D, dims]` matrix
+per field (`VectorColumn`), with an IVF index built at seal time for ANN
+mappings. Deletes are a liveness bitmap. The layout is
 byte-for-byte the reference's, so `segment_from_arrays` can carry a sealed
 reference segment across unchanged.
 """
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -173,6 +175,13 @@ class OrdinalsColumn:
     ord_hashes: np.ndarray   # uint64 [card] hash per dictionary entry
 
 
+@dataclass
+class VectorColumn:
+    vectors: np.ndarray      # float32 [D, dims]
+    exists: np.ndarray       # bool [D]
+    ivf: Any = None          # Optional[opensearch_tpu_torch.ops.knn.IVFIndex]
+
+
 def _hash64(s: str) -> int:
     """Stable 64-bit hash of a dictionary entry (seal time)."""
     return int.from_bytes(hashlib.blake2b(s.encode("utf-8"),
@@ -191,7 +200,8 @@ class Segment:
                  field_stats: Dict[str, FieldStats],
                  parent_ptr: Optional[np.ndarray] = None,
                  numeric_dv: Optional[Dict[str, DocValuesColumn]] = None,
-                 ordinal_dv: Optional[Dict[str, OrdinalsColumn]] = None):
+                 ordinal_dv: Optional[Dict[str, OrdinalsColumn]] = None,
+                 vector_dv: Optional[Dict[str, VectorColumn]] = None):
         self.seg_id = seg_id
         self.num_docs = num_docs
         self.doc_ids = doc_ids
@@ -203,6 +213,7 @@ class Segment:
         self.field_stats = field_stats
         self.numeric_dv = numeric_dv or {}
         self.ordinal_dv = ordinal_dv or {}
+        self.vector_dv = vector_dv or {}
         self.live = np.ones(num_docs, dtype=bool)
         # block-join layout: parent row per row (-1 = root). This slice
         # indexes root documents only, so every row is a root.
@@ -229,6 +240,23 @@ class Segment:
     def get_term(self, field: str, term: str) -> Optional[TermMeta]:
         return self.term_dict.get((field, term))
 
+    def memory_bytes(self) -> int:
+        """Host bytes of the segment's columns (postings, norms, doc
+        values, vectors)."""
+        total = self.post_docs.nbytes + self.post_tf.nbytes
+        for arr in self.norms.values():
+            total += arr.nbytes
+        for col in self.numeric_dv.values():
+            total += (col.doc_ids.nbytes + col.values.nbytes
+                      + col.exists.nbytes + col.counts.nbytes
+                      + col.value_ords.nbytes + col.unique.nbytes)
+        for col in self.ordinal_dv.values():
+            total += (col.doc_ids.nbytes + col.ords.nbytes
+                      + col.exists.nbytes + col.ord_hashes.nbytes)
+        for col in self.vector_dv.values():
+            total += col.vectors.nbytes + col.exists.nbytes
+        return total
+
 
 def segment_from_arrays(arrays: dict) -> Segment:
     """Build the port's Segment from a sealed segment given as plain numpy
@@ -248,6 +276,11 @@ def segment_from_arrays(arrays: dict) -> Segment:
       unique}} (optional): DocValuesColumn fields as arrays
     - ordinal_dv: {field: {doc_ids, ords, exists, dictionary,
       ord_hashes}} (optional): OrdinalsColumn fields
+    - vector_dv: {field: {vectors, exists, ivf}} (optional): float32
+      [num_docs, dims] rows and their bool [num_docs] presence; `ivf` is
+      None, an IVFIndex or {centroids, lists, block_centroid, nlist,
+      nprobe}. A doc ord may stand in the lists once at most: the probe
+      stores each candidate's score without atomics.
     """
     n = int(arrays["num_docs"])
     post_docs = np.ascontiguousarray(arrays["post_docs"], dtype=np.int32)
@@ -317,16 +350,47 @@ def segment_from_arrays(arrays: dict) -> Segment:
                              f"ord) pairs sorted by doc, inside the segment "
                              f"and the dictionary")
         ordinal_dv[f] = col
+    vector_dv = {f: _vector_column(f, c, n)
+                 for f, c in (arrays.get("vector_dv") or {}).items()}
     seg = Segment(str(arrays["seg_id"]), n, list(arrays["doc_ids"]),
                   list(arrays["sources"]), term_dict, post_docs, post_tf,
                   norms, field_stats,
                   parent_ptr=None if parent_ptr is None
                   else np.asarray(parent_ptr, dtype=np.int32),
-                  numeric_dv=numeric_dv, ordinal_dv=ordinal_dv)
+                  numeric_dv=numeric_dv, ordinal_dv=ordinal_dv,
+                  vector_dv=vector_dv)
     live = arrays.get("live")
     if live is not None:
         seg.live = np.array(live, dtype=bool)
     return seg
+
+
+def _vector_column(field: str, c: dict, n: int) -> VectorColumn:
+    """One `vector_dv` entry of segment_from_arrays, checked."""
+    from opensearch_tpu_torch.ops.knn import IVF_BLOCK, ivf_index_from
+    vectors = np.ascontiguousarray(c["vectors"], dtype=np.float32)
+    exists = np.ascontiguousarray(c["exists"], dtype=bool)
+    if vectors.ndim != 2 or vectors.shape[0] != n or exists.shape != (n,):
+        raise ValueError(f"vectors of [{field}] must be [{n}, dims] with a "
+                         f"[{n}] exists mask, got {vectors.shape} and "
+                         f"{exists.shape}")
+    ivf = ivf_index_from(c.get("ivf"))
+    if ivf is not None:
+        nlist = ivf.centroids.shape[0]
+        nb = ivf.block_centroid.shape[0]
+        if ivf.centroids.shape != (nlist, vectors.shape[1]) \
+                or ivf.lists.shape != (nb, IVF_BLOCK) or nb == 0 \
+                or ivf.block_centroid.min() < 0 \
+                or ivf.block_centroid.max() >= nlist:
+            raise ValueError(f"IVF index of [{field}] must hold [nlist, "
+                             f"dims] centroids, [n_blocks, {IVF_BLOCK}] "
+                             f"lists and an owning centroid per block")
+        ids = ivf.lists[ivf.lists >= 0]
+        if len(ids) and (ids.max() >= n or np.any(
+                np.bincount(ids, minlength=n) > 1)):
+            raise ValueError(f"IVF lists of [{field}] must name docs of the "
+                             f"segment, each at most once")
+    return VectorColumn(vectors, exists, ivf)
 
 
 # ------------------------------------------------------------ the builder ----
@@ -345,6 +409,7 @@ class SegmentBuilder:
         self._field_lengths: Dict[str, Dict[int, int]] = {}
         self._numeric: Dict[str, List[Tuple[int, float]]] = {}
         self._ordinal_raw: Dict[str, List[Tuple[int, str]]] = {}
+        self._vectors: Dict[str, Dict[int, List[float]]] = {}
         self._field_stats: Dict[str, FieldStats] = {}
 
     def __len__(self):
@@ -393,9 +458,14 @@ class SegmentBuilder:
             if pf.numeric_values is not None and ft.doc_values:
                 nums = self._numeric.setdefault(field, [])
                 nums.extend((ord_, v) for v in pf.numeric_values)
+            if pf.vector is not None:
+                self._vectors.setdefault(field, {})[ord_] = pf.vector
         return ord_
 
-    def seal(self) -> Segment:
+    def seal(self, device=None) -> Segment:
+        """The immutable columnar segment. An ANN (`ivf`) vector field with
+        at least 256 vectors gets its IVF index here: the k-means runs on
+        `device` (the card unless the caller names another)."""
         n_docs = len(self.doc_ids)
         term_dict: Dict[Tuple[str, str], TermMeta] = {}
         rows_docs: List[np.ndarray] = []
@@ -470,7 +540,23 @@ class SegmentBuilder:
             ordinal_dv[field] = OrdinalsColumn(doc_arr, ords, exists,
                                                dictionary, hashes)
 
+        # vectors: dense [D, dims]; IVF built at seal for ANN mappings
+        vector_dv: Dict[str, VectorColumn] = {}
+        for field, rows in self._vectors.items():
+            ft = self.mapper.get_field(field)
+            mat = np.zeros((n_docs, ft.dims), dtype=np.float32)
+            exists = np.zeros(n_docs, dtype=bool)
+            for ord_, vec in rows.items():
+                mat[ord_] = np.asarray(vec, dtype=np.float32)
+                exists[ord_] = True
+            col = VectorColumn(mat, exists)
+            if ft.knn_method == "ivf" and int(exists.sum()) >= 256:
+                from opensearch_tpu_torch.ops.knn import build_ivf
+                col.ivf = build_ivf(mat, exists, nlist=ft.knn_nlist,
+                                    nprobe=ft.knn_nprobe, device=device)
+            vector_dv[field] = col
+
         return Segment(self.seg_id, n_docs, list(self.doc_ids),
                        list(self.sources), term_dict, post_docs, post_tf,
                        norms, self._field_stats, numeric_dv=numeric_dv,
-                       ordinal_dv=ordinal_dv)
+                       ordinal_dv=ordinal_dv, vector_dv=vector_dv)

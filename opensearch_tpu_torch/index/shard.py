@@ -15,7 +15,7 @@ class IndexShard:
                  device: torch.device, index_name: str = "_index"):
         self.shard_id = shard_id
         self.index_name = index_name
-        self.engine = InternalEngine(mapper)
+        self.engine = InternalEngine(mapper, device=device)
         self.reader = ShardReader(mapper, device, index_name=index_name)
         self.executor = SearchExecutor(self.reader)
 

@@ -23,16 +23,20 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
-           "pairs_match", "binned_popcount", "binned_reduce")
+           "pairs_match", "binned_popcount", "binned_reduce", "knn_exact",
+           "ivf_probe", "kmeans_step")
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-# launches of each kernel: a wrapper adds one where it calls the kernel's C
-# entry point, and nowhere else (plain-version calls do not count)
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# launches of each C entry point: a wrapper adds one where it calls the
+# entry, and nowhere else (plain-version calls do not count). A library's
+# main entry shares its name; knn_exact.cu also holds knn_topk_mark and
+# ivf_probe.cu ivf_block_keys.
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, "knn_topk_mark",
+                                                  "ivf_block_keys")}
 # compiler output (ptxas register / shared-memory report) of the last build
 # of each library (empty until one ran)
 BUILD_LOG: Dict[str, str] = {}
@@ -61,7 +65,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers of csrc/ count as part of every source
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -114,22 +120,23 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, argtypes):
-    """The kernel's C entry point `name` (same name as its library), with
-    its argument types declared once."""
+def entry(name: str, argtypes, lib: str = None):
+    """The C entry point `name` of library `lib` (by default the one of the
+    same name), with its argument types declared once."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        fn = getattr(library(name), name)
+        fn = getattr(library(lib or name), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn
 
 
-def check(name: str, code: int) -> None:
+def check(name: str, code: int, lib: str = None) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if code != 0:
-        msg = getattr(library(name), f"{name}_error_string")(code)
+        lib = lib or name
+        msg = getattr(library(lib), f"{lib}_error_string")(code)
         raise RuntimeError(f"CUDA kernel {name} failed: "
                            f"{msg.decode(errors='replace')} (error {code})")
 

@@ -12,7 +12,12 @@ values:
   `values_f32` float32 `[NVp]` (padded -1 / 0 / 0), per-doc `exists` bool,
   `min_rank` / `max_rank` int32 `[Dp]` (INT32_MAX / -1 where absent), and
   the rank -> value decode table `unique_f32` `[Up]`;
-- `ordinal[field]`: `doc_ids` / `ords` int32 `[NVp]` and `exists` `[Dp]`.
+- `ordinal[field]`: `doc_ids` / `ords` int32 `[NVp]` and `exists` `[Dp]`;
+- `vector[field]`: `vectors` float32 `[Dp, dims]` (zero rows past the
+  segment) and `exists` bool `[Dp]`; for an IVF field also
+  `ivf_centroids` `[nlist, dims]`, `ivf_block_centroid` int32 `[n_blocks]`
+  and the list-major packed copy `ivf_packed_vecs` `[n_blocks * 256,
+  dims]` / `ivf_packed_ids` int32 `[n_blocks * 256]` (-1 padding).
 
 The image is built host-side in numpy and uploaded once to the chosen
 device.
@@ -29,6 +34,7 @@ import torch
 from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, Segment,
                                                 block_score_bounds,
                                                 pad_bucket)
+from opensearch_tpu_torch.ops.knn import pack_ivf_lists
 
 INT32_MAX = np.int32(2 ** 31 - 1)
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -51,6 +57,7 @@ class DeviceSegmentMeta:
     norm_rows: Tuple[Tuple[str, int], ...]   # field -> row in norms stack
     numeric_fields: Tuple[str, ...] = ()
     ordinal_fields: Tuple[str, ...] = ()
+    vector_fields: Tuple[str, ...] = ()
     block_bounds: bool = True
 
     def norm_row(self, field: str) -> Optional[int]:
@@ -63,7 +70,8 @@ class DeviceSegmentMeta:
         """Every shape-shaping fact of the image, seg_id excluded: two
         segments equal on this key run the same kernel configurations."""
         return (self.num_docs, self.d_pad, self.nb_pad, self.norm_rows,
-                self.numeric_fields, self.ordinal_fields, self.block_bounds)
+                self.numeric_fields, self.ordinal_fields,
+                self.vector_fields, self.block_bounds)
 
 
 def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
@@ -106,6 +114,7 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
         "nested_path": nested_path,
         "numeric": {},
         "ordinal": {},
+        "vector": {},
     }
 
     for fname, col in seg.numeric_dv.items():
@@ -146,11 +155,26 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
         arrays["ordinal"][fname] = {"doc_ids": doc_ids, "ords": ords,
                                     "exists": exists}
 
+    for fname, col in seg.vector_dv.items():
+        vecs = np.zeros((d_pad, col.vectors.shape[1]), dtype=np.float32)
+        vecs[:seg.num_docs] = col.vectors
+        exists = np.zeros(d_pad, dtype=bool)
+        exists[:seg.num_docs] = col.exists
+        entry = {"vectors": vecs, "exists": exists}
+        if col.ivf is not None:
+            packed, flat_ids = pack_ivf_lists(col.vectors, col.ivf.lists)
+            entry["ivf_centroids"] = np.array(col.ivf.centroids)
+            entry["ivf_block_centroid"] = np.array(col.ivf.block_centroid)
+            entry["ivf_packed_vecs"] = packed
+            entry["ivf_packed_ids"] = flat_ids
+        arrays["vector"][fname] = entry
+
     meta = DeviceSegmentMeta(
         seg_id=seg.seg_id, num_docs=seg.num_docs, d_pad=d_pad, nb_pad=nb_pad,
         norm_rows=tuple((f, i) for i, f in enumerate(norm_fields)),
         numeric_fields=tuple(sorted(seg.numeric_dv)),
-        ordinal_fields=tuple(sorted(seg.ordinal_dv)))
+        ordinal_fields=tuple(sorted(seg.ordinal_dv)),
+        vector_fields=tuple(sorted(seg.vector_dv)))
     return arrays, meta
 
 

@@ -21,6 +21,9 @@ import torch
 from opensearch_tpu_torch.ops import _build
 
 NEG_INF = float("-inf")
+# the largest k the kernel selects (its last pass sorts the k winners of a
+# row in shared memory)
+MAX_K = 1 << 14
 
 
 def stable_topk(keys: torch.Tensor, k: int):
@@ -73,7 +76,7 @@ def masked_topk(scores, matches, live, root, num_docs: int, min_score,
                                  min_score, k)
     bsz, d_pad = scores.shape
     dev = scores.device
-    if not 0 <= k <= d_pad or k > (1 << 14):
+    if not 0 <= k <= d_pad or k > MAX_K:
         raise ValueError(f"masked_topk takes 0 <= k <= min(Dp, 16384), "
                          f"got k={k} with Dp={d_pad}")
     for t, dt, shape, what in ((scores, torch.float32, (bsz, d_pad), "scores"),

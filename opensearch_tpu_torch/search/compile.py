@@ -21,7 +21,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 
 from opensearch_tpu_torch.analysis.registry import analyze_query_text
-from opensearch_tpu_torch.common.errors import QueryShardError
+from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
+                                                QueryShardError)
 from opensearch_tpu_torch.index.mapper import (MapperService,
                                                MappedFieldType,
                                                parse_date_millis)
@@ -29,6 +30,8 @@ from opensearch_tpu_torch.index.segment import (Segment, ident_pairs,
                                                 pad_bucket)
 from opensearch_tpu_torch.ops.bm25 import idf as bm25_idf
 from opensearch_tpu_torch.ops.device_segment import DeviceSegmentMeta
+from opensearch_tpu_torch.ops.knn import ivf_budget
+from opensearch_tpu_torch.ops.topk import MAX_K
 from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.dsl import parse_minimum_should_match
 
@@ -299,11 +302,56 @@ class Compiler:
         if field in seg.ordinal_dv:
             return Plan("exists", static=("ordinal", field),
                         inputs={"boost": _f32(node.boost)})
+        if field in seg.vector_dv:
+            return Plan("exists", static=("vector", field),
+                        inputs={"boost": _f32(node.boost)})
         row = meta.norm_row(field)
         if row is not None:
             return Plan("exists", static=("norms", row),
                         inputs={"boost": _f32(node.boost)})
         return MATCH_NONE
+
+    def _c_KnnQuery(self, node: dsl.KnnQuery, seg, meta) -> Plan:
+        """k-NN query -> the exact scan (K7) or the IVF probe (K8), then
+        the k best eligible docs of the segment (the k-NN plugin's per-
+        segment KNNQuery). A `filter` restricts eligibility before the
+        top-k, and a filtered query always scans exactly, so its top-k
+        stays exact."""
+        ft = self.mapper.get_field(node.field)
+        if ft is None or not ft.is_vector:
+            raise QueryShardError(
+                f"field [{node.field}] is not a knn_vector field")
+        col = seg.vector_dv.get(node.field)
+        if col is None:
+            return MATCH_NONE
+        q = np.asarray(list(node.vector), dtype=np.float32)
+        if q.shape != (ft.dims,):
+            raise IllegalArgumentError(
+                f"query vector has dimension {q.shape[0]} but field "
+                f"[{node.field}] expects {ft.dims}")
+        # the k best docs of a segment and an IVF probe's best blocks are
+        # both K3 selections, which take at most MAX_K winners per row
+        if min(int(node.k), meta.d_pad) > MAX_K:
+            raise IllegalArgumentError(
+                f"[knn] k must be at most {MAX_K}, got {node.k}")
+        use_ivf = col.ivf is not None and node.filter is None
+        nprobe = 0
+        if use_ivf:
+            nprobe = node.nprobe or col.ivf.nprobe
+            budget = ivf_budget(nprobe, col.ivf.centroids.shape[0],
+                                col.ivf.lists.shape[0])
+            if budget > MAX_K:
+                raise IllegalArgumentError(
+                    f"[knn] an IVF probe of field [{node.field}] would read "
+                    f"{budget} blocks, more than {MAX_K}: lower nprobes")
+        children = []
+        if node.filter is not None:
+            children.append(self.compile(node.filter, seg, meta))
+        return Plan("knn",
+                    static=(node.field, int(node.k), ft.similarity_space,
+                            "ivf" if use_ivf else "exact", int(nprobe)),
+                    inputs={"query": q, "boost": _f32(node.boost)},
+                    children=children)
 
     def _c_DisMaxQuery(self, node: dsl.DisMaxQuery, seg, meta) -> Plan:
         children = [self.compile(c, seg, meta) for c in node.queries]

@@ -1,8 +1,8 @@
 """Query DSL: `match`, `term`, `terms` (text, keyword, numeric, date and
-boolean values), `range`, `exists`, `match_all`, `match_none`, `bool` and
-`dis_max` (the subset of opensearch_tpu.search.dsl the port needs), with
-the reference's REST wire shapes and error types. Any other query kind
-raises the reference's parsing error."""
+boolean values), `range`, `exists`, `match_all`, `match_none`, `bool`,
+`dis_max` and `knn` (the subset of opensearch_tpu.search.dsl the port
+needs), with the reference's REST wire shapes and error types. Any other
+query kind raises the reference's parsing error."""
 
 from __future__ import annotations
 
@@ -68,6 +68,15 @@ class ExistsQuery(QueryNode):
 class DisMaxQuery(QueryNode):
     queries: List[QueryNode] = dc_field(default_factory=list)
     tie_breaker: float = 0.0
+
+
+@dataclass
+class KnnQuery(QueryNode):
+    field: str = ""
+    vector: Sequence[float] = ()
+    k: int = 10
+    filter: Optional[QueryNode] = None
+    nprobe: int = 0          # IVF probe override (method_parameters.nprobes)
 
 
 @dataclass
@@ -184,6 +193,16 @@ def parse_query(q: Any) -> QueryNode:
         return DisMaxQuery(queries=_as_list(body.get("queries")),
                            tie_breaker=float(body.get("tie_breaker", 0.0)),
                            boost=float(body.get("boost", 1.0)))
+
+    if name == "knn":
+        field, spec = _field_body(body, "knn")
+        mp = spec.get("method_parameters", {}) or {}
+        return KnnQuery(field=field, vector=list(spec.get("vector", [])),
+                        k=int(spec.get("k", 10)),
+                        filter=parse_query(spec["filter"])
+                        if "filter" in spec else None,
+                        nprobe=int(mp.get("nprobes", mp.get("nprobe", 0))),
+                        boost=float(spec.get("boost", 1.0)))
 
     if name == "bool":
         return BoolQuery(

@@ -1,10 +1,11 @@
 """Evaluation of compiled plans on a batch of B queries against one segment
 (the subset of opensearch_tpu.search.plan_eval the port needs):
 `match_all`, `match_none`, `text` (through K2), the doc-value filters
-`num_terms` / `range_num` / `range_ord` (through K4), `exists`, `bool`,
-`dis_max` and `const_score`, as elementwise torch ops on [B, Dp] tensors.
-Plan inputs arrive stacked: per-query scalars are [B], per-lane inputs
-[B, QB], rank masks [B, Up]."""
+`num_terms` / `range_num` / `range_ord` (through K4), `exists`, `knn`
+(through K7 or K8, then K3), `bool`, `dis_max` and `const_score`, as
+elementwise torch ops on [B, Dp] tensors. Plan inputs arrive stacked:
+per-query scalars are [B], per-lane inputs [B, QB], rank masks [B, Up],
+query vectors [B, dims]."""
 
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from opensearch_tpu_torch.common.errors import QueryShardError
 from opensearch_tpu_torch.ops.bm25 import (ordinal_terms_match,
                                            range_match_on_ranks,
                                            score_text_clause)
+from opensearch_tpu_torch.ops.knn import (exact_knn_scores, ivf_knn_scores,
+                                          knn_match_topk)
 from opensearch_tpu_torch.search.compile import Plan
 
 
@@ -69,6 +72,27 @@ def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],
             exists = seg[ctype][key]["exists"]
         matches = exists[None, :].expand(bsz, d_pad).contiguous()
         return torch.where(matches, my["boost"][:, None], 0.0), matches
+
+    if kind == "knn":
+        field, k, space, method, nprobe = plan.static
+        col = seg["vector"][field]
+        eligible = (col["exists"] & seg["live"])[None, :].expand(
+            bsz, d_pad)
+        if plan.children:
+            _, fmatches = _eval_plan(plan.children[0], seg, inputs, cursor,
+                                     bsz)
+            eligible = eligible & fmatches
+        if method == "ivf":
+            scores, cand = ivf_knn_scores(
+                col["ivf_packed_vecs"], col["ivf_packed_ids"],
+                col["ivf_centroids"], col["ivf_block_centroid"], d_pad,
+                my["query"], space, nprobe)
+            eligible = eligible & cand
+        else:
+            scores = exact_knn_scores(col["vectors"], my["query"], space)
+        scores, matches = knn_match_topk(scores, eligible.contiguous(),
+                                         seg["live"], k)
+        return scores * my["boost"][:, None], matches
 
     if kind == "dis_max":
         child = [_eval_plan(c, seg, inputs, cursor, bsz)

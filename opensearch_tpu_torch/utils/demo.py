@@ -5,7 +5,10 @@ An msmarco-passage-shaped workload (zipfian vocabulary, ~60-token passages)
 made from a seed: `synth_docs` draws the reference's exact random stream, so
 one seed gives the same documents in both packages. `DEMO_MAPPING` and
 `build_shards` index every field of those documents: `body` (text), `tag`
-(keyword), `views` (integer) and `ts` (date).
+(keyword), `views` (integer) and `ts` (date). `clustered_vectors` draws
+the clustered k-NN corpus of the reference's k-NN benchmark (the same
+random stream), and `vector_segment` seals such vectors into a one-field
+shard at million-vector scale.
 """
 
 from __future__ import annotations
@@ -145,6 +148,53 @@ def query_terms(n_queries: int, vocab_size: int = 5000, seed: int = 7,
         ids = rng.integers(lo, hi, size=terms_per_query)
         out.append(" ".join(f"w{i:05d}" for i in ids))
     return out
+
+
+def clustered_vectors(n: int, dims: int, n_centers: int = 256,
+                      seed: int = 11, n_queries: int = 0
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """A clustered vector corpus (SIFT / GloVe-like local structure):
+    f32 [n, dims] points around n_centers Gaussian centers (scale 4, unit
+    noise), then f32 [n_queries, dims] queries drawn the same way from the
+    same np.random.RandomState stream, after the corpus. The reference's
+    k-NN benchmark draws exactly this stream."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(n_centers, dims).astype(np.float32) * 4
+    assign = rng.randint(0, n_centers, size=n)
+    vectors = centers[assign] + rng.randn(n, dims).astype(np.float32)
+    queries = (centers[rng.randint(0, n_centers, size=n_queries)]
+               + rng.randn(n_queries, dims).astype(np.float32))
+    return vectors, queries
+
+
+def vector_segment(vectors: np.ndarray, space: str = "l2", ivf=None,
+                   field: str = "vec", seg_id: str = "v0"
+                   ) -> Tuple[MapperService, Segment]:
+    """One shard holding `vectors` (f32 [n, dims]) as the knn_vector field
+    `field` of docs d0..d{n-1}, sealed through segment_from_arrays without
+    the per-doc parse loop and with `_source` off. Given an IVF index (an
+    IVFIndex), the field maps as an `ivf` method with its nlist and
+    nprobes and carries that index; otherwise it is exact."""
+    n, dims = vectors.shape
+    method_spec = {"space_type": space}
+    if ivf is not None:
+        method_spec = {"name": "ivf", "space_type": space,
+                       "parameters": {"nlist": ivf.nlist,
+                                      "nprobes": ivf.nprobe}}
+    mapper = MapperService({"properties": {field: {
+        "type": "knn_vector", "dimension": dims, "method": method_spec}}})
+    arrays = {
+        "seg_id": seg_id, "num_docs": n,
+        "doc_ids": [f"d{i}" for i in range(n)], "sources": [None] * n,
+        "term_dict": {},
+        "post_docs": np.full((1, 128), -1, np.int32),
+        "post_tf": np.zeros((1, 128), np.float32),
+        "norms": {}, "field_stats": {},
+        "vector_dv": {field: {"vectors": vectors,
+                              "exists": np.ones(n, dtype=bool),
+                              "ivf": ivf}},
+    }
+    return mapper, segment_from_arrays(arrays)
 
 
 # SmallFloat encode table for vectorized norms (lengths are clipped below)

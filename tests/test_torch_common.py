@@ -364,3 +364,100 @@ def segment_arrays(seg) -> dict:
                            "ord_hashes": c.ord_hashes}
                        for f, c in seg.ordinal_dv.items()},
     }
+
+
+# ------------------------------------------------------ the vector corpus
+
+VECS_DIMS = 48
+VECS_N = 5000
+VECS_MAPPING = {"mappings": {"properties": {
+    "v_l2": {"type": "knn_vector", "dimension": VECS_DIMS,
+             "method": {"space_type": "l2"}},
+    "v_cos": {"type": "knn_vector", "dimension": VECS_DIMS,
+              "method": {"space_type": "cosinesimil"}},
+    "v_ip": {"type": "dense_vector", "dims": VECS_DIMS,
+             "space_type": "innerproduct"},
+    "v_ivf": {"type": "knn_vector", "dimension": VECS_DIMS,
+              "method": {"name": "hnsw", "space_type": "cosinesimil",
+                         "parameters": {"nlist": 16, "nprobes": 4}}},
+    "tag": {"type": "keyword"},
+}}}
+
+
+def vecs_corpus(n_docs: int = VECS_N):
+    """Clustered vectors (64 centers) and 40 queries; every doc carries its
+    vector in the four vector fields, except that every 50th has no
+    `v_l2`."""
+    from opensearch_tpu_torch.utils.demo import clustered_vectors
+    vectors, queries = clustered_vectors(n_docs, VECS_DIMS, n_centers=64,
+                                         seed=21, n_queries=40)
+    docs = []
+    for i, v in enumerate(vectors.tolist()):
+        doc = {"v_cos": v, "v_ip": v, "v_ivf": v, "tag": f"t{i % 3}"}
+        if i % 50:
+            doc["v_l2"] = v
+        docs.append(doc)
+    return docs, queries
+
+
+def load_vecs_index(node, index: str = "vecs", n_docs: int = VECS_N):
+    """The vector corpus over two refreshes (two segments, each sealing an
+    IVF index for `v_ivf`) with deletes in between."""
+    docs, _q = vecs_corpus(n_docs)
+    half = n_docs // 2
+    assert node.request("PUT", f"/{index}", VECS_MAPPING)["_status"] == 200
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, {f"d{i}": docs[i] for i in range(half)}))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+    deletes = [f"d{i}" for i in range(1, n_docs, 97)]
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, {f"d{i}": docs[i] for i in range(half, n_docs)}, deletes))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+
+
+def knn_bodies() -> Dict[str, dict]:
+    """name -> _search body over the vector corpus: exact in each space,
+    IVF, a filtered and a boosted knn, and knn inside bool."""
+    _docs, queries = vecs_corpus()
+    q = [v.tolist() for v in queries]
+    return {
+        "exact_l2": {"query": {"knn": {"v_l2": {"vector": q[0], "k": 10}}},
+                     "size": 10},
+        "exact_cos": {"query": {"knn": {"v_cos": {"vector": q[1],
+                                                  "k": 5}}}, "size": 8},
+        "exact_ip": {"query": {"knn": {"v_ip": {"vector": q[2], "k": 12,
+                                                "boost": 0.5}}}},
+        "ivf": {"query": {"knn": {"v_ivf": {"vector": q[3], "k": 10}}},
+                "size": 10},
+        "ivf_nprobes": {"query": {"knn": {"v_ivf": {
+            "vector": q[4], "k": 7,
+            "method_parameters": {"nprobes": 9}}}}},
+        "filtered": {"query": {"knn": {"v_l2": {
+            "vector": q[5], "k": 6, "filter": {"term": {"tag": "t1"}}}}},
+            "size": 20},
+        "bool_knn": {"query": {"bool": {
+            "must": [{"knn": {"v_cos": {"vector": q[6], "k": 20}}}],
+            "filter": [{"term": {"tag": "t2"}}],
+            "should": [{"exists": {"field": "v_l2"}}]}}, "size": 15},
+    }
+
+
+def knn_msearch_bodies(b: int = 32) -> List[dict]:
+    """B knn bodies of mixed shapes for one _msearch."""
+    _docs, queries = vecs_corpus()
+    fields = ("v_l2", "v_cos", "v_ip", "v_ivf")
+    out = []
+    for i in range(b):
+        spec = {"vector": queries[i % len(queries)].tolist(),
+                "k": 10 if i % 3 else 4}
+        if i % 8 == 5:
+            spec["filter"] = {"term": {"tag": "t0"}}
+        body = {"query": {"knn": {fields[i % 4]: spec}}, "size": 10}
+        if i % 8 == 7:
+            body = {"query": {"bool": {"must": [{"knn": {"v_l2": spec}}],
+                                       "must_not": [{"term": {
+                                           "tag": "t1"}}]}}}
+        out.append(body)
+    return out

@@ -5,7 +5,10 @@ Ids, hits, totals, filter masks, counts, min and max exactly; BM25 scores
 exactly too, since the kernels build with --fmad=false and round every
 operation like the plain versions; K6's f32 sums within the agg contract's
 bound n * 2^-24 * sum|v| of the f64 sums, and the same bits from run to
-run."""
+run. The k-NN kernels: K7 and K8 scores, masks and chosen blocks bit for
+bit (every sum in dim order, one rounding per operation); K9 bit for bit
+too (one chunked member order on both sides), its means within the same
+sum bound of the f64 means."""
 
 import numpy as np
 import pytest
@@ -184,3 +187,121 @@ def test_binned_reduce_kernel_equals_plain(gpu, total):
         cnt = got["cnt"].double()
         bound = cnt * 2.0 ** -24 * absum
         assert bool(((got[k].double() - exact).abs() <= bound).all()), k
+
+
+# ------------------------------------------------------------- k-NN (K7-K9)
+
+def _knn_data(n, dims, seed):
+    from opensearch_tpu_torch.utils.demo import clustered_vectors
+    vecs, qs = clustered_vectors(n, dims, n_centers=16, seed=seed,
+                                 n_queries=40)
+    return torch.from_numpy(vecs).cuda(), torch.from_numpy(qs).cuda()
+
+
+@pytest.mark.parametrize("space", ["l2", "cosinesimil", "innerproduct"])
+@pytest.mark.parametrize("bsz,dims", [(1, 128), (5, 100), (40, 37)])
+def test_knn_exact_kernel_equals_plain(gpu, space, bsz, dims):
+    """K7 bit for bit (B=1, 8 and 32-query chunks, dims off the chunk
+    width), and knn_topk_mark against its plain version after K3."""
+    from opensearch_tpu_torch.ops import knn
+    vecs, qs = _knn_data(3000, dims, 7)
+    d_pad = 4096
+    padded = torch.zeros(d_pad, dims, device="cuda")
+    padded[:3000] = vecs
+    q = qs[:bsz].contiguous()
+    before = _build.LAUNCHES["knn_exact"]
+    got = knn.exact_knn_scores(padded, q, space)
+    assert _build.LAUNCHES["knn_exact"] == before + 1
+    want = knn.exact_knn_scores_plain(padded, q, space)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    eligible = (torch.rand(bsz, d_pad, device="cuda") < 0.5)
+    eligible[:, 3000:] = False
+    live = torch.ones(d_pad, dtype=torch.bool, device="cuda")
+    s, m = knn.knn_match_topk(got, eligible, live, 10)
+    packed = topk.masked_topk_plain(got, eligible, live, live, d_pad,
+                                    torch.full((bsz,), -np.inf,
+                                               device="cuda"), 10)
+    ps, pm = knn.knn_topk_mark_plain(packed, got, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(m, pm) and torch.equal(s, ps)
+    assert int(m.sum()) == 10 * bsz
+
+
+@pytest.mark.parametrize("space", ["l2", "cosinesimil", "innerproduct"])
+def test_ivf_probe_kernel_equals_plain(gpu, space):
+    """K8 bit for bit: the same blocks, scores and candidate masks."""
+    from opensearch_tpu_torch.ops import knn
+    vecs, qs = _knn_data(5000, 48, 3)
+    exists = np.ones(5000, bool)
+    exists[::13] = False
+    ivf = knn.build_ivf(vecs.cpu().numpy(), exists, nlist=32, nprobe=4,
+                        device="cuda")
+    packed, ids = knn.pack_ivf_lists(vecs.cpu().numpy(), ivf.lists)
+    args = (torch.from_numpy(packed).cuda(), torch.from_numpy(ids).cuda(),
+            torch.from_numpy(ivf.centroids).cuda(),
+            torch.from_numpy(ivf.block_centroid).cuda(), 8192)
+    for bsz, nprobe in ((1, 4), (33, 9)):
+        q = qs[:bsz].contiguous()
+        before = _build.LAUNCHES["ivf_probe"]
+        keys_before = _build.LAUNCHES["ivf_block_keys"]
+        gd, gm = knn.ivf_knn_scores(*args, q, space, nprobe)
+        assert _build.LAUNCHES["ivf_probe"] == before + 1
+        assert _build.LAUNCHES["ivf_block_keys"] == keys_before + 1
+        pd, pm = knn.ivf_knn_scores_plain(*args, q, space, nprobe)
+        torch.cuda.synchronize()
+        assert torch.equal(gm, pm)
+        assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+        assert int(gm.sum()) > 0
+
+
+@pytest.mark.parametrize("bsz", [1, 33])
+def test_ivf_block_keys_kernel_equals_plain(gpu, bsz):
+    """K8's launch (a): every block's centroid key bit for bit."""
+    from opensearch_tpu_torch.ops import knn
+    vecs, qs = _knn_data(2000, 48, 4)
+    cent = vecs[:40].contiguous()
+    block_centroid = torch.randint(0, 40, (300,), dtype=torch.int32,
+                                   device="cuda")
+    q = qs[:bsz].contiguous()
+    before = _build.LAUNCHES["ivf_block_keys"]
+    got = knn.ivf_block_keys(cent, block_centroid, q)
+    assert _build.LAUNCHES["ivf_block_keys"] == before + 1
+    want = knn.ivf_block_keys_plain(cent, block_centroid, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,nlist,dims", [(20000, 64, 100), (3000, 7, 33),
+                                          (5000, 1500, 8)])
+def test_kmeans_step_kernel_equals_plain(gpu, n, nlist, dims):
+    """K9: assignments exactly, centroids within n * 2^-24 * sum|x| of the
+    f64 means (both sides), the same bits on two runs, and an empty
+    cluster keeps its centroid."""
+    from opensearch_tpu_torch.ops import knn
+    vecs, _qs = _knn_data(n, dims, 5)
+    cent = vecs[torch.arange(nlist, device="cuda") * (n // nlist)].clone()
+    cent[-1] = 1e4                      # no point is nearest: empty
+    before = _build.LAUNCHES["kmeans_step"]
+    got_c, got_a = knn.kmeans_step(vecs, cent)
+    again_c, again_a = knn.kmeans_step(vecs, cent)
+    assert _build.LAUNCHES["kmeans_step"] == before + 2
+    want_c, want_a = knn.kmeans_step_plain(vecs, cent)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a) and torch.equal(got_a, again_a)
+    assert torch.equal(got_c.view(torch.int32), again_c.view(torch.int32))
+    assert torch.equal(got_c.view(torch.int32), want_c.view(torch.int32))
+    assert torch.equal(got_c[-1], cent[-1])
+    x = vecs.double()
+    a = got_a.long()
+    sums = torch.zeros(nlist, dims, dtype=torch.float64,
+                       device="cuda").index_add_(0, a, x)
+    abss = torch.zeros_like(sums).index_add_(0, a, x.abs())
+    cnt = torch.bincount(a, minlength=nlist).double()[:, None]
+    ok = cnt[:, 0] > 0
+    exact = sums[ok] / cnt[ok]
+    # a mean of c members: the sum within c * 2^-24 * sum|x|, over c,
+    # plus the division's rounding
+    bound = 2.0 ** -24 * abss[ok] + 2.0 ** -23 * exact.abs()
+    for side in (got_c, want_c):
+        assert bool(((side[ok].double() - exact).abs() <= bound).all())

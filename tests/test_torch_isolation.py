@@ -27,6 +27,7 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "opensearch_tpu_torch.node" in mods
+    assert "opensearch_tpu_torch.ops.knn" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

@@ -87,15 +87,16 @@ def test_device_images_are_equal(pair, source):
         tseg = segment_from_arrays(segment_arrays(jseg))
     jimg, jmeta = j_upload(jseg)
     timg, tmeta = upload_segment(tseg, torch.device("cpu"))
-    # the flat leaves, plus the doc-value subtrees (keyword columns here)
+    # the flat leaves, plus the doc-value and vector subtrees (keyword
+    # columns here, no vectors)
     assert set(IMAGE_KEYS) <= set(jimg) \
-        and set(timg) == set(IMAGE_KEYS) | {"numeric", "ordinal"}
+        and set(timg) == set(IMAGE_KEYS) | {"numeric", "ordinal", "vector"}
     for key in IMAGE_KEYS:
         want = np.asarray(jimg[key])
         got = timg[key].numpy()
         assert got.dtype == want.dtype and got.shape == want.shape, key
         np.testing.assert_array_equal(got, want, err_msg=key)
-    for kind in ("numeric", "ordinal"):
+    for kind in ("numeric", "ordinal", "vector"):
         assert set(timg[kind]) == set(jimg[kind]), kind
         for field, leaves in jimg[kind].items():
             assert set(timg[kind][field]) == set(leaves), (kind, field)
@@ -107,6 +108,90 @@ def test_device_images_are_equal(pair, source):
                 np.testing.assert_array_equal(got, want)
     assert (tmeta.num_docs, tmeta.d_pad, tmeta.nb_pad, tmeta.norm_rows) == \
         (jmeta.num_docs, jmeta.d_pad, jmeta.nb_pad, jmeta.norm_rows)
+
+
+VECTOR_LEAVES = ("vectors", "exists", "ivf_packed_vecs", "ivf_packed_ids",
+                 "ivf_centroids", "ivf_block_centroid")
+
+
+def _vector_pair(method):
+    """One reference segment with an exact and (optionally) an IVF vector
+    field, docs without vectors and deletes; the port's segment carries
+    it across with the reference's IVFIndex."""
+    dims = 8
+    vec = {"type": "knn_vector", "dimension": dims}
+    spec = {"properties": {
+        "v": {**vec, "method": {"space_type": "cosinesimil"}},
+        "w": {**vec, "method": {"name": method, "space_type": "l2",
+                                "parameters": {"nlist": 5}}},
+        "tag": {"type": "keyword"}}}
+    rng = np.random.RandomState(8)
+    mapper = JMapper(spec)
+    builder = JBuilder(mapper)
+    for i in range(700):
+        doc = {"tag": f"t{i % 3}"}
+        if i % 11:
+            doc["v"] = rng.randn(dims).tolist()
+        if i % 7:
+            doc["w"] = rng.randn(dims).tolist()
+        builder.add(mapper.parse_document(f"d{i}", doc))
+    jseg = builder.seal()
+    for i in range(0, 700, 29):
+        jseg.delete(f"d{i}")
+    arrays = segment_arrays(jseg)
+    arrays["vector_dv"] = {
+        f: {"vectors": c.vectors, "exists": c.exists,
+            "ivf": None if c.ivf is None else {
+                "centroids": c.ivf.centroids, "lists": c.ivf.lists,
+                "block_centroid": c.ivf.block_centroid,
+                "nlist": c.ivf.nlist, "nprobe": c.ivf.nprobe}}
+        for f, c in jseg.vector_dv.items()}
+    return jseg, arrays
+
+
+@pytest.mark.parametrize("method", ["exact", "ivf"])
+def test_vector_images_are_equal(method):
+    """The port's "vector" subtree equals the reference's upload_segment
+    image leaf for leaf (exact and IVF fields), and the meta names the
+    vector fields."""
+    jseg, arrays = _vector_pair(method)
+    assert (jseg.vector_dv["w"].ivf is not None) == (method == "ivf")
+    tseg = segment_from_arrays(arrays)
+    jimg, jmeta = j_upload(jseg, to_device=False)
+    timg, tmeta = upload_segment(tseg, torch.device("cpu"))
+    assert set(timg["vector"]) == set(jimg["vector"]) == {"v", "w"}
+    for field, leaves in jimg["vector"].items():
+        assert set(timg["vector"][field]) == set(leaves)
+        assert set(leaves) <= set(VECTOR_LEAVES)
+        for leaf, want in leaves.items():
+            got = timg["vector"][field][leaf].numpy()
+            want = np.asarray(want)
+            assert got.dtype == want.dtype and got.shape == want.shape, \
+                (field, leaf)
+            np.testing.assert_array_equal(got, want)
+    assert tmeta.vector_fields == tuple(jmeta.vector_fields) == ("v", "w")
+    assert tmeta.compile_key() != upload_segment(
+        segment_from_arrays({**arrays, "vector_dv": {}}),
+        torch.device("cpu"))[1].compile_key()
+
+
+def test_segment_from_arrays_refuses_bad_ivf_lists():
+    """A doc ord twice in the IVF lists would race in the probe's stores;
+    so would an ord past the segment: both are refused."""
+    jseg, arrays = _vector_pair("ivf")
+    lists = np.array(arrays["vector_dv"]["w"]["ivf"]["lists"])
+    twice = lists.copy()
+    twice[1, 0] = twice[0, 0]
+    arrays["vector_dv"]["w"]["ivf"]["lists"] = twice
+    with pytest.raises(ValueError, match="at most once"):
+        segment_from_arrays(arrays)
+    past = lists.copy()
+    past[0, 0] = jseg.num_docs
+    arrays["vector_dv"]["w"]["ivf"]["lists"] = past
+    with pytest.raises(ValueError, match="at most once"):
+        segment_from_arrays(arrays)
+    arrays["vector_dv"]["w"]["ivf"]["lists"] = lists
+    assert segment_from_arrays(arrays).vector_dv["w"].ivf is not None
 
 
 def test_demo_generators_are_the_references():
