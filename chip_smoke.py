@@ -44,7 +44,19 @@ Phases, each printing what it finds; any failure exits nonzero:
  7. k-NN IVF cell: the GloVe-shaped clustered corpus (1,183,514 x 100,
     cosinesimil), its IVF (nlist 256) sealed on the card by K9 and timed,
     served at nprobes 32 like phase 6, recall@10 against the exact
-    kernel's pages (>= 0.9).
+    kernel's pages (>= 0.9);
+ 8. MaxSim cell: 100,000 ColBERTv2-shaped passages (128-d unit tokens,
+    32-128 per passage, capped at 128) as a `rank_vectors` field, 640
+    queries of 32 tokens at k=10 through SearchExecutor at B=1 and B=32:
+    walls, queries/s, image bytes, busy share, recall@10 against an f64
+    oracle (f64 matmuls over doc chunks on the card; f32 ties listed),
+    two pages against the plain versions;
+ 9. hybrid cell: phase 4's 1,000,000 passages plus a 768-d l2 embedding
+    each, `hybrid` bodies of a match (2-4 terms) and a knn (k 100) through
+    Node().request: B=1 `_search` under a normalization-processor pipeline
+    (min_max, arithmetic_mean, weights [0.3, 0.7]) and B=32 `_msearch`
+    (the batched hybrid wave, default spec); walls, queries/s, busy share,
+    image bytes, two pages against the plain versions.
 
 Phase 2 also holds K7 knn_exact (and its top-k mark) at B=32 x 2^20 x 128
 in the three spaces, and K8 ivf_probe (with its block ranking launch) and
@@ -55,6 +67,16 @@ of the f64 means), and phase 7 seals those very centroids again. Phase 3 adds a
 5,000-vector index with exact, IVF, filtered and bool k-NN bodies; its
 launch window opens before the indices load, since sealing the IVF lists
 runs K9.
+
+Phase 2 also holds K10 maxsim_exact and K11 (pq_lut and maxsim_pq) at
+phase 8's shapes (bit for bit on the first 16,384 docs at B=4 and on the
+whole corpus at B=1; timed at B=1 and B=32; K11's codes uniform random u8
+[Dp, 128, 32] against a codebook trained by the port's train_pq on a
+20,000-token sample of the corpus), K12 hybrid_window at B=32, two
+sub-queries, Dp 2^20, k 10, and K3's masked_topk_threshold at B=32, Dp
+2^20, k 20,000. Phase 3 adds a token index (exact and PQ fields), a
+hybrid index with its pipeline and a 24,000-vector index (a knn at k
+20,000) to the served pages.
 
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
 per-kernel tables) under DIR. The card's name and power limit are printed in
@@ -77,6 +99,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCORE_ATOL = 0.0          # kernels and plain versions round identically
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+LEAD_CYCLES = 20_000_000   # ~10 ms at 1.98 GHz: twice Python's GIL interval
 F32_FLOPS = 67e12          # H100 SXM f32, outside the tensor cores
 SCALE_DOCS = 1_000_000
 SCALE_MATERIALIZE_TERMS = 4096
@@ -87,6 +110,16 @@ F32_SUM_EPS = 2.0 ** -24
 SIFT_SHAPE = (1_000_000, 128)      # ann-benchmarks sift-128-euclidean
 GLOVE_SHAPE = (1_183_514, 100)     # ann-benchmarks glove-100-angular
 KNN_QUERIES = 640
+MAXSIM_SHAPE = (100_000, 128, 128)  # ColBERTv2: passages, max tokens, dims
+MAXSIM_MIN_TOKENS = 32
+MAXSIM_QUERIES = 640
+MAXSIM_QUERY_TOKENS = 32            # ColBERT's query length
+MAXSIM_SLICE = 16384                # docs the plain versions score at B=4
+MAXSIM_ORACLE_QUERIES = 64
+PQ_M = 32                           # 4-dim subvectors of 128 dims
+PQ_SAMPLE = 20_000
+HYBRID_DIMS = 768                   # msmarco-distilbert-base-tas-b
+HYBRID_QUERIES = 320
 
 
 def log(*args):
@@ -101,11 +134,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
+def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3,
+            lead: bool = False) -> float:
     """Median milliseconds of one call of fn() on the stream, between CUDA
     events, L2 flushed before each rep. A call whose host work outlasts its
     device work (a wrapper's checks and launch, a plain version's syncs)
-    is measured with that host time included."""
+    is measured with that host time included. With `lead` the stream
+    first spins for about 10 ms, so that the events and fn's launches are
+    all queued before the first event runs and a stall of the host thread
+    (another thread holding the GIL) is not counted."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -113,6 +150,8 @@ def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -126,7 +165,8 @@ def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
 def graph_ms(torch, fn, reps: int = 15) -> float:
     """Median device milliseconds of the kernels fn() launches: fn is
     captured once into a CUDA graph and the graph is replayed between CUDA
-    events, L2 flushed before each rep, so no host time is counted."""
+    events behind a lead (see cuda_ms), L2 flushed before each rep, so no
+    host time is counted."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -135,7 +175,7 @@ def graph_ms(torch, fn, reps: int = 15) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return cuda_ms(torch, graph.replay, reps=reps, warmup=2)
+    return cuda_ms(torch, graph.replay, reps=reps, warmup=2, lead=True)
 
 
 def max_abs_err(np, got, want) -> float:
@@ -165,14 +205,9 @@ def stacked_inputs(torch, plans, min_scores, device):
     """The executor's envelope for a batch of plans: packed, uploaded once,
     unpacked into views."""
     import numpy as np
-    from opensearch_tpu_torch.search.executor import (
-        pack_leaves, stack_flat_inputs, unflatten_inputs, unpack_leaves)
-    stacked, treedef = stack_flat_inputs([p.flatten_inputs([])
-                                          for p in plans])
-    stacked.append(np.asarray(min_scores, np.float32))
-    buf, layout = pack_leaves(stacked, pin=device.type == "cuda")
-    leaves = unpack_leaves(buf.to(device), layout)
-    return unflatten_inputs(treedef, leaves[:-1]), leaves[-1]
+    from opensearch_tpu_torch.search.executor import stage_inputs
+    return stage_inputs([p.flatten_inputs([]) for p in plans],
+                        np.asarray(min_scores, np.float32), device)
 
 
 def pick_terms(seg, n_terms: int, rows: int, max_blocks: int = 128):
@@ -337,8 +372,11 @@ def phase_serving(torch, np, device=None):
         parity.load_index(node, "passages", n_docs=5000)
         parity.load_docs_index(node, "docs", n_docs=parity.DOCS_N)
         parity.load_vecs_index(node, "vecs", n_docs=parity.VECS_N)
+        parity.load_mx_index(node, "mx")
+        parity.load_hyb_index(node, "hyb")
+        parity.load_big_index(node, "big")
         if node is gpu:
-            log(f"serving: three indices loaded on the card in "
+            log(f"serving: six indices loaded on the card in "
                 f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
     payload = parity.msearch_ndjson("passages", parity.msearch_bodies(32))
     knn_bodies = parity.knn_bodies()
@@ -363,14 +401,30 @@ def phase_serving(torch, np, device=None):
     got_k = {n: gpu.request("POST", "/vecs/_search", knn_bodies[n])
              for n in knn_names}
     got_km = gpu.request("POST", "/_msearch", knn_payload)
+    # late interaction, hybrid and a knn past K3's sort limit: (path,
+    # body, params) per request, then the B=32 _msearch payloads
+    late = [("/mx/_search", b, {}) for b in parity.maxsim_bodies().values()]
+    late += [("/hyb/_search", b, {"search_pipeline": "hyb_norm"})
+             for b in parity.hybrid_bodies().values()]
+    late.append(("/hyb/_search", {**parity.hybrid_msearch_bodies(1)[0],
+                                  "search_pipeline": parity.HYB_PIPELINE},
+                 {}))
+    late.append(("/big/_search", parity.big_knn_body(), {}))
+    late_payloads = [
+        parity.msearch_ndjson("mx", parity.maxsim_msearch_bodies(32)),
+        parity.msearch_ndjson("hyb", parity.hybrid_msearch_bodies(32))]
+    got_l = [gpu.request("POST", path, b, **params)
+             for path, b, params in late]
+    got_lm = [gpu.request("POST", "/_msearch", pl) for pl in late_payloads]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log(f"serving: {len(names)} BM25 _search + one B=32 _msearch, "
         f"{len(agg_names)} agg _search + one B=32 agg _msearch, "
-        f"{len(knn_names)} knn _search + one B=32 knn _msearch on the card "
-        f"in {wall * 1e3:.3f} ms; launches (loads included) "
-        f"{json.dumps(launches)}")
+        f"{len(knn_names)} knn _search + one B=32 knn _msearch, "
+        f"{len(late)} maxsim / hybrid / k=20000 _search + two B=32 "
+        f"_msearch on the card in {wall * 1e3:.3f} ms; launches (loads "
+        f"included) {json.dumps(launches)}")
     for n in names:
         if got[n]["_status"] != 200:
             raise AssertionError(f"_search {n}: {got[n]}")
@@ -395,6 +449,18 @@ def phase_serving(torch, np, device=None):
     parity.assert_same_response(got_km, cpu.request("POST", "/_msearch",
                                                     knn_payload),
                                 "knn msearch")
+    for (path, b, params), got_one in zip(late, got_l):
+        if got_one["_status"] != 200 or not got_one["hits"]["hits"]:
+            raise AssertionError(f"{path}: {got_one}")
+        parity.assert_same_response(
+            got_one, cpu.request("POST", path, b, **params), path)
+    for pl, got_one in zip(late_payloads, got_lm):
+        if any(r.get("status") != 200 for r in got_one["responses"]):
+            raise AssertionError(f"late msearch: {got_one}")
+        parity.assert_same_response(got_one, cpu.request("POST", "/_msearch",
+                                                         pl), "late msearch")
+    if got_l[-1]["hits"]["total"]["value"] != 20000:
+        raise AssertionError(f"knn k=20000: {got_l[-1]['hits']['total']}")
     for node in (gpu, cpu):
         seg = node.indices.get("vecs").shards[0].engine.segments[0]
         if seg.vector_dv["v_ivf"].ivf is None:
@@ -404,8 +470,8 @@ def phase_serving(torch, np, device=None):
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
     log(f"serving: {len(names) + 32} BM25 pages, {len(agg_names) + 32} "
-        f"agg responses and {len(knn_names) + 32} knn pages equal the plain "
-        f"versions'")
+        f"agg responses, {len(knn_names) + 32} knn pages and {len(late) + 64} "
+        f"maxsim / hybrid / k=20000 pages equal the plain versions'")
     return launches
 
 
@@ -1234,6 +1300,461 @@ def phase_knn_cell(torch, np, cell: str, corpora, dev, card: str,
     return out
 
 
+def maxsim_corpus(torch, np, dev):
+    """The MaxSim cell's corpus (set-up): 100,000 ColBERTv2-shaped
+    passages of 32-128 unit 128-d tokens around 1,024 clustered centers
+    and 640 queries of 32 tokens, drawn on the card."""
+    from opensearch_tpu_torch.utils.demo import clustered_tokens
+    n, max_tokens, dims = MAXSIM_SHAPE
+    t0 = time.perf_counter()
+    tokens, count, queries = clustered_tokens(
+        n, dims, MAXSIM_MIN_TOKENS, max_tokens, n_queries=MAXSIM_QUERIES,
+        query_tokens=MAXSIM_QUERY_TOKENS, device=dev)
+    torch.cuda.synchronize()
+    log(f"maxsim corpus: {n} passages x {tokens.shape[1]} token lanes x "
+        f"{dims} dims ({int(count.sum())} real tokens) and {len(queries)} "
+        f"queries of {queries.shape[1]} tokens in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"tokens": tokens, "count": count, "queries": queries}
+
+
+def pq_sample(np, mc):
+    """PQ_SAMPLE real tokens of the MaxSim corpus (RandomState(29))."""
+    rng = np.random.RandomState(29)
+    docs = rng.randint(0, len(mc["count"]), PQ_SAMPLE)
+    lane = (rng.random_sample(PQ_SAMPLE) * mc["count"][docs]).astype(
+        np.int64)
+    return np.ascontiguousarray(mc["tokens"][docs, lane])
+
+
+def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32):
+    """K10 and K11 at the MaxSim cell's shapes, K12 and K3's threshold
+    entry at the serving shapes, each against its plain version."""
+    from opensearch_tpu_torch.index.segment import pad_bucket
+    from opensearch_tpu_torch.ops import hybrid, maxsim, topk
+    results = {}
+
+    def record(name, shape, kern, plain, library, nbytes, ops, reps=15):
+        """Time kern (and plain, library where given) after holding two
+        runs of kern against each other and against plain, bit for bit
+        (so max_abs_err is 0)."""
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if not all(_same_bits(torch, g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name} {shape}: two runs differ")
+        if plain is not None:
+            want = plain()
+            for g, w in zip(got, want):
+                if not _same_bits(torch, g, w):
+                    raise AssertionError(f"{name} {shape}: kernel and "
+                                         f"plain version differ")
+        bound, by = _bound(nbytes, ops)
+        rec = {"shape": shape, "max_abs_err": 0.0,
+               "ms": graph_ms(torch, kern, reps=reps),
+               "call_ms": cuda_ms(torch, kern, reps=reps),
+               "plain_ms": None if plain is None
+               else cuda_ms(torch, plain, reps=3, warmup=1),
+               "library_ms": None if library is None
+               else graph_ms(torch, library, reps=reps),
+               "bound_ms": bound, "bound_by": by}
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+        return got
+
+    n, t_bucket, dims = mc["tokens"].shape
+    d_pad = pad_bucket(n)
+    tokens = torch.zeros(d_pad, t_bucket, dims, device=dev)
+    tokens[:n] = torch.from_numpy(mc["tokens"]).to(dev)
+    count = torch.zeros(d_pad, dtype=torch.int32, device=dev)
+    count[:n] = torch.from_numpy(mc["count"]).to(dev)
+    real = int(mc["count"].sum())
+    tq = MAXSIM_QUERY_TOKENS
+    queries = torch.from_numpy(mc["queries"][:bsz]).to(dev)
+    qmask = torch.ones(bsz, tq, device=dev)
+    lanes = torch.arange(t_bucket, device=dev)
+    live_tok = lanes[None, :] < count[:, None]          # [Dp, T]
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def library(q, qm, chunk):
+        """torch.matmul of the [Dp*T, dims] tokens by the [dims, B*Tq]
+        queries, masked amax over the doc tokens, the qmask-weighted
+        sum: the yardstick, in doc chunks that fit the card."""
+        b = q.shape[0]
+        qt = q.reshape(b * tq, dims).t()
+        out = []
+        for lo in range(0, d_pad, chunk):
+            c = min(chunk, d_pad - lo)
+            dots = torch.matmul(tokens[lo:lo + c].view(c * t_bucket, dims),
+                                qt).view(c, t_bucket, b, tq)
+            best = dots.masked_fill(~live_tok[lo:lo + c, :, None, None],
+                                    float("-inf")).amax(1)
+            best = torch.where(torch.isfinite(best), best, 0.0)
+            out.append((best * qm[None]).sum(-1))
+        return torch.cat(out).t()
+
+    # K10: bit for bit on the first MAXSIM_SLICE docs at B=4, then the
+    # whole corpus at B=1 (with its plain version) and B=32
+    sl = slice(0, MAXSIM_SLICE)
+    record("maxsim_exact", f"B=4 Dp={MAXSIM_SLICE} T={t_bucket} Tq={tq} "
+           f"dims={dims} (slice)",
+           lambda: (maxsim.exact_maxsim_scores(
+               tokens[sl], count[sl], queries[:4].contiguous(),
+               qmask[:4].contiguous()),),
+           lambda: (maxsim.exact_maxsim_scores_plain(
+               tokens[sl], count[sl], queries[:4].contiguous(),
+               qmask[:4].contiguous()),), None, 0, 0, reps=5)
+    for b in (1, bsz):
+        q, qm = queries[:b].contiguous(), qmask[:b].contiguous()
+        record("maxsim_exact", f"B={b} Dp={d_pad} T={t_bucket} Tq={tq} "
+               f"dims={dims} ({real} real tokens)",
+               lambda q=q, qm=qm: (maxsim.exact_maxsim_scores(
+                   tokens, count, q, qm),),
+               (lambda q=q, qm=qm: (maxsim.exact_maxsim_scores_plain(
+                   tokens, count, q, qm),)) if b == 1 else None,
+               lambda q=q, qm=qm, b=b: library(q, qm, d_pad if b == 1
+                                               else 4096),
+               4 * real * dims + 8 * d_pad + 4 * b * tq * (dims + 1)
+               + 4 * b * d_pad, 2 * b * tq * real * dims, reps=5)
+
+    # K11: uniform random codes [Dp, T, PQ_M] against the trained codebook
+    gen = torch.Generator(device=dev).manual_seed(31)
+    codes = torch.randint(0, 256, (d_pad, t_bucket, PQ_M), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    codebook = torch.from_numpy(codebook_np).to(dev)
+    dsub = dims // PQ_M
+    lut32 = record("pq_lut", f"B={bsz} Tq={tq} M={PQ_M} dsub={dsub}",
+                   lambda: (maxsim.pq_lut(codebook, queries),),
+                   lambda: (maxsim.pq_lut_plain(codebook, queries),),
+                   lambda: (torch.einsum("mcj,btmj->btmc", codebook,
+                                         queries.view(bsz, tq, PQ_M, dsub)),),
+                   4 * codebook.numel() + 4 * queries.numel()
+                   + 4 * bsz * tq * PQ_M * 256,
+                   2 * bsz * tq * PQ_M * 256 * dsub)[0]
+    record("maxsim_pq", f"B=4 Dp={MAXSIM_SLICE} T={t_bucket} Tq={tq} "
+           f"M={PQ_M} (slice)",
+           lambda: (maxsim.pq_maxsim_from_lut(
+               codes[sl], lut32[:4].contiguous(), count[sl],
+               qmask[:4].contiguous()),),
+           lambda: (maxsim.pq_maxsim_from_lut_plain(
+               codes[sl], lut32[:4].contiguous(), count[sl],
+               qmask[:4].contiguous()),), None, 0, 0, reps=5)
+    for b in (1, bsz):
+        lut, qm = lut32[:b].contiguous(), qmask[:b].contiguous()
+        record("maxsim_pq", f"B={b} Dp={d_pad} T={t_bucket} Tq={tq} "
+               f"M={PQ_M} ({real} real tokens)",
+               lambda lut=lut, qm=qm: (maxsim.pq_maxsim_from_lut(
+                   codes, lut, count, qm),),
+               (lambda lut=lut, qm=qm: (maxsim.pq_maxsim_from_lut_plain(
+                   codes, lut, count, qm),)) if b == 1 else None, None,
+               real * PQ_M + 4 * lut.numel() + 4 * d_pad + 4 * b * d_pad,
+               b * tq * real * PQ_M, reps=5)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    del tokens, codes, live_tok
+    torch.cuda.empty_cache()
+
+    # K12 and K3's threshold at Dp 2^20, B=32
+    d = 1 << 20
+    live = torch.ones(d, dtype=torch.bool, device=dev)
+    ms = torch.full((bsz,), float("-inf"), device=dev)
+    scores = torch.rand(bsz, d, generator=gen, device=dev)
+    elig = torch.stack([torch.rand(bsz, d, generator=gen, device=dev)
+                        < 0.05 * (i + 1) for i in range(2)])
+    k = 10
+    rows = torch.stack([topk.masked_topk(scores, elig[i], live, live, d, ms,
+                                         k) for i in range(2)])
+    record("hybrid_window", f"B={bsz} n_sub=2 Dp={d} k={k}",
+           lambda: (hybrid.hybrid_window(rows, elig, k),),
+           lambda: (hybrid.hybrid_window_plain(rows, elig, k),), None,
+           2 * bsz * d + 4 * rows.numel() + 4 * bsz * (2 * (2 * k + 4) + 1),
+           2 * bsz * (3 * k + d))
+    kt = 20000
+    matches = torch.rand(bsz, d, generator=gen, device=dev) < 0.5
+    masked = torch.where(matches, scores, float("-inf"))
+    record("masked_topk_threshold", f"B={bsz} Dp={d} k={kt}",
+           lambda: (topk.masked_topk_threshold(scores, matches, live, live,
+                                               d, ms, kt),),
+           lambda: (topk.masked_topk_threshold_plain(
+               scores, matches, live, live, d, ms, kt),),
+           lambda: torch.topk(masked, kt, dim=1),
+           bsz * d * 6 + 2 * d, 0)
+    del scores, elig, rows, matches, masked
+    torch.cuda.empty_cache()
+    return results
+
+
+def _maxsim_oracle(torch, np, image, queries, dims: int, k: int = 10):
+    """f64 MaxSim scores of `queries` over the image's real tokens (f64
+    matmuls over doc chunks on the card) and each query's top k."""
+    tokens, count = image["tokens"], image["token_count"]
+    d_pad, t_bucket, _ = tokens.shape
+    q = torch.from_numpy(queries).to(tokens.device).double()
+    nq, tq, _ = q.shape
+    qt = q.reshape(nq * tq, dims).t()
+    lanes = torch.arange(t_bucket, device=tokens.device)
+    out = []
+    for lo in range(0, d_pad, 2048):
+        c = min(2048, d_pad - lo)
+        dots = torch.matmul(tokens[lo:lo + c].double().view(c * t_bucket,
+                                                            dims),
+                            qt).view(c, t_bucket, nq, tq)
+        real = lanes[None, :] < count[lo:lo + c, None]
+        best = dots.masked_fill(~real[:, :, None, None],
+                                float("-inf")).amax(1)
+        best = torch.where(torch.isfinite(best), best, 0.0)
+        out.append(best.sum(-1))
+    scores = torch.cat(out).t()                   # [nq, Dp] f64
+    has = (count > 0)[None, :]
+    scores = torch.where(has, scores, float("-inf"))
+    top = torch.topk(scores, k, dim=1)
+    return scores.cpu().numpy(), top.indices.cpu().numpy()
+
+
+def phase_maxsim_cell(torch, np, mc, dev, card: str, out_dir=None,
+                      bsz: int = 32, singles: int = 200):
+    """The MaxSim cell served through SearchExecutor: 100,000 passages in
+    one segment, 640 queries at k=10, B=1 `_search` and B=32 `_msearch`
+    walls, queries/s, image bytes, busy share, recall@10 against the f64
+    oracle, two pages against the plain versions on the card."""
+    from opensearch_tpu_torch.ops import _build, maxsim, topk
+    from opensearch_tpu_torch.search.executor import (SearchExecutor,
+                                                      ShardReader)
+    from opensearch_tpu_torch.utils.demo import rank_vectors_segment
+    n, t_bucket, dims = mc["tokens"].shape
+    mapper, seg = rank_vectors_segment(mc["tokens"], mc["count"],
+                                       max_tokens=MAXSIM_SHAPE[1],
+                                       seg_id="colbert0")
+    reader = ShardReader(mapper, dev, index_name="colbert_synth")
+    t0 = time.perf_counter()
+    reader.add_segment(seg)
+    torch.cuda.synchronize()
+    out = {"image_bytes": reader.device_bytes()}
+    log(f"maxsim: image of {n} x {t_bucket} x {dims} uploaded in "
+        f"{time.perf_counter() - t0:.3f} s: {out['image_bytes']} bytes "
+        f"(Dp={reader.device[0][1].d_pad})")
+    ex = SearchExecutor(reader)
+    queries = mc["queries"]
+    bodies = [{"query": {"maxsim": {"tok": {"query_vectors": q.tolist(),
+                                            "k": 10}}}, "size": 10}
+              for q in queries]
+    ex.search(bodies[0])
+    ex.multi_search(bodies[:bsz])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    single = []
+    for b in bodies[:singles]:
+        t = time.perf_counter()
+        ex.search(b)
+        single.append((time.perf_counter() - t) * 1e3)
+    batches, pages = [], []
+    for lo in range(0, len(bodies), bsz):
+        t = time.perf_counter()
+        resp = ex.multi_search(bodies[lo:lo + bsz])
+        batches.append((time.perf_counter() - t) * 1e3)
+        pages += [[int(h["_id"][1:]) for h in r["hits"]["hits"]]
+                  for r in resp["responses"]]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"maxsim: launches {json.dumps(launches)}")
+    _require_launched(launches, ("maxsim_exact", "masked_topk",
+                                 "knn_topk_mark"), "MaxSim")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+    out.update({"search_p50_ms": pct(single, 50),
+                "search_p99_ms": pct(single, 99),
+                "msearch32_p50_ms": pct(batches, 50),
+                "msearch32_p99_ms": pct(batches, 99),
+                "msearch32_qps": bsz * 1e3 / pct(batches, 50)})
+    log(f"maxsim: B=1 _search wall ms p50 {out['search_p50_ms']:.3f} p99 "
+        f"{out['search_p99_ms']:.3f} over {len(single)}; B={bsz} _msearch "
+        f"wall ms p50 {out['msearch32_p50_ms']:.3f} p99 "
+        f"{out['msearch32_p99_ms']:.3f} over {len(batches)} batches "
+        f"({out['msearch32_qps']:.1f} queries/s at p50); card: {card}")
+    out.update(profile_waves(torch, ex, bodies[:6 * bsz], out_dir,
+                             "maxsim"))
+    # recall@10 against the f64 oracle; a page doc outside the oracle's
+    # top 10 is an f32 tie (listed) when its f64 score lies within the
+    # f32 bound of the 10th's: unit tokens and queries put each dot within
+    # dims * 2^-24 of its f64 value, each score within Tq * (dims + 1) *
+    # 2^-24
+    image = reader.device[0][0]["rank_vectors"]["tok"]
+    t0 = time.perf_counter()
+    oq = MAXSIM_ORACLE_QUERIES
+    f64, top = _maxsim_oracle(torch, np, image, queries[:oq], dims)
+    bound = MAXSIM_QUERY_TOKENS * (dims + 1) * F32_SUM_EPS
+    hits, ties = 0, []
+    for r in range(oq):
+        want = set(top[r].tolist())
+        hits += len(want & set(pages[r]))
+        kth = float(f64[r][top[r][-1]])
+        for i in set(pages[r]) - want:
+            if kth - f64[r][i] <= 2 * bound:
+                ties.append((r, i, float(kth - f64[r][i])))
+            else:
+                raise AssertionError(f"maxsim query {r}: doc {i} is not "
+                                     f"among the f64 top 10 and no f32 tie")
+    out["recall_at_10"] = hits / (10 * oq)
+    out["f32_ties"] = ties
+    log(f"maxsim: recall@10 {out['recall_at_10']} against the f64 oracle "
+        f"over {oq} queries ({time.perf_counter() - t0:.3f} s); f32 ties "
+        f"{ties}")
+    if out["recall_at_10"] + len(ties) / (10 * oq) < 1.0:
+        raise AssertionError("maxsim recall@10 below 1.0")
+    # two pages against the plain versions on the same image
+    live = reader.device[0][0]["live"]
+    d_pad = live.shape[0]
+    for r in range(2):
+        q = torch.from_numpy(queries[r:r + 1]).to(dev)
+        s = maxsim.exact_maxsim_scores_plain(
+            image["tokens"], image["token_count"], q,
+            torch.ones(1, q.shape[1], device=dev))
+        elig = (image["exists"] & live)[None, :].contiguous()
+        packed = topk.masked_topk_plain(
+            s, elig, live, live, d_pad,
+            torch.full((1,), float("-inf"), device=dev), 10)
+        want_s, want_i, _t = topk.unpack_rows(packed.cpu().numpy(), 10)
+        got = ex.search(bodies[r])["hits"]["hits"]
+        if [h["_id"] for h in got] != [f"d{i}" for i in want_i[0]] or \
+                [h["_score"] for h in got] != want_s[0].tolist():
+            raise AssertionError(f"maxsim page {r} differs from the plain "
+                                 f"versions'")
+    log("maxsim: 2 sampled pages equal the plain versions'")
+    del reader, ex, image
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_vectors(torch, n: int, dims: int, n_queries: int, dev,
+                   seed: int = 13):
+    """The hybrid cell's embeddings: clustered vectors (256 centers, scale
+    4, unit noise, as clustered_vectors draws them) made on the card from
+    a seeded generator; f32 numpy [n, dims] and [n_queries, dims]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(256, dims, generator=gen, device=dev) * 4
+    vecs = torch.empty(n, dims, device=dev)
+    for lo in range(0, n, 1 << 17):
+        c = min(1 << 17, n - lo)
+        vecs[lo:lo + c] = centers[torch.randint(
+            0, 256, (c,), generator=gen, device=dev)] + torch.randn(
+            c, dims, generator=gen, device=dev)
+    queries = centers[torch.randint(0, 256, (n_queries,), generator=gen,
+                                    device=dev)] + torch.randn(
+        n_queries, dims, generator=gen, device=dev)
+    return vecs.cpu().numpy(), queries.cpu().numpy()
+
+
+def phase_hybrid_cell(torch, np, mapper, seg, terms, dev, card: str,
+                      out_dir=None, bsz: int = 32, singles: int = 200):
+    """The hybrid cell through Node().request: phase 4's passages plus a
+    768-d l2 embedding, `hybrid` bodies of a match and a knn (k 100). B=1
+    REST `_search` under the documented normalization pipeline and B=32
+    `_msearch` (the batched hybrid wave); walls, queries/s, busy share,
+    image bytes, two pages against the plain versions."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.search.executor import (SearchExecutor,
+                                                      ShardReader)
+    from opensearch_tpu_torch.searchpipeline.hybrid import \
+        execute_hybrid_search
+    from opensearch_tpu_torch.utils.demo import (add_vector_field,
+                                                 fast_query_terms)
+    parity = _parity()
+    t0 = time.perf_counter()
+    vecs, qvecs = hybrid_vectors(torch, seg.num_docs, HYBRID_DIMS,
+                                 HYBRID_QUERIES, dev)
+    add_vector_field(mapper, seg, vecs, "emb", "l2")
+    log(f"hybrid: {seg.num_docs} x {HYBRID_DIMS} embeddings made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    node = Node()
+    assert node.request("PUT", "/_search/pipeline/norm",
+                        parity.HYB_PIPELINE)["_status"] == 200
+    assert node.request("PUT", "/msmarco", {"mappings": {"properties": {
+        "body": {"type": "text"},
+        "emb": {"type": "knn_vector", "dimension": HYBRID_DIMS,
+                "method": {"space_type": "l2"}}}}})["_status"] == 200
+    shard = node.indices.get("msmarco").shards[0]
+    t0 = time.perf_counter()
+    shard.reader.add_segment(seg)
+    torch.cuda.synchronize()
+    out = {"image_bytes": shard.reader.device_bytes()}
+    log(f"hybrid: image uploaded in {time.perf_counter() - t0:.3f} s: "
+        f"{out['image_bytes']} bytes")
+    texts = []
+    for n in (2, 3, 4):
+        texts += fast_query_terms(HYBRID_QUERIES // 3 + 1, terms,
+                                  seed=700 + n, terms_per_query=n)
+    bodies = [{"query": {"hybrid": {"queries": [
+        {"match": {"body": t}},
+        {"knn": {"emb": {"vector": v.tolist(), "k": 100}}}]}}, "size": 10}
+        for t, v in zip(texts, qvecs)]
+
+    def msearch(chunk):
+        lines = []
+        for b in chunk:
+            lines += [{"index": "msmarco"}, b]
+        return node.request("POST", "/_msearch", lines)
+    node.request("POST", "/msmarco/_search", bodies[0],
+                 search_pipeline="norm")
+    msearch(bodies[:bsz])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    single = []
+    for b in bodies[:singles]:
+        t = time.perf_counter()
+        r = node.request("POST", "/msmarco/_search", b,
+                         search_pipeline="norm")
+        single.append((time.perf_counter() - t) * 1e3)
+        if r["_status"] != 200:
+            raise AssertionError(f"hybrid _search: {r}")
+    batches = []
+    for lo in range(0, len(bodies) - bsz + 1, bsz):
+        t = time.perf_counter()
+        r = msearch(bodies[lo:lo + bsz])
+        batches.append((time.perf_counter() - t) * 1e3)
+        if any(x["status"] != 200 for x in r["responses"]):
+            raise AssertionError(f"hybrid _msearch: {r['responses'][0]}")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"hybrid: launches {json.dumps(launches)}")
+    _require_launched(launches, ("knn_exact", "knn_topk_mark", "masked_topk",
+                                 "hybrid_window"), "hybrid")
+    if not launches["bm25_candidate"] + launches["score_text_clause"]:
+        raise AssertionError("hybrid: no BM25 kernel launched")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+    out.update({"search_p50_ms": pct(single, 50),
+                "search_p99_ms": pct(single, 99),
+                "msearch32_p50_ms": pct(batches, 50),
+                "msearch32_p99_ms": pct(batches, 99),
+                "msearch32_qps": bsz * 1e3 / pct(batches, 50)})
+    log(f"hybrid: B=1 _search wall ms p50 {out['search_p50_ms']:.3f} p99 "
+        f"{out['search_p99_ms']:.3f} over {len(single)}; B={bsz} _msearch "
+        f"wall ms p50 {out['msearch32_p50_ms']:.3f} p99 "
+        f"{out['msearch32_p99_ms']:.3f} over {len(batches)} batches "
+        f"({out['msearch32_qps']:.1f} queries/s at p50); card: {card}")
+    out.update(profile_waves(torch, shard.executor, bodies[:6 * bsz],
+                             out_dir, "hybrid"))
+    # two pages, under the pipeline's spec, against the plain versions
+    cpu_reader = ShardReader(shard.reader.mapper, "cpu",
+                             index_name="msmarco")
+    cpu_reader.add_segment(seg)
+    cpu_ex = SearchExecutor(cpu_reader)
+    spec = node.search_pipelines.get("norm").phase_spec()
+    for b in bodies[:2]:
+        got = node.request("POST", "/msmarco/_search", b,
+                           search_pipeline="norm")
+        got.pop("_status")
+        parity.assert_same_response(got, execute_hybrid_search(
+            [cpu_ex], b, spec), "hybrid")
+    log("hybrid: 2 sampled pages equal the plain versions'")
+    del cpu_reader, cpu_ex, node, shard
+    seg.vector_dv.pop("emb")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -1331,12 +1852,27 @@ def main(argv) -> int:
     arrays, meta = upload_segment(seg, dev)
     agg_mapper, agg_seg = agg_segment(np, AGG_SCALE_DOCS)
     corpora = knn_corpora(np)
+    mc = maxsim_corpus(torch, np, dev)
+    # K11's codebook: the port's host train_pq on a 20,000-token sample,
+    # trained on a worker thread (numpy releases the GIL) while the card
+    # runs the phases before K11's check
+    from concurrent.futures import ThreadPoolExecutor
+    from opensearch_tpu_torch.ops.maxsim import train_pq
+    pool = ThreadPoolExecutor(max_workers=1)
+    t_pq = time.perf_counter()
+    codebook_job = pool.submit(train_pq, pq_sample(np, mc), PQ_M)
 
     # phase 2: kernels against their plain versions on the card
     results = phase_kernels(torch, np, seg, mapper, arrays, meta, dev)
     del arrays
     results.update(phase_agg_kernels(torch, np, agg_mapper, agg_seg, dev))
     results.update(phase_knn_kernels(torch, np, corpora, dev))
+    codebook = codebook_job.result()
+    pool.shutdown()
+    log(f"pq codebook: [{PQ_M}, 256, {MAXSIM_SHAPE[2] // PQ_M}] trained by "
+        f"train_pq on {PQ_SAMPLE} sampled tokens "
+        f"{time.perf_counter() - t_pq:.3f} s after set-up began")
+    results.update(phase_maxsim_kernels(torch, np, mc, codebook, dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -1351,6 +1887,15 @@ def main(argv) -> int:
     for cell in ("exact", "ivf"):
         res = phase_knn_cell(torch, np, cell, corpora, dev, card, out_dir)
         log(f"knn {cell}: " + json.dumps(res))
+    del corpora
+    # phase 8: the MaxSim cell
+    res = phase_maxsim_cell(torch, np, mc, dev, card, out_dir)
+    log("maxsim: " + json.dumps(res))
+    del mc
+    # phase 9: the hybrid cell, over phase 4's passages
+    res = phase_hybrid_cell(torch, np, mapper, seg, sorted(
+        t for _, t in seg.term_dict), dev, card, out_dir)
+    log("hybrid: " + json.dumps(res))
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -1358,7 +1903,9 @@ def main(argv) -> int:
     pick = {"bm25_candidate": 4, "score_text_clause": 1, "masked_topk": 4,
             "pairs_match": 0, "binned_popcount": 0, "binned_reduce": 0,
             "knn_exact": 0, "knn_topk_mark": 0, "ivf_probe": 0,
-            "ivf_block_keys": 0, "kmeans_step": 0}
+            "ivf_block_keys": 0, "kmeans_step": 0, "maxsim_exact": 1,
+            "pq_lut": 0, "maxsim_pq": 1, "hybrid_window": 0,
+            "masked_topk_threshold": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -1384,6 +1931,17 @@ def main(argv) -> int:
                            "opensearch_tpu/ops/knn.py:218"),
         "kmeans_step": ("opensearch_tpu_torch/ops/csrc/kmeans_step.cu",
                         "opensearch_tpu/ops/knn.py:120"),
+        "maxsim_exact": ("opensearch_tpu_torch/ops/csrc/maxsim_exact.cu",
+                         "opensearch_tpu/ops/maxsim.py:76"),
+        "pq_lut": ("opensearch_tpu_torch/ops/csrc/maxsim_pq.cu",
+                   "opensearch_tpu/ops/maxsim.py:100"),
+        "maxsim_pq": ("opensearch_tpu_torch/ops/csrc/maxsim_pq.cu",
+                      "opensearch_tpu/ops/maxsim.py:110"),
+        "hybrid_window": ("opensearch_tpu_torch/ops/csrc/hybrid_window.cu",
+                          "opensearch_tpu/search/executor.py:1750"),
+        "masked_topk_threshold": (
+            "opensearch_tpu_torch/ops/csrc/masked_topk.cu",
+            "opensearch_tpu/ops/knn.py:68"),
     }
     kernels = []
     for name in _build.LAUNCHES:

@@ -1,10 +1,12 @@
 """opensearch_tpu_torch: the PyTorch/CUDA port of opensearch_tpu.
 
-The first slice serves BM25 `_search` / `_msearch` on an NVIDIA H100: the
-host layers (mapper, segments, DSL, compiler, executor, REST routes) keep the
-JAX package's module paths and names, and the device programs on the path are
-CUDA C++ kernels written by hand for `sm_90a` (`ops/csrc/`), each with a
-plain PyTorch version of the same function beside its wrapper.
+It serves `_search` / `_msearch` on an NVIDIA H100: BM25, structured
+filters and aggregations, dense k-NN, late-interaction MaxSim and hybrid
+search under search pipelines. The host layers (mapper, segments, DSL,
+compiler, executor, search pipelines, REST routes) keep the JAX package's
+module paths and names, and the device programs on the path are CUDA C++
+kernels written by hand for `sm_90a` (`ops/csrc/`), each with a plain
+PyTorch version of the same function beside its wrapper.
 
 The package imports `torch` and numpy only: never `jax`, and nothing of
 `opensearch_tpu`.

@@ -1,4 +1,4 @@
-"""The error types the BM25 search path raises, with their REST status and
+"""The error types the port's REST surface raises, with their REST status and
 JSON shape (the subset of opensearch_tpu.common.errors the port needs)."""
 
 from __future__ import annotations
@@ -28,6 +28,11 @@ class IndexNotFoundError(OpenSearchTpuError):
                          **{"resource.type": "index_or_alias",
                             "resource.id": index})
         self.index = index
+
+
+class ResourceNotFoundError(OpenSearchTpuError):
+    status = 404
+    error_type = "resource_not_found_exception"
 
 
 class ResourceAlreadyExistsError(OpenSearchTpuError):

@@ -85,10 +85,13 @@ class InternalEngine:
     def index(self, doc_id: str, source: dict,
               op_type: str = "index") -> EngineResult:
         with self._lock:
-            doc = self.mapper.parse_document(doc_id, source)
+            # the reference's order: plan the version, take the seq_no,
+            # then parse, so a write that fails to parse still uses up
+            # its sequence number
             new_version, created = self._plan_versioning(doc_id, op_type)
             seq_no = self._next_seq_no
             self._next_seq_no += 1
+            doc = self.mapper.parse_document(doc_id, source)
             self._builder_ords[doc_id] = self.builder.add(doc)
             self._pending_seal_deletes.append(doc_id)
             self.version_map[doc_id] = VersionValue(new_version, seq_no,

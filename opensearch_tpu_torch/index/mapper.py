@@ -11,6 +11,9 @@ opensearch_tpu.index.mapper the port needs).
 - knn_vector / dense_vector -> one [dims] f32 row per doc in a matrix
                     column, searched by `knn` (exact scan, or an IVF probe
                     over lists built at seal time).
+- rank_vectors   -> one [tokens, dims] f32 matrix per doc (late
+                    interaction), scored by `maxsim`; `compression: pq`
+                    adds seal-trained product-quantization codes.
 
 Objects map to dotted sub-fields and `fields` declares multi-fields, as in
 the reference. Other field types are not ported yet: mapping one raises a
@@ -39,8 +42,13 @@ NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float"}
 DATE_TYPES = {"date"}
 BOOL_TYPES = {"boolean"}
 VECTOR_TYPES = {"knn_vector", "dense_vector"}
+# late-interaction multi-vector fields (ColBERT-style): one [tokens, dims]
+# matrix per doc, scored by the MaxSim kernels (ops/maxsim.py)
+RANK_VECTOR_TYPES = {"rank_vectors"}
+RANK_VECTORS_COMPRESSION = ("none", "pq")
+DEFAULT_MAX_TOKENS = 128
 PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES | DATE_TYPES
-                | BOOL_TYPES | VECTOR_TYPES)
+                | BOOL_TYPES | VECTOR_TYPES | RANK_VECTOR_TYPES)
 DEFAULT_MAPPING_LIMIT = 1000  # index.mapping.total_fields.limit default
 
 _INT_BOUNDS = {
@@ -120,6 +128,9 @@ class MappedFieldType:
     knn_method: str = "exact"            # exact | ivf (hnsw maps to ivf)
     knn_nlist: int = 128                 # ivf: number of centroids
     knn_nprobe: int = 0                  # ivf: default probes (0 -> nlist/8)
+    max_tokens: int = 0                  # rank_vectors: per-doc token cap
+    compression: str = "none"            # rank_vectors: none | pq
+    pq_m: int = 0                        # rank_vectors pq: subspace count
     ignore_above: Optional[int] = None
     null_value: Any = None
 
@@ -146,6 +157,10 @@ class MappedFieldType:
     @property
     def is_vector(self) -> bool:
         return self.type in VECTOR_TYPES
+
+    @property
+    def is_rank_vectors(self) -> bool:
+        return self.type in RANK_VECTOR_TYPES
 
     @property
     def has_ordinals(self) -> bool:
@@ -211,6 +226,7 @@ class ParsedField:
     exact_values: Optional[List[str]] = None        # keyword exact terms
     numeric_values: Optional[List[float]] = None    # numeric/date/bool values
     vector: Optional[List[float]] = None            # knn_vector row
+    token_vectors: Optional[List[List[float]]] = None  # rank_vectors matrix
 
 
 @dataclass
@@ -277,11 +293,35 @@ class MapperService:
                 f"Limit of total fields [{self.total_fields_limit}] has been "
                 f"exceeded")
         dims = 0
-        if ftype in VECTOR_TYPES:
+        if ftype in VECTOR_TYPES or ftype in RANK_VECTOR_TYPES:
             dims = int(spec.get("dimension", spec.get("dims", 0)))
             if dims <= 0:
                 raise MapperParsingError(
                     f"dimension must be set for vector field [{full_name}]")
+        max_tokens = 0
+        compression = "none"
+        pq_m = 0
+        if ftype in RANK_VECTOR_TYPES:
+            max_tokens = int(spec.get("max_tokens", DEFAULT_MAX_TOKENS))
+            if max_tokens <= 0:
+                raise MapperParsingError(
+                    f"max_tokens must be a positive integer for "
+                    f"rank_vectors field [{full_name}]")
+            compression = str(spec.get("compression", "none"))
+            if compression not in RANK_VECTORS_COMPRESSION:
+                raise MapperParsingError(
+                    f"compression must be one of "
+                    f"{list(RANK_VECTORS_COMPRESSION)} for rank_vectors "
+                    f"field [{full_name}], got [{compression}]")
+            if compression == "pq":
+                # subspace count: explicit `pq_m`, or 4-dim subvectors
+                # (scalar subspaces for dims not a multiple of 4)
+                pq_m = int(spec.get("pq_m",
+                                    dims // 4 if dims % 4 == 0 else dims))
+                if pq_m <= 0 or dims % pq_m != 0:
+                    raise MapperParsingError(
+                        f"pq_m [{pq_m}] must evenly divide dimension "
+                        f"[{dims}] for rank_vectors field [{full_name}]")
         analyzer = spec.get("analyzer", "standard")
         if not self.analysis.has(analyzer):
             raise MapperParsingError(
@@ -305,6 +345,9 @@ class MapperService:
             knn_nlist=int(method_params.get("nlist", 128)),
             knn_nprobe=int(method_params.get("nprobes",
                                              method_params.get("nprobe", 0))),
+            max_tokens=max_tokens,
+            compression=compression,
+            pq_m=pq_m,
             ignore_above=spec.get("ignore_above"),
             null_value=spec.get("null_value"))
         for sub_name, sub_spec in spec.get("fields", {}).items():
@@ -419,6 +462,28 @@ class MapperService:
                 1.0 if b else 0.0 for b in bools]
             pf.exact_values = (pf.exact_values or []) + [
                 "true" if b else "false" for b in bools]
+        elif ft.is_rank_vectors:
+            # one [tokens, dims] matrix per doc: an array of per-token
+            # vectors
+            if not isinstance(value, list) or not all(
+                    isinstance(t, list) for t in values):
+                raise MapperParsingError(
+                    f"failed to parse rank_vectors field [{name}]: "
+                    f"expected an array of token vectors")
+            if len(values) > ft.max_tokens:
+                raise MapperParsingError(
+                    f"rank_vectors field [{name}] has {len(values)} token "
+                    f"vectors, more than max_tokens [{ft.max_tokens}]")
+            toks: List[List[float]] = []
+            for t in values:
+                if len(t) != ft.dims or not all(
+                        isinstance(v, (int, float))
+                        and not isinstance(v, bool) for v in t):
+                    raise MapperParsingError(
+                        f"Vector dimension mismatch for field [{name}]: "
+                        f"expected {ft.dims}, got {len(t)}")
+                toks.append([float(v) for v in t])
+            pf.token_vectors = toks
         elif ft.is_vector:
             if isinstance(value, list) and all(isinstance(v, (int, float))
                                                for v in value):

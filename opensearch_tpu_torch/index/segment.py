@@ -10,7 +10,10 @@ doc: numeric/date/boolean values rank-encoded into a sorted f64 `unique`
 table (`DocValuesColumn`), keyword values ordinal-encoded into a sorted
 dictionary (`OrdinalsColumn`). Vectors are a dense f32 `[D, dims]` matrix
 per field (`VectorColumn`), with an IVF index built at seal time for ANN
-mappings. Deletes are a liveness bitmap. The layout is
+mappings; late-interaction token matrices a padded f32 `[D, T, dims]`
+block per field (`RankVectorsColumn`), with product-quantization codes
+trained at seal time for `compression: pq`. Deletes are a liveness
+bitmap. The layout is
 byte-for-byte the reference's, so `segment_from_arrays` can carry a sealed
 reference segment across unchanged.
 """
@@ -76,6 +79,13 @@ def ident_pairs(col) -> bool:
                and (d[nv:] < 0).all())
     col._ident_pairs = out
     return out
+
+
+def token_mask_rows(token_count: np.ndarray, t_bucket: int) -> np.ndarray:
+    """Host mask of the real (non-padded) rows of a flattened [D*T, dims]
+    token block: seal-time PQ trains on real token vectors only."""
+    lanes = np.arange(t_bucket)[None, :] < token_count[:, None]
+    return lanes.reshape(-1)
 
 
 def pad_bucket(n: int, minimum: int = 128) -> int:
@@ -182,6 +192,21 @@ class VectorColumn:
     ivf: Any = None          # Optional[opensearch_tpu_torch.ops.knn.IVFIndex]
 
 
+@dataclass
+class RankVectorsColumn:
+    """Late-interaction multi-vector doc values (rank_vectors fields): one
+    padded [T_bucket, dims] token matrix per doc. `t_bucket` is the
+    segment's power-of-two token bucket (pad_bucket of the longest stored
+    doc, capped by the mapping's max_tokens bucket). PQ mappings also
+    carry seal-trained uint8 codes and their codebook."""
+    tokens: np.ndarray       # float32 [D, T_bucket, dims], padded lanes 0
+    token_count: np.ndarray  # int32 [D] real tokens per doc
+    exists: np.ndarray       # bool [D] doc has >= 1 token vector
+    t_bucket: int
+    codes: Optional[np.ndarray] = None      # uint8 [D, T_bucket, M]
+    codebook: Optional[np.ndarray] = None   # float32 [M, 256, dsub]
+
+
 def _hash64(s: str) -> int:
     """Stable 64-bit hash of a dictionary entry (seal time)."""
     return int.from_bytes(hashlib.blake2b(s.encode("utf-8"),
@@ -201,7 +226,9 @@ class Segment:
                  parent_ptr: Optional[np.ndarray] = None,
                  numeric_dv: Optional[Dict[str, DocValuesColumn]] = None,
                  ordinal_dv: Optional[Dict[str, OrdinalsColumn]] = None,
-                 vector_dv: Optional[Dict[str, VectorColumn]] = None):
+                 vector_dv: Optional[Dict[str, VectorColumn]] = None,
+                 rank_vectors_dv: Optional[Dict[str, RankVectorsColumn]]
+                 = None):
         self.seg_id = seg_id
         self.num_docs = num_docs
         self.doc_ids = doc_ids
@@ -214,6 +241,7 @@ class Segment:
         self.numeric_dv = numeric_dv or {}
         self.ordinal_dv = ordinal_dv or {}
         self.vector_dv = vector_dv or {}
+        self.rank_vectors_dv = rank_vectors_dv or {}
         self.live = np.ones(num_docs, dtype=bool)
         # block-join layout: parent row per row (-1 = root). This slice
         # indexes root documents only, so every row is a root.
@@ -255,6 +283,11 @@ class Segment:
                       + col.exists.nbytes + col.ord_hashes.nbytes)
         for col in self.vector_dv.values():
             total += col.vectors.nbytes + col.exists.nbytes
+        for col in self.rank_vectors_dv.values():
+            total += (col.tokens.nbytes + col.token_count.nbytes
+                      + col.exists.nbytes)
+            if col.codes is not None:
+                total += col.codes.nbytes + col.codebook.nbytes
         return total
 
 
@@ -281,6 +314,11 @@ def segment_from_arrays(arrays: dict) -> Segment:
       None, an IVFIndex or {centroids, lists, block_centroid, nlist,
       nprobe}. A doc ord may stand in the lists once at most: the probe
       stores each candidate's score without atomics.
+    - rank_vectors_dv: {field: {tokens, token_count, exists, t_bucket,
+      codes, codebook}} (optional): float32 [num_docs, t_bucket, dims]
+      token matrices (lanes past a doc's token_count zero), int32 / bool
+      [num_docs]; for a PQ field uint8 [num_docs, t_bucket, M] codes and a
+      float32 [M, 256, dims / M] codebook, carried across as they are.
     """
     n = int(arrays["num_docs"])
     post_docs = np.ascontiguousarray(arrays["post_docs"], dtype=np.int32)
@@ -352,13 +390,15 @@ def segment_from_arrays(arrays: dict) -> Segment:
         ordinal_dv[f] = col
     vector_dv = {f: _vector_column(f, c, n)
                  for f, c in (arrays.get("vector_dv") or {}).items()}
+    rank_vectors_dv = {f: _rank_vectors_column(f, c, n) for f, c in
+                       (arrays.get("rank_vectors_dv") or {}).items()}
     seg = Segment(str(arrays["seg_id"]), n, list(arrays["doc_ids"]),
                   list(arrays["sources"]), term_dict, post_docs, post_tf,
                   norms, field_stats,
                   parent_ptr=None if parent_ptr is None
                   else np.asarray(parent_ptr, dtype=np.int32),
                   numeric_dv=numeric_dv, ordinal_dv=ordinal_dv,
-                  vector_dv=vector_dv)
+                  vector_dv=vector_dv, rank_vectors_dv=rank_vectors_dv)
     live = arrays.get("live")
     if live is not None:
         seg.live = np.array(live, dtype=bool)
@@ -393,6 +433,34 @@ def _vector_column(field: str, c: dict, n: int) -> VectorColumn:
     return VectorColumn(vectors, exists, ivf)
 
 
+def _rank_vectors_column(field: str, c: dict, n: int) -> RankVectorsColumn:
+    """One `rank_vectors_dv` entry of segment_from_arrays, checked."""
+    tokens = np.ascontiguousarray(c["tokens"], dtype=np.float32)
+    token_count = np.ascontiguousarray(c["token_count"], dtype=np.int32)
+    exists = np.ascontiguousarray(c["exists"], dtype=bool)
+    t_bucket = int(c["t_bucket"])
+    if tokens.ndim != 3 or tokens.shape[:2] != (n, t_bucket) \
+            or token_count.shape != (n,) or exists.shape != (n,) \
+            or (n and (token_count.min() < 0
+                       or token_count.max() > t_bucket)):
+        raise ValueError(f"rank_vectors of [{field}] must be [{n}, "
+                         f"t_bucket, dims] tokens with [{n}] token counts "
+                         f"in [0, t_bucket] and a [{n}] exists mask")
+    col = RankVectorsColumn(tokens, token_count, exists, t_bucket)
+    if c.get("codes") is not None:
+        col.codes = np.ascontiguousarray(c["codes"], dtype=np.uint8)
+        col.codebook = np.ascontiguousarray(c["codebook"], dtype=np.float32)
+        m = col.codes.shape[2] if col.codes.ndim == 3 else 0
+        if col.codes.shape[:2] != (n, t_bucket) or m == 0 \
+                or col.codebook.ndim != 3 \
+                or col.codebook.shape[:2] != (m, 256) \
+                or m * col.codebook.shape[2] != tokens.shape[2]:
+            raise ValueError(f"PQ codes of [{field}] must be [{n}, "
+                             f"t_bucket, M] with an [M, 256, dims / M] "
+                             f"codebook")
+    return col
+
+
 # ------------------------------------------------------------ the builder ----
 
 class SegmentBuilder:
@@ -410,6 +478,7 @@ class SegmentBuilder:
         self._numeric: Dict[str, List[Tuple[int, float]]] = {}
         self._ordinal_raw: Dict[str, List[Tuple[int, str]]] = {}
         self._vectors: Dict[str, Dict[int, List[float]]] = {}
+        self._rank_vectors: Dict[str, Dict[int, List[List[float]]]] = {}
         self._field_stats: Dict[str, FieldStats] = {}
 
     def __len__(self):
@@ -460,6 +529,9 @@ class SegmentBuilder:
                 nums.extend((ord_, v) for v in pf.numeric_values)
             if pf.vector is not None:
                 self._vectors.setdefault(field, {})[ord_] = pf.vector
+            if pf.token_vectors is not None:
+                self._rank_vectors.setdefault(field, {})[ord_] = \
+                    pf.token_vectors
         return ord_
 
     def seal(self, device=None) -> Segment:
@@ -556,7 +628,37 @@ class SegmentBuilder:
                                     nprobe=ft.knn_nprobe, device=device)
             vector_dv[field] = col
 
+        # rank_vectors: padded [D, T_bucket, dims] token matrices; a PQ
+        # mapping trains its codebook here (host numpy, as in the
+        # reference), once per segment
+        rank_vectors_dv: Dict[str, RankVectorsColumn] = {}
+        for field, rows in self._rank_vectors.items():
+            ft = self.mapper.get_field(field)
+            max_seen = max((len(toks) for toks in rows.values()), default=0)
+            t_bucket = min(pad_bucket(max(max_seen, 1), minimum=8),
+                           pad_bucket(ft.max_tokens, minimum=8))
+            tokens = np.zeros((n_docs, t_bucket, ft.dims), dtype=np.float32)
+            token_count = np.zeros(n_docs, dtype=np.int32)
+            exists = np.zeros(n_docs, dtype=bool)
+            for ord_, toks in rows.items():
+                nt = len(toks)
+                if nt:
+                    tokens[ord_, :nt] = np.asarray(toks, dtype=np.float32)
+                token_count[ord_] = nt
+                exists[ord_] = nt > 0
+            col = RankVectorsColumn(tokens, token_count, exists, t_bucket)
+            if ft.compression == "pq":
+                from opensearch_tpu_torch.ops.maxsim import (encode_pq,
+                                                             train_pq)
+                flat = tokens.reshape(-1, ft.dims)
+                real = flat[token_mask_rows(token_count, t_bucket)]
+                col.codebook = train_pq(real, ft.pq_m)
+                col.codes = encode_pq(flat, col.codebook).reshape(
+                    n_docs, t_bucket, ft.pq_m)
+            rank_vectors_dv[field] = col
+
         return Segment(self.seg_id, n_docs, list(self.doc_ids),
                        list(self.sources), term_dict, post_docs, post_tf,
                        norms, self._field_stats, numeric_dv=numeric_dv,
-                       ordinal_dv=ordinal_dv, vector_dv=vector_dv)
+                       ordinal_dv=ordinal_dv, vector_dv=vector_dv,
+                       rank_vectors_dv=rank_vectors_dv)

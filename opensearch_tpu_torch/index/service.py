@@ -1,6 +1,8 @@
 """IndexService: one index's mapping, its shard, and the document and search
-operations on it (the subset of opensearch_tpu.index.service the BM25 slice
-needs). This slice serves one shard per index."""
+operations on it (the subset of opensearch_tpu.index.service the port
+needs). The port serves one shard per index so far; the index setting
+`index.search.default_pipeline` names the search pipeline of its
+searches."""
 
 from __future__ import annotations
 
@@ -94,9 +96,13 @@ class IndexService:
         return {"took": int((time.monotonic() - start) * 1000),
                 "errors": errors, "items": items}
 
-    def search(self, body: Optional[dict] = None) -> dict:
+    def search(self, body: Optional[dict] = None,
+               phase_spec: Optional[dict] = None) -> dict:
+        """`phase_spec`: the search pipeline's normalization spec, for a
+        hybrid query (None: the defaults)."""
         from opensearch_tpu_torch.search.controller import execute_search
-        return execute_search([s.executor for s in self.shards], body)
+        return execute_search([s.executor for s in self.shards], body,
+                              phase_spec)
 
     def multi_search(self, bodies: List[dict]) -> dict:
         return self.shards[0].executor.multi_search(bodies)

@@ -1,5 +1,5 @@
-"""Node: the top-level container wiring the indices service and the REST
-routes of the BM25 slice (the subset of opensearch_tpu.node the port
+"""Node: the top-level container wiring the indices service, the search
+pipelines and the REST routes (the subset of opensearch_tpu.node the port
 needs). `Node().request(method, path, body)` is the in-process client."""
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from opensearch_tpu_torch.indices.service import IndicesService
 from opensearch_tpu_torch.rest.actions import register_actions
 from opensearch_tpu_torch.rest.controller import (RestController,
                                                   RestRequest, RestResponse)
+from opensearch_tpu_torch.searchpipeline import SearchPipelineService
 
 
 class Node:
@@ -21,6 +22,7 @@ class Node:
         self.node_name = node_name
         self.device = resolve_device(device)
         self.indices = IndicesService(self.device)
+        self.search_pipelines = SearchPipelineService()
         self.controller = RestController()
         register_actions(self, self.controller)
 

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "pairs_match", "binned_popcount", "binned_reduce", "knn_exact",
-           "ivf_probe", "kmeans_step")
+           "ivf_probe", "kmeans_step", "maxsim_exact", "maxsim_pq",
+           "hybrid_window")
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -33,10 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches of each C entry point: a wrapper adds one where it calls the
 # entry, and nowhere else (plain-version calls do not count). A library's
-# main entry shares its name; knn_exact.cu also holds knn_topk_mark and
-# ivf_probe.cu ivf_block_keys.
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, "knn_topk_mark",
-                                                  "ivf_block_keys")}
+# main entry shares its name; masked_topk.cu also holds
+# masked_topk_threshold, knn_exact.cu knn_topk_mark, ivf_probe.cu
+# ivf_block_keys and maxsim_pq.cu pq_lut.
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    *KERNELS, "masked_topk_threshold", "knn_topk_mark", "ivf_block_keys",
+    "pq_lut")}
 # compiler output (ptxas register / shared-memory report) of the last build
 # of each library (empty until one ran)
 BUILD_LOG: Dict[str, str] = {}

@@ -25,6 +25,14 @@
 // Each pass re-reads the scores and flags, so this simple version moves
 // about 8x the least bytes; a fused histogram and an early exit once the
 // prefix isolates k lanes are the next steps.
+//
+// A second entry, masked_topk_threshold, serves selections past MAX_K (a
+// `knn` node's k, an IVF probe's block budget), whose callers need the SET
+// of the k winners, not their order: the same radix select finds each
+// row's k-th key T, then one pass marks every eligible finite lane whose
+// key is >= T (u8 [B, Dp]). The keys are unique, so exactly the k winners
+// of masked_topk are marked; the shared-memory sort, which caps k, is
+// skipped.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -187,6 +195,39 @@ sort_out_kernel(const unsigned long long* __restrict__ cand,
   if (threadIdx.x == 0) o[2 * k] = __int_as_float(total[q]);
 }
 
+__global__ void __launch_bounds__(HIST_THREADS)
+mark_kernel(Rows r, const unsigned long long* __restrict__ prefix,
+            uint8_t* __restrict__ mark) {
+  const int q = blockIdx.y;
+  const unsigned long long thr = prefix[q];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < r.Dp;
+       i += gridDim.x * blockDim.x) {
+    float s;
+    const bool e = eligible(r, q, i, &s);
+    mark[(size_t)q * r.Dp + i] =
+        e && s > -INFINITY && lane_key(e, s, i) >= thr;
+  }
+}
+
+// The radix select shared by both entries: per row, prefix[q] ends as the
+// k-th largest lane key (k > 0); total[q] counts the eligible lanes.
+void radix_select(const Rows& r, int B, int k, unsigned long long* prefix,
+                  unsigned* krem, unsigned* count, int* total,
+                  unsigned* hist, const dim3& grid, cudaStream_t st) {
+  init_kernel<<<B, 256, 0, st>>>(prefix, krem, count, total, hist, B, k);
+  const int passes = k > 0 ? 8 : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    hist_kernel<<<grid, HIST_THREADS, 0, st>>>(r, pass, prefix, hist, total);
+    if (k > 0) select_kernel<<<B, 256, 0, st>>>(pass, prefix, krem, hist);
+  }
+}
+
+dim3 lane_grid(int Dp, int B) {
+  int chunks = (Dp + HIST_THREADS * 8 - 1) / (HIST_THREADS * 8);
+  if (chunks > 256) chunks = 256;
+  return dim3(chunks, B);
+}
+
 }  // namespace
 
 extern "C" int masked_topk(const float* scores, const uint8_t* matches,
@@ -209,15 +250,8 @@ extern "C" int masked_topk(const float* scores, const uint8_t* matches,
       reinterpret_cast<unsigned long long*>(scratch + 260 * (size_t)B);
   const Rows r{scores, matches, live, root, min_score, Dp, num_docs};
 
-  init_kernel<<<B, 256, 0, st>>>(prefix, krem, count, total, hist, B, k);
-  int chunks = (Dp + HIST_THREADS * 8 - 1) / (HIST_THREADS * 8);
-  if (chunks > 256) chunks = 256;
-  const dim3 grid(chunks, B);
-  const int passes = k > 0 ? 8 : 1;
-  for (int pass = 0; pass < passes; ++pass) {
-    hist_kernel<<<grid, HIST_THREADS, 0, st>>>(r, pass, prefix, hist, total);
-    if (k > 0) select_kernel<<<B, 256, 0, st>>>(pass, prefix, krem, hist);
-  }
+  const dim3 grid = lane_grid(Dp, B);
+  radix_select(r, B, k, prefix, krem, count, total, hist, grid, st);
   if (k > 0) collect_kernel<<<grid, HIST_THREADS, 0, st>>>(r, k, prefix,
                                                            count, cand);
   int p2 = 1;
@@ -233,6 +267,32 @@ extern "C" int masked_topk(const float* scores, const uint8_t* matches,
     smem_set = true;
   }
   sort_out_kernel<<<B, SORT_THREADS, smem, st>>>(cand, total, k, p2, out);
+  return (int)cudaGetLastError();
+}
+
+// The winners' mark for any 0 <= k <= Dp: mark u8 [B, Dp] is 1 at every
+// eligible finite lane among the row's k best keys. scratch: int64
+// [B * 260], laid out as masked_topk's without the candidate keys.
+extern "C" int masked_topk_threshold(const float* scores,
+                                     const uint8_t* matches,
+                                     const uint8_t* live,
+                                     const uint8_t* root,
+                                     const float* min_score, int B, int Dp,
+                                     int num_docs, int k, uint8_t* mark,
+                                     long long* scratch, void* stream) {
+  if (B <= 0 || Dp <= 0) return 0;
+  if (k < 0 || k > Dp) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k == 0)
+    return (int)cudaMemsetAsync(mark, 0, (size_t)B * Dp, st);
+  unsigned long long* prefix = reinterpret_cast<unsigned long long*>(scratch);
+  unsigned* meta = reinterpret_cast<unsigned*>(scratch + B);
+  unsigned* hist = reinterpret_cast<unsigned*>(scratch + 4 * (size_t)B);
+  const Rows r{scores, matches, live, root, min_score, Dp, num_docs};
+  const dim3 grid = lane_grid(Dp, B);
+  radix_select(r, B, k, prefix, meta, meta + B,
+               reinterpret_cast<int*>(meta + 2 * B), hist, grid, st);
+  mark_kernel<<<grid, HIST_THREADS, 0, st>>>(r, prefix, mark);
   return (int)cudaGetLastError();
 }
 

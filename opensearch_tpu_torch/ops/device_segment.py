@@ -17,7 +17,11 @@ values:
   segment) and `exists` bool `[Dp]`; for an IVF field also
   `ivf_centroids` `[nlist, dims]`, `ivf_block_centroid` int32 `[n_blocks]`
   and the list-major packed copy `ivf_packed_vecs` `[n_blocks * 256,
-  dims]` / `ivf_packed_ids` int32 `[n_blocks * 256]` (-1 padding).
+  dims]` / `ivf_packed_ids` int32 `[n_blocks * 256]` (-1 padding);
+- `rank_vectors[field]`: `token_count` int32 and `exists` bool `[Dp]`,
+  then `tokens` float32 `[Dp, T, dims]` or, for a PQ field, `codes` uint8
+  `[Dp, T, M]` and `codebook` float32 `[M, 256, dsub]` (zero past the
+  segment; T is the segment's token bucket).
 
 The image is built host-side in numpy and uploaded once to the chosen
 device.
@@ -58,6 +62,9 @@ class DeviceSegmentMeta:
     numeric_fields: Tuple[str, ...] = ()
     ordinal_fields: Tuple[str, ...] = ()
     vector_fields: Tuple[str, ...] = ()
+    # (field, token bucket, compression) per rank_vectors field: the
+    # bucket and the storage variant shape the kernels' launches
+    rank_vector_fields: Tuple[Tuple[str, int, str], ...] = ()
     block_bounds: bool = True
 
     def norm_row(self, field: str) -> Optional[int]:
@@ -71,7 +78,8 @@ class DeviceSegmentMeta:
         segments equal on this key run the same kernel configurations."""
         return (self.num_docs, self.d_pad, self.nb_pad, self.norm_rows,
                 self.numeric_fields, self.ordinal_fields,
-                self.vector_fields, self.block_bounds)
+                self.vector_fields, self.rank_vector_fields,
+                self.block_bounds)
 
 
 def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
@@ -115,6 +123,7 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
         "numeric": {},
         "ordinal": {},
         "vector": {},
+        "rank_vectors": {},
     }
 
     for fname, col in seg.numeric_dv.items():
@@ -169,12 +178,36 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
             entry["ivf_packed_ids"] = flat_ids
         arrays["vector"][fname] = entry
 
+    # PQ fields ship codes and the codebook instead of the f32 matrices
+    rank_vector_fields = []
+    for fname, col in sorted(seg.rank_vectors_dv.items()):
+        token_count = np.zeros(d_pad, dtype=np.int32)
+        token_count[:seg.num_docs] = col.token_count
+        exists = np.zeros(d_pad, dtype=bool)
+        exists[:seg.num_docs] = col.exists
+        entry = {"token_count": token_count, "exists": exists}
+        if col.codes is not None:
+            codes = np.zeros((d_pad,) + col.codes.shape[1:], dtype=np.uint8)
+            codes[:seg.num_docs] = col.codes
+            entry["codes"] = codes
+            entry["codebook"] = np.array(col.codebook)
+            compression = "pq"
+        else:
+            tokens = np.zeros((d_pad,) + col.tokens.shape[1:],
+                              dtype=np.float32)
+            tokens[:seg.num_docs] = col.tokens
+            entry["tokens"] = tokens
+            compression = "none"
+        arrays["rank_vectors"][fname] = entry
+        rank_vector_fields.append((fname, col.t_bucket, compression))
+
     meta = DeviceSegmentMeta(
         seg_id=seg.seg_id, num_docs=seg.num_docs, d_pad=d_pad, nb_pad=nb_pad,
         norm_rows=tuple((f, i) for i, f in enumerate(norm_fields)),
         numeric_fields=tuple(sorted(seg.numeric_dv)),
         ordinal_fields=tuple(sorted(seg.ordinal_dv)),
-        vector_fields=tuple(sorted(seg.vector_dv)))
+        vector_fields=tuple(sorted(seg.vector_dv)),
+        rank_vector_fields=tuple(rank_vector_fields))
     return arrays, meta
 
 

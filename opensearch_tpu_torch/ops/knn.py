@@ -35,7 +35,10 @@ import torch
 
 from opensearch_tpu_torch import resolve_device
 from opensearch_tpu_torch.ops import _build
-from opensearch_tpu_torch.ops.topk import NEG_INF, masked_topk, stable_topk
+from opensearch_tpu_torch.ops.topk import (MAX_K, NEG_INF, mark_winners,
+                                           masked_topk,
+                                           masked_topk_threshold,
+                                           stable_topk)
 
 SPACES = ("l2", "cosinesimil", "innerproduct")
 _SPACE_CODE = {s: i for i, s in enumerate(SPACES)}
@@ -154,13 +157,7 @@ def knn_topk_mark_plain(packed: torch.Tensor, scores: torch.Tensor,
     """Plain version of knn_topk_mark: the finite winners of K3's packed
     [B, 2k+1] rows keep their score and match; every other doc 0 / false.
     No invalid slot touches doc 0."""
-    bsz, d_pad = scores.shape
-    top = packed[:, :k]
-    idx = packed[:, k:2 * k].view(torch.int32).long()
-    valid = top > NEG_INF
-    rows = torch.arange(bsz, device=scores.device)[:, None].expand(bsz, k)
-    matches = torch.zeros(bsz, d_pad, dtype=torch.bool, device=scores.device)
-    matches[rows[valid], idx[valid]] = True
+    matches = mark_winners(packed, scores.shape[1], k)
     return torch.where(matches, scores, 0.0), matches
 
 
@@ -196,11 +193,17 @@ def knn_match_topk(scores: torch.Tensor, eligible: torch.Tensor,
     The top-k is K3 with min_score -inf. K3 ands `live`, `root` and the
     segment bound onto `eligible`; the reference's eligibility is exists &
     live (& filter & IVF candidates) with no root term, so `live` stands in
-    for `root` and the bound is Dp: `eligible` already holds both."""
+    for `root` and the bound is Dp: `eligible` already holds both. Past
+    MAX_K the node needs only the set of winners: K3's threshold entry
+    marks it."""
     bsz, d_pad = scores.shape
     k_eff = min(int(k), d_pad)
     min_score = torch.full((bsz,), NEG_INF, dtype=torch.float32,
                            device=scores.device)
+    if k_eff > MAX_K:
+        matches = masked_topk_threshold(scores, eligible, live, live, d_pad,
+                                        min_score, k_eff)
+        return torch.where(matches, scores, 0.0), matches
     packed = masked_topk(scores, eligible, live, live, d_pad, min_score,
                          k_eff)
     return knn_topk_mark(packed, scores, k_eff)
@@ -313,9 +316,20 @@ def ivf_knn_scores(packed_vecs, packed_ids, centroids, block_centroid,
     budget = ivf_budget(nprobe, nlist, n_blocks)
     neg_key = ivf_block_keys(centroids, block_centroid, queries)
     every = torch.ones(n_blocks, dtype=torch.bool, device=dev)
-    chosen = masked_topk(neg_key, every[None, :].expand(bsz, -1).contiguous(),
-                         every, every, n_blocks,
-                         torch.full((bsz,), NEG_INF, device=dev), budget)
+    choice = (neg_key, every[None, :].expand(bsz, -1).contiguous(), every,
+              every, n_blocks, torch.full((bsz,), NEG_INF, device=dev),
+              budget)
+    if budget <= MAX_K:
+        chosen = masked_topk(*choice)
+    else:
+        # past MAX_K the probe takes the set of chosen blocks (it stores
+        # each row's score in place, so their order does not matter):
+        # every row marks exactly `budget` blocks, listed in block order
+        ids = masked_topk_threshold(*choice).nonzero()[:, 1].to(torch.int32)
+        chosen = torch.zeros(bsz, 2 * budget + 1, dtype=torch.float32,
+                             device=dev)
+        chosen[:, budget:2 * budget] = ids.view(bsz, budget).view(
+            torch.float32)
     dense = torch.empty(bsz, d, dtype=torch.float32, device=dev)
     mask = torch.empty(bsz, d, dtype=torch.bool, device=dev)
     qn = torch.empty(max(bsz, 1), dtype=torch.float32, device=dev)

@@ -1,9 +1,11 @@
-"""REST handlers of the BM25 slice (the subset of
-opensearch_tpu.rest.actions the port serves): index create / delete,
-document index / delete, `_bulk`, `_refresh`, `_search` and `_msearch`."""
+"""REST handlers (the subset of opensearch_tpu.rest.actions the port
+serves): index create / delete, document index / delete, `_bulk`,
+`_refresh`, `_search` and `_msearch` (with search-pipeline resolution),
+and search-pipeline CRUD (`/_search/pipeline/{id}`)."""
 
 from __future__ import annotations
 
+import fnmatch
 import json
 from typing import Any, Dict, List, Optional
 
@@ -27,6 +29,21 @@ def _ndjson_lines(request: RestRequest) -> List[Any]:
 def _shards_header(node, names) -> dict:
     total = sum(node.indices.get(n).num_shards for n in names)
     return {"total": total, "successful": total, "failed": 0}
+
+
+def _run_search(node, index: str, body: Optional[dict],
+                search_pipeline=None) -> dict:
+    """One search with its pipeline: the request parameter, else an inline
+    `search_pipeline` definition in the body, else the index's
+    `index.search.default_pipeline`; the pipeline's
+    normalization-processor spec rides along for a hybrid query."""
+    svc = node.indices.get(index)
+    body = dict(body or {})
+    inline = body.pop("search_pipeline", None)
+    pipeline = node.search_pipelines.resolve(
+        search_pipeline if search_pipeline is not None else inline, [svc])
+    return svc.search(body, pipeline.phase_spec()
+                      if pipeline is not None else None)
 
 
 def register_actions(node, c: RestController) -> None:
@@ -119,7 +136,8 @@ def register_actions(node, c: RestController) -> None:
         for key in ("size", "from"):
             if req.param(key) is not None:
                 body = {**body, key: req.param(key)}
-        return node.indices.get(req.param("index")).search(body)
+        return _run_search(node, req.param("index"), body,
+                           req.param("search_pipeline"))
 
     def do_msearch(req):
         lines = _ndjson_lines(req)
@@ -132,13 +150,19 @@ def register_actions(node, c: RestController) -> None:
             header, body = lines[i], lines[i + 1]
             pairs.append((header.get("index", req.param("index")), body))
         exprs = {e for e, _ in pairs}
-        if len(exprs) == 1 and None not in exprs:
-            # one index: the whole batch runs through its envelope
-            res = node.indices.get(next(iter(exprs))).multi_search(
-                [b for _, b in pairs])
-            for r in res["responses"]:
-                r.setdefault("status", 200)
-            return res
+        if len(exprs) == 1 and None not in exprs and not any(
+                isinstance(b, dict) and b.get("search_pipeline")
+                for _, b in pairs):
+            svc = node.indices.get(next(iter(exprs)))
+            if svc.settings.get("search.default_pipeline") in (None,
+                                                               "_none"):
+                # one index and no pipeline: the whole batch runs through
+                # its envelope (hybrid bodies in the batched hybrid wave,
+                # under the default normalization spec)
+                res = svc.multi_search([b for _, b in pairs])
+                for r in res["responses"]:
+                    r.setdefault("status", 200)
+                return res
         responses = []
         took = 0
         for index_expr, body in pairs:
@@ -146,7 +170,7 @@ def register_actions(node, c: RestController) -> None:
                 if index_expr is None:
                     raise IllegalArgumentError(
                         "msearch item names no index")
-                res = node.indices.get(index_expr).search(body)
+                res = _run_search(node, index_expr, body)
                 res["status"] = 200
                 took = max(took, res.get("took", 0))
                 responses.append(res)
@@ -155,6 +179,29 @@ def register_actions(node, c: RestController) -> None:
                                   "status": e.status})
         return {"took": took, "responses": responses}
 
+    def do_put_pipeline(req):
+        node.search_pipelines.put(req.param("id"), req.body or {})
+        return {"acknowledged": True}
+
+    def do_get_pipeline(req):
+        pid = req.param("id")
+        pipelines = node.search_pipelines.pipelines
+        if pid is None or pid in ("*", "_all"):
+            return {p: pipe.body for p, pipe in pipelines.items()}
+        matched = {p: pipe.body for p, pipe in pipelines.items()
+                   if fnmatch.fnmatchcase(p, pid)}
+        if not matched:
+            return 404, {}
+        return matched
+
+    def do_delete_pipeline(req):
+        node.search_pipelines.delete(req.param("id"))     # 404 if missing
+        return {"acknowledged": True}
+
+    c.register("PUT", "/_search/pipeline/{id}", do_put_pipeline)
+    c.register("GET", "/_search/pipeline", do_get_pipeline)
+    c.register("GET", "/_search/pipeline/{id}", do_get_pipeline)
+    c.register("DELETE", "/_search/pipeline/{id}", do_delete_pipeline)
     c.register("PUT", "/{index}", do_create_index)
     c.register("DELETE", "/{index}", do_delete_index)
     c.register("PUT", "/{index}/_doc/{id}", do_index)

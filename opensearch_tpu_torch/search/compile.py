@@ -30,8 +30,6 @@ from opensearch_tpu_torch.index.segment import (Segment, ident_pairs,
                                                 pad_bucket)
 from opensearch_tpu_torch.ops.bm25 import idf as bm25_idf
 from opensearch_tpu_torch.ops.device_segment import DeviceSegmentMeta
-from opensearch_tpu_torch.ops.knn import ivf_budget
-from opensearch_tpu_torch.ops.topk import MAX_K
 from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.dsl import parse_minimum_should_match
 
@@ -305,6 +303,9 @@ class Compiler:
         if field in seg.vector_dv:
             return Plan("exists", static=("vector", field),
                         inputs={"boost": _f32(node.boost)})
+        if field in seg.rank_vectors_dv:
+            return Plan("exists", static=("rank_vectors", field),
+                        inputs={"boost": _f32(node.boost)})
         row = meta.norm_row(field)
         if row is not None:
             return Plan("exists", static=("norms", row),
@@ -329,21 +330,8 @@ class Compiler:
             raise IllegalArgumentError(
                 f"query vector has dimension {q.shape[0]} but field "
                 f"[{node.field}] expects {ft.dims}")
-        # the k best docs of a segment and an IVF probe's best blocks are
-        # both K3 selections, which take at most MAX_K winners per row
-        if min(int(node.k), meta.d_pad) > MAX_K:
-            raise IllegalArgumentError(
-                f"[knn] k must be at most {MAX_K}, got {node.k}")
         use_ivf = col.ivf is not None and node.filter is None
-        nprobe = 0
-        if use_ivf:
-            nprobe = node.nprobe or col.ivf.nprobe
-            budget = ivf_budget(nprobe, col.ivf.centroids.shape[0],
-                                col.ivf.lists.shape[0])
-            if budget > MAX_K:
-                raise IllegalArgumentError(
-                    f"[knn] an IVF probe of field [{node.field}] would read "
-                    f"{budget} blocks, more than {MAX_K}: lower nprobes")
+        nprobe = (node.nprobe or col.ivf.nprobe) if use_ivf else 0
         children = []
         if node.filter is not None:
             children.append(self.compile(node.filter, seg, meta))
@@ -352,6 +340,54 @@ class Compiler:
                             "ivf" if use_ivf else "exact", int(nprobe)),
                     inputs={"query": q, "boost": _f32(node.boost)},
                     children=children)
+
+    def _c_MaxSimQuery(self, node: dsl.MaxSimQuery, seg, meta) -> Plan:
+        """Late-interaction MaxSim leaf -> the exact (K10) or PQ (K11)
+        scan, then the k best eligible docs of the segment, as for knn; a
+        `filter` restricts eligibility before the top-k. The query token
+        matrix pads to a power-of-two token bucket (at least 4) with a
+        qmask zeroing the padded lanes."""
+        ft = self.mapper.get_field(node.field)
+        if ft is None or not ft.is_rank_vectors:
+            raise QueryShardError(
+                f"field [{node.field}] is not a rank_vectors field")
+        col = seg.rank_vectors_dv.get(node.field)
+        if col is None:
+            return MATCH_NONE
+        q = np.asarray([list(t) for t in node.query_vectors],
+                       dtype=np.float32)
+        if q.ndim != 2 or q.shape[1] != ft.dims:
+            got = q.shape[1] if q.ndim == 2 else "ragged"
+            raise IllegalArgumentError(
+                f"query token vectors have dimension {got} but field "
+                f"[{node.field}] expects {ft.dims}")
+        if q.shape[0] > ft.max_tokens:
+            raise IllegalArgumentError(
+                f"query has {q.shape[0]} token vectors but field "
+                f"[{node.field}] allows at most max_tokens={ft.max_tokens}")
+        tq = pad_bucket(q.shape[0], minimum=4)
+        qpad = np.zeros((tq, ft.dims), dtype=np.float32)
+        qpad[:q.shape[0]] = q
+        qmask = np.zeros(tq, dtype=np.float32)
+        qmask[:q.shape[0]] = 1.0
+        children = []
+        if node.filter is not None:
+            children.append(self.compile(node.filter, seg, meta))
+        compression = "pq" if col.codes is not None else "none"
+        return Plan("maxsim",
+                    static=(node.field, int(node.k), compression),
+                    inputs={"query": qpad, "qmask": qmask,
+                            "boost": _f32(node.boost)},
+                    children=children)
+
+    def _c_HybridQuery(self, node: dsl.HybridQuery, seg, meta) -> Plan:
+        """Hybrid runs as the fused hybrid query phase
+        (search/executor.py), which compiles each sub-query on its own;
+        reaching the generic compiler means it was nested in another
+        clause, which the reference refuses too."""
+        raise QueryShardError(
+            "[hybrid] query must be a top-level query and cannot be wrapped "
+            "into other queries")
 
     def _c_DisMaxQuery(self, node: dsl.DisMaxQuery, seg, meta) -> Plan:
         children = [self.compile(c, seg, meta) for c in node.queries]

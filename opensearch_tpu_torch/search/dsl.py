@@ -1,6 +1,6 @@
 """Query DSL: `match`, `term`, `terms` (text, keyword, numeric, date and
 boolean values), `range`, `exists`, `match_all`, `match_none`, `bool`,
-`dis_max` and `knn` (the subset of opensearch_tpu.search.dsl the port
+`dis_max`, `knn`, `maxsim` and the top-level `hybrid` (the subset of opensearch_tpu.search.dsl the port
 needs), with the reference's REST wire shapes and error types. Any other
 query kind raises the reference's parsing error."""
 
@@ -77,6 +77,30 @@ class KnnQuery(QueryNode):
     k: int = 10
     filter: Optional[QueryNode] = None
     nprobe: int = 0          # IVF probe override (method_parameters.nprobes)
+
+
+@dataclass
+class MaxSimQuery(QueryNode):
+    """Late-interaction leaf query over a `rank_vectors` field: the query
+    brings one vector per query token, and docs are scored by MaxSim
+    (ops/maxsim.py)."""
+    field: str = ""
+    query_vectors: Sequence[Sequence[float]] = ()
+    k: int = 10
+    filter: Optional[QueryNode] = None
+
+
+@dataclass
+class HybridQuery(QueryNode):
+    """Hybrid clause (the neural-search plugin's HybridQueryBuilder): N
+    independently scored sub-queries whose scores stay separate through
+    the query phase and merge in the search pipeline's
+    normalization-processor. Top-level only."""
+    queries: List["QueryNode"] = dc_field(default_factory=list)
+
+
+# reference: HybridQueryBuilder.MAX_NUMBER_OF_SUB_QUERIES
+MAX_HYBRID_SUB_QUERIES = 5
 
 
 @dataclass
@@ -203,6 +227,36 @@ def parse_query(q: Any) -> QueryNode:
                         if "filter" in spec else None,
                         nprobe=int(mp.get("nprobes", mp.get("nprobe", 0))),
                         boost=float(spec.get("boost", 1.0)))
+
+    if name == "maxsim":
+        field, spec = _field_body(body, "maxsim")
+        qv = spec.get("query_vectors")
+        if not isinstance(qv, list) or not qv \
+                or not all(isinstance(t, list) and t for t in qv):
+            raise ParsingError("[maxsim] query requires a non-empty "
+                               "[query_vectors] list of token vectors")
+        return MaxSimQuery(field=field,
+                           query_vectors=[list(t) for t in qv],
+                           k=int(spec.get("k", 10)),
+                           filter=parse_query(spec["filter"])
+                           if "filter" in spec else None,
+                           boost=float(spec.get("boost", 1.0)))
+
+    if name == "hybrid":
+        subs = body.get("queries")
+        if not isinstance(subs, list) or not subs:
+            raise ParsingError("[hybrid] query requires a non-empty "
+                               "[queries] array")
+        if len(subs) > MAX_HYBRID_SUB_QUERIES:
+            raise ParsingError(
+                f"Number of sub-queries exceeds maximum supported by "
+                f"[hybrid] query [{MAX_HYBRID_SUB_QUERIES}]")
+        unknown = set(body) - {"queries", "boost"}
+        if unknown:
+            raise ParsingError(
+                f"[hybrid] query does not support [{sorted(unknown)[0]}]")
+        return HybridQuery(queries=[parse_query(s) for s in subs],
+                           boost=float(body.get("boost", 1.0)))
 
     if name == "bool":
         return BoolQuery(

@@ -13,6 +13,12 @@ dense eligibility mask, and its partials are bit-cast onto the same packed
 f32 rows, so an agg batch is still one copy. The host then merges segments
 (score desc, segment asc, doc asc), reduces the agg partials and renders
 responses in the reference's JSON shape.
+
+A top-level `hybrid` body runs through the fused hybrid query phase
+instead (`build_hybrid_query_phase`): per segment, every sub-query's plan
+and its K3 window, then K12's bounds and union total, one packed row per
+query; same-shaped hybrid bodies of an `_msearch` batch the same way, and
+searchpipeline/hybrid.py normalizes and combines the windows.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from opensearch_tpu_torch.ops.bm25 import (CANDIDATE_MAX_LANES,
 from opensearch_tpu_torch.ops.device_segment import (DeviceSegmentMeta,
                                                      live_mask, tree_nbytes,
                                                      upload_segment)
+from opensearch_tpu_torch.ops.hybrid import hybrid_window
 from opensearch_tpu_torch.ops.topk import NEG_INF, masked_topk, unpack_rows
 from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.aggs.engine import (_decode_agg_row,
@@ -178,6 +185,18 @@ def stack_flat_inputs(flats: List[List[Dict[str, np.ndarray]]]):
     return stacked, treedef
 
 
+def stage_inputs(flats: List[List[Dict[str, np.ndarray]]],
+                 min_scores: np.ndarray, dev: torch.device):
+    """A group's per-query flat inputs stacked, packed into one (pinned)
+    host buffer, uploaded once and unpacked into views: (per-node input
+    dicts, min_score [B])."""
+    stacked, treedef = stack_flat_inputs(flats)
+    stacked.append(min_scores)
+    buf, layout = pack_leaves(stacked, pin=dev.type == "cuda")
+    leaves = unpack_leaves(buf.to(dev, non_blocking=True), layout)
+    return unflatten_inputs(treedef, leaves[:-1]), leaves[-1]
+
+
 def unflatten_inputs(treedef, leaves: List[torch.Tensor]):
     """Inverse of stack_flat_inputs' flattening: one input dict per plan
     node, in flatten order."""
@@ -260,6 +279,108 @@ def build_batched_agg_query_phase(plan: Plan, meta: DeviceSegmentMeta,
     return run, out_layout
 
 
+def build_hybrid_query_phase(plans: List[Plan], meta: DeviceSegmentMeta,
+                             k: int):
+    """B same-shaped hybrid queries against one segment: each sub-query's
+    plan, its eligibility (matches & live & root & in-segment & score >=
+    min_score) and its K3 window, then K12's per-sub-query count / min /
+    max / sum of squares over the window and the union total of the
+    eligibilities. Returns f32 [B, n_sub * (2k + 4) + 1] rows, the
+    reference's fused row layout."""
+
+    def run(seg, inputs, min_score):
+        bsz = min_score.shape[0]
+        cursor = [0]
+        d_pad = seg["live"].shape[0]
+        dev = seg["live"].device
+        in_seg = torch.arange(d_pad, device=dev) < meta.num_docs
+        base = seg["live"] & seg["root"] & in_seg
+        eligible = torch.empty(len(plans), bsz, d_pad, dtype=torch.bool,
+                               device=dev)
+        k_eff = min(k, d_pad)
+        rows = []
+        for i, plan in enumerate(plans):
+            scores, matches = _eval_plan(plan, seg, inputs, cursor, bsz)
+            torch.logical_and(matches & base,
+                              scores >= min_score[:, None], out=eligible[i])
+            rows.append(masked_topk(scores.contiguous(), eligible[i],
+                                    seg["live"], seg["root"], meta.num_docs,
+                                    min_score, k_eff))
+        return hybrid_window(torch.stack(rows), eligible, k_eff)
+    return run
+
+
+def _decode_hybrid_row(row: np.ndarray, k_seg: int, n_sub: int):
+    """Invert one segment's fused hybrid row: per-sub (scores, ords,
+    count, min, max, sum_sq) channels + the trailing union total."""
+    out = []
+    off = 0
+    for _ in range(n_sub):
+        scores = row[off:off + k_seg]
+        ords = row[off + k_seg:off + 2 * k_seg].view(np.int32)
+        off += 2 * k_seg
+        cnt = int(row[off:off + 1].view(np.int32)[0])
+        mn, mx, ssq = (float(row[off + 1]), float(row[off + 2]),
+                       float(row[off + 3]))
+        off += 4
+        out.append((scores, ords, cnt, mn, mx, ssq))
+    total = int(row[off:off + 1].view(np.int32)[0])
+    return out, total
+
+
+# body keys the batched hybrid wave fully renders (weights and techniques
+# come from the default spec, not the body)
+_HYBRID_BATCHABLE_KEYS = frozenset({"query", "size", "from", "min_score",
+                                    "_source", "track_total_hits"})
+
+
+def _contains_hybrid(query_spec) -> bool:
+    """A top-level hybrid clause, detected on the raw body."""
+    return isinstance(query_spec, dict) and "hybrid" in query_spec
+
+
+def _hybrid_msearch_batchable(body: dict) -> bool:
+    return (_contains_hybrid(body.get("query"))
+            and set(body) <= _HYBRID_BATCHABLE_KEYS)
+
+
+class HybridShardResult:
+    """One shard's fused hybrid query phase output: per-sub-query candidate
+    lists, per-sub-query (min, max, sum_sq, count) bounds, the union total
+    and the segments snapshot the candidates index into."""
+    __slots__ = ("per_sub", "bounds", "total", "segments")
+
+    def __init__(self, per_sub, bounds, total, segments=None):
+        self.per_sub = per_sub      # [sub][(score, seg_i, ord), ...]
+        self.bounds = bounds        # [sub](min, max, sum_sq, count)
+        self.total = total
+        self.segments = segments
+
+
+def _empty_hybrid_result(n_sub: int, segments=None) -> HybridShardResult:
+    return HybridShardResult(
+        [[] for _ in range(n_sub)],
+        [[float("inf"), float("-inf"), 0.0, 0] for _ in range(n_sub)], 0,
+        segments)
+
+
+def _accumulate_hybrid_row(result: HybridShardResult, row: np.ndarray,
+                           seg_i: int, k_seg: int, n_sub: int) -> None:
+    channels, total = _decode_hybrid_row(row, k_seg, n_sub)
+    for i, (scores, ords, cnt, mn, mx, ssq) in enumerate(channels):
+        # the window is score-desc with padding last: its first cnt lanes
+        # are the valid candidates
+        for sc, o in zip(scores[:cnt].tolist(), ords[:cnt].tolist()):
+            result.per_sub[i].append((sc, seg_i, o))
+        if cnt:
+            b = result.bounds[i]
+            b[0] = min(b[0], mn)
+            b[1] = max(b[1], mx)
+            b[2] += ssq
+            b[3] += cnt
+    result.total += total
+
+
 def _envelope_runner(plan: Plan, meta: DeviceSegmentMeta, k: int):
     if _envelope_kernel(plan) == "candidate":
         return build_candidate_query_phase(plan, k)
@@ -319,9 +440,18 @@ class SearchExecutor:
         self.reader = reader
         self.max_result_window = 10000
 
-    def search(self, body: Optional[dict] = None) -> dict:
-        """One search: the msearch envelope at B=1; errors raise."""
-        return self.multi_search([body or {}],
+    def search(self, body: Optional[dict] = None,
+               phase_spec: Optional[dict] = None) -> dict:
+        """One search: the msearch envelope at B=1; a hybrid body runs the
+        fused hybrid phase at B=1 and merges under `phase_spec` (a search
+        pipeline's normalization spec; None: the defaults). Errors
+        raise."""
+        body = body or {}
+        if _contains_hybrid(body.get("query")):
+            from opensearch_tpu_torch.searchpipeline.hybrid import \
+                execute_hybrid_search
+            return execute_hybrid_search([self], body, phase_spec)
+        return self.multi_search([body],
                                  _raise_item_errors=True)["responses"][0]
 
     def multi_search(self, bodies: List[dict],
@@ -332,17 +462,139 @@ class SearchExecutor:
         start = time.monotonic()
         responses: List[Optional[dict]] = [None] * len(bodies)
         batchable = []
+        hybrid_items = []
         for i, body in enumerate(bodies):
+            body = body or {}
             try:
-                batchable.append(self._parse_one(i, body or {}))
+                if _hybrid_msearch_batchable(body):
+                    hybrid_items.append((i, body))
+                elif _contains_hybrid(body.get("query")):
+                    # a companion the hybrid wave does not render: the
+                    # single-search path answers it (or its 400)
+                    responses[i] = self.search(body)
+                else:
+                    batchable.append(self._parse_one(i, body))
             except OpenSearchTpuError as e:
                 if _raise_item_errors:
                     raise
                 responses[i] = _item_error(e)
         if batchable:
             self._run_batch(batchable, responses, start, _raise_item_errors)
+        if hybrid_items:
+            self._run_hybrid_wave(hybrid_items, responses, start,
+                                  _raise_item_errors)
         return {"took": int((time.monotonic() - start) * 1000),
                 "responses": responses}
+
+    def execute_hybrid_query_phase(self, body: dict,
+                                   k: int) -> HybridShardResult:
+        """This shard's fused hybrid query phase for one body: every
+        sub-query's window and bounds, per segment, through the batched
+        wave's programs at B=1 (so a single search and an `_msearch` item
+        compute the same bits)."""
+        node = dsl.parse_query(body.get("query"))
+        if not isinstance(node, dsl.HybridQuery):
+            raise IllegalArgumentError(
+                "execute_hybrid_query_phase requires a top-level [hybrid] "
+                "query")
+        return self._hybrid_results([(0, node, _req_min_score(body), k)],
+                                    {}, True)[0]
+
+    def _run_hybrid_wave(self, items, responses, start: float,
+                         raise_item_errors: bool) -> None:
+        """The `_msearch` hybrid wave: same-shaped hybrid bodies run as one
+        batch per segment and render under the default normalization spec
+        (a named or index pipeline routes its items through the REST
+        search path instead)."""
+        from opensearch_tpu_torch.searchpipeline import hybrid as hyb
+        prepared = []
+        for i, body in items:
+            try:
+                node = dsl.parse_query(body.get("query"))
+                _s, _f, k = hyb.validate_hybrid_request(
+                    body, len(node.queries), hyb.DEFAULT_SPEC, [self])
+                prepared.append((i, node, _req_min_score(body), k))
+            except OpenSearchTpuError as e:
+                if raise_item_errors:
+                    raise
+                responses[i] = _item_error(e)
+        results = self._hybrid_results(prepared, responses,
+                                       raise_item_errors)
+        body_of = dict(items)
+        for i, node, _ms, _k in prepared:
+            if i in results:
+                responses[i] = hyb.merge_and_render(
+                    [self], body_of[i], [results[i]], hyb.DEFAULT_SPEC,
+                    start, len(node.queries))
+
+    def _hybrid_results(self, items, responses, raise_item_errors: bool
+                        ) -> Dict[int, HybridShardResult]:
+        """Fused hybrid query phases of items [(i, HybridQuery, min_score,
+        k)]: grouped by plan structure, input shapes and window, each group
+        one batch per segment, every group's rows fetched in ONE copy."""
+        stats, segments, device = self.reader.stats_snapshot()
+        compiler = Compiler(self.reader.mapper, stats)
+        dev = self.reader.torch_device
+        groups: Dict[Any, List[int]] = {}
+        prepared: Dict[int, tuple] = {}
+        for i, node, min_score, k in items:
+            try:
+                plans_per_seg = [
+                    [compiler.compile(q, seg, meta) for q in node.queries]
+                    if seg.num_docs else None
+                    for seg, (_a, meta) in zip(segments, device)]
+            except OpenSearchTpuError as e:
+                if raise_item_errors:
+                    raise
+                responses[i] = _item_error(e)
+                continue
+            flats = []
+            for plans in plans_per_seg:
+                flat = None
+                if plans is not None:
+                    flat = []
+                    for p in plans:
+                        p.flatten_inputs(flat)
+                flats.append(flat)
+            struct = tuple(None if plans is None
+                           else tuple(plan_struct(p) for p in plans)
+                           for plans in plans_per_seg)
+            shape_sig = tuple(
+                None if f is None else tuple(
+                    (key, v.shape, v.dtype.num)
+                    for d in f for key, v in d.items())
+                for f in flats)
+            k_fetch = min(k, 1 << 16)
+            prepared[i] = (len(node.queries), min_score, plans_per_seg,
+                           flats)
+            groups.setdefault((struct, shape_sig, k_fetch), []).append(i)
+        pending = []
+        for (_struct, _shape, k_fetch), idxs in groups.items():
+            min_scores = np.asarray([prepared[i][1] for i in idxs],
+                                    dtype=np.float32)
+            for seg_i, (seg, (arrays, meta)) in enumerate(
+                    zip(segments, device)):
+                if seg.num_docs == 0:
+                    continue
+                inputs, ms = stage_inputs(
+                    [prepared[i][3][seg_i] for i in idxs], min_scores, dev)
+                k_seg = min(k_fetch, pad_bucket(max(seg.num_docs, 1)))
+                plans0 = prepared[idxs[0]][2][seg_i]
+                out = build_hybrid_query_phase(plans0, meta, k_seg)(
+                    arrays, inputs, ms)
+                pending.append((idxs, seg_i, k_seg, len(plans0), out))
+        results = {i: _empty_hybrid_result(prepared[i][0], segments)
+                   for i in prepared}
+        if pending:
+            fetched = _fetch_rows([p[4] for p in pending])
+            for (idxs, seg_i, k_seg, n_sub, _), rows in zip(pending,
+                                                            fetched):
+                for row_i, i in enumerate(idxs):
+                    _accumulate_hybrid_row(results[i], rows[row_i], seg_i,
+                                           k_seg, n_sub)
+        for result in results.values():
+            result.bounds = [tuple(b) for b in result.bounds]
+        return results
 
     def _parse_one(self, i: int, body: dict):
         if not _msearch_batchable(body):
@@ -446,22 +698,17 @@ class SearchExecutor:
                     zip(segments, device)):
                 if seg.num_docs == 0:
                     continue
-                stacked, treedef = stack_flat_inputs(
-                    [flats_by_i[i][seg_i] for i in idxs])
-                stacked.append(min_scores)
-                buf, layout = pack_leaves(stacked, pin=dev.type == "cuda")
-                leaves = unpack_leaves(buf.to(dev, non_blocking=True),
-                                       layout)
+                inputs, ms = stage_inputs(
+                    [flats_by_i[i][seg_i] for i in idxs], min_scores, dev)
                 k_seg = min(k_fetch, pad_bucket(max(seg.num_docs, 1)))
                 plan0 = plans_by_i[idxs[0]][seg_i]
-                inputs = unflatten_inputs(treedef, leaves[:-1])
                 if agg_sig is not None:
                     run, out_layout = build_batched_agg_query_phase(
                         plan0, meta, k_seg, aggs_by_i[idxs[0]][seg_i], seg)
                 else:
                     run = _envelope_runner(plan0, meta, k_seg)
                     out_layout = None
-                out = run(arrays, inputs, leaves[-1])
+                out = run(arrays, inputs, ms)
                 pending.append((idxs, seg_i, k_seg, out, out_layout))
         if pending:
             fetched = _fetch_rows([p[3] for p in pending])
@@ -506,7 +753,6 @@ class SearchExecutor:
                     per_query_decoded.setdefault(i, []).append(
                         decode_outputs(aggs_by_i[i][seg_i], outs))
         took_ms = int((time.monotonic() - start) * 1000)
-        index_name = self.reader.index_name
         for i, seg_results in per_query_segs.items():
             body, size, from_ = entry_by_i[i][1], entry_by_i[i][3], \
                 entry_by_i[i][4]
@@ -536,21 +782,25 @@ class SearchExecutor:
                                 all_scores[sel].tolist()))
                 max_score = float(all_scores.max()) \
                     if len(all_scores) else None
-            source_spec = body.get("_source", True)
-            hits = []
-            for seg_i, o, s in page:
-                seg = segments[seg_i]
-                h = {"_index": index_name, "_id": seg.doc_ids[o],
-                     "_score": s}
-                src = _filter_source(seg.sources[o], source_spec)
-                if src is not None:
-                    h["_source"] = src
-                hits.append(h)
+            hits = [self._hit_dict(seg_i, o, s, body, segments)
+                    for seg_i, o, s in page]
             responses[i] = _base_response(took_ms, per_query_total[i],
                                           max_score, hits)
             if i in aggs_by_i:
                 responses[i]["aggregations"] = reduce_aggs(
                     per_query_decoded.get(i, []))
+
+
+    def _hit_dict(self, seg_i: int, ord_: int, score: float, body: dict,
+                  segments: List[Segment]) -> dict:
+        """One search hit of the query phase's segments snapshot."""
+        seg = segments[seg_i]
+        h = {"_index": self.reader.index_name, "_id": seg.doc_ids[ord_],
+             "_score": score}
+        src = _filter_source(seg.sources[ord_], body.get("_source", True))
+        if src is not None:
+            h["_source"] = src
+        return h
 
 
 def _fetch_rows(outs: List[torch.Tensor]) -> List[np.ndarray]:

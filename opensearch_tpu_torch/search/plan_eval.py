@@ -2,10 +2,11 @@
 (the subset of opensearch_tpu.search.plan_eval the port needs):
 `match_all`, `match_none`, `text` (through K2), the doc-value filters
 `num_terms` / `range_num` / `range_ord` (through K4), `exists`, `knn`
-(through K7 or K8, then K3), `bool`, `dis_max` and `const_score`, as
+(through K7 or K8, then K3), `maxsim` (through K10 or K11, then K3),
+`bool`, `dis_max` and `const_score`, as
 elementwise torch ops on [B, Dp] tensors. Plan inputs arrive stacked:
 per-query scalars are [B], per-lane inputs [B, QB], rank masks [B, Up],
-query vectors [B, dims]."""
+query vectors [B, dims], query token matrices [B, Tq, dims]."""
 
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ from opensearch_tpu_torch.ops.bm25 import (ordinal_terms_match,
                                            score_text_clause)
 from opensearch_tpu_torch.ops.knn import (exact_knn_scores, ivf_knn_scores,
                                           knn_match_topk)
+from opensearch_tpu_torch.ops.maxsim import (exact_maxsim_scores,
+                                             maxsim_match_topk,
+                                             pq_maxsim_scores)
 from opensearch_tpu_torch.search.compile import Plan
 
 
@@ -92,6 +96,26 @@ def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],
             scores = exact_knn_scores(col["vectors"], my["query"], space)
         scores, matches = knn_match_topk(scores, eligible.contiguous(),
                                          seg["live"], k)
+        return scores * my["boost"][:, None], matches
+
+    if kind == "maxsim":
+        field, k, compression = plan.static
+        col = seg["rank_vectors"][field]
+        eligible = (col["exists"] & seg["live"])[None, :].expand(
+            bsz, d_pad)
+        if plan.children:
+            _, fmatches = _eval_plan(plan.children[0], seg, inputs, cursor,
+                                     bsz)
+            eligible = eligible & fmatches
+        if compression == "pq":
+            scores = pq_maxsim_scores(col["codes"], col["codebook"],
+                                      col["token_count"], my["query"],
+                                      my["qmask"])
+        else:
+            scores = exact_maxsim_scores(col["tokens"], col["token_count"],
+                                         my["query"], my["qmask"])
+        scores, matches = maxsim_match_topk(scores, eligible.contiguous(),
+                                            seg["live"], k)
         return scores * my["boost"][:, None], matches
 
     if kind == "dis_max":

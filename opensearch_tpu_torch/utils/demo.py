@@ -8,7 +8,10 @@ one seed gives the same documents in both packages. `DEMO_MAPPING` and
 (keyword), `views` (integer) and `ts` (date). `clustered_vectors` draws
 the clustered k-NN corpus of the reference's k-NN benchmark (the same
 random stream), and `vector_segment` seals such vectors into a one-field
-shard at million-vector scale.
+shard at million-vector scale; `add_vector_field` puts such a column on a
+`build_shards_fast` segment (the hybrid corpus). `clustered_tokens` draws
+ColBERT-shaped token matrices (unit vectors around clustered centers) and
+`rank_vectors_segment` seals them into a one-field `rank_vectors` shard.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.segment import (FieldStats, Segment,
                                                 SegmentBuilder, TermMeta,
                                                 _hash64, _pad_to,
+                                                _vector_column,
                                                 segment_from_arrays,
                                                 smallfloat_int_to_byte4)
 
@@ -281,3 +285,85 @@ def fast_query_terms(n_queries: int, terms: List[str], seed: int = 7,
         ids = rng.integers(0, len(terms), size=terms_per_query)
         out.append(" ".join(terms[i] for i in ids))
     return out
+
+
+def add_vector_field(mapper: MapperService, seg: Segment, vectors: np.ndarray,
+                     field: str = "vec", space: str = "l2") -> None:
+    """Give every doc of a sealed segment the f32 [num_docs, dims] row of
+    `vectors` as an exact knn_vector field `field` (mapped on `mapper`):
+    the vector column a segment of `build_shards_fast` lacks."""
+    n, dims = vectors.shape
+    mapper.merge({"properties": {field: {
+        "type": "knn_vector", "dimension": dims,
+        "method": {"space_type": space}}}})
+    seg.vector_dv[field] = _vector_column(
+        field, {"vectors": vectors, "exists": np.ones(n, dtype=bool)},
+        seg.num_docs)
+
+
+def clustered_tokens(n_docs: int, dims: int, min_tokens: int,
+                     max_tokens: int, n_centers: int = 1024,
+                     noise: float = 0.5, seed: int = 5, n_queries: int = 0,
+                     query_tokens: int = 32, device="cpu"):
+    """ColBERT-shaped late-interaction data: per doc a [T, dims] f32 token
+    matrix (T = pad_bucket(max_tokens, minimum=8)) holding a uniform
+    min_tokens..max_tokens real tokens, zero past them; every token is a
+    unit vector around one of n_centers clustered unit centers (a center
+    plus `noise`-scaled Gaussian noise, normalized), as ColBERT's
+    normalized embeddings are. Then [n_queries, query_tokens, dims]
+    queries drawn the same way. Returns numpy (tokens, token_count int32,
+    queries). Drawn with torch on `device` from a generator seeded with
+    `seed` (a seed gives the same data on every run on one device type),
+    8,192 docs at a time."""
+    import torch
+    from opensearch_tpu_torch.index.segment import pad_bucket
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t_bucket = pad_bucket(max_tokens, minimum=8)
+    centers = torch.randn(n_centers, dims, generator=gen, device=dev)
+    centers /= centers.norm(dim=1, keepdim=True)
+    token_count = torch.randint(min_tokens, max_tokens + 1, (n_docs,),
+                                generator=gen, device=dev,
+                                dtype=torch.int32)
+
+    def draw(shape):
+        x = centers[torch.randint(0, n_centers, shape, generator=gen,
+                                  device=dev)]
+        x += noise * torch.randn(x.shape, generator=gen, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    tokens = np.zeros((n_docs, t_bucket, dims), dtype=np.float32)
+    lanes = torch.arange(t_bucket, device=dev)[None, :]
+    for lo in range(0, n_docs, 8192):
+        hi = min(lo + 8192, n_docs)
+        block = draw((hi - lo, t_bucket))
+        block[lanes >= token_count[lo:hi, None]] = 0.0
+        tokens[lo:hi] = block.cpu().numpy()
+    queries = draw((n_queries, query_tokens)).cpu().numpy()
+    return tokens, token_count.cpu().numpy(), queries
+
+
+def rank_vectors_segment(tokens: np.ndarray, token_count: np.ndarray,
+                         field: str = "tok", max_tokens: int = 128,
+                         seg_id: str = "r0"
+                         ) -> Tuple[MapperService, Segment]:
+    """One shard holding f32 [n, T, dims] token matrices as the
+    rank_vectors field `field` of docs d0..d{n-1}, sealed through
+    segment_from_arrays without the per-doc parse loop and with `_source`
+    off."""
+    n, t_bucket, dims = tokens.shape
+    spec = {"type": "rank_vectors", "dimension": dims,
+            "max_tokens": max_tokens}
+    entry = {"tokens": tokens, "token_count": token_count,
+             "exists": token_count > 0, "t_bucket": t_bucket}
+    mapper = MapperService({"properties": {field: spec}})
+    arrays = {
+        "seg_id": seg_id, "num_docs": n,
+        "doc_ids": [f"d{i}" for i in range(n)], "sources": [None] * n,
+        "term_dict": {},
+        "post_docs": np.full((1, 128), -1, np.int32),
+        "post_tf": np.zeros((1, 128), np.float32),
+        "norms": {}, "field_stats": {},
+        "rank_vectors_dv": {field: entry},
+    }
+    return mapper, segment_from_arrays(arrays)

@@ -29,6 +29,7 @@ import json
 import math
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from opensearch_tpu_torch.utils.demo import query_terms, synth_docs
@@ -174,9 +175,12 @@ def f32_sum_bound(n: int, abs_sum: float) -> float:
 
 
 def assert_same_response(got: Any, want: Any, path: str = "",
-                         agg_sum_tol: Optional[Dict[str, float]] = None
-                         ) -> None:
-    """Structural equality, `took` ignored, scores to SCORE_RTOL.
+                         agg_sum_tol: Optional[Dict[str, float]] = None,
+                         score_rtol: float = SCORE_RTOL,
+                         score_atol: float = 0.0) -> None:
+    """Structural equality, `took` ignored, scores to `score_rtol` /
+    `score_atol` (SCORE_RTOL and 0 unless the caller states its own
+    contract).
     agg_sum_tol maps the path of an aggregation's f32 sum or average (as
     this function spells paths, e.g. ".aggregations.t.buckets[0].a.value")
     to its absolute bound; every other value compares exactly."""
@@ -187,17 +191,19 @@ def assert_same_response(got: Any, want: Any, path: str = "",
             f"{path}: keys {sorted(set(got))} != {sorted(set(want))}"
         for key in keys:
             assert_same_response(got[key], want[key], f"{path}.{key}",
-                                 agg_sum_tol)
+                                 agg_sum_tol, score_rtol, score_atol)
         return
     if isinstance(want, list):
         assert isinstance(got, list) and len(got) == len(want), \
             f"{path}: {got!r} != {want!r}"
         for i, (g, w) in enumerate(zip(got, want)):
-            assert_same_response(g, w, f"{path}[{i}]", agg_sum_tol)
+            assert_same_response(g, w, f"{path}[{i}]", agg_sum_tol,
+                                 score_rtol, score_atol)
         return
     if isinstance(want, float) and path.endswith(("_score", "max_score")):
         assert isinstance(got, float), f"{path}: {got!r} != {want!r}"
-        assert math.isclose(got, want, rel_tol=SCORE_RTOL, abs_tol=0.0), \
+        assert math.isclose(got, want, rel_tol=score_rtol,
+                            abs_tol=score_atol), \
             f"{path}: {got!r} != {want!r}"
         return
     if agg_sum_tol is not None and path in agg_sum_tol:
@@ -461,3 +467,178 @@ def knn_msearch_bodies(b: int = 32) -> List[dict]:
                                            "tag": "t1"}}]}}}
         out.append(body)
     return out
+
+
+# ------------------------------------- late interaction and hybrid corpora
+
+MX_DIMS = 64
+MX_N = 1000
+MX_MAPPING = {"mappings": {"properties": {
+    "tok": {"type": "rank_vectors", "dimension": MX_DIMS, "max_tokens": 16},
+    "tokpq": {"type": "rank_vectors", "dimension": MX_DIMS,
+              "max_tokens": 16, "compression": "pq", "pq_m": 8},
+    "tag": {"type": "keyword"},
+}}}
+
+
+def mx_corpus(n_docs: int = MX_N):
+    """ColBERT-shaped token matrices of 1..12 unit tokens (every 40th doc
+    without the field) and 40 queries of 16 tokens, in both fields."""
+    from opensearch_tpu_torch.utils.demo import clustered_tokens
+    tokens, count, queries = clustered_tokens(
+        n_docs, MX_DIMS, 1, 12, n_centers=64, seed=31, n_queries=40,
+        query_tokens=16)
+    docs = []
+    for i in range(n_docs):
+        doc = {"tag": f"t{i % 3}"}
+        if i % 40:
+            toks = tokens[i, :count[i]].tolist()
+            doc["tok"] = toks
+            doc["tokpq"] = toks
+        docs.append(doc)
+    return docs, queries
+
+
+def load_mx_index(node, index: str = "mx", n_docs: int = MX_N):
+    """The token corpus over two refreshes (two segments, each sealing
+    its own PQ codebook) with deletes in between."""
+    docs, _q = mx_corpus(n_docs)
+    half = n_docs // 2
+    assert node.request("PUT", f"/{index}", MX_MAPPING)["_status"] == 200
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, {f"d{i}": docs[i] for i in range(half)}))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+    deletes = [f"d{i}" for i in range(1, n_docs, 97)]
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, {f"d{i}": docs[i] for i in range(half, n_docs)}, deletes))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+
+
+def maxsim_bodies() -> Dict[str, dict]:
+    """name -> _search body over the token corpus: exact and pq, query
+    token counts 4..16, filtered, boosted, in bool, and exists."""
+    _docs, queries = mx_corpus()
+    q = [v.tolist() for v in queries]
+    return {
+        "maxsim_exact": {"query": {"maxsim": {"tok": {
+            "query_vectors": q[0], "k": 10}}}, "size": 10},
+        "maxsim_exact_4": {"query": {"maxsim": {"tok": {
+            "query_vectors": q[1][:4], "k": 20}}}, "size": 15},
+        "maxsim_pq": {"query": {"maxsim": {"tokpq": {
+            "query_vectors": q[2], "k": 10}}}},
+        "maxsim_pq_filtered": {"query": {"maxsim": {"tokpq": {
+            "query_vectors": q[3][:9], "k": 8, "boost": 1.5,
+            "filter": {"term": {"tag": "t1"}}}}}, "size": 20},
+        "maxsim_bool": {"query": {"bool": {
+            "must": [{"maxsim": {"tok": {"query_vectors": q[4][:16],
+                                         "k": 25}}}],
+            "filter": [{"term": {"tag": "t2"}}],
+            "should": [{"exists": {"field": "tokpq"}}]}}, "size": 12},
+    }
+
+
+def maxsim_msearch_bodies(b: int = 32) -> List[dict]:
+    """B maxsim bodies of mixed shapes for one _msearch."""
+    _docs, queries = mx_corpus()
+    out = []
+    for i in range(b):
+        spec = {"query_vectors": queries[i % len(queries)][
+            :(4, 8, 16)[i % 3]].tolist(), "k": 10}
+        if i % 8 == 5:
+            spec["filter"] = {"term": {"tag": "t0"}}
+        out.append({"query": {"maxsim": {("tok", "tokpq")[i % 2]: spec}},
+                    "size": 10})
+    return out
+
+
+HYB_DIMS = 32
+HYB_N = 3000
+HYB_MAPPING = {"mappings": {"properties": {
+    "passage": {"type": "text"},
+    "tag": {"type": "keyword"},
+    "emb": {"type": "knn_vector", "dimension": HYB_DIMS,
+            "method": {"space_type": "l2"}},
+}}}
+# the normalization-processor example of OpenSearch's documentation
+HYB_PIPELINE = {"description": "min_max + arithmetic_mean",
+                "phase_results_processors": [{"normalization-processor": {
+                    "normalization": {"technique": "min_max"},
+                    "combination": {"technique": "arithmetic_mean",
+                                    "parameters": {
+                                        "weights": [0.3, 0.7]}}}}]}
+
+
+def hyb_corpus(n_docs: int = HYB_N):
+    """Passages with a clustered 32-d embedding each, and 40 (text,
+    vector) queries."""
+    from opensearch_tpu_torch.utils.demo import clustered_vectors
+    vectors, qvecs = clustered_vectors(n_docs, HYB_DIMS, n_centers=64,
+                                       seed=23, n_queries=40)
+    docs = [{"passage": p["passage"], "tag": p["tag"], "emb": v}
+            for p, v in zip(corpus(n_docs), vectors.tolist())]
+    texts = [_terms(2 + i % 3, 400 + i) for i in range(40)]
+    return docs, list(zip(texts, qvecs.tolist()))
+
+
+def load_hyb_index(node, index: str = "hyb", n_docs: int = HYB_N):
+    """The hybrid corpus over two refreshes with deletes, and the
+    normalization pipeline `hyb_norm`."""
+    docs, _q = hyb_corpus(n_docs)
+    half = n_docs // 2
+    assert node.request("PUT", "/_search/pipeline/hyb_norm",
+                        HYB_PIPELINE)["_status"] == 200
+    assert node.request("PUT", f"/{index}", HYB_MAPPING)["_status"] == 200
+    for part, deletes in ((range(half), ()), (range(half, n_docs),
+                                              [f"d{i}" for i in
+                                               range(2, n_docs, 89)])):
+        res = node.request("POST", "/_bulk", bulk_ndjson(
+            index, {f"d{i}": docs[i] for i in part}, deletes))
+        assert res["_status"] == 200 and not res["errors"]
+        node.request("POST", f"/{index}/_refresh")
+
+
+def hybrid_body(text: str, vector, k: int = 20, size: int = 10,
+                **extra) -> dict:
+    return {"query": {"hybrid": {"queries": [
+        {"match": {"passage": text}},
+        {"knn": {"emb": {"vector": vector, "k": k}}}]}}, "size": size,
+        **extra}
+
+
+def hybrid_bodies() -> Dict[str, dict]:
+    _docs, queries = hyb_corpus()
+    return {f"hybrid_{i}": hybrid_body(t, v, k=10 + 5 * (i % 3),
+                                       size=10 - i % 4)
+            for i, (t, v) in enumerate(queries[:6])}
+
+
+def hybrid_msearch_bodies(b: int = 32) -> List[dict]:
+    _docs, queries = hyb_corpus()
+    return [hybrid_body(*queries[i % len(queries)], k=10 + (i % 2) * 10)
+            for i in range(b)]
+
+
+BIG_DIMS = 8
+BIG_N = 24000
+
+
+def load_big_index(node, index: str = "big", n_docs: int = BIG_N):
+    """24,000 8-d vectors in one segment: a knn with k past 16,384 needs
+    more docs than that."""
+    vectors = np.random.RandomState(7).randn(n_docs, BIG_DIMS).astype(
+        np.float32)
+    assert node.request("PUT", f"/{index}", {"mappings": {"properties": {
+        "v": {"type": "knn_vector", "dimension": BIG_DIMS}}}})["_status"] \
+        == 200
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, {f"d{i}": {"v": v.tolist()} for i, v in enumerate(vectors)}))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+
+
+def big_knn_body() -> dict:
+    q = np.random.RandomState(8).randn(BIG_DIMS).astype(np.float32)
+    return {"query": {"knn": {"v": {"vector": q.tolist(), "k": 20000}}},
+            "size": 25}

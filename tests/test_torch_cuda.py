@@ -305,3 +305,115 @@ def test_kmeans_step_kernel_equals_plain(gpu, n, nlist, dims):
     bound = 2.0 ** -24 * abss[ok] + 2.0 ** -23 * exact.abs()
     for side in (got_c, want_c):
         assert bool(((side[ok].double() - exact).abs() <= bound).all())
+
+
+# ------------------------------------- K3's threshold entry, MaxSim, hybrid
+
+@pytest.mark.parametrize("k", [0, 10, 20000])
+def test_masked_topk_threshold_kernel_equals_plain(gpu, k):
+    """The set of each row's k winners (tied scores: lowest docs first),
+    marked at the finite eligible ones, as K3's plain top-k marks it."""
+    d_pad, bsz = 1 << 15, 3
+    gen = torch.Generator(device="cuda").manual_seed(k + 1)
+    scores = torch.randint(0, 50, (bsz, d_pad), generator=gen,
+                           device="cuda").float()
+    matches = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.7
+    live = torch.rand(d_pad, generator=gen, device="cuda") < 0.9
+    root = torch.ones(d_pad, dtype=torch.bool, device="cuda")
+    ms = torch.tensor([-np.inf, 10.0, 45.0], device="cuda")
+    before = _build.LAUNCHES["masked_topk_threshold"]
+    got = topk.masked_topk_threshold(scores, matches, live, root, 30000, ms,
+                                     k)
+    assert _build.LAUNCHES["masked_topk_threshold"] == before + 1
+    want = topk.masked_topk_threshold_plain(scores, matches, live, root,
+                                            30000, ms, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got[0].sum()) == min(k, int(
+        (matches[0] & live)[:30000].sum()))
+
+
+def _maxsim_data(n_docs, t_bucket, dims, bsz, tq, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    count = torch.randint(0, t_bucket + 1, (n_docs,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    tokens = torch.randn(n_docs, t_bucket, dims, generator=gen,
+                         device="cuda")
+    lanes = torch.arange(t_bucket, device="cuda")[None, :]
+    tokens[lanes >= count[:, None]] = 0.0
+    query = torch.randn(bsz, tq, dims, generator=gen, device="cuda")
+    qmask = torch.ones(bsz, tq, device="cuda")
+    qmask[:, tq - tq // 4:] = 0.0          # padded query lanes
+    query[qmask == 0] = 0.0
+    return tokens, count, query, qmask
+
+
+MAXSIM_SHAPES = [(8, 37, 4, 1), (128, 128, 32, 33), (16, 64, 8, 5),
+                 (128, 13, 32, 1)]
+
+
+@pytest.mark.parametrize("t_bucket,dims,tq,bsz", MAXSIM_SHAPES)
+def test_maxsim_exact_kernel_equals_plain(gpu, t_bucket, dims, tq, bsz):
+    """K10 bit for bit: odd dims, T 8 and 128, Tq 4 and 32, B 1 and 33,
+    zero-token docs and padded query lanes."""
+    from opensearch_tpu_torch.ops import maxsim
+    args = _maxsim_data(700, t_bucket, dims, bsz, tq, t_bucket + dims)
+    before = _build.LAUNCHES["maxsim_exact"]
+    got = maxsim.exact_maxsim_scores(*args)
+    assert _build.LAUNCHES["maxsim_exact"] == before + 1
+    want = maxsim.exact_maxsim_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[:, args[1] == 0] == 0).all())
+
+
+@pytest.mark.parametrize("t_bucket,dims,tq,bsz", MAXSIM_SHAPES)
+def test_maxsim_pq_kernels_equal_plain(gpu, t_bucket, dims, tq, bsz):
+    """K11's two entries bit for bit: the tables (`pq_lut`) and the code
+    scorer, with M = dims / 4 or, for odd dims, M = dims (several tables
+    per tile or one)."""
+    from opensearch_tpu_torch.ops import maxsim
+    tokens, count, query, qmask = _maxsim_data(700, t_bucket, dims, bsz, tq,
+                                               dims)
+    m = dims // 4 if dims % 4 == 0 else dims
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    codebook = torch.randn(m, 256, dims // m, generator=gen, device="cuda")
+    codes = torch.randint(0, 256, (700, t_bucket, m), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    before = (_build.LAUNCHES["pq_lut"], _build.LAUNCHES["maxsim_pq"])
+    lut = maxsim.pq_lut(codebook, query)
+    want_lut = maxsim.pq_lut_plain(codebook, query)
+    got = maxsim.pq_maxsim_from_lut(codes, lut, count, qmask)
+    assert (_build.LAUNCHES["pq_lut"],
+            _build.LAUNCHES["maxsim_pq"]) == (before[0] + 1, before[1] + 1)
+    want = maxsim.pq_maxsim_from_lut_plain(codes, lut, count, qmask)
+    torch.cuda.synchronize()
+    assert torch.equal(lut.view(torch.int32), want_lut.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bsz", [1, 33])
+@pytest.mark.parametrize("n_sub,k", [(1, 0), (2, 10), (3, 100)])
+def test_hybrid_window_kernel_equals_plain(gpu, bsz, n_sub, k):
+    """K12 bit for bit: windows with -inf padding, counts, min, max, the
+    lane-order sum of squares and the union total."""
+    from opensearch_tpu_torch.ops import hybrid
+    d_pad = 1 << 14
+    gen = torch.Generator(device="cuda").manual_seed(bsz + k)
+    rows, elig = [], []
+    live = torch.ones(d_pad, dtype=torch.bool, device="cuda")
+    for i in range(n_sub):
+        scores = torch.rand(bsz, d_pad, generator=gen, device="cuda") * 5
+        e = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.002 * (
+            i + 1)
+        elig.append(e)
+        rows.append(topk.masked_topk(scores, e, live, live, 12000,
+                                     torch.full((bsz,), -np.inf,
+                                                device="cuda"), k))
+    rows, elig = torch.stack(rows), torch.stack(elig)
+    before = _build.LAUNCHES["hybrid_window"]
+    got = hybrid.hybrid_window(rows, elig, k)
+    assert _build.LAUNCHES["hybrid_window"] == before + 1
+    want = hybrid.hybrid_window_plain(rows, elig, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

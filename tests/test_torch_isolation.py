@@ -28,6 +28,10 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "opensearch_tpu_torch.node" in mods
     assert "opensearch_tpu_torch.ops.knn" in mods
+    for new in ("ops.maxsim", "ops.hybrid", "search.spmd",
+                "searchpipeline.hybrid", "searchpipeline.processors",
+                "searchpipeline.service"):
+        assert f"opensearch_tpu_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

@@ -763,36 +763,53 @@ def test_errors_equal_the_reference(name):
     assert got == want
 
 
+def test_k_past_the_sort_limit_equals_the_reference():
+    """k = 20,000 over a 24,000-vector index: the knn node's 20,000
+    winners come from K3's threshold entry (past MAX_K = 16,384), the
+    page from K3; `hits.total` and the page equal the reference's."""
+    vectors = np.random.RandomState(7).randn(24000, 8).astype(np.float32)
+    mapping = {"mappings": {"properties": {"v": {
+        "type": "knn_vector", "dimension": 8}}}}
+    docs = {f"d{i}": {"v": v.tolist()} for i, v in enumerate(vectors)}
+    q = np.random.RandomState(8).randn(8).astype(np.float32)
+    out = []
+    for node in (JNode(), TNode(device="cpu")):
+        node.request("PUT", "/big", mapping)
+        res = node.request("POST", "/_bulk", bulk_ndjson("big", docs))
+        assert not res["errors"]
+        node.request("POST", "/big/_refresh")
+        out.append(node.request("POST", "/big/_search", {"query": {"knn": {
+            "v": {"vector": q.tolist(), "k": 20000}}}, "size": 25}))
+    want, got = out
+    assert want["hits"]["total"] == {"value": 20000, "relation": "eq"}
+    s, err = np_scores(vectors, q, "l2")
+    assert_margins([(s, err)], 25, "page")
+    assert_knn_response(got, want, "k20000")
+
+
 @pytest.mark.parametrize("method", ["exact", "ivf"])
-def test_selections_past_the_kernel_limit_are_refused(monkeypatch, method):
-    """`k` and an IVF probe's block budget are K3 selections of at most
-    MAX_K winners per row: past it the port answers 400 naming the limit
-    (the reference serves such a body; ROADMAP queue 3), within it the
-    page. MAX_K is lowered so a small index reaches it."""
-    from opensearch_tpu_torch.search import compile as tcompile
-    monkeypatch.setattr(tcompile, "MAX_K", 4)
-    tn = TNode(device="cpu")
-    _load(tn, _vectors(), _mapping("l2", "ivf" if method == "ivf" else None,
-                                   nlist=8, nprobes=2), split=False)
-    q = _queries(5, 1)[0].tolist()
-    if method == "exact":
-        fine = {"vector": q, "k": 4}
-        over = {"vector": q, "k": 5}
-        reason = "[knn] k must be at most 4, got 5"
-    else:
-        fine = {"vector": q, "k": 3}                # budget 2 + 1 blocks
-        over = {"vector": q, "k": 3, "method_parameters": {"nprobes": 4}}
-        reason = "would read 5 blocks, more than 4"
+def test_selections_past_a_lowered_limit_equal_the_reference(monkeypatch,
+                                                             method):
+    """With MAX_K lowered to 4, a knn k of 5 and an IVF probe budget of 5
+    blocks take the selections past the limit (K3's threshold entry; on
+    the CPU its plain version) and serve the reference's pages."""
+    monkeypatch.setattr(tknn, "MAX_K", 4)
+    vectors = _vectors()
+    mapping = _mapping("l2", "ivf" if method == "ivf" else None, nlist=8,
+                       nprobes=2)
+    jn, tn = JNode(), TNode(device="cpu")
+    for node in (jn, tn):
+        _load(node, vectors, mapping, split=False)
     seg = tn.indices.get(INDEX).shards[0].engine.segments[0]
     assert (seg.vector_dv["vec"].ivf is not None) == (method == "ivf")
-    resp = tn.request("POST", f"/{INDEX}/_search",
-                      {"query": {"knn": {"vec": fine}}, "size": 10})
-    assert resp["_status"] == 200
-    assert len(resp["hits"]["hits"]) == fine["k"]
-    resp = tn.request("POST", f"/{INDEX}/_search",
-                      {"query": {"knn": {"vec": over}}, "size": 10})
-    assert resp["_status"] == 400, resp
-    assert reason in resp["error"]["reason"], resp
+    q = _queries(5, 1)[0].tolist()
+    spec = {"vector": q, "k": 5}
+    if method == "ivf":
+        spec.update(k=3, method_parameters={"nprobes": 4})
+        ivf = seg.vector_dv["vec"].ivf
+        assert tknn.ivf_budget(4, ivf.nlist, ivf.lists.shape[0]) > 4
+    body = {"query": {"knn": {"vec": spec}}, "size": 10}
+    _same(jn, tn, body, method)
 
 
 def test_segment_memory_bytes_count_vectors():

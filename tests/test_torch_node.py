@@ -16,7 +16,8 @@ from opensearch_tpu_torch.search.executor import _envelope_kernel
 
 from test_torch_common import (CANDIDATE_BODIES, DENSE_BODIES, ERROR_BODIES,
                                SEARCH_BODIES, assert_same_response,
-                               load_index, msearch_bodies, msearch_ndjson)
+                               bulk_ndjson, load_index, msearch_bodies,
+                               msearch_ndjson)
 
 INDEX = "passages"
 
@@ -84,3 +85,23 @@ def test_write_responses_match_reference(nodes):
     for method, path, body in steps:
         assert_same_response(tn.request(method, path, body),
                              jn.request(method, path, body))
+
+
+def test_failed_parse_uses_up_a_seq_no(nodes):
+    """A write that fails to parse takes its sequence number before the
+    parse, as in the reference: the next good write's `_seq_no` (and the
+    bulk items around a bad one) equal the reference's."""
+    jn, tn = nodes
+    out = []
+    for node in (jn, tn):
+        node.request("PUT", "/seq", {"mappings": {"properties": {
+            "n": {"type": "integer"}, "t": {"type": "text"}}}})
+        steps = [node.request("PUT", "/seq/_doc/a", {"n": 1}),
+                 node.request("PUT", "/seq/_doc/b", {"n": "not a number"}),
+                 node.request("PUT", "/seq/_doc/c", {"n": 3}),
+                 node.request("POST", "/_bulk", bulk_ndjson("seq", {
+                     "d": {"n": 4}, "e": {"n": [1, "x"]}, "f": {"t": "ok"}}))]
+        out.append(steps)
+    want, got = out
+    assert want[2]["_seq_no"] == 2
+    assert_same_response(got, want)

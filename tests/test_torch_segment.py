@@ -87,16 +87,17 @@ def test_device_images_are_equal(pair, source):
         tseg = segment_from_arrays(segment_arrays(jseg))
     jimg, jmeta = j_upload(jseg)
     timg, tmeta = upload_segment(tseg, torch.device("cpu"))
-    # the flat leaves, plus the doc-value and vector subtrees (keyword
-    # columns here, no vectors)
+    # the flat leaves, plus the doc-value, vector and token-matrix
+    # subtrees (keyword columns here, no vectors)
     assert set(IMAGE_KEYS) <= set(jimg) \
-        and set(timg) == set(IMAGE_KEYS) | {"numeric", "ordinal", "vector"}
+        and set(timg) == set(IMAGE_KEYS) | {"numeric", "ordinal", "vector",
+                                            "rank_vectors"}
     for key in IMAGE_KEYS:
         want = np.asarray(jimg[key])
         got = timg[key].numpy()
         assert got.dtype == want.dtype and got.shape == want.shape, key
         np.testing.assert_array_equal(got, want, err_msg=key)
-    for kind in ("numeric", "ordinal", "vector"):
+    for kind in ("numeric", "ordinal", "vector", "rank_vectors"):
         assert set(timg[kind]) == set(jimg[kind]), kind
         for field, leaves in jimg[kind].items():
             assert set(timg[kind][field]) == set(leaves), (kind, field)
@@ -204,3 +205,43 @@ def test_demo_generators_are_the_references():
         jdemo.fast_query_terms(7, jterms, 2, 3)
     for t, j in zip(tsegs, jsegs):
         _assert_same_segment(t, j)
+
+
+def test_rank_vectors_images_are_equal():
+    """The port's "rank_vectors" subtree (exact: tokens; PQ: codes and
+    codebook; both: token counts and exists) equals the reference's
+    upload_segment image leaf for leaf, after each package seals the same
+    documents, and the meta names each field with its token bucket and
+    storage."""
+    spec = {"type": "rank_vectors", "dimension": 6, "max_tokens": 12}
+    mapping = {"properties": {"tok": spec,
+                              "pq": {**spec, "compression": "pq"}}}
+    rng = np.random.RandomState(17)
+    docs = []
+    for i in range(70):
+        toks = rng.randn(int(rng.randint(0, 10)), 6).round(3).tolist()
+        docs.append({"tok": toks, "pq": toks} if i % 6 else {})
+    segs = []
+    for mapper_cls, builder_cls in ((JMapper, JBuilder), (TMapper, TBuilder)):
+        m = mapper_cls(mapping)
+        b = builder_cls(m)
+        for i, d in enumerate(docs):
+            b.add(m.parse_document(f"d{i}", d))
+        segs.append(b.seal())
+    jseg, tseg = segs
+    jimg, jmeta = j_upload(jseg, to_device=False)
+    timg, tmeta = upload_segment(tseg, torch.device("cpu"))
+    assert set(timg["rank_vectors"]) == set(jimg["rank_vectors"]) \
+        == {"tok", "pq"}
+    assert set(timg["rank_vectors"]["pq"]) == {"token_count", "exists",
+                                               "codes", "codebook"}
+    for field, leaves in jimg["rank_vectors"].items():
+        assert set(timg["rank_vectors"][field]) == set(leaves)
+        for leaf, want in leaves.items():
+            got = timg["rank_vectors"][field][leaf].numpy()
+            want = np.asarray(want)
+            assert got.dtype == want.dtype and got.shape == want.shape, \
+                (field, leaf)
+            np.testing.assert_array_equal(got, want)
+    assert tmeta.rank_vector_fields == tuple(jmeta.rank_vector_fields) \
+        == (("pq", 16, "pq"), ("tok", 16, "none"))
