@@ -56,7 +56,18 @@ Phases, each printing what it finds; any failure exits nonzero:
     Node().request: B=1 `_search` under a normalization-processor pipeline
     (min_max, arithmetic_mean, weights [0.3, 0.7]) and B=32 `_msearch`
     (the batched hybrid wave, default spec); walls, queries/s, busy share,
-    image bytes, two pages against the plain versions.
+    image bytes, two pages against the plain versions;
+10. sorted cell: phase 5's 10,000,000 structured docs as one index and,
+    the same docs split in doc order, as a four-segment index (and on a
+    `search.result_page.enabled` node), through Node().request: the rally
+    tracks' field-sorted bodies (http_logs desc / asc_sort_timestamp,
+    desc_sort_with_after_timestamp at the 20,000th hit, a nyc_taxis-shaped
+    range filter sorted on views, a keyword multi-key sort with
+    docvalue_fields and track_total_hits) at B=1 (p50 / p99, the host
+    split into query phase, reduce and fetch), then B=32 `_msearch` of
+    sorted bodies; busy share; pages against an f64 numpy oracle, the
+    one-segment pages against the four-segment ones, and the result-page
+    node's against the gate-off node's.
 
 Phase 2 also holds K7 knn_exact (and its top-k mark) at B=32 x 2^20 x 128
 in the three spaces, and K8 ivf_probe (with its block ranking launch) and
@@ -78,8 +89,16 @@ sub-queries, Dp 2^20, k 10, and K3's masked_topk_threshold at B=32, Dp
 hybrid index with its pipeline and a 24,000-vector index (a knn at k
 20,000) to the served pages.
 
+Phase 2 also holds K13 sort_key over the 10M-doc structured segment (ts,
+views, tag; both orders), K3's keyed entry masked_topk_keyed at B=1, Dp
+2^24, k 10, 10,128 and 41,088 (past one CTA's sort), and K14 page_merge
+over four 2.5M-doc segments' winners, each bit for bit against its plain
+version. Phase 3 adds a three-segment structured index served with field
+sorts, search_after pages and the fetch subphases (highlight, explain,
+docvalue_fields, version) on a gate-off node and on a result-page node.
+
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
-per-kernel tables) under DIR. The card's name and power limit are printed in
+per-kernel tables, a copy of the log) under DIR. The card's name and power limit are printed in
 phase 1 and again on the third line from the end; the line before the last
 is the `kernels` JSON; the last line is the result: {"ok": true,
 "device": {...}}.
@@ -120,10 +139,21 @@ PQ_M = 32                           # 4-dim subvectors of 128 dims
 PQ_SAMPLE = 20_000
 HYBRID_DIMS = 768                   # msmarco-distilbert-base-tas-b
 HYBRID_QUERIES = 320
+SORTED_SEGMENTS = 4                 # the sorted cell's multi-segment index
+SORTED_SINGLES = 100                # B=1 requests per body and index
+SORTED_DEEP_SINGLES = 20            # of the deep search_after body
+SORTED_CURSOR_HIT = 20000           # search_after's depth, in hits
+
+
+# with --out DIR, every log line also goes to DIR/log.txt (a runner that
+# keeps only the end of the standard output loses the early phases)
+_LOG_FILE = None
 
 
 def log(*args):
     print(*args, flush=True)
+    if _LOG_FILE is not None:
+        print(*args, file=_LOG_FILE, flush=True)
 
 
 def card_line() -> str:
@@ -362,6 +392,11 @@ def phase_serving(torch, np, device=None):
 
     gpu = Node() if device is None else Node(device=device)
     cpu = Node(device="cpu")
+    # the result page (K14) is a node-start setting
+    page_settings = {"search.result_page.enabled": True}
+    gpu_page = Node(settings=page_settings) if device is None \
+        else Node(device=device, settings=page_settings)
+    cpu_page = Node(device="cpu", settings=page_settings)
     if gpu.device.type != (device or "cuda"):
         raise AssertionError(f"Node() resolved to {gpu.device}")
     # the k-NN path starts at indexing: a refresh seals the IVF lists of
@@ -375,9 +410,12 @@ def phase_serving(torch, np, device=None):
         parity.load_mx_index(node, "mx")
         parity.load_hyb_index(node, "hyb")
         parity.load_big_index(node, "big")
+        parity.load_sorted_index(node, "sorted")
         if node is gpu:
-            log(f"serving: six indices loaded on the card in "
+            log(f"serving: seven indices loaded on the card in "
                 f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
+    for node in (gpu_page, cpu_page):
+        parity.load_sorted_index(node, "sorted")
     payload = parity.msearch_ndjson("passages", parity.msearch_bodies(32))
     knn_bodies = parity.knn_bodies()
     knn_payload = parity.msearch_ndjson("vecs",
@@ -416,6 +454,23 @@ def phase_serving(torch, np, device=None):
     got_l = [gpu.request("POST", path, b, **params)
              for path, b, params in late]
     got_lm = [gpu.request("POST", "/_msearch", pl) for pl in late_payloads]
+    # the general path: field sorts, a search_after page and the fetch
+    # subphases, on the gate-off node and on the result-page node
+    sort_names = sorted(parity.SORT_BODIES)
+    sorted_bodies = [parity.SORT_BODIES[n] for n in sort_names] + [
+        {"sort": [{"views": "desc"}, {"ts": "asc"}], "size": 50,
+         "search_after": [5000, 1700000000000]},
+        {"sort": [{"views": "asc"}], "size": 20, "search_after": [7000]},
+        {"query": {"match": {"body": "w00011 w00004"}}, "size": 5,
+         "highlight": {"fields": {"body": {"fragment_size": 40}}},
+         "explain": True, "docvalue_fields": ["views", "tag", "ts"],
+         "version": True}]
+    got_s = [(n.request("POST", "/sorted/_search", b), b, twin)
+             for b in sorted_bodies
+             for n, twin in ((gpu, cpu), (gpu_page, cpu_page))]
+    sorted_payload = parity.msearch_ndjson("sorted", sorted_bodies[:8])
+    got_sm = [(n.request("POST", "/_msearch", sorted_payload), twin)
+              for n, twin in ((gpu, cpu), (gpu_page, cpu_page))]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -423,8 +478,9 @@ def phase_serving(torch, np, device=None):
         f"{len(agg_names)} agg _search + one B=32 agg _msearch, "
         f"{len(knn_names)} knn _search + one B=32 knn _msearch, "
         f"{len(late)} maxsim / hybrid / k=20000 _search + two B=32 "
-        f"_msearch on the card in {wall * 1e3:.3f} ms; launches (loads "
-        f"included) {json.dumps(launches)}")
+        f"_msearch, {len(got_s)} sorted _search + two B=8 sorted _msearch "
+        f"on the card in {wall * 1e3:.3f} ms; launches (loads included) "
+        f"{json.dumps(launches)}")
     for n in names:
         if got[n]["_status"] != 200:
             raise AssertionError(f"_search {n}: {got[n]}")
@@ -459,6 +515,15 @@ def phase_serving(torch, np, device=None):
             raise AssertionError(f"late msearch: {got_one}")
         parity.assert_same_response(got_one, cpu.request("POST", "/_msearch",
                                                          pl), "late msearch")
+    for got_one, b, twin in got_s:
+        if got_one["_status"] != 200 or not got_one["hits"]["hits"]:
+            raise AssertionError(f"sorted _search {b}: {got_one}")
+        parity.assert_same_response(
+            got_one, twin.request("POST", "/sorted/_search", b), str(b))
+    for got_one, twin in got_sm:
+        parity.assert_same_response(
+            got_one, twin.request("POST", "/_msearch", sorted_payload),
+            "sorted msearch")
     if got_l[-1]["hits"]["total"]["value"] != 20000:
         raise AssertionError(f"knn k=20000: {got_l[-1]['hits']['total']}")
     for node in (gpu, cpu):
@@ -469,9 +534,14 @@ def phase_serving(torch, np, device=None):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    from opensearch_tpu_torch.indices.query_cache import QUERY_CACHE
+    log(f"serving: filter cache (mask fills on the card and the CPU) "
+        f"{json.dumps(QUERY_CACHE.stats())}")
     log(f"serving: {len(names) + 32} BM25 pages, {len(agg_names) + 32} "
-        f"agg responses, {len(knn_names) + 32} knn pages and {len(late) + 64} "
-        f"maxsim / hybrid / k=20000 pages equal the plain versions'")
+        f"agg responses, {len(knn_names) + 32} knn pages, {len(late) + 64} "
+        f"maxsim / hybrid / k=20000 pages and {len(got_s) + 16} sorted / "
+        f"search_after / fetch pages (result page off and on) equal the "
+        f"plain versions'")
     return launches
 
 
@@ -491,6 +561,18 @@ def agg_segment(np, n_docs: int):
         f"{len(seg.numeric_dv['ts'].unique)} distinct ts, built in "
         f"{time.perf_counter() - t0:.3f} s")
     return mapper, seg
+
+
+def sorted_segments(np, n_docs: int):
+    """The sorted cell's four-segment index: agg_segment's docs (the same
+    columns and `_id`s) split in doc order into four segments."""
+    from opensearch_tpu_torch.utils.demo import structured_segments
+    t0 = time.perf_counter()
+    _mapper, segs = structured_segments(n_docs, SORTED_SEGMENTS, seed=42)
+    log(f"sorted corpus: the {n_docs} docs in {len(segs)} segments of "
+        f"{[s.num_docs for s in segs]} docs, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return segs
 
 
 def _bytes_bound(nbytes: float) -> float:
@@ -702,6 +784,165 @@ def _bound(nbytes: float, ops: float):
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_sort_kernels(torch, np, seg, four, dev):
+    """K13, K3's keyed entry and K14 against their plain versions, bit for
+    bit, at the sorted cell's shapes: K13 over the 10M-doc structured
+    segment (ts, views, tag; both orders), K3-keyed at B=1, Dp = 2^24 over
+    a views range filter keyed by ts desc (k 10, 10,128, 41,088), K14 over
+    the four 2.5M-doc segments' winners (k 138 each, views desc, ts as a
+    fused docvalue field)."""
+    from opensearch_tpu_torch.ops import page, sort_key, topk
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+
+    arrays, meta = upload_segment(seg, dev)
+    d_pad = meta.d_pad
+    results = {}
+
+    def record(name, shape, kern, plain, library, nbytes, lib_note=None):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not _same_bits(torch, got, again):
+            raise AssertionError(f"{name} {shape}: two runs differ")
+        if not _same_bits(torch, got, want):
+            raise AssertionError(f"{name} {shape}: kernel and plain "
+                                 f"version differ")
+        rec = {"shape": shape, "max_abs_err": 0.0,
+               "ms": graph_ms(torch, kern),
+               "call_ms": cuda_ms(torch, kern),
+               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "library_ms": None if library is None
+               else graph_ms(torch, library),
+               "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
+        if lib_note:
+            rec["library"] = lib_note
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+        return got
+
+    # K13: the numeric key reads rank + exists and writes the key (9 B a
+    # lane); the ordinal key reads the pairs (8 B each) and exists, writes
+    # the key
+    for field in ("ts", "views", "tag"):
+        for order in ("desc", "asc"):
+            def kern(field=field, order=order):
+                return sort_key.build_sort_key(arrays, (field, order))
+
+            def plain(field=field, order=order):
+                return sort_key.sort_key_plain(arrays, (field, order))
+            library = lib_note = None
+            if field == "tag":
+                col = arrays["ordinal"]["tag"]
+                nbytes = col["doc_ids"].shape[0] * 8 + d_pad * 5
+                init = 1 << 30 if order == "asc" else -1
+                # padding pairs (doc -1) land in one extra, dropped lane
+                idx = torch.where(col["doc_ids"] >= 0, col["doc_ids"],
+                                  d_pad).long()
+                missing = torch.tensor(-1e30, device=dev)
+
+                def library(col=col, order=order, init=init, idx=idx,
+                            missing=missing):
+                    dense = torch.full((d_pad + 1,), init, dtype=torch.int32,
+                                       device=dev).scatter_reduce_(
+                        0, idx, col["ords"],
+                        "amin" if order == "asc" else "amax")[:d_pad]
+                    return torch.where(col["exists"], dense.float(),
+                                       missing)
+                lib_note = "scatter_reduce_ + where"
+            else:
+                nbytes = d_pad * 9
+            record("sort_key", f"{field} {order} Dp={d_pad}", kern, plain,
+                   library, nbytes, lib_note)
+
+    # K3-keyed at B=1 over the nyc_taxis-shaped filter, keyed by ts desc
+    views = arrays["numeric"]["views"]
+    lo = int(np.searchsorted(seg.numeric_dv["views"].unique, 2000))
+    matches = (views["min_rank"] >= lo)[None, :].contiguous()
+    scores = torch.ones(1, d_pad, device=dev)
+    ms = torch.full((1,), float("-inf"), device=dev)
+    key = sort_key.build_sort_key(arrays, ("ts", "desc"))
+    for k in (10, 10128, 41088):
+        def kern(k=k):
+            return topk.masked_topk_keyed(scores, matches, arrays["live"],
+                                          arrays["root"], meta.num_docs, ms,
+                                          key, k)
+
+        def plain(k=k):
+            return topk.masked_topk_keyed_plain(
+                scores, matches, arrays["live"], arrays["root"],
+                meta.num_docs, ms, key, k)
+        masked = torch.where(matches[0] & arrays["live"], key,
+                             float("-inf"))
+
+        def library(k=k, masked=masked):
+            return torch.topk(masked, k)
+        nbytes = d_pad * (4 + 1 + 1 + 1 + 4) + 12 * k + 4
+        record("masked_topk_keyed", f"B=1 Dp={d_pad} k={k}", kern, plain,
+               library, nbytes, "torch.topk of the masked key")
+    # the filter cache's mask program (no kernel of its own): the views
+    # range's plan through _eval_plan (K4 on the card), then the bool
+    # [Dp] mask's one copy to the host
+    from opensearch_tpu_torch.indices.query_cache import _eval_filter_mask
+    from opensearch_tpu_torch.search import dsl
+    from opensearch_tpu_torch.search.compile import Compiler, ShardStats
+    from opensearch_tpu_torch.utils.demo import STRUCTURED_MAPPING
+    from opensearch_tpu_torch.index.mapper import MapperService
+    plan = Compiler(MapperService(STRUCTURED_MAPPING), ShardStats([seg])
+                    ).compile(dsl.parse_query({"range": {"views": {
+                        "gte": 2000, "lte": 8000}}}), seg, meta)
+    mask = _eval_filter_mask(plan, arrays)
+    want = ((seg.numeric_dv["views"].values >= 2000)
+            & (seg.numeric_dv["views"].values <= 8000))
+    if not np.array_equal(mask[:seg.num_docs], want):
+        raise AssertionError("filter mask differs from the f64 range")
+    rec = {"shape": f"views range, Dp={d_pad}",
+           "call_ms": cuda_ms(torch, lambda: _eval_filter_mask(plan,
+                                                               arrays)),
+           "mask_bytes": int(mask.nbytes)}
+    results["filter_mask"] = [rec]
+    log("filter_mask", json.dumps(rec))
+    del arrays, matches, scores, key
+    torch.cuda.empty_cache()
+
+    # K14: four segments' keyed rows (views desc, k 138 each) into one page
+    # of 138 with ts as a fused docvalue field
+    images = [upload_segment(s, dev) for s in four]
+    rows, sort_cols, dv_cols = [], [], []
+    for arr, m in images:
+        key = sort_key.build_sort_key(arr, ("views", "desc"))
+        rows.append(topk.masked_topk_keyed(
+            torch.ones(1, m.d_pad, device=dev),
+            torch.ones(1, m.d_pad, dtype=torch.bool, device=dev),
+            arr["live"], arr["root"], m.num_docs,
+            torch.full((1,), float("-inf"), device=dev), key, 138)[0])
+        sort_cols.append(arr["numeric"]["views"])
+        dv_cols.append([arr["numeric"]["ts"]])
+    stride = max(m.d_pad for _a, m in images)
+    desc, n_lanes = page.page_descriptor(rows, "desc", sort_cols, dv_cols)
+
+    def kern():
+        return page.page_merge_launch(desc, n_lanes, "desc", 138, stride)
+
+    def plain():
+        return page.page_merge_plain(rows, "desc", sort_cols, dv_cols, 138,
+                                     stride)
+    cat = torch.cat([r[:138] for r in rows])
+
+    def library():
+        return torch.topk(cat, 138)
+    # the winners' rows read, the page's lanes gathered and written
+    nbytes = sum(r.numel() for r in rows) * 4 + 138 * 4 * (7 + 3)
+    got = record("page_merge", f"S=4 k=138 each, k_page=138, 1 dv field",
+                 kern, plain, library, nbytes,
+                 "torch.topk of the concatenated row keys")
+    page_all = page.page_merge(rows, "desc", sort_cols, dv_cols, 138, stride)
+    if not torch.equal(page_all, got):
+        raise AssertionError("page_merge: the wrapper's page differs from "
+                             "the launch's")
+    del images, rows, desc
+    torch.cuda.empty_cache()
+    return results
 
 
 def knn_corpora(np):
@@ -1755,6 +1996,249 @@ def phase_hybrid_cell(torch, np, mapper, seg, terms, dev, card: str,
     return out
 
 
+def _pct(np, xs, p) -> float:
+    return float(np.percentile(np.asarray(xs), p))
+
+
+def sorted_bodies(np, seg):
+    """The sorted cell's bodies, after the rally tracks: http_logs'
+    desc_sort_timestamp, asc_sort_timestamp and
+    desc_sort_with_after_timestamp (the cursor at the 20,000th hit), a
+    nyc_taxis-shaped range filter on views sorted on views desc, and a
+    keyword multi-key sort with docvalue_fields and track_total_hits."""
+    ts = seg.numeric_dv["ts"].values
+    cursor = int(np.sort(ts)[::-1][SORTED_CURSOR_HIT - 1])
+    return {
+        "desc_sort_timestamp": {"query": {"match_all": {}},
+                                "sort": [{"ts": "desc"}], "size": 10},
+        "asc_sort_timestamp": {"query": {"match_all": {}},
+                               "sort": [{"ts": "asc"}], "size": 10},
+        "desc_sort_with_after_timestamp": {
+            "query": {"match_all": {}}, "sort": [{"ts": "desc"}],
+            "size": 10, "search_after": [cursor]},
+        "desc_sort_views_filtered": {
+            "query": {"bool": {"filter": [{"range": {"views": {
+                "gte": 2000, "lte": 8000}}}]}},
+            "sort": [{"views": "desc"}], "size": 10},
+        "keyword_multi_sort": {
+            "sort": [{"tag": "asc"}, {"ts": "desc"}], "size": 10,
+            "docvalue_fields": ["tag", "ts", "views"],
+            "track_total_hits": 10000},
+    }
+
+
+def _sorted_oracle(np, seg, name, body, resp):
+    """The f64 numpy answer of the ts and views bodies over the whole
+    segment: ids, sort values and totals."""
+    ts = seg.numeric_dv["ts"].values
+    views = seg.numeric_dv["views"].values
+    idx = np.arange(seg.num_docs)
+    if name == "desc_sort_views_filtered":
+        keep = (views >= 2000) & (views <= 8000)
+        order = np.lexsort((idx[keep], -views[keep]))[:10]
+        ids, vals = idx[keep][order], views[keep][order]
+        total = int(keep.sum())
+    elif name.startswith(("desc_sort", "asc_sort")):
+        sign = -1 if name.startswith("desc") else 1
+        order = np.lexsort((idx, sign * ts))
+        if "search_after" in body:
+            after = body["search_after"][0]
+            order = order[ts[order] < after][:10]
+        ids, vals = idx[order[:10]], ts[order[:10]]
+        total = seg.num_docs
+    else:
+        return False
+    hits = resp["hits"]["hits"]
+    if [h["_id"] for h in hits] != [f"d{i}" for i in ids] \
+            or [h["sort"][0] for h in hits] != [int(v) for v in vals] \
+            or resp["hits"]["total"]["value"] != total:
+        raise AssertionError(f"sorted cell {name}: the page differs from "
+                             f"the f64 oracle")
+    return True
+
+
+def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
+                      out_dir=None, singles: int = SORTED_SINGLES,
+                      deep_singles: int = SORTED_DEEP_SINGLES,
+                      bsz: int = 32):
+    """The sorted cell through Node().request: the 10M-doc structured
+    segment as one index and the same docs in four segments as another
+    (and on a result-page node). B=1 `_search` of each body on both
+    indices (p50 / p99), the views body on the result-page node, then
+    B=32 `_msearch` of sorted bodies; busy share, the host split (query
+    phase, reduce, fetch), pages against the f64 oracle and the
+    single-segment pages against the four-segment ones."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.search import controller
+    from opensearch_tpu_torch.search.executor import SearchExecutor
+    from opensearch_tpu_torch.utils.demo import STRUCTURED_MAPPING
+    parity = _parity()
+    node = Node()
+    page_node = Node(settings={"search.result_page.enabled": True})
+    t0 = time.perf_counter()
+    out = {}
+    for n, name, segs in ((node, "logs_one", [seg]),
+                          (node, "logs_four", four),
+                          (page_node, "logs_four", four)):
+        assert n.request("PUT", f"/{name}", {
+            "mappings": STRUCTURED_MAPPING})["_status"] == 200
+        reader = n.indices.get(name).shards[0].reader
+        for sg in segs:
+            reader.add_segment(sg)
+        out[f"{name}_image_bytes"] = reader.device_bytes()
+    torch.cuda.synchronize()
+    log(f"sorted: three images uploaded in {time.perf_counter() - t0:.3f} "
+        f"s: {json.dumps(out)}")
+    bodies = sorted_bodies(np, seg)
+
+    # the host split: the shard's query phase (device work, the one copy,
+    # the host decode), the fetch phase, and the rest (merge, cursor,
+    # render) as reduce
+    split = {"query": 0.0, "fetch": 0.0}
+    real_build_hit = controller._build_hit
+
+    def timed_build_hit(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_build_hit(*a, **kw)
+        finally:
+            split["fetch"] += (time.perf_counter() - t) * 1e3
+    controller._build_hit = timed_build_hit
+    for n in (node, page_node):
+        for name in ("logs_one", "logs_four"):
+            if name not in n.indices.indices:
+                continue
+            ex = n.indices.get(name).shards[0].executor
+            real_qp = ex.execute_query_phase
+
+            def timed_qp(body, k, real_qp=real_qp):
+                t = time.perf_counter()
+                try:
+                    return real_qp(body, k)
+                finally:
+                    split["query"] += (time.perf_counter() - t) * 1e3
+            ex.execute_query_phase = timed_qp
+
+    def search(n, index, body):
+        return n.request("POST", f"/{index}/_search", body)
+
+    try:
+        for name, body in bodies.items():      # warm; the filter cache fills
+            for index in ("logs_one", "logs_four"):
+                for _ in range(2):
+                    search(node, index, body)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        answers, cell = {}, {}
+        for name, body in bodies.items():
+            reps = deep_singles if "search_after" in body else singles
+            for index in ("logs_one", "logs_four"):
+                walls = []
+                split["query"] = split["fetch"] = 0.0
+                for _ in range(reps):
+                    t = time.perf_counter()
+                    resp = search(node, index, body)
+                    walls.append((time.perf_counter() - t) * 1e3)
+                if resp["_status"] != 200:
+                    raise AssertionError(f"sorted {name} {index}: {resp}")
+                answers[(name, index)] = resp
+                total_ms = sum(walls)
+                rec = {"search_p50_ms": _pct(np, walls, 50),
+                       "search_p99_ms": _pct(np, walls, 99),
+                       "requests": reps,
+                       "query_phase_ms": split["query"] / reps,
+                       "fetch_ms": split["fetch"] / reps,
+                       "reduce_ms": (total_ms - split["query"]
+                                     - split["fetch"]) / reps}
+                cell[f"{name}/{index}"] = rec
+                log(f"sorted {name} on {index}: " + json.dumps(rec))
+        # the views body on the result-page node: pages equal the
+        # gate-off node's
+        vb = bodies["desc_sort_views_filtered"]
+        for _ in range(2):
+            search(page_node, "logs_four", vb)
+        walls = []
+        for _ in range(singles):
+            t = time.perf_counter()
+            resp = search(page_node, "logs_four", vb)
+            walls.append((time.perf_counter() - t) * 1e3)
+        parity.assert_same_response(resp, answers[(
+            "desc_sort_views_filtered", "logs_four")], "result page")
+        cell["desc_sort_views_filtered/logs_four/result_page"] = {
+            "search_p50_ms": _pct(np, walls, 50),
+            "search_p99_ms": _pct(np, walls, 99), "requests": singles}
+        log("sorted views body on the result-page node: " + json.dumps(
+            cell["desc_sort_views_filtered/logs_four/result_page"]))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        controller._build_hit = real_build_hit
+    from opensearch_tpu_torch.indices.query_cache import QUERY_CACHE
+    log(f"sorted: launches {json.dumps(launches)}; filter cache "
+        f"{json.dumps(QUERY_CACHE.stats())}")
+    # the views filter is served from the filter cache after the warm-up,
+    # so K4 need not run in this window
+    _require_launched(launches, ("sort_key", "masked_topk_keyed",
+                                 "page_merge"), "sorted cell")
+    out["cell"] = cell
+    out["launches"] = launches
+
+    # pages: the f64 oracle, and the single-segment index against the
+    # four-segment one (the keyword body's pages agree on the primary key
+    # only: the host orders each segment's k + 128 winners by tag, and the
+    # secondary ts order sees a different window in each layout)
+    checked = 0
+    for name, body in bodies.items():
+        one, four_resp = answers[(name, "logs_one")], \
+            answers[(name, "logs_four")]
+        for resp in (one, four_resp):
+            checked += _sorted_oracle(np, seg, name, body, resp)
+        h1, h4 = one["hits"]["hits"], four_resp["hits"]["hits"]
+        if name == "keyword_multi_sort":
+            same = [h["sort"][0] for h in h1] == [h["sort"][0] for h in h4]
+        else:
+            same = [(h["_id"], h["sort"]) for h in h1] == \
+                [(h["_id"], h["sort"]) for h in h4]
+        if not same or one["hits"]["total"] != four_resp["hits"]["total"]:
+            raise AssertionError(f"sorted {name}: the one- and four-segment "
+                                 f"pages differ")
+    log(f"sorted: {checked} pages equal the f64 oracle; the one- and "
+        f"four-segment pages agree")
+
+    # B=32 _msearch of sorted bodies, served item by item
+    rng = np.random.RandomState(23)
+    msearch_bodies = []
+    for i in range(6 * bsz):
+        lo = int(rng.randint(0, 9000))
+        msearch_bodies.append({
+            "query": {"bool": {"filter": [{"range": {"views": {
+                "gte": lo, "lt": lo + 1000}}}]}},
+            "sort": [{"ts": "desc"} if i % 2 else {"views": "asc"}],
+            "size": 10})
+    ex = node.indices.get("logs_one").shards[0].executor
+    ex.multi_search(msearch_bodies[:bsz])
+    batches = []
+    for i in range(6):
+        payload = parity.msearch_ndjson(
+            "logs_one", msearch_bodies[i * bsz:(i + 1) * bsz])
+        t = time.perf_counter()
+        resp = node.request("POST", "/_msearch", payload)
+        batches.append((time.perf_counter() - t) * 1e3)
+        if any(r.get("status") != 200 for r in resp["responses"]):
+            raise AssertionError(f"sorted msearch: {resp}")
+    out["msearch32_p50_ms"] = _pct(np, batches, 50)
+    out["msearch32_p99_ms"] = _pct(np, batches, 99)
+    out["msearch32_qps"] = bsz * 1e3 / out["msearch32_p50_ms"]
+    out.update(profile_waves(torch, ex, msearch_bodies, out_dir, "sorted"))
+    log(f"sorted: B={bsz} _msearch wall ms p50 "
+        f"{out['msearch32_p50_ms']:.3f} p99 {out['msearch32_p99_ms']:.3f} "
+        f"({out['msearch32_qps']:.1f} queries/s at p50); card: {card}")
+    del node, page_node
+    torch.cuda.empty_cache()
+    return out
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -1825,13 +2309,16 @@ def main(argv) -> int:
     from opensearch_tpu_torch.ops.device_segment import upload_segment
     from opensearch_tpu_torch.utils.demo import build_shards_fast
 
+    global _LOG_FILE
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        _LOG_FILE = open(os.path.join(out_dir, "log.txt"), "w")
     t_all = time.perf_counter()
     # phase 1: build and card
     took = _build.build_all()
     log("build: " + json.dumps({k: round(v, 3) for k, v in took.items()})
         + " s (parallel nvcc, one library per source)")
     if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "nvcc_log.txt"), "w") as f:
             for name, text in _build.BUILD_LOG.items():
                 f.write(f"--- {name}\n{text}\n")
@@ -1851,6 +2338,7 @@ def main(argv) -> int:
         f"built in {time.perf_counter() - t0:.3f} s")
     arrays, meta = upload_segment(seg, dev)
     agg_mapper, agg_seg = agg_segment(np, AGG_SCALE_DOCS)
+    four = sorted_segments(np, AGG_SCALE_DOCS)
     corpora = knn_corpora(np)
     mc = maxsim_corpus(torch, np, dev)
     # K11's codebook: the port's host train_pq on a 20,000-token sample,
@@ -1873,6 +2361,7 @@ def main(argv) -> int:
         f"train_pq on {PQ_SAMPLE} sampled tokens "
         f"{time.perf_counter() - t_pq:.3f} s after set-up began")
     results.update(phase_maxsim_kernels(torch, np, mc, codebook, dev))
+    results.update(phase_sort_kernels(torch, np, agg_seg, four, dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -1882,7 +2371,6 @@ def main(argv) -> int:
     agg_scale = phase_agg_scale(torch, np, agg_mapper, agg_seg, dev,
                                 out_dir)
     log("agg scale: " + json.dumps(agg_scale))
-    del agg_seg
     # phases 6 and 7: the k-NN cells
     for cell in ("exact", "ivf"):
         res = phase_knn_cell(torch, np, cell, corpora, dev, card, out_dir)
@@ -1896,6 +2384,11 @@ def main(argv) -> int:
     res = phase_hybrid_cell(torch, np, mapper, seg, sorted(
         t for _, t in seg.term_dict), dev, card, out_dir)
     log("hybrid: " + json.dumps(res))
+    # phase 10: the sorted cell, over phase 5's docs
+    res = phase_sorted_cell(torch, np, agg_mapper, agg_seg, four, card,
+                            out_dir)
+    log("sorted: " + json.dumps(res))
+    del agg_seg, four
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -1905,7 +2398,8 @@ def main(argv) -> int:
             "knn_exact": 0, "knn_topk_mark": 0, "ivf_probe": 0,
             "ivf_block_keys": 0, "kmeans_step": 0, "maxsim_exact": 1,
             "pq_lut": 0, "maxsim_pq": 1, "hybrid_window": 0,
-            "masked_topk_threshold": 0}
+            "masked_topk_threshold": 0, "sort_key": 0,
+            "masked_topk_keyed": 0, "page_merge": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -1942,6 +2436,13 @@ def main(argv) -> int:
         "masked_topk_threshold": (
             "opensearch_tpu_torch/ops/csrc/masked_topk.cu",
             "opensearch_tpu/ops/knn.py:68"),
+        "sort_key": ("opensearch_tpu_torch/ops/csrc/sort_key.cu",
+                     "opensearch_tpu/search/executor.py:1903"),
+        "masked_topk_keyed": (
+            "opensearch_tpu_torch/ops/csrc/masked_topk.cu",
+            "opensearch_tpu/search/executor.py:1157"),
+        "page_merge": ("opensearch_tpu_torch/ops/csrc/page_merge.cu",
+                       "opensearch_tpu/search/executor.py:2028"),
     }
     kernels = []
     for name in _build.LAUNCHES:

@@ -60,6 +60,11 @@ class ParsingError(OpenSearchTpuError):
     error_type = "parsing_exception"
 
 
+class SettingsError(OpenSearchTpuError):
+    status = 400
+    error_type = "settings_exception"
+
+
 class QueryShardError(OpenSearchTpuError):
     status = 400
     error_type = "query_shard_exception"

@@ -21,6 +21,7 @@ reference segment across unchanged.
 from __future__ import annotations
 
 import hashlib
+import itertools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -213,6 +214,10 @@ def _hash64(s: str) -> int:
                                           digest_size=8).digest(), "little")
 
 
+# process-unique segment identities (the filter cache's key): never reused
+_SEGMENT_UID = itertools.count(1)
+
+
 class Segment:
     """A sealed, immutable columnar segment (host numpy representation)."""
 
@@ -230,6 +235,7 @@ class Segment:
                  rank_vectors_dv: Optional[Dict[str, RankVectorsColumn]]
                  = None):
         self.seg_id = seg_id
+        self.uid = next(_SEGMENT_UID)
         self.num_docs = num_docs
         self.doc_ids = doc_ids
         self.sources = sources

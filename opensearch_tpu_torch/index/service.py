@@ -25,7 +25,8 @@ def _auto_id() -> str:
 class IndexService:
     def __init__(self, index_name: str, device: torch.device,
                  mapping: Optional[dict] = None,
-                 settings: Optional[dict] = None):
+                 settings: Optional[dict] = None,
+                 result_page: bool = False):
         settings = dict(settings or {})
         self.index_name = index_name
         self.settings = settings
@@ -37,7 +38,8 @@ class IndexService:
                 f"serves one shard per index so far")
         self.mapper = MapperService(mapping)
         self.shards: List[IndexShard] = [
-            IndexShard(0, self.mapper, device, index_name=index_name)]
+            IndexShard(0, self.mapper, device, index_name=index_name,
+                       result_page=result_page)]
         window = int(settings.get("max_result_window", 10000))
         for shard in self.shards:
             shard.executor.max_result_window = window
@@ -102,7 +104,7 @@ class IndexService:
         hybrid query (None: the defaults)."""
         from opensearch_tpu_torch.search.controller import execute_search
         return execute_search([s.executor for s in self.shards], body,
-                              phase_spec)
+                              phase_spec, allow_envelope=True)
 
     def multi_search(self, bodies: List[dict]) -> dict:
         return self.shards[0].executor.multi_search(bodies)

@@ -12,12 +12,13 @@ from opensearch_tpu_torch.search.executor import SearchExecutor, ShardReader
 
 class IndexShard:
     def __init__(self, shard_id: int, mapper: MapperService,
-                 device: torch.device, index_name: str = "_index"):
+                 device: torch.device, index_name: str = "_index",
+                 result_page: bool = False):
         self.shard_id = shard_id
         self.index_name = index_name
         self.engine = InternalEngine(mapper, device=device)
         self.reader = ShardReader(mapper, device, index_name=index_name)
-        self.executor = SearchExecutor(self.reader)
+        self.executor = SearchExecutor(self.reader, result_page=result_page)
 
     def index_doc(self, doc_id: str, source: dict,
                   op_type: str = "index") -> EngineResult:

@@ -51,8 +51,10 @@ def _normalize_settings(settings: Optional[dict]) -> dict:
 
 
 class IndicesService:
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, result_page: bool = False):
         self.device = device
+        # the node's search.result_page.enabled, handed to every shard
+        self.result_page = result_page
         self.indices: Dict[str, IndexService] = {}
 
     def create_index(self, name: str, body: Optional[dict] = None
@@ -64,7 +66,8 @@ class IndicesService:
         body = body or {}
         svc = IndexService(name, self.device,
                            mapping=body.get("mappings") or None,
-                           settings=_normalize_settings(body.get("settings")))
+                           settings=_normalize_settings(body.get("settings")),
+                           result_page=self.result_page)
         self.indices[name] = svc
         return svc
 

@@ -8,6 +8,7 @@ import json
 from typing import Any, Dict, Optional
 
 from opensearch_tpu_torch import resolve_device
+from opensearch_tpu_torch.common.errors import SettingsError
 from opensearch_tpu_torch.indices.service import IndicesService
 from opensearch_tpu_torch.rest.actions import register_actions
 from opensearch_tpu_torch.rest.controller import (RestController,
@@ -15,13 +16,34 @@ from opensearch_tpu_torch.rest.controller import (RestController,
 from opensearch_tpu_torch.searchpipeline import SearchPipelineService
 
 
+def _parse_bool(value: Any, key: str) -> bool:
+    if isinstance(value, bool):
+        return value
+    text = str(value).strip().lower()
+    if text == "true":
+        return True
+    if text == "false":
+        return False
+    raise SettingsError(f"Failed to parse value [{value}] as only [true] or "
+                        f"[false] are allowed for setting [{key}]")
+
+
 class Node:
-    def __init__(self, node_name: str = "node-0", device=None):
+    def __init__(self, node_name: str = "node-0", device=None,
+                 settings: Optional[Dict[str, Any]] = None):
         """`device=None` serves on the card and raises without CUDA;
-        `device="cpu"` runs every kernel's plain PyTorch version."""
+        `device="cpu"` runs every kernel's plain PyTorch version.
+        `settings`: node-start settings; `search.result_page.enabled`
+        (static, default false) merges a field-sorted page's segments on
+        the device (K14) for every index of this node."""
         self.node_name = node_name
+        self.settings = dict(settings or {})
         self.device = resolve_device(device)
-        self.indices = IndicesService(self.device)
+        raw_page = self.settings.get("search.result_page.enabled")
+        self.result_page = False if raw_page is None else _parse_bool(
+            raw_page, "search.result_page.enabled")
+        self.indices = IndicesService(self.device,
+                                      result_page=self.result_page)
         self.search_pipelines = SearchPipelineService()
         self.controller = RestController()
         register_actions(self, self.controller)

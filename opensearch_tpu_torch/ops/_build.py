@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "pairs_match", "binned_popcount", "binned_reduce", "knn_exact",
            "ivf_probe", "kmeans_step", "maxsim_exact", "maxsim_pq",
-           "hybrid_window")
+           "hybrid_window", "sort_key", "page_merge")
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,11 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each C entry point: a wrapper adds one where it calls the
 # entry, and nowhere else (plain-version calls do not count). A library's
 # main entry shares its name; masked_topk.cu also holds
-# masked_topk_threshold, knn_exact.cu knn_topk_mark, ivf_probe.cu
-# ivf_block_keys and maxsim_pq.cu pq_lut.
+# masked_topk_threshold and masked_topk_keyed, knn_exact.cu knn_topk_mark,
+# ivf_probe.cu ivf_block_keys and maxsim_pq.cu pq_lut.
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     *KERNELS, "masked_topk_threshold", "knn_topk_mark", "ivf_block_keys",
-    "pq_lut")}
+    "pq_lut", "masked_topk_keyed")}
 # compiler output (ptxas register / shared-memory report) of the last build
 # of each library (empty until one ran)
 BUILD_LOG: Dict[str, str] = {}

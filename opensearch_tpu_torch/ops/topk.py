@@ -10,12 +10,20 @@ with a stable sort.
 
 Packed rows (`pack_rows`) are f32 [B, 2k+1]: k scores | k indices as int32
 bits | the total as int32 bits, the reference's `_pack_row` layout.
+
+The keyed entry (`masked_topk_keyed`) is the general path's query phase:
+the top-k over a per-doc sort key in lax.top_k's total order (-0.0 below
++0.0), for any k up to Dp, as f32 [B, 3k+1] rows: k keys | k scores at the
+winners | k indices | the total. The value-keyed merge helpers of
+opensearch_tpu/ops/topk.py (`MISSING_VALUE_KEY`, `f32_sortable`,
+`single_valued`, `value_merge_key`) serve the result page (ops/page.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from opensearch_tpu_torch.ops import _build
@@ -23,8 +31,68 @@ from opensearch_tpu_torch.ops import _build
 NEG_INF = float("-inf")
 # the largest k masked_topk selects (its last pass sorts the k winners of a
 # row in shared memory); past it, masked_topk_threshold marks the set of
-# winners without ordering them
+# winners without ordering them, and masked_topk_keyed sorts them in
+# global memory
 MAX_K = 1 << 14
+
+# Missing-field sentinel for VALUE-keyed merges: below every admissible
+# value key (f32_sortable admits |v| < 1e29 only) but above the NEG_INF
+# ineligibility mask, so a doc missing the sort field stays a candidate
+# that sorts last.
+MISSING_VALUE_KEY = -1e30
+
+
+def f32_sortable(col) -> bool:
+    """Admit a column to a value-keyed merge only when every unique value
+    is exactly f32-representable and within the sentinel range (the f32
+    key selection then equals the host's exact f64 one). Memoized on the
+    column. Epoch-millis dates usually fail and take the host path."""
+    cached = getattr(col, "_f32_sortable", None)
+    if cached is None:
+        u = col.unique
+        cached = bool(
+            len(u) == 0
+            or (np.all(np.abs(u) < 1e29)
+                and np.array_equal(u.astype(np.float32).astype(np.float64),
+                                   u)))
+        col._f32_sortable = cached
+    return cached
+
+
+def single_valued(col) -> bool:
+    """True when no doc of the column carries more than one value: the
+    result page's fused docvalue gather then reproduces docvalue_fields
+    exactly. Memoized on the column."""
+    cached = getattr(col, "_single_valued", None)
+    if cached is None:
+        cached = bool(np.unique(col.doc_ids).size == col.doc_ids.size)
+        col._single_valued = cached
+    return cached
+
+
+def value_merge_key(col, order: str) -> torch.Tensor:
+    """Dense [Dp] f32 cross-segment merge key of a numeric-field sort from
+    the device column dict: the doc's decoded f32 value (negated for asc),
+    MISSING_VALUE_KEY where the doc has none."""
+    u = col["unique_f32"]
+    hi = u.shape[0] - 1
+    if order == "asc":
+        keys = -u[col["min_rank"].clamp(0, hi).long()]
+    else:
+        keys = u[col["max_rank"].clamp(0, hi).long()]
+    return torch.where(col["exists"], keys,
+                       torch.tensor(MISSING_VALUE_KEY, dtype=torch.float32,
+                                    device=keys.device))
+
+
+def total_order_topk(keys: torch.Tensor, k: int):
+    """Top-k of f32 keys along the last dim in lax.top_k's order: a total
+    order on the bits (-0.0 below +0.0), ties to the lowest index."""
+    bits = keys.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7fffffff, bits)
+    _, idx = torch.sort(ordered, dim=-1, descending=True, stable=True)
+    idx = idx[..., :k]
+    return keys.gather(-1, idx), idx
 
 
 def stable_topk(keys: torch.Tensor, k: int):
@@ -162,3 +230,77 @@ def masked_topk_threshold(scores, matches, live, root, num_docs: int,
     _build.LAUNCHES["masked_topk_threshold"] += 1
     _build.check("masked_topk_threshold", code, lib="masked_topk")
     return mark
+
+
+def masked_topk_keyed_plain(scores, matches, live, root, num_docs: int,
+                            min_score, key, k: int) -> torch.Tensor:
+    """Plain version of masked_topk_keyed: K3's eligibility and total,
+    the top-k of where(eligible, key, -inf) in lax.top_k's order (key
+    None: the scores), and the scores at the winners. f32 [B, 3k+1]."""
+    d_pad = scores.shape[1]
+    in_seg = torch.arange(d_pad, device=scores.device) < num_docs
+    eligible = matches & live & root & in_seg \
+        & (scores >= min_score[:, None])
+    total = eligible.sum(dim=1, dtype=torch.int32)
+    keys = scores if key is None else key[None, :].expand_as(scores)
+    top, idx = total_order_topk(torch.where(eligible, keys, NEG_INF), k)
+    return torch.cat([top, scores.gather(1, idx),
+                      idx.to(torch.int32).view(torch.float32),
+                      total[:, None].view(torch.float32)], dim=1)
+
+
+def unpack_keyed_rows(packed, k: int):
+    """Host-side split of masked_topk_keyed rows (numpy [B, 3k+1]): keys,
+    scores, indices and totals."""
+    keys = packed[:, :k]
+    scores = packed[:, k:2 * k]
+    idx = packed[:, 2 * k:3 * k].view("int32")
+    totals = packed[:, 3 * k:3 * k + 1].view("int32")[:, 0]
+    return keys, scores, idx, totals
+
+
+def masked_topk_keyed(scores, matches, live, root, num_docs: int,
+                      min_score, key, k: int) -> torch.Tensor:
+    """K3's keyed entry: the general path's query phase
+    (opensearch_tpu/search/executor.py:build_query_phase in "field" mode,
+    and in "score" mode with `key` None). Eligibility and total as K3; the
+    top-k of the masked key, for any 0 <= k <= Dp.
+
+    scores f32 [B, Dp], matches bool [B, Dp], live / root bool [Dp],
+    min_score f32 [B], key f32 [Dp] (shared by the batch) or None.
+    Returns f32 [B, 3k+1]: keys | scores | indices | total."""
+    if not scores.is_cuda:
+        return masked_topk_keyed_plain(scores, matches, live, root,
+                                       num_docs, min_score, key, k)
+    bsz, d_pad = scores.shape
+    dev = scores.device
+    if not 0 <= k <= d_pad:
+        raise ValueError(f"masked_topk_keyed takes 0 <= k <= Dp, got k={k} "
+                         f"with Dp={d_pad}")
+    _check_rows(scores, matches, live, root, min_score)
+    if key is not None and (key.dtype != torch.float32
+                            or tuple(key.shape) != (d_pad,)
+                            or key.device != dev
+                            or not key.is_contiguous()):
+        raise ValueError(f"[key] must be a contiguous float32 tensor of "
+                         f"shape ({d_pad},) on {dev}, got {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}")
+    p2 = 1
+    while p2 < k:
+        p2 <<= 1
+    out = torch.empty(bsz, 3 * k + 1, dtype=torch.float32, device=dev)
+    # scratch: K3's select state, then the collected keys and the merge
+    # buffer (p2 each per row)
+    scratch = torch.empty(bsz * (260 + 2 * p2), dtype=torch.int64,
+                          device=dev)
+    fn = _build.entry("masked_topk_keyed", [ctypes.c_void_p] * 6
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
+                      lib="masked_topk")
+    code = fn(_build.ptr(scores), _build.ptr(matches), _build.ptr(live),
+              _build.ptr(root), _build.ptr(min_score),
+              None if key is None else _build.ptr(key), bsz, d_pad,
+              int(num_docs), k, _build.ptr(out), _build.ptr(scratch),
+              _build.stream_of(dev))
+    _build.LAUNCHES["masked_topk_keyed"] += 1
+    _build.check("masked_topk_keyed", code, lib="masked_topk")
+    return out

@@ -42,8 +42,12 @@ def _run_search(node, index: str, body: Optional[dict],
     inline = body.pop("search_pipeline", None)
     pipeline = node.search_pipelines.resolve(
         search_pipeline if search_pipeline is not None else inline, [svc])
-    return svc.search(body, pipeline.phase_spec()
-                      if pipeline is not None else None)
+    res = svc.search(body, pipeline.phase_spec()
+                     if pipeline is not None else None)
+    # the general path's page cursor is internal (an _msearch item of the
+    # envelope route keeps it, as the reference's does)
+    res.pop("_page_cursor", None)
+    return res
 
 
 def register_actions(node, c: RestController) -> None:
@@ -132,10 +136,27 @@ def register_actions(node, c: RestController) -> None:
         return {"_shards": _shards_header(node, [name])}
 
     def do_search(req):
-        body = req.body if isinstance(req.body, dict) else {}
+        body = dict(req.body) if isinstance(req.body, dict) else {}
         for key in ("size", "from"):
             if req.param(key) is not None:
-                body = {**body, key: req.param(key)}
+                body[key] = req.param(key)
+        # URI sort / _source parameters fold into the body, as the
+        # reference's REST layer folds them
+        if req.param("sort") is not None:
+            body["sort"] = [
+                ({s.split(":")[0]: s.split(":")[1]} if ":" in s else s)
+                for s in req.param("sort").split(",")]
+        if req.param("_source") is not None:
+            v = req.param("_source")
+            body["_source"] = (v.split(",") if "," in v
+                               else (v if v not in ("true", "false")
+                                     else v == "true"))
+        includes = req.param("_source_includes")
+        excludes = req.param("_source_excludes")
+        if includes or excludes:
+            body["_source"] = {
+                **({"includes": includes.split(",")} if includes else {}),
+                **({"excludes": excludes.split(",")} if excludes else {})}
         return _run_search(node, req.param("index"), body,
                            req.param("search_pipeline"))
 

@@ -125,6 +125,10 @@ class Compiler:
     def __init__(self, mapper: MapperService, stats: ShardStats):
         self.mapper = mapper
         self.stats = stats
+        # the segment filter cache's splice point
+        # (indices/query_cache.FilterCacheContext), installed per segment
+        # by the general path's query phase; None elsewhere
+        self.filter_ctx = None
 
     def compile(self, node: dsl.QueryNode, seg: Segment,
                 meta: DeviceSegmentMeta) -> Plan:
@@ -412,9 +416,16 @@ class Compiler:
                     children=list(must) + list(filter) + list(should)
                     + list(must_not))
 
+    def _compile_filter(self, node, seg, meta) -> Plan:
+        """Filter-context compilation: consults the segment filter cache
+        when the executor installed one."""
+        if self.filter_ctx is not None:
+            return self.filter_ctx.compile_filter(self, node, seg, meta)
+        return self.compile(node, seg, meta)
+
     def _c_BoolQuery(self, node: dsl.BoolQuery, seg, meta) -> Plan:
         must = [self.compile(c, seg, meta) for c in node.must]
-        filt = [self.compile(c, seg, meta) for c in node.filter]
+        filt = [self._compile_filter(c, seg, meta) for c in node.filter]
         should = [self.compile(c, seg, meta) for c in node.should]
         must_not = [self.compile(c, seg, meta) for c in node.must_not]
         if node.minimum_should_match is not None:

@@ -19,11 +19,24 @@ instead (`build_hybrid_query_phase`): per segment, every sub-query's plan
 and its K3 window, then K12's bounds and union total, one packed row per
 query; same-shaped hybrid bodies of an `_msearch` batch the same way, and
 searchpipeline/hybrid.py normalizes and combines the windows.
+
+Every other body (a field sort, `search_after`, `track_total_hits`,
+`highlight`, `explain`, `docvalue_fields`, `version`, ...) takes the
+general path: search/controller.py drives `execute_query_phase`, which
+per segment compiles the plan with the segment filter cache installed
+(indices/query_cache.py), builds the field sort's key (K13,
+ops/sort_key.py), runs the plan and K3's keyed top-k over k + 128 lanes
+(`build_query_phase`), and fetches every segment's row in ONE
+device-to-host copy; the host then finds each winner's exact sort values.
+With the node setting `search.result_page.enabled`, a single numeric /
+date / boolean sort (or a score sort) merges the segments' winners on the
+device instead (K14, ops/page.py) and the copy is the packed page.
 """
 
 from __future__ import annotations
 
 import fnmatch
+import functools
 import json
 import threading
 import time
@@ -45,7 +58,12 @@ from opensearch_tpu_torch.ops.device_segment import (DeviceSegmentMeta,
                                                      live_mask, tree_nbytes,
                                                      upload_segment)
 from opensearch_tpu_torch.ops.hybrid import hybrid_window
-from opensearch_tpu_torch.ops.topk import NEG_INF, masked_topk, unpack_rows
+from opensearch_tpu_torch.ops.page import page_merge
+from opensearch_tpu_torch.ops.sort_key import build_sort_key
+from opensearch_tpu_torch.ops.topk import (NEG_INF, f32_sortable,
+                                           masked_topk, masked_topk_keyed,
+                                           single_valued, unpack_keyed_rows,
+                                           unpack_rows)
 from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.aggs.engine import (_decode_agg_row,
                                                      agg_out_layout,
@@ -197,6 +215,29 @@ def stage_inputs(flats: List[List[Dict[str, np.ndarray]]],
     return unflatten_inputs(treedef, leaves[:-1]), leaves[-1]
 
 
+def stage_single(flat: List[Dict[str, np.ndarray]], min_score: float,
+                 dev: torch.device):
+    """One query's plan inputs for the general path (B=1): the small
+    leaves through the packed envelope (one upload), and each bool leaf
+    as long as a segment (a cached filter mask) apart, as bytes rather
+    than as int32 lanes of the envelope."""
+    small, apart = [], {}
+    for node_i, d in enumerate(flat):
+        keep = {}
+        for key, v in d.items():
+            v = np.asarray(v)
+            if v.dtype == np.bool_ and v.size > 4096:
+                apart[(node_i, key)] = torch.from_numpy(v[None]).to(dev)
+            else:
+                keep[key] = v
+        small.append(keep)
+    inputs, ms = stage_inputs([small], np.asarray([min_score], np.float32),
+                              dev)
+    for (node_i, key), t in apart.items():
+        inputs[node_i][key] = t
+    return inputs, ms
+
+
 def unflatten_inputs(treedef, leaves: List[torch.Tensor]):
     """Inverse of stack_flat_inputs' flattening: one input dict per plan
     node, in flatten order."""
@@ -250,6 +291,36 @@ def build_batched_query_phase(plan: Plan, meta: DeviceSegmentMeta, k: int):
         return masked_topk(scores, matches, seg["live"], seg["root"],
                            meta.num_docs, min_score, k_eff)
     return run
+
+
+def build_query_phase(plan: Plan, meta: DeviceSegmentMeta, k: int,
+                      agg_plans=(), seg_host: Optional[Segment] = None):
+    """The general path's single-segment query phase (B=1): plan
+    evaluation, then K3's keyed entry over the field sort's key (K13's
+    output; the scores for a score sort), k up to 65,536, and for a body
+    with aggregations the aggregation pass over the same eligibility, its
+    partials appended to the row. Returns (run, agg out_layout)."""
+    out_layout = agg_out_layout(list(agg_plans))[0] if agg_plans else None
+
+    def run(seg, inputs, sort_key, min_score):
+        cursor = [0]
+        scores, matches = _eval_plan(plan, seg, inputs, cursor, 1)
+        scores, matches = scores.contiguous(), matches.contiguous()
+        d_pad = seg["live"].shape[0]
+        row = masked_topk_keyed(scores, matches, seg["live"], seg["root"],
+                                meta.num_docs, min_score, sort_key,
+                                min(k, d_pad))
+        if not agg_plans:
+            return row
+        in_seg = torch.arange(d_pad, device=scores.device) < meta.num_docs
+        eligible = matches & seg["live"] & seg["root"] & in_seg \
+            & (scores >= min_score[:, None])
+        outs: List[dict] = []
+        eval_aggs(list(agg_plans), seg, inputs, cursor, eligible, outs,
+                  agg_statics(seg_host, list(agg_plans), scores.device))
+        return torch.cat([row, pack_agg_rows(outs, out_layout, 1,
+                                             scores.device)], dim=1)
+    return run, out_layout
 
 
 def build_batched_agg_query_phase(plan: Plan, meta: DeviceSegmentMeta,
@@ -387,6 +458,212 @@ def _envelope_runner(plan: Plan, meta: DeviceSegmentMeta, k: int):
     return build_batched_query_phase(plan, meta, k)
 
 
+# ------------------------------------------- general path: sorts, the page
+
+class _Candidate:
+    __slots__ = ("score", "seg_i", "ord", "sort_values", "shard_i",
+                 "dv_page")
+
+    def __init__(self, score, seg_i, ord_, sort_values, shard_i=0):
+        self.score = score
+        self.seg_i = seg_i
+        self.ord = ord_
+        self.sort_values = sort_values  # parallel to the sort specs; None = missing
+        self.shard_i = shard_i          # coordinator-side shard index
+        # result-page prefetch: {field: [raw values]} decoded from the
+        # fused docvalue lanes; None = no page rode this candidate (fetch
+        # scans the host column)
+        self.dv_page = None
+
+
+def _compare_candidates(specs):
+    """Multi-key comparator with missing-last semantics. Final tie-break
+    (shard, segment, doc) asc: mergeTopDocs order."""
+    def cmp(a: _Candidate, b: _Candidate) -> int:
+        for i, (field, order) in enumerate(specs):
+            va, vb = a.sort_values[i], b.sort_values[i]
+            if va is None and vb is None:
+                continue
+            if va is None:
+                return 1   # missing sorts last
+            if vb is None:
+                return -1
+            if va != vb:
+                lt = va < vb
+                if order == "desc":
+                    lt = not lt
+                return -1 if lt else 1
+        if a.shard_i != b.shard_i:
+            return -1 if a.shard_i < b.shard_i else 1
+        if a.seg_i != b.seg_i:
+            return -1 if a.seg_i < b.seg_i else 1
+        return -1 if a.ord < b.ord else 1
+    return functools.cmp_to_key(cmp)
+
+
+def sort_candidates(candidates: List[_Candidate], specs) -> None:
+    """Sort in place in _compare_candidates' order. When every sort value
+    is a number (or missing) the order is a plain tuple key, (missing,
+    value or -value) per spec then (shard, segment, doc), which Python
+    sorts without a comparator call per pair; keyword values keep the
+    comparator."""
+    if all(v is None or isinstance(v, (int, float))
+           for c in candidates for v in c.sort_values):
+        desc = [order == "desc" for _f, order in specs]
+
+        def key(c: _Candidate):
+            parts = []
+            for d, v in zip(desc, c.sort_values):
+                parts.append((1, 0) if v is None else (0, -v if d else v))
+            return (*parts, c.shard_i, c.seg_i, c.ord)
+        candidates.sort(key=key)
+    else:
+        candidates.sort(key=_compare_candidates(specs))
+
+
+def _parse_sort(sort_body) -> List[Tuple[str, str]]:
+    """Normalize the sort body to [(field | '_score', order), ...].
+    Default (None / empty / '_score') is score-descending."""
+    if sort_body is None:
+        return [("_score", "desc")]
+    specs = sort_body if isinstance(sort_body, list) else [sort_body]
+    out: List[Tuple[str, str]] = []
+    for spec in specs:
+        if isinstance(spec, str):
+            if spec == "_score":
+                out.append(("_score", "desc"))
+            elif spec == "_doc":
+                continue  # doc order is the built-in final tie-break
+            else:
+                out.append((spec, "asc"))
+        elif isinstance(spec, dict):
+            field, opts = next(iter(spec.items()))
+            if field == "_score":
+                order = opts.get("order", "desc") if isinstance(opts, dict) \
+                    else str(opts)
+                out.append(("_score", order))
+            else:
+                order = opts.get("order", "asc") if isinstance(opts, dict) \
+                    else str(opts)
+                out.append((field, order))
+    if not out:
+        return [("_score", "desc")]
+    return out
+
+
+def _doc_slice(doc_ids: np.ndarray, ord_: int) -> slice:
+    """The doc's (doc, value) pairs: columns keep their pairs sorted by doc
+    (segment_from_arrays refuses any other order), so two binary searches
+    find them, not a scan of the column."""
+    # the probe in the column's own dtype: a Python int would make numpy
+    # cast the whole column first
+    probe = doc_ids.dtype.type(ord_)
+    return slice(int(np.searchsorted(doc_ids, probe, "left")),
+                 int(np.searchsorted(doc_ids, probe, "right")))
+
+
+def _sort_value(seg: Segment, field: str, order: str, ord_: int):
+    """The exact (host) sort value of one doc, for the cross-segment merge
+    and the response: the min (asc) or max (desc) of its values; None when
+    it has none."""
+    col = seg.numeric_dv.get(field)
+    if col is not None:
+        vals = col.values[_doc_slice(col.doc_ids, ord_)]
+        if len(vals) == 0:
+            return None
+        v = float(vals.min() if order == "asc" else vals.max())
+        return int(v) if v.is_integer() else v
+    ocol = seg.ordinal_dv.get(field)
+    if ocol is not None:
+        ords = ocol.ords[_doc_slice(ocol.doc_ids, ord_)]
+        if len(ords) == 0:
+            return None
+        o = int(ords.min() if order == "asc" else ords.max())
+        return ocol.dictionary[o]
+    return None
+
+
+def _sort_values(seg: Segment, specs, ords: np.ndarray,
+                 scores: List[float]) -> List[list]:
+    """_sort_value of every winner of one segment, per sort spec; a
+    single-valued numeric column takes one vectorized lookup."""
+    cols = []
+    for field, order in specs:
+        if field == "_score":
+            cols.append(scores)
+            continue
+        col = seg.numeric_dv.get(field)
+        if col is not None and len(col.doc_ids) and single_valued(col):
+            lo = np.searchsorted(col.doc_ids, ords, "left")
+            has = lo < np.searchsorted(col.doc_ids, ords, "right")
+            vals = col.values[np.minimum(lo, len(col.values) - 1)]
+            cols.append([(int(v) if v.is_integer() else v) if h else None
+                         for v, h in zip(vals.tolist(), has.tolist())])
+            continue
+        cols.append([_sort_value(seg, field, order, o)
+                     for o in ords.tolist()])
+    return [list(vs) for vs in zip(*cols)]
+
+
+def _page_sort_mode(sort_specs, mapper):
+    """Static result-page admission: ("score",) / ("field", name, order)
+    when the request's result assembly can ride the on-device merge, None
+    for the host merge: one sort key only, a numeric / date / boolean
+    field (keyword ordinals do not compare across segments)."""
+    if len(sort_specs) != 1:
+        return None
+    field, order = sort_specs[0]
+    if field == "_score":
+        return ("score",)
+    ft = mapper.get_field(field)
+    if ft is None or not (ft.is_numeric or ft.is_date or ft.is_bool):
+        return None
+    return ("field", field, order)
+
+
+def _page_dv_fields(body: dict, mapper) -> tuple:
+    """The docvalue_fields a result page can fuse: numeric-typed fields
+    (decoded as rank -> host unique[], exact f64). Keyword fields keep the
+    host scan; multi-valued columns fall back per segment."""
+    out = []
+    for spec in body.get("docvalue_fields") or []:
+        field = spec["field"] if isinstance(spec, dict) else spec
+        ft = mapper.get_field(field)
+        if ft is not None and (ft.is_numeric or ft.is_date or ft.is_bool) \
+                and field not in out:
+            out.append(field)
+    return tuple(out)
+
+
+def _page_segment_admit(seg: Segment, arrays, meta: DeviceSegmentMeta,
+                        mode, dv_fields):
+    """Per-segment page admission and the columns the segment contributes.
+    None disqualifies the whole request (a sort column whose values are
+    not exactly f32-representable: selection by the f32 key would diverge
+    from the host's exact keys). Per docvalue field: `col` (device gather
+    + host unique[] decode), `absent` (no column: no values) or `host`
+    (multi-valued: the fetch phase's host scan)."""
+    out = {"d_pad": meta.d_pad, "sort_col": None, "sort_host": None,
+           "dv_state": {}}
+    if mode[0] == "field":
+        field = mode[1]
+        host = seg.numeric_dv.get(field)
+        if host is not None and not f32_sortable(host):
+            return None
+        out["sort_col"] = arrays["numeric"].get(field)
+        out["sort_host"] = host
+    for f in dv_fields:
+        host = seg.numeric_dv.get(f)
+        dev = arrays["numeric"].get(f)
+        if host is None and f not in seg.ordinal_dv:
+            out["dv_state"][f] = ("absent", None, None)
+        elif host is not None and dev is not None and single_valued(host):
+            out["dv_state"][f] = ("col", dev, host)
+        else:
+            out["dv_state"][f] = ("host", None, None)
+    return out
+
+
 # --------------------------------------------------------------- responses
 
 _BATCHABLE_KEYS = frozenset({"query", "size", "from", "min_score", "sort",
@@ -394,8 +671,11 @@ _BATCHABLE_KEYS = frozenset({"query", "size", "from", "min_score", "sort",
 
 
 def _msearch_batchable(body: dict) -> bool:
+    """A plain score-sorted body the envelope renders whole (a hybrid body
+    runs its own fused phase)."""
     return set(body) <= _BATCHABLE_KEYS \
-        and body.get("sort") in (None, "_score", ["_score"])
+        and body.get("sort") in (None, "_score", ["_score"]) \
+        and not _contains_hybrid(body.get("query"))
 
 
 def _base_response(took_ms: int, total: int, max_score, hits: list) -> dict:
@@ -436,23 +716,28 @@ def _req_min_score(body: dict) -> float:
 class SearchExecutor:
     """Executes search requests against one shard (query + fetch)."""
 
-    def __init__(self, reader: ShardReader):
+    def __init__(self, reader: ShardReader, result_page: bool = False):
         self.reader = reader
         self.max_result_window = 10000
+        # the node's static `search.result_page.enabled`: field-sorted
+        # pages merge their segments on the device (K14)
+        self.result_page = result_page
 
     def search(self, body: Optional[dict] = None,
-               phase_spec: Optional[dict] = None) -> dict:
-        """One search: the msearch envelope at B=1; a hybrid body runs the
-        fused hybrid phase at B=1 and merges under `phase_spec` (a search
-        pipeline's normalization spec; None: the defaults). Errors
+               phase_spec: Optional[dict] = None,
+               _direct: bool = False) -> dict:
+        """One search: a score-sorted plain body runs the msearch envelope
+        at B=1; a hybrid body runs the fused hybrid phase at B=1 and
+        merges under `phase_spec` (a search pipeline's normalization spec;
+        None: the defaults); every other body (or any body with
+        `_direct`) takes the general path of search/controller.py. Errors
         raise."""
         body = body or {}
-        if _contains_hybrid(body.get("query")):
-            from opensearch_tpu_torch.searchpipeline.hybrid import \
-                execute_hybrid_search
-            return execute_hybrid_search([self], body, phase_spec)
-        return self.multi_search([body],
-                                 _raise_item_errors=True)["responses"][0]
+        if not _direct and _msearch_batchable(body):
+            return self.multi_search([body],
+                                     _raise_item_errors=True)["responses"][0]
+        from opensearch_tpu_torch.search.controller import execute_search
+        return execute_search([self], body, phase_spec)
 
     def multi_search(self, bodies: List[dict],
                      _raise_item_errors: bool = False) -> dict:
@@ -468,10 +753,11 @@ class SearchExecutor:
             try:
                 if _hybrid_msearch_batchable(body):
                     hybrid_items.append((i, body))
-                elif _contains_hybrid(body.get("query")):
-                    # a companion the hybrid wave does not render: the
-                    # single-search path answers it (or its 400)
-                    responses[i] = self.search(body)
+                elif not _msearch_batchable(body):
+                    # a hybrid companion the wave does not render, a field
+                    # sort, search_after, fetch options...: the general
+                    # path answers it (or its error), one item at a time
+                    responses[i] = self.search(body, _direct=True)
                 else:
                     batchable.append(self._parse_one(i, body))
             except OpenSearchTpuError as e:
@@ -597,13 +883,6 @@ class SearchExecutor:
         return results
 
     def _parse_one(self, i: int, body: dict):
-        if not _msearch_batchable(body):
-            extra = sorted(set(body) - _BATCHABLE_KEYS)
-            raise IllegalArgumentError(
-                f"request {'keys ' + str(extra) if extra else 'sort'} "
-                f"not supported by opensearch_tpu_torch yet: it serves "
-                f"score-sorted query/size/from/min_score/_source/aggs "
-                f"bodies")
         node = dsl.parse_query(body.get("query"))
         size = _req_int(body, "size", 10)
         from_ = _req_int(body, "from", 0)
@@ -722,6 +1001,194 @@ class SearchExecutor:
                 if i in aggs_by_i:
                     responses[i]["aggregations"] = {}
 
+    def execute_query_phase(self, body: dict, k: int):
+        """This shard's query phase on the general path: (candidates with
+        their exact sort values, per-segment decoded agg partials, total
+        hits) for the controller's merge. Per segment: the plan compiled
+        with the filter cache installed, the sort key (K13), the plan and
+        K3's keyed top-k of k + 128 lanes (and the agg pass), all on the
+        device; every segment's row comes back in ONE copy, or, on the
+        result page, the packed page (K14) does."""
+        from opensearch_tpu_torch.indices.query_cache import \
+            FilterCacheContext
+        node = dsl.parse_query(body.get("query"))
+        min_score = _req_min_score(body)
+        sort_specs = _parse_sort(body.get("sort"))
+        score_sorted = sort_specs[0][0] == "_score"
+        primary = None if score_sorted else sort_specs[0]
+        stats, segments, device = self.reader.stats_snapshot()
+        mapper = self.reader.mapper
+        compiler = Compiler(mapper, stats)
+        agg_spec = body.get("aggs") or body.get("aggregations")
+        agg_nodes = parse_aggs(agg_spec)
+        missing = unsupported_aggs(agg_nodes)
+        if missing is not None:
+            raise QueryShardError(
+                f"aggregation type [{missing}] is not supported")
+        agg_json = json.dumps(agg_spec, sort_keys=True, default=str) \
+            if agg_nodes else None
+        # over-fetch for ties and the cross-segment merge
+        k_fetch = min(k + 128, 1 << 16)
+        page_mode = _page_sort_mode(sort_specs, mapper) \
+            if self.result_page else None
+        page_dv = _page_dv_fields(body, mapper) \
+            if page_mode is not None else ()
+        page_rows: Optional[list] = [] if page_mode is not None else None
+        dev = self.reader.torch_device
+        launched = []
+        for seg_i, (seg, (arrays, meta)) in enumerate(zip(segments,
+                                                          device)):
+            if seg.num_docs == 0:
+                continue
+            compiler.filter_ctx = FilterCacheContext(seg, arrays)
+            try:
+                plan = compiler.compile(node, seg, meta)
+            finally:
+                compiler.filter_ctx = None
+            agg_plans = self._agg_plans(stats, compiler, agg_nodes,
+                                        agg_json, seg, meta) \
+                if agg_nodes else []
+            if page_rows is not None:
+                prow = _page_segment_admit(seg, arrays, meta, page_mode,
+                                           page_dv)
+                if prow is None:
+                    page_rows = None
+                else:
+                    page_rows.append(prow)
+            sort_key = build_sort_key(arrays, primary)
+            k_seg = min(k_fetch, pad_bucket(max(seg.num_docs, 1)),
+                        meta.d_pad)
+            flat = plan.flatten_inputs([])
+            for ap in agg_plans:
+                ap.flatten_inputs(flat)
+            inputs, ms = stage_single(flat, min_score, dev)
+            run, out_layout = build_query_phase(plan, meta, k_seg,
+                                                agg_plans, seg)
+            launched.append((seg_i, seg, agg_plans, k_seg, out_layout,
+                             run(arrays, inputs, sort_key, ms)))
+        if not launched:
+            return [], [], 0
+        if page_rows is not None:
+            page = self._page_build(launched, page_rows, page_mode, page_dv,
+                                    k_fetch)
+            if page is not None:
+                return self._decode_page(page, launched, agg_nodes)
+        fetched = _fetch_rows([out for *_, out in launched])
+        candidates: List[_Candidate] = []
+        per_segment_decoded = []
+        total = 0
+        for (seg_i, seg, agg_plans, k_seg, out_layout, _), rows in zip(
+                launched, fetched):
+            keys, scores, idx, totals = unpack_keyed_rows(
+                rows[:, :3 * k_seg + 1], k_seg)
+            if agg_nodes:
+                per_segment_decoded.append(decode_outputs(
+                    agg_plans, _decode_agg_row(rows[0, 3 * k_seg + 1:],
+                                               out_layout)))
+            total += int(totals[0])
+            valid = keys[0] != NEG_INF      # ineligible / padding lanes
+            ords = idx[0][valid]
+            sc = scores[0][valid].tolist()
+            values = _sort_values(seg, sort_specs, ords, sc)
+            candidates.extend(
+                _Candidate(score, seg_i, o, sv)
+                for score, o, sv in zip(sc, ords.tolist(), values))
+        return candidates, per_segment_decoded, total
+
+    def _page_build(self, launched, page_rows, page_mode, page_dv,
+                    k_fetch: int):
+        """Run the page merge (K14) over the launched segments' rows: the
+        packed int32 page on the device and its layout, or None when the
+        gid packing cannot cover the segments in int32 (the host merge
+        takes over)."""
+        stride = max(r["d_pad"] for r in page_rows)
+        if len(launched) * stride >= (1 << 31):
+            return None
+        rows = [out[0, :3 * k_seg + 1]
+                for (_i, _s, _a, k_seg, _l, out) in launched]
+        lanes = sum(k_seg for (_i, _s, _a, k_seg, _l, _o) in launched)
+        k_page = min(k_fetch, lanes)
+        order = page_mode[2] if page_mode[0] == "field" else None
+        dv_cols = [[prow["dv_state"][f][1]
+                    if prow["dv_state"][f][0] == "col" else None
+                    for f in page_dv] for prow in page_rows]
+        page = page_merge(rows, order, [r["sort_col"] for r in page_rows],
+                          dv_cols, k_page, stride)
+        lay = {"mode": page_mode, "k_page": k_page, "stride": stride,
+               "dv_fields": page_dv, "rows_meta": page_rows}
+        return page, lay
+
+    def _decode_page(self, page, launched, agg_nodes):
+        """Host decode of one packed result page: candidates with exact
+        sort values (rank -> host unique[], f64: no f32 value reaches a
+        response) and the fused docvalue prefetch per candidate, plus the
+        totals and the decoded agg partials. The page and the agg tails
+        come back in one copy."""
+        page_t, lay = page
+        tails = [out[:, 3 * k_seg + 1:]
+                 for (_i, _s, _a, k_seg, _l, out) in launched] \
+            if agg_nodes else []
+        fetched = _fetch_rows([page_t.view(torch.float32)[None, :],
+                               *tails])
+        buf = fetched[0][0].view(np.int32)
+        k_page, stride = lay["k_page"], lay["stride"]
+        off = 0
+
+        def take(n):
+            nonlocal off
+            part = buf[off:off + n]
+            off += n
+            return part
+
+        mk = take(k_page).view(np.float32)
+        msc = take(k_page).view(np.float32)
+        mg = take(k_page)
+        field_mode = lay["mode"][0] == "field"
+        srank = sexists = None
+        if field_mode:
+            srank, sexists = take(k_page), take(k_page)
+        dv_cols = [(f, take(k_page), take(k_page))
+                   for f in lay["dv_fields"]]
+        totals = take(len(launched))
+        total = int(totals.sum())
+        per_segment_decoded = []
+        for (_seg_i, _seg, agg_plans, _k, out_layout, _), tail in zip(
+                launched, fetched[1:]):
+            per_segment_decoded.append(decode_outputs(
+                agg_plans, _decode_agg_row(tail[0], out_layout)))
+        candidates: List[_Candidate] = []
+        for j in range(k_page):
+            if mk[j] == NEG_INF:
+                continue  # ineligible / padding
+            pos, ord_ = divmod(int(mg[j]), stride)
+            seg_i = launched[pos][0]
+            score = float(msc[j])
+            if field_mode:
+                if sexists[j]:
+                    # the f32 key selected; the host's f64 table answers
+                    host = lay["rows_meta"][pos]["sort_host"]
+                    v = float(host.unique[int(srank[j])])
+                    sv = [int(v) if v.is_integer() else v]
+                else:
+                    sv = [None]
+            else:
+                sv = [score]
+            cand = _Candidate(score, seg_i, ord_, sv)
+            if dv_cols:
+                prow = lay["rows_meta"][pos]
+                dvm = {}
+                for f, ranks, exists in dv_cols:
+                    state, _dev, host = prow["dv_state"][f]
+                    if state == "host":
+                        continue  # the fetch phase's host scan
+                    if state == "col" and exists[j]:
+                        dvm[f] = [float(host.unique[int(ranks[j])])]
+                    else:
+                        dvm[f] = []
+                cand.dv_page = dvm
+            candidates.append(cand)
+        return candidates, per_segment_decoded, total
+
     def _agg_plans(self, stats: ShardStats, compiler: Compiler, agg_nodes,
                    agg_json: str, seg: Segment, meta: DeviceSegmentMeta):
         """Compiled agg plans of one (agg spec, segment), memoized on the
@@ -791,10 +1258,14 @@ class SearchExecutor:
                     per_query_decoded.get(i, []))
 
 
-    def _hit_dict(self, seg_i: int, ord_: int, score: float, body: dict,
-                  segments: List[Segment]) -> dict:
-        """One search hit of the query phase's segments snapshot."""
-        seg = segments[seg_i]
+    def _hit_dict(self, seg_i: int, ord_: int, score: Optional[float],
+                  body: dict, segments: Optional[List[Segment]] = None
+                  ) -> dict:
+        """One search hit of the query phase's segments snapshot (the
+        reader's current segments when None); `score` None renders a
+        field-sorted hit's null `_score`."""
+        seg = (segments if segments is not None
+               else self.reader.segments)[seg_i]
         h = {"_index": self.reader.index_name, "_id": seg.doc_ids[ord_],
              "_score": score}
         src = _filter_source(seg.sources[ord_], body.get("_source", True))

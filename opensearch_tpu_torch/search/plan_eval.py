@@ -1,6 +1,7 @@
 """Evaluation of compiled plans on a batch of B queries against one segment
 (the subset of opensearch_tpu.search.plan_eval the port needs):
-`match_all`, `match_none`, `text` (through K2), the doc-value filters
+`match_all`, `match_none`, `text` (through K2), `precomputed` (a cached
+filter mask), the doc-value filters
 `num_terms` / `range_num` / `range_ord` (through K4), `exists`, `knn`
 (through K7 or K8, then K3), `maxsim` (through K10 or K11, then K3),
 `bool`, `dis_max` and `const_score`, as
@@ -54,6 +55,11 @@ def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],
         else:
             scores = torch.where(matches, scores, 0.0)
         return scores, matches
+
+    if kind == "precomputed":
+        # a cached filter mask (indices/query_cache.py): a filter scores 0
+        return (torch.zeros(bsz, d_pad, dtype=torch.float32, device=dev),
+                my["matches"])
 
     if kind in ("num_terms", "range_num", "range_ord"):
         src = "ordinal" if kind == "range_ord" else "numeric"

@@ -102,6 +102,42 @@ def structured_columns(n_docs: int, seed: int = 42):
     return tag, views, ts
 
 
+def _structured_arrays(tag, views, ts, lo: int, hi: int,
+                       seg_id: str) -> dict:
+    """segment_from_arrays' input for docs lo..hi of structured columns
+    (every doc one value of each field; `_id`s d{lo}..d{hi - 1})."""
+    n_docs = hi - lo
+    names = [f"cat{i}" for i in range(N_TAGS)]
+    dictionary = sorted(names)
+    ord_of_tag = np.array([dictionary.index(t) for t in names], np.int32)
+    docs = np.arange(n_docs, dtype=np.int32)
+    ones = np.ones(n_docs, dtype=bool)
+
+    def numeric(values):
+        values = values[lo:hi]
+        unique, ranks = np.unique(values.astype(np.float64),
+                                  return_inverse=True)
+        return {"doc_ids": docs, "values": values.astype(np.float64),
+                "exists": ones, "counts": np.ones(n_docs, np.int32),
+                "value_ords": ranks.astype(np.int32).reshape(-1),
+                "unique": unique}
+    return {
+        "seg_id": seg_id, "num_docs": n_docs,
+        "doc_ids": [f"d{i}" for i in range(lo, hi)],
+        "sources": [None] * n_docs,
+        "term_dict": {},
+        "post_docs": np.full((1, 128), -1, np.int32),
+        "post_tf": np.zeros((1, 128), np.float32),
+        "norms": {}, "field_stats": {},
+        "numeric_dv": {"views": numeric(views), "ts": numeric(ts)},
+        "ordinal_dv": {"tag": {
+            "doc_ids": docs, "ords": ord_of_tag[tag[lo:hi]], "exists": ones,
+            "dictionary": dictionary,
+            "ord_hashes": np.array([_hash64(t) for t in dictionary],
+                                   np.uint64)}},
+    }
+
+
 def structured_segment(n_docs: int, seed: int = 42, seg_id: str = "s0"
                        ) -> Tuple[MapperService, Segment]:
     """One sealed segment of n_docs docs with only the structured fields
@@ -111,35 +147,21 @@ def structured_segment(n_docs: int, seed: int = 42, seg_id: str = "s0"
     one by one. No text field, so the postings are one empty block."""
     mapper = MapperService(STRUCTURED_MAPPING)
     tag, views, ts = structured_columns(n_docs, seed)
-    names = [f"cat{i}" for i in range(N_TAGS)]
-    dictionary = sorted(names)
-    ord_of_tag = np.array([dictionary.index(t) for t in names], np.int32)
-    docs = np.arange(n_docs, dtype=np.int32)
-    ones = np.ones(n_docs, dtype=bool)
+    return mapper, segment_from_arrays(
+        _structured_arrays(tag, views, ts, 0, n_docs, seg_id))
 
-    def numeric(values):
-        unique, ranks = np.unique(values.astype(np.float64),
-                                  return_inverse=True)
-        return {"doc_ids": docs, "values": values.astype(np.float64),
-                "exists": ones, "counts": np.ones(n_docs, np.int32),
-                "value_ords": ranks.astype(np.int32).reshape(-1),
-                "unique": unique}
-    arrays = {
-        "seg_id": seg_id, "num_docs": n_docs,
-        "doc_ids": [f"d{i}" for i in range(n_docs)],
-        "sources": [None] * n_docs,
-        "term_dict": {},
-        "post_docs": np.full((1, 128), -1, np.int32),
-        "post_tf": np.zeros((1, 128), np.float32),
-        "norms": {}, "field_stats": {},
-        "numeric_dv": {"views": numeric(views), "ts": numeric(ts)},
-        "ordinal_dv": {"tag": {
-            "doc_ids": docs, "ords": ord_of_tag[tag], "exists": ones,
-            "dictionary": dictionary,
-            "ord_hashes": np.array([_hash64(t) for t in dictionary],
-                                   np.uint64)}},
-    }
-    return mapper, segment_from_arrays(arrays)
+
+def structured_segments(n_docs: int, n_segments: int, seed: int = 42
+                        ) -> Tuple[MapperService, List[Segment]]:
+    """The docs of structured_segment(n_docs, seed), the same columns and
+    `_id`s, split in doc order into n_segments segments: (segment, doc)
+    order is then the single segment's doc order, so ties break alike."""
+    mapper = MapperService(STRUCTURED_MAPPING)
+    tag, views, ts = structured_columns(n_docs, seed)
+    bounds = np.linspace(0, n_docs, n_segments + 1).astype(int)
+    return mapper, [segment_from_arrays(_structured_arrays(
+        tag, views, ts, int(lo), int(hi), f"s{i}"))
+        for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
 
 
 def query_terms(n_queries: int, vocab_size: int = 5000, seed: int = 7,

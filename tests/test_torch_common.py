@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,10 +177,13 @@ def f32_sum_bound(n: int, abs_sum: float) -> float:
 def assert_same_response(got: Any, want: Any, path: str = "",
                          agg_sum_tol: Optional[Dict[str, float]] = None,
                          score_rtol: float = SCORE_RTOL,
-                         score_atol: float = 0.0) -> None:
-    """Structural equality, `took` ignored, scores to `score_rtol` /
-    `score_atol` (SCORE_RTOL and 0 unless the caller states its own
-    contract).
+                         score_atol: float = 0.0,
+                         score_sorts: Tuple[int, ...] = ()) -> None:
+    """Structural equality, `took` ignored, scores (and the values of an
+    `_explanation` tree) to `score_rtol` / `score_atol` (SCORE_RTOL and 0
+    unless the caller states its own contract). `score_sorts`: the
+    positions of `_score` in the request's sort, whose values in a hit's
+    `sort` are scores too.
     agg_sum_tol maps the path of an aggregation's f32 sum or average (as
     this function spells paths, e.g. ".aggregations.t.buckets[0].a.value")
     to its absolute bound; every other value compares exactly."""
@@ -191,16 +194,20 @@ def assert_same_response(got: Any, want: Any, path: str = "",
             f"{path}: keys {sorted(set(got))} != {sorted(set(want))}"
         for key in keys:
             assert_same_response(got[key], want[key], f"{path}.{key}",
-                                 agg_sum_tol, score_rtol, score_atol)
+                                 agg_sum_tol, score_rtol, score_atol,
+                                 score_sorts)
         return
     if isinstance(want, list):
         assert isinstance(got, list) and len(got) == len(want), \
             f"{path}: {got!r} != {want!r}"
         for i, (g, w) in enumerate(zip(got, want)):
             assert_same_response(g, w, f"{path}[{i}]", agg_sum_tol,
-                                 score_rtol, score_atol)
+                                 score_rtol, score_atol, score_sorts)
         return
-    if isinstance(want, float) and path.endswith(("_score", "max_score")):
+    if isinstance(want, float) and (
+            path.endswith(("_score", "max_score"))
+            or ("._explanation" in path and path.endswith(".value"))
+            or any(path.endswith(f".sort[{i}]") for i in score_sorts)):
         assert isinstance(got, float), f"{path}: {got!r} != {want!r}"
         assert math.isclose(got, want, rel_tol=score_rtol,
                             abs_tol=score_atol), \
@@ -263,6 +270,62 @@ def load_docs_index(node, index: str = "docs", n_docs: int = DOCS_N) -> None:
 
 BASE_TS = 1700000000000
 DAY_MS = 86400_000
+
+SORT_N = 1500
+
+
+def load_sorted_index(node, index: str = "sorted",
+                      n_docs: int = SORT_N) -> None:
+    """The structured corpus over three segments: load_docs_index's two,
+    then 60 docs without `views` (a segment with no views column)."""
+    load_docs_index(node, index, n_docs)
+    extra = {}
+    for i, d in enumerate(docs_corpus(60, seed=7)):
+        d.pop("views", None)
+        extra[f"x{i}"] = d
+    res = node.request("POST", "/_bulk", bulk_ndjson(index, extra))
+    assert res["_status"] == 200 and not res["errors"]
+    node.request("POST", f"/{index}/_refresh")
+
+
+# name -> field-sorted / general-path _search body over load_sorted_index
+SORT_BODIES: Dict[str, dict] = {
+    "views_asc": {"sort": [{"views": "asc"}], "size": 12},
+    "views_desc": {"sort": [{"views": {"order": "desc"}}], "size": 12,
+                   "query": {"match": {"body": "w00011 w00004"}}},
+    "ts_asc": {"sort": [{"ts": "asc"}], "size": 9},
+    "ts_desc": {"sort": [{"ts": "desc"}], "from": 4, "size": 9},
+    "tag_asc": {"sort": [{"tag": "asc"}], "size": 15},
+    "tag_desc": {"sort": [{"tag": "desc"}], "size": 15,
+                 "query": {"range": {"views": {"lt": 3000}}}},
+    "tag_ts": {"sort": [{"tag": "asc"}, {"ts": "desc"}], "size": 20},
+    "score_then_views": {"query": {"match": {"body": "w00021"}},
+                         "sort": ["_score", {"views": "asc"}], "size": 10},
+    "doc_order": {"query": {"term": {"tag": "multi"}}, "sort": "_doc",
+                  "size": 10},
+    "absent_field": {"sort": [{"nope": "asc"}, {"views": "desc"}],
+                     "size": 6},
+    "missing_last": {"sort": [{"views": "asc"}], "from": 1490,
+                     "size": 60},
+    "min_score": {"query": {"match": {"body": "w00011"}},
+                  "sort": [{"ts": "desc"}], "min_score": 1.0, "size": 8},
+    "tth_false": {"sort": [{"views": "desc"}], "size": 3,
+                  "track_total_hits": False},
+    "tth_above": {"query": {"range": {"views": {"gte": 9000}}},
+                  "sort": [{"views": "asc"}], "size": 3,
+                  "track_total_hits": 100000},
+    "tth_below": {"sort": [{"ts": "asc"}], "size": 3,
+                  "track_total_hits": 50},
+    "aggs": {"sort": [{"views": "desc"}], "size": 4,
+             "aggs": {"t": {"terms": {"field": "tag", "size": 5}},
+                      "m": {"max": {"field": "ts"}}}},
+    "filter": {"query": {"bool": {"filter": [{"range": {"views": {
+        "gte": 4000, "lt": 6000}}}]}}, "sort": [{"views": "desc"}],
+        "size": 7},
+    "dv_sorted": {"sort": [{"views": "desc"}], "size": 5,
+                  "docvalue_fields": ["views", "ts", "tag"],
+                  "version": True, "_source": ["tag"]},
+}
 
 
 def bench_agg_bodies(mode: str, n: int = 64) -> List[dict]:

@@ -8,7 +8,8 @@ bound n * 2^-24 * sum|v| of the f64 sums, and the same bits from run to
 run. The k-NN kernels: K7 and K8 scores, masks and chosen blocks bit for
 bit (every sum in dim order, one rounding per operation); K9 bit for bit
 too (one chunked member order on both sides), its means within the same
-sum bound of the f64 means."""
+sum bound of the f64 means. K13 (the sort key), K3's keyed entry (k up to
+40,000, past one CTA's sort) and K14 (the result page) bit for bit."""
 
 import numpy as np
 import pytest
@@ -417,3 +418,99 @@ def test_hybrid_window_kernel_equals_plain(gpu, bsz, n_sub, k):
     want = hybrid.hybrid_window_plain(rows, elig, k)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------------- K13 sort key, K3's keyed entry, K14 page
+
+def _structured_image(n_docs, seed):
+    """A structured segment's device image on the card: views / ts
+    numeric columns and a multi-valued keyword column (pairs layout)."""
+    from opensearch_tpu_torch.utils.demo import structured_segment
+    _mapper, seg = structured_segment(n_docs, seed=seed)
+    col = seg.ordinal_dv["tag"]
+    rng = np.random.default_rng(seed)
+    extra = rng.choice(n_docs, n_docs // 7, replace=False)
+    docs = np.concatenate([col.doc_ids, extra.astype(np.int32)])
+    ords = np.concatenate([col.ords, rng.integers(
+        0, len(col.dictionary), len(extra)).astype(np.int32)])
+    order = np.argsort(docs, kind="stable")
+    col.doc_ids, col.ords = docs[order], ords[order]
+    col.exists[rng.choice(n_docs, 50, replace=False)] = False
+    keep = col.exists[col.doc_ids]
+    col.doc_ids, col.ords = col.doc_ids[keep], col.ords[keep]
+    views = seg.numeric_dv["views"]
+    views.exists[rng.choice(n_docs, 50, replace=False)] = False
+    return upload_segment(seg, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("field", ["views", "ts", "tag", "nope"])
+@pytest.mark.parametrize("order", ["asc", "desc"])
+def test_sort_key_kernel_equals_plain(gpu, field, order):
+    from opensearch_tpu_torch.ops import sort_key
+    arrays, _meta = _structured_image(30000, 5)
+    before = _build.LAUNCHES["sort_key"]
+    got = sort_key.build_sort_key(arrays, (field, order))
+    assert _build.LAUNCHES["sort_key"] == before + 1
+    want = sort_key.sort_key_plain(arrays, (field, order))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [0, 100, 40000])
+@pytest.mark.parametrize("keyed", [True, False])
+def test_masked_topk_keyed_kernel_equals_plain(gpu, k, keyed):
+    """Keys with many ties (and -0.0 beside +0.0) over 2^16 lanes, two
+    rows; at k 40,000 fewer lanes are eligible than k in one row, so -inf
+    lanes fill the tail in index order."""
+    d_pad, bsz = 1 << 16, 2
+    gen = torch.Generator(device="cuda").manual_seed(k + keyed)
+    scores = torch.randint(0, 40, (bsz, d_pad), generator=gen,
+                           device="cuda").float()
+    matches = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.8
+    matches[1] &= torch.rand(d_pad, generator=gen, device="cuda") < 0.5
+    live = torch.rand(d_pad, generator=gen, device="cuda") < 0.95
+    root = torch.ones(d_pad, dtype=torch.bool, device="cuda")
+    key = torch.randint(-300, 300, (d_pad,), generator=gen,
+                        device="cuda").float()
+    key[::7] = -0.0
+    key[::11] = -1e30
+    ms = torch.tensor([-np.inf, 5.0], device="cuda")
+    key = key if keyed else None
+    before = _build.LAUNCHES["masked_topk_keyed"]
+    got = topk.masked_topk_keyed(scores, matches, live, root, 60000, ms,
+                                 key, k)
+    assert _build.LAUNCHES["masked_topk_keyed"] == before + 1
+    want = topk.masked_topk_keyed_plain(scores, matches, live, root, 60000,
+                                        ms, key, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("order", [None, "asc", "desc"])
+def test_page_merge_kernel_equals_plain(gpu, order):
+    """Four segments' keyed rows (one without the sort column, docvalue
+    lanes of a column and of an absent one) into one page."""
+    from opensearch_tpu_torch.ops import page, sort_key
+    rows, sort_cols, dv_cols = [], [], []
+    for s, n in enumerate((30000, 20000, 9000, 25000)):
+        arrays, meta = _structured_image(n, 10 + s)
+        d_pad = arrays["live"].shape[0]
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        scores = torch.rand(1, d_pad, generator=gen, device="cuda")
+        matches = torch.rand(1, d_pad, generator=gen, device="cuda") < 0.3
+        field = "views" if s != 2 else "nope"
+        key = sort_key.build_sort_key(arrays, (field, order)) \
+            if order is not None else None
+        k = 300 if s != 3 else 7000
+        rows.append(topk.masked_topk_keyed(
+            scores, matches, arrays["live"], arrays["root"], n,
+            torch.full((1,), -np.inf, device="cuda"), key, k)[0])
+        sort_cols.append(arrays["numeric"].get(field))
+        dv_cols.append([arrays["numeric"]["ts"], None])
+    before = _build.LAUNCHES["page_merge"]
+    got = page.page_merge(rows, order, sort_cols, dv_cols, 500, 1 << 15)
+    assert _build.LAUNCHES["page_merge"] == before + 1
+    want = page.page_merge_plain(rows, order, sort_cols, dv_cols, 500,
+                                 1 << 15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax():
     assert "opensearch_tpu_torch.ops.knn" in mods
     for new in ("ops.maxsim", "ops.hybrid", "search.spmd",
                 "searchpipeline.hybrid", "searchpipeline.processors",
-                "searchpipeline.service"):
+                "searchpipeline.service", "indices.query_cache",
+                "search.fetch", "search.controller", "ops.sort_key",
+                "ops.page"):
         assert f"opensearch_tpu_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
