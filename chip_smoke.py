@@ -67,7 +67,37 @@ Phases, each printing what it finds; any failure exits nonzero:
     split into query phase, reduce and fetch), then B=32 `_msearch` of
     sorted bodies; busy share; pages against an f64 numpy oracle, the
     one-segment pages against the four-segment ones, and the result-page
-    node's against the gate-off node's.
+    node's against the gate-off node's;
+11. agg-kinds cell: 10,000,000 nyc_taxis-shaped docs
+    (utils/demo.taxi_segment: tag / views / ts plus `fare` in cents, ~2%
+    of docs without one, and `passengers`) as one index's one segment,
+    through Node().request: eleven body families of 64 bodies over
+    distinct ts spans (big5's range-agg-1, composite-terms /
+    composite-date_histogram-daily with `after`, multi_terms-keyword,
+    range-auto-date-histo-with-metrics; nyc_taxis' autohisto_agg;
+    percentiles, weighted_avg, matrix_stats, adjacency_matrix, filters +
+    missing + global, a date_histogram with derivative and max_bucket) at
+    B=1 and B=32: walls, queries/s, the first query's wall, busy share,
+    image bytes; every B=1 answer a 200 with aggregations; sampled
+    responses against an f64 numpy oracle at the full 10M (counts exact,
+    percentiles exact from the counts, each f32 sum within the additions
+    on a term's path in its kernel times 2^-24 * sum|term|, and every
+    avg, weighted_avg and matrix_stats value within that error carried
+    through its formula) and, on a 1M-doc shard, against
+    Node(device="cpu").
+
+Phase 2 also holds K15 dense_numeric (the fare and views columns into
+Dp 2^24), K16 matrix_moments (fare and views at B=32, at the root, under
+terms tag, under a daily date_histogram and under terms fare, each with
+both folds of its second pass timed) and K17 adjacency_counts (four doc-value filters at
+B=32) at phase 11's shapes against their plain versions (K15 and K17 bit
+for bit; K16's counts exactly, the same bits on two runs, its sums and
+its plain version's each within the additions on a term's path times
+2^-24 * sum|term| of the f64 sums of their f32 terms). Phase 3 adds a
+3,000-doc nyc_taxis-shaped index (`taxi`, three segments, deletes)
+served with every remaining agg kind at the root, under terms and under
+date_histogram, a 33-filter adjacency_matrix (past one K17 launch), and
+every pipeline type, through `_search` and a B=32 `_msearch`.
 
 Phase 2 also holds K7 knn_exact (and its top-k mark) at B=32 x 2^20 x 128
 in the three spaces, and K8 ivf_probe (with its block ranking launch) and
@@ -143,6 +173,8 @@ SORTED_SEGMENTS = 4                 # the sorted cell's multi-segment index
 SORTED_SINGLES = 100                # B=1 requests per body and index
 SORTED_DEEP_SINGLES = 20            # of the deep search_after body
 SORTED_CURSOR_HIT = 20000           # search_after's depth, in hits
+AGGKIND_BODIES_PER_FAMILY = 64      # the agg-kinds cell's bodies a family
+DAY_MS = 86400_000
 
 
 # with --out DIR, every log line also goes to DIR/log.txt (a runner that
@@ -411,8 +443,9 @@ def phase_serving(torch, np, device=None):
         parity.load_hyb_index(node, "hyb")
         parity.load_big_index(node, "big")
         parity.load_sorted_index(node, "sorted")
+        parity.load_taxi_index(node, "taxi")
         if node is gpu:
-            log(f"serving: seven indices loaded on the card in "
+            log(f"serving: eight indices loaded on the card in "
                 f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
     for node in (gpu_page, cpu_page):
         parity.load_sorted_index(node, "sorted")
@@ -471,6 +504,13 @@ def phase_serving(torch, np, device=None):
     sorted_payload = parity.msearch_ndjson("sorted", sorted_bodies[:8])
     got_sm = [(n.request("POST", "/_msearch", sorted_payload), twin)
               for n, twin in ((gpu, cpu), (gpu_page, cpu_page))]
+    # the remaining agg kinds and every pipeline type on `taxi`
+    kind_names = sorted(parity.AGG_KIND_BODIES)
+    got_t = {n: gpu.request("POST", "/taxi/_search",
+                            parity.AGG_KIND_BODIES[n]) for n in kind_names}
+    kind_payload = parity.msearch_ndjson(
+        "taxi", [parity.AGG_KIND_BODIES[n] for n in kind_names[:32]])
+    got_tm = gpu.request("POST", "/_msearch", kind_payload)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -478,7 +518,8 @@ def phase_serving(torch, np, device=None):
         f"{len(agg_names)} agg _search + one B=32 agg _msearch, "
         f"{len(knn_names)} knn _search + one B=32 knn _msearch, "
         f"{len(late)} maxsim / hybrid / k=20000 _search + two B=32 "
-        f"_msearch, {len(got_s)} sorted _search + two B=8 sorted _msearch "
+        f"_msearch, {len(got_s)} sorted _search + two B=8 sorted _msearch, "
+        f"{len(kind_names)} agg-kind / pipeline _search + one B=32 _msearch "
         f"on the card in {wall * 1e3:.3f} ms; launches (loads included) "
         f"{json.dumps(launches)}")
     for n in names:
@@ -524,6 +565,16 @@ def phase_serving(torch, np, device=None):
         parity.assert_same_response(
             got_one, twin.request("POST", "/_msearch", sorted_payload),
             "sorted msearch")
+    for n in kind_names:
+        if got_t[n]["_status"] != 200 or "aggregations" not in got_t[n]:
+            raise AssertionError(f"agg kind _search {n}: {got_t[n]}")
+        want = cpu.request("POST", "/taxi/_search", parity.AGG_KIND_BODIES[n])
+        parity.assert_same_response(
+            got_t[n], want, n, agg_sum_tol=parity.matrix_stats_tol(want, n))
+    want = cpu.request("POST", "/_msearch", kind_payload)
+    parity.assert_same_response(
+        got_tm, want, "kinds msearch",
+        agg_sum_tol=parity.matrix_stats_tol(want, "kinds msearch"))
     if got_l[-1]["hits"]["total"]["value"] != 20000:
         raise AssertionError(f"knn k=20000: {got_l[-1]['hits']['total']}")
     for node in (gpu, cpu):
@@ -539,9 +590,10 @@ def phase_serving(torch, np, device=None):
         f"{json.dumps(QUERY_CACHE.stats())}")
     log(f"serving: {len(names) + 32} BM25 pages, {len(agg_names) + 32} "
         f"agg responses, {len(knn_names) + 32} knn pages, {len(late) + 64} "
-        f"maxsim / hybrid / k=20000 pages and {len(got_s) + 16} sorted / "
-        f"search_after / fetch pages (result page off and on) equal the "
-        f"plain versions'")
+        f"maxsim / hybrid / k=20000 pages, {len(got_s) + 16} sorted / "
+        f"search_after / fetch pages (result page off and on) and "
+        f"{len(kind_names) + 32} agg-kind / pipeline responses equal the "
+        f"plain versions' (matrix_stats within matrix_stats_tol)")
     return launches
 
 
@@ -774,6 +826,260 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
                1, pidx, fl[None, :], "amax"),
            4 * n + 4 * n + 4 * d_pad, exact)
     del arrays, elig
+    torch.cuda.empty_cache()
+    return results
+
+
+def taxi_segment(np, n_docs: int):
+    """The agg-kinds cell's shard: utils/demo.taxi_segment (the structured
+    columns plus nyc_taxis-shaped `fare` and `passengers`), sealed through
+    segment_from_arrays."""
+    from opensearch_tpu_torch.utils.demo import taxi_segment as make
+    t0 = time.perf_counter()
+    mapper, seg = make(n_docs, seed=42, seg_id="t0")
+    log(f"taxi corpus: {seg.num_docs} docs (tag / views / ts / fare / "
+        f"passengers), {len(seg.numeric_dv['fare'].unique)} distinct fares, "
+        f"{int((~seg.numeric_dv['fare'].exists).sum())} docs without one, "
+        f"built in {time.perf_counter() - t0:.3f} s")
+    return mapper, seg
+
+
+def aggkind_queries(np, n: int):
+    """n distinct `ts` spans, from np.random.RandomState(13) as bench.py's
+    date_hist family draws them: each body's query."""
+    from opensearch_tpu_torch.utils.demo import BASE_TS
+    rng = np.random.RandomState(13)
+    spans = 1 + 79 * rng.permutation(n) / max(n, 1)
+    return [{"range": {"ts": {"lt": int(BASE_TS + s * DAY_MS)}}}
+            for s in spans]
+
+
+def phase_aggkind_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
+    """K15 dense_numeric, K16 matrix_moments and K17 adjacency_counts
+    against their plain versions at the agg-kinds cell's shapes: the 10M
+    taxi docs (Dp = 2^24), B queries of phase 11's ts spans. K15 and K17
+    bit for bit; K16's counts exactly, the same bits on two runs, and each
+    sum within depth * 2^-24 * sum|term| of the f64 sum of its f32 terms,
+    depth the additions on a term's path: the kernel's
+    agg_kernels.moments_sum_depth, the plain version's chunk length plus
+    its bin's chunks (scatter_add_ in any order, chunk then bin), and the
+    two sides' sum between them. K16 at the root, under terms tag, under
+    a daily date_histogram and under terms fare (~13,000 one-chunk bins),
+    each with both folds of pass 2 timed."""
+    from opensearch_tpu_torch.ops import agg_kernels
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.search import dsl
+    from opensearch_tpu_torch.search.compile import Compiler, ShardStats
+    from opensearch_tpu_torch.search.plan_eval import _eval_plan, dense_numeric
+
+    arrays, meta = upload_segment(seg, dev)
+    d_pad = meta.d_pad
+    comp = Compiler(mapper, ShardStats([seg]))
+
+    def matches(queries):
+        plans = [comp.compile(dsl.parse_query(q), seg, meta)
+                 for q in queries]
+        nodes, _ms = stacked_inputs(torch, plans, [-np.inf] * bsz, dev)
+        _scores, m = _eval_plan(plans[0], arrays, nodes, [0], bsz)
+        return (m & arrays["live"] & arrays["root"]).contiguous()
+    elig = matches(aggkind_queries(np, bsz))
+    results = {}
+
+    def record(name, shape, kern, plain, library, bound, check,
+               library_note=None):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not all(_same_bits(torch, g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name} {shape}: two runs differ")
+        err = check(got, want)
+        rec = {"shape": shape, "max_abs_err": err,
+               "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
+               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "library_ms": None if library is None
+               # a library call that syncs (bincount) is timed per call
+               else (cuda_ms(torch, library) if library_note
+                     else graph_ms(torch, library)),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        if library_note:
+            rec["library"] = library_note
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+
+    def exact(got, want):
+        for g, w in zip(got, want):
+            if not _same_bits(torch, g, w):
+                raise AssertionError("kernel and plain version differ")
+        return 0.0
+
+    # K15: the fare column (~10M pairs, ~2% of docs without one) and views;
+    # the bound counts the real pairs (a padding pair carries no value)
+    for field in ("fare", "views"):
+        col = arrays["numeric"][field]
+        nv = col["doc_ids"].shape[0]
+        n_pairs = int((col["doc_ids"] >= 0).sum())
+        idx = torch.where(col["doc_ids"] >= 0, col["doc_ids"], d_pad).long()
+        vals = col["values_f32"]
+        record("dense_numeric", f"NVp={nv} Dp={d_pad} {field}",
+               lambda col=col: agg_kernels.dense_numeric(
+                   col["doc_ids"], col["values_f32"], d_pad),
+               lambda col=col: agg_kernels.dense_numeric_plain(
+                   col["doc_ids"], col["values_f32"], d_pad),
+               lambda idx=idx, vals=vals: (
+                   torch.full((d_pad + 1,), float("inf"),
+                              device=dev).scatter_reduce_(0, idx, vals,
+                                                          "amin"),
+                   torch.bincount(idx, minlength=d_pad + 1)),
+               _bound(8 * n_pairs + 8 * d_pad, 0), exact,
+               library_note="scatter_reduce_ amin + bincount, one call each "
+                            "(bincount syncs: CUDA events, not a graph)")
+
+    # K16: matrix_stats of fare and views at the root, under terms tag and
+    # under a daily date_histogram of ts (its host values: exact days)
+    fields = ("fare", "views")
+    dense = [dense_numeric(arrays, f, d_pad) for f in fields]
+    vals = torch.stack([v for v, _e, _c in dense]).contiguous()
+    exists = torch.stack([e for _v, e, _c in dense]).contiguous()
+    tag = arrays["ordinal"]["tag"]
+    pbin = torch.full((d_pad,), -1, dtype=torch.int32, device=dev)
+    pbin[tag["doc_ids"][tag["doc_ids"] >= 0].long()] = \
+        tag["ords"][tag["doc_ids"] >= 0]
+    n_tags = len(seg.ordinal_dv["tag"].dictionary)
+    ts_col = seg.numeric_dv["ts"]
+    day = ts_col.values // DAY_MS
+    day = (day - day.min()).astype(np.int32)
+    n_days = int(day.max()) + 1
+    dbin = torch.full((d_pad,), n_days, dtype=torch.int32, device=dev)
+    dbin[torch.from_numpy(ts_col.doc_ids.astype(np.int64)).to(dev)] = \
+        torch.from_numpy(day).to(dev)
+    # and under a terms of fare (each distinct fare a bin of one chunk)
+    fare_col = seg.numeric_dv["fare"]
+    n_fares = len(fare_col.unique)
+    fbin = torch.full((d_pad,), n_fares, dtype=torch.int32, device=dev)
+    fbin[torch.from_numpy(fare_col.doc_ids.astype(np.int64)).to(dev)] = \
+        torch.from_numpy(fare_col.value_ords.astype(np.int32)).to(dev)
+    groups = agg_kernels.moment_groups(len(fields))
+    chunk = agg_kernels.MOMENTS_CHUNK
+    for label, card, lanes in (
+            ("root", 1, torch.zeros(d_pad, dtype=torch.int32, device=dev)),
+            ("under terms tag", n_tags,
+             torch.where(pbin >= 0, pbin, n_tags)),
+            ("under date_histogram 1d", n_days, dbin),
+            ("under terms fare", n_fares, fbin)):
+        csr = agg_kernels.moments_csr(lanes, card)
+        block = agg_kernels.moments_block_fold(csr)
+        rel = {f: agg_kernels.moments_sum_depth(chunk, csr.max_bin_chunks, f)
+               * F32_SUM_EPS for f in (False, True)}
+        rel_plain = (chunk + csr.max_bin_chunks) * F32_SUM_EPS
+        blong = torch.where(lanes < card, lanes, card).long()
+        exact_sums = []       # (group, sum, f64 sum, f64 sum|term|) per bin
+        for g, (a, b) in enumerate(groups):
+            own = elig & exists[a] & exists[b]
+            xa, xb = vals[a], vals[b]
+            x2 = xa * xa
+            terms = ((xa, x2, x2 * xa, x2 * x2) if a == b
+                     else (xa * xb, xa, xb))
+            for k, t in enumerate(terms):
+                t = torch.where(own, t, 0.0).double()
+                ex = torch.zeros(bsz, card + 1, dtype=torch.float64,
+                                 device=dev).index_add_(1, blong, t)
+                ab = torch.zeros_like(ex).index_add_(1, blong, t.abs())
+                exact_sums.append((g, k, ex[:, :card], ab[:, :card]))
+                del t
+
+        def within(got, want, fold=block):
+            cnt, sums = got
+            if not torch.equal(cnt, want[0]):
+                raise AssertionError("matrix_moments counts differ")
+            worst = 0.0
+            for g, k, ex, ab in exact_sums:
+                mine = sums[k, g].double()
+                plain = want[1][k, g].double()
+                for side, r, what in (
+                        (mine, rel[fold], "kernel"),
+                        (plain, rel_plain, "plain version")):
+                    if not bool(((side - ex).abs() <= r * ab).all()):
+                        raise AssertionError(
+                            f"matrix_moments ({what}) group {g} sum {k} "
+                            f"outside {r:.3g} * sum|term| of the f64 sum")
+                gap = (mine - plain).abs()
+                if not bool((gap <= (rel[fold] + rel_plain) * ab).all()):
+                    raise AssertionError(
+                        f"matrix_moments group {g} sum {k}: kernel and "
+                        f"plain version differ by more than their bounds")
+                worst = max(worst, float(gap.max()))
+            return worst
+        # the library yardstick: the same sums as one GEMM of the query
+        # masks by the per-doc term columns (TF32 off), terms built before
+        term_mat = mask_f = None
+        if card == 1:
+            cols = []
+            for a, b in groups:
+                e = (exists[a] & exists[b]).float()
+                xa, xb = vals[a] * e, vals[b] * e
+                x2 = xa * xa
+                cols += [e] + ([xa, x2, x2 * xa, x2 * x2] if a == b
+                               else [xa * xb, xa, xb])
+            term_mat = torch.stack(cols, dim=1).contiguous()
+            mask_f = elig.float()
+            torch.backends.cuda.matmul.allow_tf32 = False
+        # f32 operations a doc and query: a field's 3 products and 4 sums,
+        # a pair's product and 3 sums
+        n_cross = len(groups) - len(fields)
+        shape = (f"B={bsz} Dp={d_pad} F={len(fields)} parent_card={card} "
+                 f"({label}; largest bin {csr.max_bin_chunks} chunks)")
+        record("matrix_moments", shape,
+               lambda csr=csr: agg_kernels.matrix_moments(
+                   csr, elig, None, vals, exists),
+               lambda csr=csr: agg_kernels.matrix_moments_plain(
+                   csr, elig, None, vals, exists),
+               (lambda: torch.matmul(mask_f, term_mat)) if card == 1
+               else None,
+               _bound(bsz * d_pad + len(fields) * 5 * d_pad
+                      + (4 * d_pad if card > 1 else 0),
+                      bsz * d_pad * (7 * len(fields) + 4 * n_cross)),
+               within)
+        # pass 2's other fold on the same parent: held to its own bound
+        # and timed beside the chosen one
+        other = not block
+
+        def run_other(csr=csr, other=other):
+            return agg_kernels.matrix_moments(csr, elig, None, vals, exists,
+                                              other)
+        got = run_other()
+        within(got, agg_kernels.matrix_moments_plain(
+            csr, elig, None, vals, exists), fold=other)
+        rec = results["matrix_moments"][-1]
+        folds = {"block" if block else "warp": rec["ms"],
+                 "block" if other else "warp": graph_ms(torch, run_other)}
+        rec.update({"fold": "block" if block else "warp",
+                    "fold_ms": folds})
+        log(f"matrix_moments {label}: pass-2 fold chosen "
+            f"{rec['fold']}; graph ms by fold {json.dumps(folds)}")
+        del exact_sums, mask_f, term_mat, got
+
+    # K17: four filters of phase 11's adjacency body (doc-value filters:
+    # the arrays-built segment has no postings, so no keyword term query)
+    filters = [{"term": {"passengers": 1}}, {"range": {"fare": {"gte": 2000}}},
+               {"terms": {"passengers": [5, 6]}},
+               {"range": {"views": {"lt": 2500}}}]
+    masks = [matches([f] * bsz) for f in filters]
+    n_f = len(filters)
+    pairs = agg_kernels.adjacency_pairs(n_f)
+    mq = torch.stack([m & elig for m in masks], dim=1).float()
+    record("adjacency_counts", f"B={bsz} Dp={d_pad} n={n_f} parent_card=1",
+           lambda: (agg_kernels.adjacency_counts(masks, elig, None, None,
+                                                 1),),
+           lambda: (agg_kernels.adjacency_counts_plain(masks, elig, None,
+                                                       None, 1),),
+           lambda: torch.bmm(mq, mq.transpose(1, 2)),
+           _bound((n_f + 1) * bsz * d_pad, 0), exact)
+    got = agg_kernels.adjacency_counts(masks, elig, None, None, 1)
+    gram = torch.bmm(mq, mq.transpose(1, 2))
+    for p, (i, j) in enumerate(pairs):
+        if not torch.equal(got[:, p, 0].double(), gram[:, i, j].double()):
+            raise AssertionError("adjacency_counts differs from the Gram "
+                                 "matrix of the masks")
+    del mq, gram, masks, arrays, elig, vals, exists
     torch.cuda.empty_cache()
     return results
 
@@ -2239,6 +2545,456 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
     return out
 
 
+def aggkind_families(np, n: int):
+    """The agg-kinds cell's body families, n bodies each over distinct ts
+    spans (aggkind_queries), after the big5 / nyc_taxis operations named
+    beside each."""
+    from opensearch_tpu_torch.utils.demo import BASE_TS as base
+    queries = aggkind_queries(np, n)
+    day0 = (base // DAY_MS) * DAY_MS
+    fams = {
+        # big5 range-agg-1: five ranges of one numeric field
+        "range": {"r": {"range": {"field": "fare", "ranges": [
+            {"to": 500}, {"from": 500, "to": 1000}, {"from": 1000,
+                                                     "to": 2000},
+            {"from": 2000, "to": 5000}, {"from": 5000}]}}},
+        # big5 composite-terms / composite-date_histogram-daily: tag x day,
+        # 100 buckets a page; the odd bodies page on from a fixed key
+        "composite": {"c": {"composite": {"size": 100, "sources": [
+            {"tag": {"terms": {"field": "tag"}}},
+            {"day": {"date_histogram": {"field": "ts",
+                                        "calendar_interval": "1d"}}}]}}},
+        # big5 multi_terms-keyword
+        "multi_terms": {"m": {"multi_terms": {"terms": [
+            {"field": "tag"}, {"field": "passengers"}]}}},
+        # nyc_taxis autohisto_agg
+        "autohisto": {"a": {"auto_date_histogram": {"field": "ts",
+                                                    "buckets": 20}}},
+        # big5 range-auto-date-histo-with-metrics
+        "autohisto_avg": {"a": {"auto_date_histogram": {
+            "field": "ts", "buckets": 20},
+            "aggs": {"f": {"avg": {"field": "fare"}}}}},
+        "percentiles": {"p": {"percentiles": {"field": "fare"}}},
+        "weighted_avg": {"w": {"weighted_avg": {
+            "value": {"field": "fare"}, "weight": {"field": "passengers"}}}},
+        "matrix_stats": {"ms": {"matrix_stats": {"fields": ["fare",
+                                                            "views"]}}},
+        "adjacency": {"adj": {"adjacency_matrix": {"filters": {
+            "a": {"term": {"passengers": 1}},
+            "b": {"range": {"fare": {"gte": 2000}}},
+            "c": {"terms": {"passengers": [5, 6]}},
+            "d": {"range": {"views": {"lt": 2500}}}}}}},
+        "filters_missing_global": {
+            "f": {"filters": {"filters": {
+                "short": {"range": {"fare": {"lt": 800}}},
+                "group": {"range": {"passengers": {"gte": 4}}}}}},
+            "nf": {"missing": {"field": "fare"}}, "g": {"global": {}}},
+        "date_hist_pipelines": {
+            "h": {"date_histogram": {"field": "ts", "fixed_interval": "1d"},
+                  "aggs": {"p": {"sum": {"field": "passengers"}},
+                           "d": {"derivative": {"buckets_path": "p"}}}},
+            "mb": {"max_bucket": {"buckets_path": "h>p"}}},
+    }
+    out = {}
+    for fam, aggs in fams.items():
+        bodies = []
+        for i, q in enumerate(queries):
+            a = json.loads(json.dumps(aggs))
+            if fam == "composite" and i % 2:
+                a["c"]["composite"]["after"] = {"tag": "cat3",
+                                                "day": day0 + 10 * DAY_MS}
+            bodies.append({"size": 0, "query": q, "aggs": a})
+        out[fam] = bodies
+    return out
+
+
+def k6_sum_rel(lanes: int) -> float:
+    """The bound, as a share of sum|term|, of a K6 sum over a bin of at
+    most `lanes` lanes where both passes fold by warp (a bin of many full
+    chunks): the additions on a term's path are a thread's every 32nd lane
+    of its CSR_CHUNK-lane chunk, 5 shuffle levels, a thread's every 32nd
+    chunk of the bin and 5 levels."""
+    from opensearch_tpu_torch.ops.binned import CSR_CHUNK
+    chunks = -(-lanes // CSR_CHUNK)
+    return (CSR_CHUNK // 32 + 5 + -(-chunks // 32) + 5) * F32_SUM_EPS
+
+
+def aggkind_oracle(np, n_docs: int, d_pad: int):
+    """The f64 numpy oracle of the agg-kinds cell, from the columns the
+    segment was built from: counts, keys and orders exactly, percentiles
+    exactly (the same interpolation over the exact value counts), each
+    sum behind a float within the additions on a term's path in its
+    kernel (K6: k6_sum_rel; K16: agg_kernels.moments_sum_depth, plus 3
+    for the f32 powers) times 2^-24 * sum|term| of the f64 sum, and
+    every value derived from such sums (avg, weighted_avg, matrix_stats'
+    mean, variance, skewness, kurtosis, covariance, correlation) within
+    that error carried through its formula (test_torch_common's
+    matrix_stats_tol). Dp = d_pad bounds a bin's lanes and chunks."""
+    import datetime as dt
+    from opensearch_tpu_torch.ops import agg_kernels
+    from opensearch_tpu_torch.utils.demo import N_TAGS, taxi_columns
+    parity = _parity()
+    tag, views, ts, fare, pas = taxi_columns(n_docs, seed=42)
+    names = np.array([f"cat{i}" for i in range(N_TAGS)])
+    has = ~np.isnan(fare)
+    # every bin of these families holds at most Dp lanes: K6's sums of
+    # fare pairs, and K16's root bin of Dp docs (pass 2 by block)
+    k6_rel = k6_sum_rel(d_pad)
+    chunks = -(-d_pad // agg_kernels.MOMENTS_CHUNK)
+    k16_rel = (agg_kernels.moments_sum_depth(
+        agg_kernels.MOMENTS_CHUNK, chunks,
+        chunks > agg_kernels.MOMENTS_BLOCK_CHUNKS) + 3) * F32_SUM_EPS
+
+    def fmt(ms):
+        return dt.datetime.fromtimestamp(ms / 1000, tz=dt.timezone.utc) \
+            .strftime("%Y-%m-%dT%H:%M:%S.") + f"{ms % 1000:03d}Z"
+
+    def near(got, want, bound, what):
+        if got is None or abs(got - want) > bound:
+            raise AssertionError(f"{what}: {got} vs f64 {want} (bound "
+                                 f"{bound})")
+
+    def pctl(sorted_v, q):
+        n = len(sorted_v)
+        pos = (q / 100.0) * (n - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, n - 1)
+        lo_v, hi_v = float(sorted_v[lo]), float(sorted_v[hi])
+        return lo_v + (hi_v - lo_v) * (pos - lo)
+
+    def hist(keys_of, sel, step):
+        """(key, count) of a histogram over the selected docs, from the
+        first to the last non-empty bucket."""
+        k, c = np.unique(keys_of[sel], return_counts=True)
+        if not len(k):
+            return []
+        got = dict(zip(k.tolist(), c.tolist()))
+        return [(int(x), got.get(int(x), 0))
+                for x in range(int(k[0]), int(k[-1]) + 1, step)]
+
+    def check(fam, body, resp, what):
+        lt = body["query"]["range"]["ts"]["lt"]
+        m = ts < lt
+        if resp["hits"]["total"]["value"] != int(m.sum()):
+            raise AssertionError(f"{what}: hits.total differs")
+        aggs = resp["aggregations"]
+        mf = m & has
+        if fam == "range":
+            for b, r in zip(aggs["r"]["buckets"],
+                            body["aggs"]["r"]["range"]["ranges"]):
+                sel = mf.copy()
+                if "from" in r:
+                    sel &= fare >= r["from"]
+                if "to" in r:
+                    sel &= fare < r["to"]
+                if b["doc_count"] != int(sel.sum()):
+                    raise AssertionError(f"{what}: range {r} count differs")
+        elif fam == "composite":
+            code = tag[m].astype(np.int64) * (1 << 20) + ts[m] // DAY_MS
+            u, c = np.unique(code, return_counts=True)
+            rows = sorted(((str(names[x >> 20]),
+                            int(x & ((1 << 20) - 1)) * DAY_MS, int(n))
+                           for x, n in zip(u, c)),
+                          key=lambda r: (r[0], r[1]))
+            after = body["aggs"]["c"]["composite"].get("after")
+            if after is not None:
+                rows = [r for r in rows
+                        if (r[0], r[1]) > (after["tag"], after["day"])]
+            want = [{"key": {"tag": t, "day": d}, "doc_count": n}
+                    for t, d, n in rows[:100]]
+            if aggs["c"]["buckets"] != want or (
+                    want and aggs["c"]["after_key"] != want[-1]["key"]):
+                raise AssertionError(f"{what}: composite page differs")
+        elif fam == "multi_terms":
+            code = tag[m].astype(np.int64) * 8 + pas[m]
+            u, c = np.unique(code, return_counts=True)
+            rows = sorted(((int(n), str(names[x // 8]), int(x % 8))
+                           for x, n in zip(u, c)),
+                          key=lambda r: (-r[0], r[1], r[2]))
+            want = [{"key": [t, p], "key_as_string": f"{t}|{p}",
+                     "doc_count": n} for n, t, p in rows[:10]]
+            got = aggs["m"]
+            if got["buckets"] != want or got["sum_other_doc_count"] != \
+                    sum(r[0] for r in rows[10:]):
+                raise AssertionError(f"{what}: multi_terms differs")
+        elif fam in ("autohisto", "autohisto_avg"):
+            step = 7 * DAY_MS
+            wk = (ts // step) * step
+            exp = hist(wk, m, step)
+            got = aggs["a"]
+            if got["interval"] != "7d" or [(b["key"], b["doc_count"])
+                                           for b in got["buckets"]] != exp:
+                raise AssertionError(f"{what}: auto_date_histogram differs")
+            if fam == "autohisto_avg":
+                for b in got["buckets"]:
+                    sel = mf & (wk == b["key"])
+                    n = int(sel.sum())
+                    s = float(fare[sel].sum())
+                    if n == 0:
+                        if b["f"]["value"] is not None:
+                            raise AssertionError(f"{what}: empty avg")
+                        continue
+                    near(b["f"]["value"], s / n, k6_rel * s / n,
+                         f"{what}: avg fare of {b['key']}")
+        elif fam == "percentiles":
+            v = np.sort(fare[mf])
+            for q, got in aggs["p"]["values"].items():
+                if got != pctl(v, float(q)):
+                    raise AssertionError(f"{what}: percentile {q} differs")
+        elif fam == "weighted_avg":
+            wv = float((fare[mf] * pas[mf]).sum())
+            w = float(pas[mf].sum())
+            # both sums (terms >= 0) within k6_rel: the ratio within
+            # about twice that
+            near(aggs["w"]["value"], wv / w, 2.0001 * k6_rel * wv / w,
+                 f"{what}: weighted_avg")
+        elif fam == "matrix_stats":
+            want = matrix_stats_f64(np, {"fare": fare, "views": views},
+                                    {"fare": mf, "views": m})
+            parity.assert_same_response(
+                aggs["ms"], want, what,
+                agg_sum_tol=parity.matrix_stats_tol(want, what,
+                                                    sum_rel=k16_rel))
+        elif fam == "adjacency":
+            fl = {"a": pas == 1, "b": has & (fare >= 2000),
+                  "c": (pas == 5) | (pas == 6), "d": views < 2500}
+            want = []
+            keys = sorted(fl)
+            for i, a in enumerate(keys):
+                for b in keys[i:]:
+                    n = int((m & fl[a] & fl[b]).sum())
+                    if n:
+                        want.append((a if a == b else f"{a}&{b}", n))
+            want.sort()
+            if [(b["key"], b["doc_count"]) for b in aggs["adj"]["buckets"]] \
+                    != want:
+                raise AssertionError(f"{what}: adjacency_matrix differs")
+        elif fam == "filters_missing_global":
+            fb = aggs["f"]["buckets"]
+            if fb["short"]["doc_count"] != int((mf & (fare < 800)).sum()) \
+                    or fb["group"]["doc_count"] != int((m & (pas >= 4))
+                                                        .sum()) \
+                    or aggs["nf"]["doc_count"] != int((m & ~has).sum()) \
+                    or aggs["g"]["doc_count"] != n_docs:
+                raise AssertionError(f"{what}: filters / missing / global")
+        elif fam == "date_hist_pipelines":
+            day = (ts // DAY_MS) * DAY_MS
+            exp = hist(day, m, DAY_MS)
+            got = aggs["h"]["buckets"]
+            if [(b["key"], b["doc_count"], b["key_as_string"])
+                    for b in got] != [(k, c, fmt(k)) for k, c in exp]:
+                raise AssertionError(f"{what}: date_histogram differs")
+            sums = np.bincount(((ts[m] - exp[0][0]) // DAY_MS).astype(
+                np.int64), weights=pas[m].astype(np.float64),
+                minlength=len(exp)) if exp else []
+            for i, b in enumerate(got):
+                if b["p"]["value"] != float(sums[i]):
+                    raise AssertionError(f"{what}: daily sum differs")
+                if i and b["d"]["value"] != float(sums[i] - sums[i - 1]):
+                    raise AssertionError(f"{what}: derivative differs")
+            best = float(max(sums)) if len(sums) else None
+            if aggs["mb"]["value"] != best or aggs["mb"]["keys"] != [
+                    fmt(k) for (k, _), s in zip(exp, sums) if s == best]:
+                raise AssertionError(f"{what}: max_bucket differs")
+        else:
+            raise AssertionError(f"no oracle for family {fam}")
+    return check
+
+
+def matrix_stats_f64(np, cols, sel):
+    """A matrix_stats result of the columns `cols` (name -> f64 [n], in
+    the body's field order) over the docs `sel` (name -> bool [n], the
+    docs with a value), by the reference's formulas from f64 raw sums."""
+    fields, moments = [], {}
+    for f, v in cols.items():
+        x = v[sel[f]].astype(np.float64)
+        n = len(x)
+        if n == 0:
+            continue
+        s1, s2, s3, s4 = (float(np.sum(x ** p)) for p in (1, 2, 3, 4))
+        mean = s1 / n
+        var = max(s2 / n - mean ** 2, 0.0)
+        std = var ** 0.5
+        m3 = s3 / n - 3 * mean * s2 / n + 2 * mean ** 3
+        m4 = (s4 / n - 4 * mean * s3 / n + 6 * mean ** 2 * s2 / n
+              - 3 * mean ** 4)
+        moments[f] = var
+        fields.append({"name": f, "count": n, "mean": mean,
+                       "variance": var * n / max(n - 1, 1),
+                       "skewness": (m3 / std ** 3) if std > 0 else 0.0,
+                       "kurtosis": (m4 / var ** 2) if var > 0 else 0.0,
+                       "covariance": {}, "correlation": {}})
+    by_name = {e["name"]: e for e in fields}
+    names = list(cols)
+    for i, fa in enumerate(names):
+        for fb in names[i + 1:]:
+            if fa not in by_name or fb not in by_name:
+                continue
+            both = sel[fa] & sel[fb]
+            n = int(both.sum())
+            if n == 0:
+                continue
+            x = cols[fa][both].astype(np.float64)
+            y = cols[fb][both].astype(np.float64)
+            cov = float(np.sum(x * y)) / n - (float(np.sum(x)) / n) * (
+                float(np.sum(y)) / n)
+            va, vb = moments[fa], moments[fb]
+            corr = cov / (va ** 0.5 * vb ** 0.5) if va > 0 and vb > 0 \
+                else 0.0
+            for a, b in ((fa, fb), (fb, fa)):
+                by_name[a]["covariance"][b] = cov * n / max(n - 1, 1)
+                by_name[a]["correlation"][b] = corr
+    for e in fields:
+        e["covariance"][e["name"]] = e["variance"]
+        e["correlation"][e["name"]] = 1.0
+    return {"doc_count": max((e["count"] for e in fields), default=0),
+            "fields": fields}
+
+
+def phase_aggkind_cell(torch, np, mapper, seg, card: str, out_dir=None,
+                       per_family: int = AGGKIND_BODIES_PER_FAMILY,
+                       bsz: int = AGG_BATCH, twin_docs: int = 1_000_000):
+    """The agg-kinds cell through Node().request: the 10M taxi docs as one
+    index's one segment, each family's bodies at B=1 `_search` (p50 /
+    p99) and as B=32 `_msearch` (p50 / p99, queries/s), the busy share of
+    6 profiled waves per family, the first query's wall (the plans' and
+    static sides' host build) and the image bytes; sampled responses
+    against the f64 oracle at the full 10M and, on a 1M-doc shard,
+    against Node(device="cpu")."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.ops.binned import CSR_CHUNK
+    from opensearch_tpu_torch.utils.demo import TAXI_MAPPING
+    from opensearch_tpu_torch.utils.demo import taxi_segment as make
+    parity = _parity()
+    node = Node()
+    t0 = time.perf_counter()
+    assert node.request("PUT", "/taxi", {
+        "mappings": TAXI_MAPPING})["_status"] == 200
+    reader = node.indices.get("taxi").shards[0].reader
+    reader.add_segment(seg)
+    torch.cuda.synchronize()
+    out = {"image_bytes": reader.device_bytes()}
+    log(f"agg kinds: image of {seg.num_docs} docs uploaded in "
+        f"{time.perf_counter() - t0:.3f} s: {out['image_bytes']} bytes")
+    ex = node.indices.get("taxi").shards[0].executor
+    fams = aggkind_families(np, per_family)
+
+    def search(body):
+        return node.request("POST", "/taxi/_search", body)
+
+    first = {}
+    for fam, bodies in fams.items():       # warm: plans, static sides
+        t = time.perf_counter()
+        resp = search(bodies[0])
+        first[fam] = (time.perf_counter() - t) * 1e3
+        if resp["_status"] != 200:
+            raise AssertionError(f"agg kinds {fam}: {resp}")
+        search(bodies[1])
+        ex.multi_search(bodies[:bsz])
+    log("agg kinds: first-query wall ms (plans and static sides built) "
+        + json.dumps(first))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    answers = {}
+    cell = {}
+    for fam, bodies in fams.items():
+        walls = []
+        for j, b in enumerate(bodies):
+            t = time.perf_counter()
+            answers[(fam, j)] = search(b)
+            walls.append((time.perf_counter() - t) * 1e3)
+        for j in range(len(bodies)):
+            resp = answers[(fam, j)]
+            if resp["_status"] != 200 or "aggregations" not in resp:
+                raise AssertionError(f"agg kinds {fam}[{j}]: {resp}")
+        batches = []
+        for i in range(6):
+            lo = (i * bsz) % len(bodies)
+            payload = parity.msearch_ndjson("taxi", bodies[lo:lo + bsz])
+            t = time.perf_counter()
+            resp = node.request("POST", "/_msearch", payload)
+            batches.append((time.perf_counter() - t) * 1e3)
+            if any(r.get("status") != 200 for r in resp["responses"]):
+                raise AssertionError(f"agg kinds {fam} msearch: {resp}")
+            if i == 0:
+                answers[(fam, "msearch")] = resp
+        rec = {"first_query_ms": first[fam],
+               "search_p50_ms": _pct(np, walls, 50),
+               "search_p99_ms": _pct(np, walls, 99),
+               "msearch32_p50_ms": _pct(np, batches, 50),
+               "msearch32_p99_ms": _pct(np, batches, 99),
+               "msearch32_qps": bsz * 1e3 / _pct(np, batches, 50)}
+        cell[fam] = rec
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"agg kinds: launches {json.dumps(launches)}")
+    _require_launched(launches, ("binned_popcount", "binned_reduce",
+                                 "pairs_match", "dense_numeric",
+                                 "matrix_moments", "adjacency_counts"),
+                      "agg-kinds cell")
+    for fam, bodies in fams.items():
+        waves = [bodies[(i * bsz) % len(bodies):][:bsz] for i in range(6)]
+        cell[fam].update(profile_waves(torch, ex,
+                                       [b for w in waves for b in w],
+                                       out_dir, f"aggkind_{fam}"))
+        log(f"agg kinds {fam}: " + json.dumps(cell[fam]) + f"; card: {card}")
+    out["cell"] = cell
+    out["launches"] = launches
+    # the f64 oracle at the full 10M: two _search answers and the first
+    # eight items of the first B=32 _msearch of each family
+    check = aggkind_oracle(np, seg.num_docs,
+                           reader.device[0][1].d_pad)
+    n_checked = 0
+    for fam, bodies in fams.items():
+        for j in (0, 1):
+            check(fam, bodies[j], answers[(fam, j)], f"{fam}[{j}]")
+            n_checked += 1
+        for j, resp in enumerate(
+                answers[(fam, "msearch")]["responses"][:8]):
+            check(fam, bodies[j], resp, f"{fam} msearch[{j}]")
+            n_checked += 1
+    log(f"agg kinds: {n_checked} responses match the f64 oracle")
+    del node, reader, ex
+    torch.cuda.empty_cache()
+
+    # a 1M-doc shard on the card and on the CPU: two bodies per family
+    # equal. The f32 sums of fares on both sides lie within (CSR_CHUNK +
+    # chunks) * 2^-24 of sum|v| of the exact ones (K6's two levels), so
+    # avg and weighted_avg values agree to twice that relatively
+    _small_mapper, small = make(twin_docs, seed=42, seg_id="t1")
+    pair = []
+    for n in (Node(), Node(device="cpu")):
+        assert n.request("PUT", "/taxi", {
+            "mappings": TAXI_MAPPING})["_status"] == 200
+        n.indices.get("taxi").shards[0].reader.add_segment(small)
+        pair.append(n)
+    d_pad = pair[0].indices.get("taxi").shards[0].reader.device[0][1].d_pad
+    rel = 2 * (CSR_CHUNK + -(-d_pad // CSR_CHUNK)) * F32_SUM_EPS
+    compared = 0
+    for fam, bodies in fams.items():
+        for b in bodies[:2]:
+            got = pair[0].request("POST", "/taxi/_search", b)
+            want = pair[1].request("POST", "/taxi/_search", b)
+            tol = parity.matrix_stats_tol(want, fam, sum_rel=rel)
+            aggs = want["aggregations"]
+            if fam == "weighted_avg" and aggs["w"]["value"] is not None:
+                tol[f"{fam}.aggregations.w.value"] = \
+                    2 * rel * abs(aggs["w"]["value"])
+            if fam == "autohisto_avg":
+                for j, bk in enumerate(aggs["a"]["buckets"]):
+                    if bk["f"]["value"] is not None:
+                        tol[f"{fam}.aggregations.a.buckets[{j}].f.value"] = \
+                            rel * abs(bk["f"]["value"])
+            parity.assert_same_response(got, want, fam, agg_sum_tol=tol)
+            compared += 1
+    log(f"agg kinds: {compared} responses on the {twin_docs}-doc shard "
+        f"equal Node(device='cpu')'s")
+    del pair
+    torch.cuda.empty_cache()
+    return out
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -2339,6 +3095,7 @@ def main(argv) -> int:
     arrays, meta = upload_segment(seg, dev)
     agg_mapper, agg_seg = agg_segment(np, AGG_SCALE_DOCS)
     four = sorted_segments(np, AGG_SCALE_DOCS)
+    taxi_mapper, taxi_seg = taxi_segment(np, AGG_SCALE_DOCS)
     corpora = knn_corpora(np)
     mc = maxsim_corpus(torch, np, dev)
     # K11's codebook: the port's host train_pq on a 20,000-token sample,
@@ -2362,6 +3119,8 @@ def main(argv) -> int:
         f"{time.perf_counter() - t_pq:.3f} s after set-up began")
     results.update(phase_maxsim_kernels(torch, np, mc, codebook, dev))
     results.update(phase_sort_kernels(torch, np, agg_seg, four, dev))
+    results.update(phase_aggkind_kernels(torch, np, taxi_mapper, taxi_seg,
+                                         dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -2389,6 +3148,11 @@ def main(argv) -> int:
                             out_dir)
     log("sorted: " + json.dumps(res))
     del agg_seg, four
+    # phase 11: the agg-kinds cell
+    res = phase_aggkind_cell(torch, np, taxi_mapper, taxi_seg, card,
+                             out_dir)
+    log("agg kinds: " + json.dumps(res))
+    del taxi_seg
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -2399,7 +3163,8 @@ def main(argv) -> int:
             "ivf_block_keys": 0, "kmeans_step": 0, "maxsim_exact": 1,
             "pq_lut": 0, "maxsim_pq": 1, "hybrid_window": 0,
             "masked_topk_threshold": 0, "sort_key": 0,
-            "masked_topk_keyed": 0, "page_merge": 0}
+            "masked_topk_keyed": 0, "page_merge": 0, "dense_numeric": 0,
+            "matrix_moments": 0, "adjacency_counts": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -2443,6 +3208,14 @@ def main(argv) -> int:
             "opensearch_tpu/search/executor.py:1157"),
         "page_merge": ("opensearch_tpu_torch/ops/csrc/page_merge.cu",
                        "opensearch_tpu/search/executor.py:2028"),
+        "dense_numeric": ("opensearch_tpu_torch/ops/csrc/dense_numeric.cu",
+                          "opensearch_tpu/search/plan_eval.py:59"),
+        "matrix_moments": (
+            "opensearch_tpu_torch/ops/csrc/matrix_moments.cu",
+            "opensearch_tpu/search/aggs/engine.py:1629"),
+        "adjacency_counts": (
+            "opensearch_tpu_torch/ops/csrc/adjacency_counts.cu",
+            "opensearch_tpu/search/aggs/engine.py:1611"),
     }
     kernels = []
     for name in _build.LAUNCHES:

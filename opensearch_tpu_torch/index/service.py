@@ -6,8 +6,8 @@ searches."""
 
 from __future__ import annotations
 
+import secrets
 import time
-import uuid
 from typing import List, Optional
 
 import torch
@@ -19,7 +19,8 @@ from opensearch_tpu_torch.index.shard import IndexShard
 
 
 def _auto_id() -> str:
-    return uuid.uuid4().hex[:20]
+    """Auto-generated doc id: 20 url-safe characters, as the reference's."""
+    return secrets.token_urlsafe(15)
 
 
 class IndexService:

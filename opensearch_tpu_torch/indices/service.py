@@ -3,7 +3,8 @@ opensearch_tpu.indices.service the BM25 slice needs)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import fnmatch
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -82,3 +83,41 @@ class IndicesService:
         if svc is None:
             raise IndexNotFoundError(name)
         return svc
+
+    def resolve(self, expression: Union[str, Sequence[str], None],
+                ignore_unavailable: bool = False,
+                allow_no_indices: bool = True) -> List[str]:
+        """IndexNameExpressionResolver (the reference's, without aliases
+        or closed indices, which the port does not have): wildcards,
+        `_all`, commas and `-` exclusions. Returns concrete index names in
+        creation order."""
+        if expression is None or expression in ("_all", "*", ""):
+            return list(self.indices)
+        parts = (expression if isinstance(expression, list)
+                 else expression.split(","))
+        selected: List[str] = []
+        for i, part in enumerate(parts):
+            part = part.strip()
+            exclude = part.startswith("-") and i > 0
+            if exclude:
+                part = part[1:]
+            if part == "_all":
+                names = list(self.indices)
+            elif "*" in part or "?" in part:
+                names = [n for n in self.indices
+                         if fnmatch.fnmatchcase(n, part)]
+            elif part in self.indices:
+                names = [part]
+            elif ignore_unavailable or exclude:
+                names = []
+            else:
+                raise IndexNotFoundError(part)
+            for n in names:
+                if exclude:
+                    if n in selected:
+                        selected.remove(n)
+                elif n not in selected:
+                    selected.append(n)
+        if not selected and not allow_no_indices:
+            raise IndexNotFoundError(expression)
+        return selected

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "pairs_match", "binned_popcount", "binned_reduce", "knn_exact",
            "ivf_probe", "kmeans_step", "maxsim_exact", "maxsim_pq",
-           "hybrid_window", "sort_key", "page_merge")
+           "hybrid_window", "sort_key", "page_merge", "dense_numeric",
+           "matrix_moments", "adjacency_counts")
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -63,6 +63,7 @@ class BinCSR:
     sorted_bins: torch.Tensor   # int32 [nnz] the bin of each of those lanes
     chunk_start: torch.Tensor   # int32 [nch + 1] offsets into lane_order
     bin_chunk: torch.Tensor     # int32 [total + 1] first chunk of each bin
+    max_bin_chunks: int         # the chunks of the bin that has the most
 
     @property
     def n_chunks(self) -> int:
@@ -84,7 +85,8 @@ def bin_csr(bin_lanes: torch.Tensor, total: int,
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     bin_chunk = torch.cat([zero, torch.cumsum(per_bin, 0)])
     bin_start = torch.cat([zero, torch.cumsum(counts, 0)])[:-1]
-    nch = int(bin_chunk[-1].item())
+    nch, most = (int(x) for x in torch.stack([
+        bin_chunk[-1], per_bin.max() if total else zero[0]]).tolist())
     chunk_bin = torch.repeat_interleave(
         torch.arange(total, device=dev), per_bin, output_size=nch)
     j = torch.arange(nch, device=dev)
@@ -94,7 +96,7 @@ def bin_csr(bin_lanes: torch.Tensor, total: int,
     return BinCSR(total, lane_order.to(torch.int32).contiguous(),
                   bins.to(torch.int32),
                   chunk_start.to(torch.int32).contiguous(),
-                  bin_chunk.to(torch.int32).contiguous())
+                  bin_chunk.to(torch.int32).contiguous(), most)
 
 
 # ----------------------------------------------------------------- K5 -------
@@ -184,12 +186,33 @@ def binned_popcount(mask, pmask, doc_ids, n: int, binbits, card: int):
 
 # ----------------------------------------------------------------- K6 -------
 
+def chunked_sum(csr: BinCSR, contrib: torch.Tensor) -> torch.Tensor:
+    """Per-bin f32 sums of contrib [B, nnz] (in lane_order) in K6's two
+    levels: one sum per CSR chunk of at most CSR_CHUNK lanes, then each
+    bin's chunk partials in chunk order. The rounding error then grows
+    with the chunk and the chunk count, not with a bin's whole length."""
+    bsz = contrib.shape[0]
+    dev = contrib.device
+    starts = csr.chunk_start.long()
+    nch = csr.n_chunks
+    chunk_of = torch.repeat_interleave(
+        torch.arange(nch, device=dev), starts[1:] - starts[:-1],
+        output_size=contrib.shape[1])
+    partial = torch.zeros(bsz, nch, dtype=torch.float32, device=dev) \
+        .scatter_add_(1, chunk_of.expand(bsz, -1), contrib)
+    chunk_bin = torch.repeat_interleave(
+        torch.arange(csr.total, device=dev),
+        (csr.bin_chunk[1:] - csr.bin_chunk[:-1]).long(), output_size=nch)
+    return torch.zeros(bsz, csr.total, dtype=torch.float32, device=dev) \
+        .scatter_add_(1, chunk_bin.expand(bsz, -1), partial)
+
+
 def binned_reduce_plain(csr: BinCSR, mask, pmask, doc_ids, values,
                         cval: float, needs: Sequence[str], bsz: int
                         ) -> Dict[str, torch.Tensor]:
-    """Plain version of K6: the same per-bin statistics by index_add_ and
-    scatter_reduce_ over the CSR's lanes (empty bins: count 0, sums 0, min
-    +inf, max -inf)."""
+    """Plain version of K6: the same per-bin statistics by scatter_add_
+    and scatter_reduce_ over the CSR's lanes, the sums in K6's two levels
+    (`chunked_sum`) (empty bins: count 0, sums 0, min +inf, max -inf)."""
     dev = csr.lane_order.device
     lanes = csr.lane_order.long()
     bins = csr.sorted_bins.long().expand(bsz, -1)
@@ -208,13 +231,9 @@ def binned_reduce_plain(csr: BinCSR, mask, pmask, doc_ids, values,
                                  device=dev).scatter_add_(
             1, bins, ok.to(torch.int32))
     if "sum" in needs:
-        out["sum"] = torch.zeros(bsz, total, dtype=torch.float32,
-                                 device=dev).scatter_add_(
-            1, bins, torch.where(ok, v, 0.0))
+        out["sum"] = chunked_sum(csr, torch.where(ok, v, 0.0))
     if "sumsq" in needs:
-        out["sumsq"] = torch.zeros(bsz, total, dtype=torch.float32,
-                                   device=dev).scatter_add_(
-            1, bins, torch.where(ok, v * v, 0.0))
+        out["sumsq"] = chunked_sum(csr, torch.where(ok, v * v, 0.0))
     if "min" in needs:
         out["min"] = torch.full((bsz, total), POS_INF, device=dev) \
             .scatter_reduce_(1, bins, torch.where(ok, v, POS_INF), "amin")

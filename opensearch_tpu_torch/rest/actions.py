@@ -26,17 +26,48 @@ def _ndjson_lines(request: RestRequest) -> List[Any]:
     return [json.loads(line) for line in text.split("\n") if line.strip()]
 
 
+def _validate_doc_id(doc_id: Optional[str]) -> None:
+    """IndexRequest.validate: ids are capped at 512 UTF-8 bytes."""
+    if doc_id is not None and len(doc_id.encode("utf-8")) > 512:
+        raise IllegalArgumentError(
+            f"id [{doc_id[:64]}...] is too long, must be no longer than "
+            f"512 bytes but was: {len(doc_id.encode('utf-8'))}")
+
+
+def _search_index(node, expression) -> Optional[str]:
+    """The one index a search expression (a name, `_all`, `*`, commas,
+    wildcards, `-` exclusions, or None for every index) resolves to, None
+    when it resolves to none. An expression over several indices answers
+    400: the port serves one index per search until the cross-shard merge
+    is ported."""
+    names = node.indices.resolve(expression)
+    if len(names) <= 1:
+        return names[0] if names else None
+    shown = expression if isinstance(expression, str) else (
+        "_all" if expression is None else ",".join(expression))
+    raise IllegalArgumentError(
+        f"index expression [{shown}] resolves to {len(names)} indices "
+        f"{names}: opensearch_tpu_torch serves one index per search so far")
+
+
 def _shards_header(node, names) -> dict:
     total = sum(node.indices.get(n).num_shards for n in names)
     return {"total": total, "successful": total, "failed": 0}
 
 
-def _run_search(node, index: str, body: Optional[dict],
+def _run_search(node, index: Optional[str], body: Optional[dict],
                 search_pipeline=None) -> dict:
     """One search with its pipeline: the request parameter, else an inline
     `search_pipeline` definition in the body, else the index's
     `index.search.default_pipeline`; the pipeline's
-    normalization-processor spec rides along for a hybrid query."""
+    normalization-processor spec rides along for a hybrid query. An
+    expression that resolved to no index (`index` None) finds nothing."""
+    if index is None:
+        return {"took": 0, "timed_out": False,
+                "_shards": {"total": 0, "successful": 0, "skipped": 0,
+                            "failed": 0},
+                "hits": {"total": {"value": 0, "relation": "eq"},
+                         "max_score": None, "hits": []}}
     svc = node.indices.get(index)
     body = dict(body or {})
     inline = body.pop("search_pipeline", None)
@@ -70,6 +101,7 @@ def register_actions(node, c: RestController) -> None:
         source = req.body
         if not isinstance(source, dict):
             raise IllegalArgumentError("request body is required")
+        _validate_doc_id(req.param("id"))
         res = svc.index_doc(req.param("id"), source)
         maybe_refresh(req, svc)
         return (201 if res["result"] == "created" else 200), res
@@ -157,8 +189,8 @@ def register_actions(node, c: RestController) -> None:
             body["_source"] = {
                 **({"includes": includes.split(",")} if includes else {}),
                 **({"excludes": excludes.split(",")} if excludes else {})}
-        return _run_search(node, req.param("index"), body,
-                           req.param("search_pipeline"))
+        return _run_search(node, _search_index(node, req.param("index")),
+                           body, req.param("search_pipeline"))
 
     def do_msearch(req):
         lines = _ndjson_lines(req)
@@ -166,15 +198,24 @@ def register_actions(node, c: RestController) -> None:
             raise IllegalArgumentError(
                 "msearch request must have an even number of lines "
                 "(header, body pairs)")
+        exprs = [lines[i].get("index", req.param("index"))
+                 for i in range(0, len(lines), 2)]
         pairs = []
-        for i in range(0, len(lines), 2):
-            header, body = lines[i], lines[i + 1]
-            pairs.append((header.get("index", req.param("index")), body))
-        exprs = {e for e, _ in pairs}
-        if len(exprs) == 1 and None not in exprs and not any(
+        for expr, body in zip(exprs, lines[1::2]):
+            try:
+                pairs.append((_search_index(node, expr), body))
+            except OpenSearchTpuError as e:
+                pairs.append((e, body))
+        # the batch route takes items that all name one concrete index;
+        # an expression (a wildcard, `_all`, a header `{}`) runs item by
+        # item, as the reference's does
+        only = exprs[0] if exprs and all(e == exprs[0] for e in exprs) \
+            else None
+        if isinstance(only, str) and only in node.indices.indices \
+                and not any(
                 isinstance(b, dict) and b.get("search_pipeline")
                 for _, b in pairs):
-            svc = node.indices.get(next(iter(exprs)))
+            svc = node.indices.get(only)
             if svc.settings.get("search.default_pipeline") in (None,
                                                                "_none"):
                 # one index and no pipeline: the whole batch runs through
@@ -188,9 +229,8 @@ def register_actions(node, c: RestController) -> None:
         took = 0
         for index_expr, body in pairs:
             try:
-                if index_expr is None:
-                    raise IllegalArgumentError(
-                        "msearch item names no index")
+                if isinstance(index_expr, OpenSearchTpuError):
+                    raise index_expr
                 res = _run_search(node, index_expr, body)
                 res["status"] = 200
                 took = max(took, res.get("took", 0))
@@ -232,6 +272,8 @@ def register_actions(node, c: RestController) -> None:
     c.register("POST", "/_bulk", do_bulk)
     c.register("POST", "/{index}/_bulk", do_bulk)
     c.register("POST", "/{index}/_refresh", do_refresh)
+    c.register("GET", "/_search", do_search)
+    c.register("POST", "/_search", do_search)
     c.register("GET", "/{index}/_search", do_search)
     c.register("POST", "/{index}/_search", do_search)
     c.register("GET", "/_msearch", do_msearch)

@@ -5,6 +5,7 @@ of opensearch_tpu.rest.controller the BM25 slice needs)."""
 from __future__ import annotations
 
 import json
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -91,6 +92,17 @@ class RestController:
                 "error": {"root_cause": [e.to_xcontent()],
                           **e.to_xcontent()},
                 "status": e.status})
+        except Exception as e:  # unexpected: 500 with the exception chain
+            return RestResponse(status=500, body={
+                "error": {
+                    "root_cause": [{"type": type(e).__name__,
+                                    "reason": str(e)}],
+                    "type": type(e).__name__,
+                    "reason": str(e),
+                    "stack_trace": traceback.format_exc(),
+                },
+                "status": 500,
+            })
 
 
 def _error_response(status: int, err_type: str, reason: str) -> RestResponse:

@@ -40,16 +40,23 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 ParsingError,
                                                 QueryShardError)
 from opensearch_tpu_torch.index.mapper import (MapperService,
-                                               format_date_millis)
+                                               format_date_millis,
+                                               parse_date_millis)
 from opensearch_tpu_torch.index.segment import (Segment, ident_pairs,
                                                 pad_bucket)
+from opensearch_tpu_torch.ops.agg_kernels import (adjacency_counts,
+                                                  matrix_moments,
+                                                  matrix_stats_names,
+                                                  matrix_stats_partials,
+                                                  moments_csr)
 from opensearch_tpu_torch.ops.binned import (BinCSR, bin_csr,
                                              binned_popcount, binned_reduce,
                                              lane_bits)
 from opensearch_tpu_torch.search import dsl
-from opensearch_tpu_torch.search.aggs.parse import AggNode
-from opensearch_tpu_torch.search.compile import Compiler, Plan
-from opensearch_tpu_torch.search.plan_eval import _eval_plan
+from opensearch_tpu_torch.search.aggs.parse import PIPELINE_TYPES, AggNode
+from opensearch_tpu_torch.search.compile import (Compiler, Plan,
+                                                 _resolve_date_math)
+from opensearch_tpu_torch.search.plan_eval import _eval_plan, dense_numeric
 
 MAX_AGG_BINS = 1 << 24  # guard for presence / child-bin bins
 # bool reductions with at most this many bins take the popcount route ...
@@ -87,6 +94,7 @@ class AggPlan:
     inputs: Dict[str, np.ndarray] = dc_field(default_factory=dict)
     children: List["AggPlan"] = dc_field(default_factory=list)
     query_plan: Optional[Plan] = None      # filter aggs
+    query_plans: List[Plan] = dc_field(default_factory=list)  # adjacency
     render: Dict[str, Any] = dc_field(default_factory=dict)  # host-only
     # segment-static arrays of the fused bucket_bits / presence_bits kinds
     # (their content is hashed into sig())
@@ -108,6 +116,7 @@ class AggPlan:
         out = (self.kind, self.static,
                tuple(sorted(leaf_sig(k, v) for k, v in self.inputs.items())),
                self.query_plan.sig() if self.query_plan is not None else None,
+               tuple(q.sig() for q in self.query_plans),
                tuple(c.sig() for c in self.children),
                tuple(sorted((k, v.shape, str(v.dtype), digest(v))
                             for k, v in self.const_inputs.items())))
@@ -119,6 +128,8 @@ class AggPlan:
                     if k not in CONST_INPUT_KEYS})
         if self.query_plan is not None:
             self.query_plan.flatten_inputs(out)
+        for q in self.query_plans:
+            q.flatten_inputs(out)
         for c in self.children:
             c.flatten_inputs(out)
         return out
@@ -429,6 +440,128 @@ def _c_filter(node: AggNode, ctx: _Ctx) -> AggPlan:
                    render={"kind": "filter"})
 
 
+def _c_range(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    ranges = node.body.get("ranges")
+    if not field or not ranges:
+        raise ParsingError("[range] aggregation requires [field] and "
+                           "[ranges]")
+    ft = ctx.mapper.get_field(field)
+    col = _num_col(ctx, field)
+    is_date = node.type == "date_range" or (ft is not None and ft.is_date)
+
+    def conv(v):
+        if v is None:
+            return None
+        if is_date and isinstance(v, str):
+            v = _resolve_date_math(v)
+            return float(parse_date_millis(v) if isinstance(v, str) else v)
+        return float(ft.to_comparable(v)) if ft is not None else float(v)
+
+    specs = []
+    for r in ranges:
+        frm, to = conv(r.get("from")), conv(r.get("to"))
+        key = r.get("key")
+        if key is None:
+            f_str = "*" if frm is None else (
+                format_date_millis(int(frm)) if is_date else _fmt_num(frm))
+            t_str = "*" if to is None else (
+                format_date_millis(int(to)) if is_date else _fmt_num(to))
+            key = f"{f_str}-{t_str}"
+        specs.append((key, frm, to))
+    render = {"kind": node.type, "specs": specs, "body": node.body,
+              "is_date": is_date}
+    if col is None or len(col.unique) == 0:
+        return AggPlan(node.name, "empty", render=render)
+    u = col.unique
+    nv_pad = pad_bucket(max(len(col.doc_ids), 1))
+    if _fused_gate(ctx, node, max(len(specs), 1), nv_pad):
+        # fused leaf ranges: one bitmask row per range (rows are
+        # independent, so ranges may overlap), one popcount reduction
+        words = np.zeros((len(specs), nv_pad // 32), dtype=np.uint32)
+        lanes = np.arange(len(col.doc_ids), dtype=np.int64)
+        vo = col.value_ords
+        for i, (_, frm, to) in enumerate(specs):
+            lo = 0 if frm is None else int(np.searchsorted(u, frm, "left"))
+            hi = len(u) if to is None else int(np.searchsorted(u, to,
+                                                               "left"))
+            sel = lanes[(vo >= lo) & (vo < hi)]
+            if len(sel):
+                np.bitwise_or.at(
+                    words[i], sel // 32,
+                    np.left_shift(np.uint32(1),
+                                  (sel % 32).astype(np.uint32)))
+        return AggPlan(node.name, "bucket_bits",
+                       static=(field, len(specs), ident_pairs(col),
+                               "numeric"),
+                       const_inputs={"binbits": words}, render=render)
+    # ranges may overlap: one sub-plan per range over a rank-interval table
+    sub_plans = []
+    for i, (_, frm, to) in enumerate(specs):
+        lo = 0 if frm is None else int(np.searchsorted(u, frm, "left"))
+        hi = len(u) if to is None else int(np.searchsorted(u, to, "left"))
+        u_pad = pad_bucket(max(len(u), 1), minimum=8)
+        table = np.full(u_pad, -1, dtype=np.int32)
+        table[lo:hi] = 0
+        sub_plans.append(AggPlan(f"{node.name}#{i}", "bucket_num",
+                                 static=(field, 1, ident_pairs(col)),
+                                 inputs={"table": table},
+                                 children=[_compile_node(c, ctx)
+                                           for c in node.children]))
+    return AggPlan(node.name, "multi", static=(len(sub_plans),),
+                   children=sub_plans, render=render)
+
+
+def _fmt_num(v: float) -> str:
+    return str(int(v)) if float(v).is_integer() else str(v)
+
+
+def _c_filters(node: AggNode, ctx: _Ctx) -> AggPlan:
+    filters = node.body.get("filters")
+    if filters is None:
+        raise ParsingError("[filters] aggregation requires [filters]")
+    if isinstance(filters, dict):
+        names = list(filters.keys())
+        queries = [filters[n] for n in names]
+        keyed = True
+    else:
+        names = [str(i) for i in range(len(filters))]
+        queries = list(filters)
+        keyed = False
+    subs = []
+    for n, q in zip(names, queries):
+        qplan = ctx.compiler.compile(dsl.parse_query(q), ctx.seg, ctx.meta)
+        subs.append(AggPlan(n, "filter", query_plan=qplan,
+                            children=[_compile_node(c, ctx)
+                                      for c in node.children]))
+    return AggPlan(node.name, "multi", static=(len(subs),), children=subs,
+                   render={"kind": "filters", "names": names,
+                           "keyed": keyed})
+
+
+def _c_global(node: AggNode, ctx: _Ctx) -> AggPlan:
+    children = [_compile_node(c, ctx) for c in node.children]
+    return AggPlan(node.name, "global", children=children,
+                   render={"kind": "global"})
+
+
+def _c_missing(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    if field is None:
+        raise ParsingError("[missing] aggregation requires a field")
+    if field in ctx.seg.numeric_dv:
+        static = ("numeric", field)
+    elif field in ctx.seg.ordinal_dv:
+        static = ("ordinal", field)
+    elif field in ctx.seg.vector_dv:
+        static = ("vector", field)
+    else:
+        static = ("none", field)
+    children = [_compile_node(c, ctx) for c in node.children]
+    return AggPlan(node.name, "missing", static=static, children=children,
+                   render={"kind": "missing"})
+
+
 # ----------------------------------------------------------------- metrics
 
 # which device partials each metric render consumes (reduce._merge_metric);
@@ -504,24 +637,296 @@ def _c_cardinality(node: AggNode, ctx: _Ctx) -> AggPlan:
     return AggPlan(node.name, "empty", render=render)
 
 
+def _c_percentiles(node: AggNode, ctx: _Ctx) -> AggPlan:
+    field = node.field
+    if field is None:
+        raise ParsingError(f"[{node.type}] aggregation requires a field")
+    render = {"kind": node.type, "body": node.body}
+    if field in ctx.seg.numeric_dv:
+        u = ctx.seg.numeric_dv[field].unique
+        render["values"] = u
+        return AggPlan(node.name, "value_hist",
+                       static=(field, max(len(u), 1),
+                               ident_pairs(ctx.seg.numeric_dv[field])),
+                       render=render)
+    return AggPlan(node.name, "empty", render=render)
+
+
+def _c_weighted_avg(node: AggNode, ctx: _Ctx) -> AggPlan:
+    vspec = node.body.get("value", {})
+    wspec = node.body.get("weight", {})
+    vf, wf = vspec.get("field"), wspec.get("field")
+    if not vf or not wf:
+        raise ParsingError("[weighted_avg] requires value.field and "
+                           "weight.field")
+    render = {"kind": "weighted_avg", "body": node.body}
+    if vf in ctx.seg.numeric_dv and wf in ctx.seg.numeric_dv:
+        return AggPlan(node.name, "weighted_avg",
+                       static=(vf, wf, ident_pairs(ctx.seg.numeric_dv[vf])),
+                       render=render)
+    return AggPlan(node.name, "empty", render=render)
+
+
+# ---------------------------------------------------- dense-bucket family
+#
+# A host-computed per-doc bucket id (int32 [Dp], -1 = no bucket) feeds one
+# device kind, `bucket_dense`: the host does the irregular tuple work once
+# per (agg, segment) compile, the card the regular count. Composite tuples,
+# multi_terms and their sub-aggregations ride it.
+
+_CALENDAR_APPROX_MS = {"M": 2_592_000_000, "1M": 2_592_000_000,
+                       "month": 2_592_000_000,
+                       "q": 7_776_000_000, "1q": 7_776_000_000,
+                       "quarter": 7_776_000_000,
+                       "y": 31_536_000_000, "1y": 31_536_000_000,
+                       "year": 31_536_000_000}
+
+
+def _interval_ms(body: dict) -> int:
+    """Interval in ms of a composite date_histogram source: calendar
+    month / quarter / year take fixed 30 / 90 / 365 days, as the
+    reference's composite sources do."""
+    unit = str(body.get("calendar_interval") or body.get("fixed_interval")
+               or body.get("interval") or "1d")
+    if unit in _FIXED_MS:
+        return _FIXED_MS[unit]
+    if unit in _CALENDAR_APPROX_MS:
+        return _CALENDAR_APPROX_MS[unit]
+    if unit[:-1].isdigit() and unit[-1] in "smhdw":
+        return int(unit[:-1]) * _FIXED_MS[unit[-1]]
+    raise ParsingError(f"unknown date interval [{unit}]")
+
+
+def _dense_first_value(ctx: _Ctx, field: str):
+    """Per-doc first numeric value and exists (host numpy)."""
+    col = _num_col(ctx, field)
+    d = ctx.seg.num_docs
+    if col is None:
+        return None, np.zeros(d, dtype=bool)
+    value = np.zeros(d, dtype=np.float64)
+    # doc_ids are grouped ascending: the first occurrence is the smallest
+    docs, first_idx = np.unique(col.doc_ids, return_index=True)
+    value[docs] = col.values[first_idx]
+    return value, col.exists.copy()
+
+
+def _dense_first_ord(ctx: _Ctx, field: str):
+    col = ctx.seg.ordinal_dv.get(field)
+    d = ctx.seg.num_docs
+    if col is None:
+        return None, np.zeros(d, dtype=bool), []
+    ords = np.zeros(d, dtype=np.int64)
+    docs, first_idx = np.unique(col.doc_ids, return_index=True)
+    ords[docs] = col.ords[first_idx]
+    return ords, col.exists.copy(), list(col.dictionary)
+
+
+def _bucket_dense_plan(node: AggNode, ctx: _Ctx, doc_bucket: np.ndarray,
+                       card: int, render: dict) -> AggPlan:
+    padded = np.full(ctx.d_pad, -1, dtype=np.int32)
+    padded[:len(doc_bucket)] = doc_bucket
+    children = [_compile_node(c, ctx) for c in node.children]
+    return AggPlan(node.name, "bucket_dense", static=(card,),
+                   inputs={"doc_bucket": padded}, children=children,
+                   render=render)
+
+
+def _source_encoding(ctx: _Ctx, name: str, spec: dict):
+    """One composite / multi_terms source -> (per-doc code, exists, keys).
+    A doc's code is the rank of its key among the segment's distinct keys
+    (a binary search over them; -1 for a doc without the field)."""
+    stype, body = next(iter(spec.items())) if len(spec) == 1 \
+        else ("terms", spec)
+    field = body.get("field")
+    ocol = ctx.seg.ordinal_dv.get(field)
+    if ocol is not None:
+        ords, exists, keys = _dense_first_ord(ctx, field)
+        return ords, exists, keys
+    value, exists = _dense_first_value(ctx, field)
+    if value is None:
+        return None, exists, []
+    ft = ctx.mapper.get_field(field)
+    if stype == "histogram":
+        interval = float(body["interval"])
+        codes_raw = np.floor(value / interval) * interval
+    elif stype == "date_histogram":
+        iv = _interval_ms(body)
+        codes_raw = np.floor(value / iv) * iv
+    else:
+        codes_raw = value
+    uniq = np.unique(codes_raw[exists]) if exists.any() else np.array([])
+    codes = np.where(exists, np.searchsorted(uniq, codes_raw), -1) \
+        .astype(np.int64)
+    keys = [_render_numeric_key(v, ft) for v in uniq]
+    return codes, exists, keys
+
+
+def _c_composite(node: AggNode, ctx: _Ctx) -> AggPlan:
+    sources = node.body.get("sources")
+    if not sources:
+        raise ParsingError(f"[composite] aggregation [{node.name}] requires "
+                           f"[sources]")
+    source_specs = []
+    for src in sources:
+        if len(src) != 1:
+            raise ParsingError("[composite] source must have one name")
+        sname, sbody = next(iter(src.items()))
+        source_specs.append((sname, sbody))
+    d = ctx.seg.num_docs
+    combined = np.zeros(d, dtype=np.int64)
+    all_exist = np.ones(d, dtype=bool)
+    key_lists = []
+    names = []
+    for sname, sbody in source_specs:
+        codes, exists, keys = _source_encoding(ctx, sname, sbody)
+        names.append(sname)
+        key_lists.append(keys)
+        if codes is None or not keys:
+            all_exist[:] = False
+            combined[:] = -1
+            continue
+        combined = combined * len(keys) + np.where(exists, codes, 0)
+        all_exist &= exists
+    card = max(int(np.prod([max(len(k), 1) for k in key_lists])), 1)
+    doc_bucket = np.where(all_exist, combined, -1).astype(np.int32)
+    render = {"kind": node.type, "body": node.body, "sources": names,
+              "key_lists": key_lists}
+    return _bucket_dense_plan(node, ctx, doc_bucket, card, render)
+
+
+def _c_multi_terms(node: AggNode, ctx: _Ctx) -> AggPlan:
+    terms = node.body.get("terms")
+    if not terms or len(terms) < 2:
+        raise ParsingError(f"[multi_terms] aggregation [{node.name}] "
+                           f"requires at least 2 [terms]")
+    synthetic = AggNode(node.name, "multi_terms",
+                        {"sources": [{f"t{i}": {"terms": t}}
+                                     for i, t in enumerate(terms)],
+                         **node.body},
+                        children=node.children)
+    plan = _c_composite(synthetic, ctx)
+    plan.render["kind"] = "multi_terms"
+    return plan
+
+
+def _c_auto_date_histogram(node: AggNode, ctx: _Ctx) -> AggPlan:
+    """The smallest interval of a fixed ladder that keeps the segment's
+    bucket count within `buckets`, then a date_histogram at it."""
+    target = int(node.body.get("buckets", 10))
+    col = _num_col(ctx, node.field)
+    if col is None or not len(col.unique):
+        return AggPlan(node.name, "empty",
+                       render={"kind": "auto_date_histogram", "keys": [],
+                               "body": node.body})
+    lo, hi = float(col.unique[0]), float(col.unique[-1])
+    candidates = [("1s", 1000), ("1m", 60_000), ("1h", 3_600_000),
+                  ("1d", 86_400_000), ("7d", 7 * 86_400_000),
+                  ("1M", 30 * 86_400_000), ("3M", 90 * 86_400_000),
+                  ("1y", 365 * 86_400_000)]
+    chosen_label, chosen_ms = candidates[-1]
+    for label, ms in candidates:
+        if (hi - lo) / ms + 1 <= target:
+            chosen_label, chosen_ms = label, ms
+            break
+    clone = AggNode(node.name, "date_histogram",
+                    {**node.body,
+                     "fixed_interval": f"{chosen_ms // 1000}s"},
+                    children=node.children)
+    plan = _c_date_histogram(clone, ctx)
+    plan.render["kind"] = "auto_date_histogram"
+    plan.render["interval"] = chosen_label
+    return plan
+
+
+def _c_significant_terms(node: AggNode, ctx: _Ctx) -> AggPlan:
+    """Foreground counts on the card; background doc counts (distinct
+    (doc, term) pairs per term, counted with numpy) at compile. The reduce
+    scores with JLH."""
+    field = node.field
+    ocol = ctx.seg.ordinal_dv.get(field)
+    if ocol is None:
+        return AggPlan(node.name, "empty",
+                       render={"kind": "significant_terms", "keys": [],
+                               "body": node.body})
+    plan = _c_terms(node, ctx)
+    n_ords = len(ocol.dictionary)
+    pairs = np.unique(ocol.doc_ids.astype(np.int64) * max(n_ords, 1)
+                      + ocol.ords.astype(np.int64))
+    bg = np.bincount(pairs % max(n_ords, 1), minlength=n_ords)[:n_ords]
+    plan.render = {"kind": "significant_terms",
+                   "keys": list(ocol.dictionary), "body": node.body,
+                   "bg": bg.tolist(), "bg_total": int(ctx.seg.num_docs)}
+    return plan
+
+
+def _c_adjacency_matrix(node: AggNode, ctx: _Ctx) -> AggPlan:
+    filters = node.body.get("filters")
+    if not isinstance(filters, dict) or not filters:
+        raise ParsingError(f"[adjacency_matrix] aggregation [{node.name}] "
+                           f"requires [filters]")
+    names = sorted(filters)
+    plans = [ctx.compiler.compile(dsl.parse_query(filters[name]), ctx.seg,
+                                  ctx.meta) for name in names]
+    return AggPlan(node.name, "adjacency", static=(len(names),),
+                   query_plans=plans,
+                   render={"kind": "adjacency_matrix", "names": names,
+                           "body": node.body})
+
+
+def _c_matrix_stats(node: AggNode, ctx: _Ctx) -> AggPlan:
+    fields = node.body.get("fields")
+    if not fields:
+        raise ParsingError(f"[matrix_stats] aggregation [{node.name}] "
+                           f"requires [fields]")
+    # the fields with a column in this segment: the others contribute
+    # no partials
+    present = tuple(f for f in fields if f in ctx.seg.numeric_dv)
+    return AggPlan(node.name, "matrix_stats", static=(tuple(fields), present),
+                   render={"kind": "matrix_stats", "fields": list(fields),
+                           "body": node.body})
+
+
+# the reference's compilers without nested / reverse_nested, geo_bounds /
+# geo_centroid, geohash_grid / geotile_grid (they wait for the nested and
+# geo_point types) and ip_range (for the ip type)
 _COMPILERS = {
     "terms": _c_terms,
     "histogram": _c_histogram,
     "date_histogram": _c_date_histogram,
+    "range": _c_range,
+    "date_range": _c_range,
     "filter": _c_filter,
+    "filters": _c_filters,
+    "global": _c_global,
+    "missing": _c_missing,
     "min": _c_metric, "max": _c_metric, "sum": _c_metric, "avg": _c_metric,
     "value_count": _c_metric, "stats": _c_metric, "extended_stats": _c_metric,
+    "median_absolute_deviation": _c_percentiles,
     "cardinality": _c_cardinality,
+    "percentiles": _c_percentiles,
+    "percentile_ranks": _c_percentiles,
+    "weighted_avg": _c_weighted_avg,
+    "composite": _c_composite,
+    "multi_terms": _c_multi_terms,
+    "auto_date_histogram": _c_auto_date_histogram,
+    "significant_terms": _c_significant_terms,
+    "adjacency_matrix": _c_adjacency_matrix,
+    "matrix_stats": _c_matrix_stats,
 }
 
 
+def device_nodes(nodes: Sequence[AggNode]) -> List[AggNode]:
+    """The top-level nodes that run on the device: every one but the
+    sibling pipelines, which run on the reduced tree."""
+    return [n for n in nodes if n.type not in PIPELINE_TYPES]
+
+
 def unsupported_aggs(nodes: Sequence[AggNode]) -> Optional[str]:
-    """The first aggregation type in the tree that is not ported."""
+    """The first aggregation type in the tree that is not ported (every
+    pipeline type is)."""
     for n in nodes:
-        if n.type not in _COMPILERS:
+        if n.type not in _COMPILERS and n.type not in PIPELINE_TYPES:
             return n.type
-        if n.pipelines:
-            return n.pipelines[0].type
         sub = unsupported_aggs(n.children)
         if sub is not None:
             return sub
@@ -849,6 +1254,144 @@ def _eval_agg(plan: AggPlan, seg: Dict, inputs: List[Dict],
         outs.append({"present": hist > 0})
         return
 
+    if kind == "multi":
+        # range sub-plans / filters buckets: each child sees this context
+        outs.append({})
+        children(ctx)
+        return
+
+    if kind == "global":
+        # every live doc, whatever the query (GlobalAggregator); the
+        # parent condition and bins stay. `live` changes with deletes, so
+        # it is read per call, never kept with the static side
+        gmask = seg["live"][None, :].expand(bsz, d_pad).contiguous()
+        bins = _doc_bins(node, pbin, parent_card, d_pad, dev)
+        counts = _binned_sums(bins, gmask, pmask, None, ("cnt",))["cnt"]
+        outs.append({"counts": counts})
+        for c in plan.children:
+            _eval_agg(c, seg, inputs, cursor, gmask, ctx, outs, statics)
+        return
+
+    if kind == "missing":
+        ctype, field = plan.static
+        miss_bin = node.get("miss_bin")
+        if miss_bin is None:
+            if ctype == "none":
+                exists = torch.zeros(d_pad, dtype=torch.bool, device=dev)
+            else:
+                exists = seg[ctype][field]["exists"]
+            # field existence is static: it folds into the bins
+            base = torch.zeros(d_pad, dtype=torch.int32, device=dev) \
+                if pbin is None else pbin
+            miss_bin = node["miss_bin"] = torch.where(exists, -1, base)
+        bins = _doc_bins(node, miss_bin, parent_card, d_pad, dev)
+        counts = _binned_sums(bins, mask, pmask, None, ("cnt",))["cnt"]
+        outs.append({"counts": counts})
+        children((miss_bin, _and_pmask(pmask, mask), parent_card))
+        return
+
+    if kind == "bucket_dense":
+        card, = plan.static
+        total = parent_card * card
+        bins = node.get("bins")
+        if bins is None:
+            b = torch.from_numpy(plan.inputs["doc_bucket"]).to(dev)
+            bin_ok = b >= 0
+            lanes = b
+            if pbin is not None:
+                bin_ok = bin_ok & (pbin >= 0)
+                lanes = pbin * card + b
+            lanes = torch.where(bin_ok, lanes, total)
+            bins = node["bins"] = _Bins(lanes, total)
+            node["child_bin"] = torch.where(bin_ok, lanes, -1)
+        counts = _binned_sums(bins, mask, pmask, None, ("cnt",))["cnt"]
+        outs.append({"counts": counts})
+        children((node["child_bin"], _and_pmask(pmask, mask), total))
+        return
+
+    if kind == "value_hist":
+        field, card, ident = plan.static
+        col = seg["numeric"][field]
+        total = parent_card * card
+        if total > MAX_AGG_BINS:
+            raise IllegalArgumentError(
+                f"aggregation [{plan.name}] needs {total} bins "
+                f"(> {MAX_AGG_BINS}); reduce bucket count or cardinality")
+        bins = _pairs_bins(node, col, col["val_ords"], pbin, card, total,
+                           ident)
+        hist = _binned_sums(bins, mask, pmask, None if ident
+                            else col["doc_ids"], ("cnt",))["cnt"]
+        outs.append({"hist": hist})
+        return
+
+    if kind == "weighted_avg":
+        vf, wf, ident = plan.static
+        vcol = seg["numeric"][vf]
+        bins = node.get("bins")
+        if bins is None:
+            wcol = seg["numeric"][wf]
+            doc_ids = vcol["doc_ids"]
+            valid = doc_ids >= 0
+            safe_doc = torch.where(valid, doc_ids, 0).long()
+            # the doc's first (smallest) weight, through its min rank
+            up = wcol["unique_f32"].shape[0]
+            w_dense = wcol["unique_f32"][wcol["min_rank"].clamp(
+                0, up - 1).long()]
+            has_w = wcol["exists"][safe_doc]
+            w = torch.where(has_w, w_dense[safe_doc], 0.0)
+            # a lane whose doc has no weight belongs to no bin (static)
+            bin_ok = valid & has_w
+            lanes = torch.zeros_like(doc_ids)
+            if pbin is not None:
+                pb = _take_doc(pbin, safe_doc, ident)
+                bin_ok = bin_ok & (pb >= 0)
+                lanes = pb
+            bins = node["bins"] = _Bins(
+                torch.where(bin_ok, lanes, parent_card), parent_card)
+            node["wv"] = (vcol["values_f32"] * w).contiguous()
+            node["w"] = w.contiguous()
+        doc_ids = None if ident else vcol["doc_ids"]
+        sum_wv = _binned_sums(bins, mask, pmask, doc_ids, ("sum",),
+                              values=node["wv"])["sum"]
+        sum_w = _binned_sums(bins, mask, pmask, doc_ids, ("sum",),
+                             values=node["w"])["sum"]
+        outs.append({"sum_wv": sum_wv, "sum_w": sum_w})
+        return
+
+    if kind == "adjacency":
+        # the parent condition folds into the eligibility; the parent
+        # bins stay static (K17)
+        masks = [_eval_plan(qp, seg, inputs, cursor, bsz)[1].contiguous()
+                 for qp in plan.query_plans]
+        pairs = adjacency_counts(masks, mask.contiguous(), pmask, pbin,
+                                 parent_card)
+        n = plan.static[0]
+        k = 0
+        out = {}
+        for i in range(n):
+            for j in range(i, n):
+                out[f"c_{i}_{j}"] = pairs[:, k]
+                k += 1
+        outs.append(out)
+        return
+
+    if kind == "matrix_stats":
+        fields = plan.static[1]
+        if not fields:
+            outs.append({})
+            return
+        dense = [dense_numeric(seg, f, d_pad) for f in fields]
+        vals = torch.stack([v for v, _e, _c in dense])
+        exists = torch.stack([e for _v, e, _c in dense])
+        csr = node.get("csr")
+        if csr is None:
+            bins = _doc_bins(node, pbin, parent_card, d_pad, dev)
+            csr = node["csr"] = moments_csr(bins.lanes, bins.total)
+        cnt, sums = matrix_moments(csr, mask.contiguous(), pmask, vals,
+                                   exists)
+        outs.append(matrix_stats_partials(fields, cnt, sums))
+        return
+
     raise QueryShardError(f"aggregation kind [{kind}] is not supported by "
                           f"opensearch_tpu_torch yet")
 
@@ -857,7 +1400,19 @@ def _eval_agg(plan: AggPlan, seg: Dict, inputs: List[Dict],
 
 _OUT_DTYPE = {"counts": "int32", "cnt": "int32", "present": "bool",
               "sum": "float32", "sumsq": "float32", "min": "float32",
-              "max": "float32"}
+              "max": "float32", "hist": "int32", "sum_wv": "float32",
+              "sum_w": "float32"}
+
+
+def _out_dtype(key: str) -> str:
+    """dtype of an output partial: the fixed names above, adjacency cells
+    `c_i_j` (int32) and matrix_stats partials (`...::cnt` int32, every
+    other `...::sum*` float32)."""
+    if key in _OUT_DTYPE:
+        return _OUT_DTYPE[key]
+    if key.startswith("c_") or key.endswith("::cnt"):
+        return "int32"
+    return "float32"
 
 
 def agg_out_layout(plans: List[AggPlan]) -> Tuple[tuple, int]:
@@ -867,7 +1422,7 @@ def agg_out_layout(plans: List[AggPlan]) -> Tuple[tuple, int]:
     entries: List[tuple] = []
 
     def put(names, size):
-        entries.append(tuple((k, (size,), _OUT_DTYPE[k])
+        entries.append(tuple((k, (size,), _out_dtype(k))
                              for k in sorted(names)))
 
     def walk(p: AggPlan, parent_card: int):
@@ -896,6 +1451,31 @@ def agg_out_layout(plans: List[AggPlan]) -> Tuple[tuple, int]:
             put(["cnt"], parent_card)
         elif kind in ("presence_ord", "presence_num"):
             put(["present"], parent_card * p.static[1])
+        elif kind == "multi":
+            entries.append(())
+            for c in p.children:
+                walk(c, parent_card)
+        elif kind in ("global", "missing"):
+            put(["counts"], parent_card)
+            for c in p.children:
+                walk(c, parent_card)
+        elif kind == "bucket_dense":
+            total = parent_card * p.static[0]
+            put(["counts"], total)
+            for c in p.children:
+                walk(c, total)
+        elif kind == "value_hist":
+            put(["hist"], parent_card * p.static[1])
+        elif kind == "weighted_avg":
+            put(["sum_wv", "sum_w"], parent_card)
+        elif kind == "adjacency":
+            n = p.static[0]
+            put([f"c_{i}_{j}" for i in range(n) for j in range(i, n)],
+                parent_card)
+        elif kind == "matrix_stats":
+            fields = p.static[1]
+            put([k for k, _g, _i in matrix_stats_names(fields)],
+                parent_card)
         else:
             raise QueryShardError(f"aggregation kind [{kind}] is not "
                                   f"supported by opensearch_tpu_torch yet")

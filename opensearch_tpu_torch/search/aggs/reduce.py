@@ -1,14 +1,15 @@
-"""Host-side aggregation reduce and response rendering (the subset of
-opensearch_tpu.search.aggs.reduce the port needs): per-segment partials
-arrive as flat numpy arrays per (segment, node); they merge by bucket key
-across segments and render the REST "aggregations" shapes of `terms`,
-`histogram` / `date_histogram`, `filter`, the metrics and `cardinality`.
+"""Host-side aggregation reduce and response rendering (the port's copy of
+opensearch_tpu.search.aggs.reduce, without the nested and geo kinds):
+per-segment partials arrive as flat numpy arrays per (segment, node); they
+merge by bucket key across segments and render the REST "aggregations"
+shapes. Pipeline aggregations then run on the reduced tree
+(search/aggs/pipeline.py).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -17,6 +18,8 @@ from opensearch_tpu_torch.index.mapper import (format_date_millis,
                                                parse_date_millis)
 from opensearch_tpu_torch.search.aggs.engine import AggPlan
 from opensearch_tpu_torch.search.compile import _resolve_date_math
+
+DEFAULT_PERCENTS = [1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0]
 
 
 class Decoded:
@@ -65,11 +68,34 @@ def _merge_node(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
         return _render_empty(render)
 
     if kind in ("bucket_ord", "bucket_num", "bucket_bits"):
-        if render.get("kind", "terms") == "terms":
+        rkind = render.get("kind", "terms")
+        if rkind == "terms":
             return _merge_terms(entries)
-        return _merge_histogram(entries)
+        if rkind == "significant_terms":
+            return _merge_significant_terms(entries)
+        if rkind in ("range", "date_range"):
+            return _merge_ranges_fused(entries)
+        out = _merge_histogram(entries)
+        if rkind == "auto_date_histogram":
+            out["interval"] = render.get("interval")
+        return out
 
-    if kind == "filter":
+    if kind == "bucket_dense":
+        return _merge_composite(entries,
+                                multi=render.get("kind") == "multi_terms")
+
+    if kind == "adjacency":
+        return _merge_adjacency(entries)
+
+    if kind == "matrix_stats":
+        return _merge_matrix_stats(entries)
+
+    if kind == "multi":
+        if render.get("kind") == "filters":
+            return _merge_filters(entries)
+        return _merge_ranges(entries)
+
+    if kind in ("filter", "global", "missing"):
         count = sum(int(d.out["counts"][p]) for d, p in entries
                     if "counts" in d.out)
         result = {"doc_count": count}
@@ -85,6 +111,16 @@ def _merge_node(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
 
     if kind in ("presence_ord", "presence_num", "presence_bits"):
         return _merge_cardinality(entries)
+
+    if kind == "value_hist":
+        return _merge_value_hist(entries)
+
+    if kind == "weighted_avg":
+        sum_wv = sum(float(d.out["sum_wv"][p]) for d, p in entries
+                     if "sum_wv" in d.out)
+        sum_w = sum(float(d.out["sum_w"][p]) for d, p in entries
+                    if "sum_w" in d.out)
+        return {"value": (sum_wv / sum_w) if sum_w else None}
 
     raise IllegalArgumentError(f"cannot reduce aggregation kind [{kind}]")
 
@@ -127,7 +163,17 @@ def _render_empty(render: dict) -> Dict[str, Any]:
                     k += step
                 return {"buckets": buckets}
         return {"buckets": []}
-    if rkind in ("min", "max", "avg"):
+    if rkind in ("range", "date_range"):
+        buckets = []
+        for key, frm, to in render.get("specs", []):
+            b = {"key": key, "doc_count": 0}
+            if frm is not None:
+                b["from"] = frm
+            if to is not None:
+                b["to"] = to
+            buckets.append(b)
+        return {"buckets": buckets}
+    if rkind in ("min", "max", "avg", "median_absolute_deviation"):
         return {"value": None}
     if rkind in ("sum", "value_count", "cardinality"):
         return {"value": 0}
@@ -138,6 +184,10 @@ def _render_empty(render: dict) -> Dict[str, Any]:
         return {"count": 0, "min": None, "max": None, "avg": None,
                 "sum": 0.0, "sum_of_squares": None, "variance": None,
                 "std_deviation": None}
+    if rkind in ("percentiles", "percentile_ranks"):
+        return {"values": {}}
+    if rkind == "weighted_avg":
+        return {"value": None}
     return {"doc_count": 0}
 
 
@@ -355,6 +405,73 @@ def _merge_histogram(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
     return {"buckets": _trim_zero_edges(buckets, min_doc_count, eb_keys)}
 
 
+def _merge_ranges(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    plan = entries[0][0].plan
+    render = plan.render
+    specs = render.get("specs", [])
+    is_date = render.get("is_date", False)
+    buckets = []
+    for i, (key, frm, to) in enumerate(specs):
+        sub_entries = [(d.children[i], p) for d, p in entries
+                       if i < len(d.children)]
+        count = sum(int(d.out["counts"][p]) for d, p in sub_entries
+                    if "counts" in d.out)
+        bucket: Dict[str, Any] = {"key": key, "doc_count": count}
+        if frm is not None:
+            bucket["from"] = frm
+            if is_date:
+                bucket["from_as_string"] = format_date_millis(int(frm))
+        if to is not None:
+            bucket["to"] = to
+            if is_date:
+                bucket["to_as_string"] = format_date_millis(int(to))
+        bucket.update(_merge_children(sub_entries, lambda p: p))
+        buckets.append(bucket)
+    return {"buckets": buckets}
+
+
+def _merge_ranges_fused(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    """Range buckets from the fused bucket_bits kind: one counts row per
+    range spec (overlap-safe), no per-range sub-plans to walk."""
+    plan = entries[0][0].plan
+    render = plan.render
+    specs = render.get("specs", [])
+    is_date = render.get("is_date", False)
+    buckets = []
+    for i, (key, frm, to) in enumerate(specs):
+        count = 0
+        for d, p in entries:
+            if d.plan.kind == "bucket_bits" and "counts" in d.out:
+                count += int(d.out["counts"][i])
+            elif d.plan.kind == "multi" and i < len(d.children) \
+                    and "counts" in d.children[i].out:
+                count += int(d.children[i].out["counts"][p])
+        bucket: Dict[str, Any] = {"key": key, "doc_count": count}
+        if frm is not None:
+            bucket["from"] = frm
+            if is_date:
+                bucket["from_as_string"] = format_date_millis(int(frm))
+        if to is not None:
+            bucket["to"] = to
+            if is_date:
+                bucket["to_as_string"] = format_date_millis(int(to))
+        buckets.append(bucket)
+    return {"buckets": buckets}
+
+
+def _merge_filters(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    plan = entries[0][0].plan
+    names = plan.render["names"]
+    keyed = plan.render["keyed"]
+    results = []
+    for i, name in enumerate(names):
+        sub_entries = [(d.children[i], p) for d, p in entries]
+        results.append(_merge_node(sub_entries))
+    if keyed:
+        return {"buckets": {n: r for n, r in zip(names, results)}}
+    return {"buckets": results}
+
+
 # ------------------------------------------------------------------ metrics
 
 def _merge_metric(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
@@ -447,3 +564,285 @@ def _merge_cardinality(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
                 if c < len(values):
                     distinct.add(float(values[int(c)]))
     return {"value": len(distinct)}
+
+
+def _value_counts(entries: List[Tuple[Decoded, int]]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct values of the entries' value histograms, ascending,
+    with their summed counts (merged by value across segments)."""
+    vals, counts = [], []
+    for d, p in entries:
+        if "hist" not in d.out:
+            continue
+        card = d.plan.static[1]
+        hist = np.asarray(d.out["hist"][p * card:(p + 1) * card])
+        values = np.asarray(d.plan.render["values"], dtype=np.float64)
+        nz = np.nonzero(hist[:len(values)])[0]
+        vals.append(values[nz])
+        counts.append(hist[nz].astype(np.int64))
+    if not vals or not sum(len(v) for v in vals):
+        return np.zeros(0), np.zeros(0, dtype=np.int64)
+    uniq, inv = np.unique(np.concatenate(vals), return_inverse=True)
+    return uniq, np.bincount(inv.reshape(-1), weights=np.concatenate(
+        counts), minlength=len(uniq)).astype(np.int64)
+
+
+def percentile_from_counts(vals: np.ndarray, counts: np.ndarray,
+                           q: float) -> Optional[float]:
+    """Exact linear-interpolated percentile over a weighted multiset
+    (numpy 'linear' method, in place of OpenSearch's TDigest
+    approximation)."""
+    n = int(counts.sum())
+    if n == 0:
+        return None
+    pos = (q / 100.0) * (n - 1)
+    lo_i = int(math.floor(pos))
+    hi_i = min(lo_i + 1, n - 1)
+    frac = pos - lo_i
+    cum = np.cumsum(counts)
+    lo_v = float(vals[np.searchsorted(cum, lo_i + 1)])
+    hi_v = float(vals[np.searchsorted(cum, hi_i + 1)])
+    return lo_v + (hi_v - lo_v) * frac
+
+
+def _merge_value_hist(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    plan = entries[0][0].plan
+    kind = plan.render.get("kind", "percentiles")
+    body = plan.render.get("body", {})
+    vals, counts = _value_counts(entries)
+    if kind == "percentiles":
+        percents = body.get("percents", DEFAULT_PERCENTS)
+        return {"values": {f"{float(q)}": percentile_from_counts(vals, counts, q)
+                           for q in percents}}
+    if kind == "percentile_ranks":
+        targets = body.get("values", [])
+        n = int(counts.sum())
+        out = {}
+        for t in targets:
+            if n == 0:
+                out[f"{float(t)}"] = None
+            else:
+                below = int(counts[vals <= float(t)].sum())
+                out[f"{float(t)}"] = 100.0 * below / n
+        return {"values": out}
+    if kind == "median_absolute_deviation":
+        if counts.sum() == 0:
+            return {"value": None}
+        median = percentile_from_counts(vals, counts, 50.0)
+        dev = np.abs(vals - median)
+        order = np.argsort(dev)
+        return {"value": percentile_from_counts(dev[order], counts[order], 50.0)}
+    raise IllegalArgumentError(f"unknown value-hist agg [{kind}]")
+
+
+# ------------------------------------------------- extended bucket mergers
+
+def _merge_composite(entries: List[Tuple[Decoded, int]],
+                     multi: bool) -> Dict[str, Any]:
+    """Composite (paginated multi-source tuples) and multi_terms share the
+    mixed-radix bucket layout; they differ only in rendering/sort/paging."""
+    plan = entries[0][0].plan
+    render = plan.render
+    sources = render["sources"]
+    merged: Dict[tuple, Tuple[int, List[Tuple[Decoded, int, int]]]] = {}
+    for d, p in entries:
+        counts = d.out.get("counts")
+        if counts is None:
+            continue
+        # key lists are per segment (each segment has its own dictionary)
+        key_lists = d.plan.render["key_lists"]
+        radices = [max(len(k), 1) for k in key_lists]
+        card = int(np.prod(radices))
+        base = p * card
+        arr = np.asarray(counts[base:base + card])
+        nz = np.nonzero(arr)[0]
+        if not len(nz):
+            continue
+        # mixed-radix digits of each non-empty bucket (the first source
+        # most significant), then its key tuple
+        digits = np.unravel_index(nz, radices)
+        keys = zip(*[np.asarray(kl, dtype=object)[dg]
+                     for kl, dg in zip(key_lists, digits)])
+        for key, n, flat in zip(keys, arr[nz].tolist(), nz.tolist()):
+            cnt, members = merged.get(key, (0, []))
+            merged[key] = (cnt + n, members + [(d, p, flat)])
+    body = render.get("body", {})
+    size = int(body.get("size", 10))
+    if multi:
+        items = sorted(merged.items(), key=lambda kv: (-kv[1][0], kv[0]))
+        buckets = []
+        for key, (cnt, members) in items[:size]:
+            b = {"key": list(key),
+                 "key_as_string": "|".join(str(k) for k in key),
+                 "doc_count": cnt}
+            b.update(_merge_composite_children(plan, members))
+            buckets.append(b)
+        return {"doc_count_error_upper_bound": 0, "sum_other_doc_count":
+                sum(c for _, (c, _) in items[size:]),
+                "buckets": buckets}
+    # composite: key-ordered pagination with after_key
+    after = body.get("after")
+    after_t = None if after is None else tuple(after[s] for s in sources)
+    try:
+        # a source's keys share one type, so the tuples' own order is
+        # _tuple_sort_key's; a mixed comparison raises and takes it instead
+        items = sorted(merged.items(), key=lambda kv: kv[0])
+        if after_t is not None:
+            items = [kv for kv in items if kv[0] > after_t]
+    except TypeError:
+        items = sorted(merged.items(), key=lambda kv: _tuple_sort_key(kv[0]))
+        if after_t is not None:
+            after_key = _tuple_sort_key(after_t)
+            items = [kv for kv in items
+                     if _tuple_sort_key(kv[0]) > after_key]
+    page = items[:size]
+    buckets = []
+    for key, (cnt, members) in page:
+        b = {"key": dict(zip(sources, key)), "doc_count": cnt}
+        b.update(_merge_composite_children(plan, members))
+        buckets.append(b)
+    out: Dict[str, Any] = {"buckets": buckets}
+    if page:
+        out["after_key"] = dict(zip(sources, page[-1][0]))
+    return out
+
+
+def _tuple_sort_key(key: tuple):
+    return tuple((0, v) if isinstance(v, (int, float, bool))
+                 else (1, str(v)) for v in key)
+
+
+def _merge_composite_children(plan, members) -> Dict[str, Any]:
+    if not plan.children:
+        return {}
+    out: Dict[str, Any] = {}
+    for j, child in enumerate(plan.children):
+        child_entries = []
+        for d, p, flat in members:
+            total_card = int(np.prod([max(len(k), 1)
+                                      for k in d.plan.render["key_lists"]]))
+            child_entries.append((d.children[j], p * total_card + flat))
+        out[child.name] = _merge_node(child_entries)
+    return out
+
+
+def _merge_significant_terms(entries: List[Tuple[Decoded, int]]
+                             ) -> Dict[str, Any]:
+    """JLH significance scoring (OpenSearch's default heuristic:
+    (fg% - bg%) * (fg% / bg%))."""
+    plan = entries[0][0].plan
+    # fg and bg accumulate by KEY across segments (per-segment dictionaries)
+    fg_by_key: Dict[Any, int] = {}
+    bg_by_key: Dict[Any, int] = {}
+    bg_total = 0
+    for d, p in entries:
+        keys = d.plan.render.get("keys", [])
+        bg = d.plan.render.get("bg", [])
+        bg_total += max(d.plan.render.get("bg_total", 0), 0)
+        card = max(len(keys), 1)
+        counts = d.out.get("counts")
+        for i, key in enumerate(keys):
+            bg_by_key[key] = bg_by_key.get(key, 0) \
+                + (int(bg[i]) if i < len(bg) else 0)
+            if counts is not None:
+                fg_by_key[key] = fg_by_key.get(key, 0) \
+                    + int(counts[p * card + i])
+    bg_total = max(bg_total, 1)
+    subset_size = max(sum(fg_by_key.values()), 1)
+    body = plan.render.get("body", {})
+    min_doc_count = int(body.get("min_doc_count", 3))
+    size = int(body.get("size", 10))
+    scored = []
+    for key, fg_count in fg_by_key.items():
+        if fg_count < min_doc_count:
+            continue
+        fg_pct = fg_count / subset_size
+        bg_pct = max(bg_by_key.get(key, 0), 1) / bg_total
+        if fg_pct <= bg_pct:
+            continue
+        score = (fg_pct - bg_pct) * (fg_pct / bg_pct)
+        scored.append({"key": key, "doc_count": int(fg_count),
+                       "score": float(score),
+                       "bg_count": int(bg_by_key.get(key, 0))})
+    scored.sort(key=lambda b: -b["score"])
+    return {"doc_count": subset_size, "bg_count": bg_total,
+            "buckets": scored[:size]}
+
+
+def _merge_adjacency(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    plan = entries[0][0].plan
+    names = plan.render["names"]
+    totals: Dict[str, int] = {}
+    for d, p in entries:
+        for i in range(len(names)):
+            for j in range(i, len(names)):
+                arr = d.out.get(f"c_{i}_{j}")
+                if arr is None:
+                    continue
+                key = names[i] if i == j else f"{names[i]}&{names[j]}"
+                totals[key] = totals.get(key, 0) + int(arr[p])
+    buckets = [{"key": k, "doc_count": c}
+               for k, c in sorted(totals.items()) if c > 0]
+    return {"buckets": buckets}
+
+
+def _merge_matrix_stats(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    plan = entries[0][0].plan
+    fields = plan.render["fields"]
+
+    def total(key):
+        return sum(float(d.out[key][p]) for d, p in entries
+                   if key in d.out)
+
+    out_fields = []
+    moments = {}
+    for f in fields:
+        cnt = int(total(f"{f}::cnt"))
+        if cnt == 0:
+            continue
+        s1 = total(f"{f}::sum")
+        s2 = total(f"{f}::sum2")
+        s3 = total(f"{f}::sum3")
+        s4 = total(f"{f}::sum4")
+        mean = s1 / cnt
+        var = max(s2 / cnt - mean ** 2, 0.0)
+        std = var ** 0.5
+        # central moments from raw moments
+        m3 = s3 / cnt - 3 * mean * s2 / cnt + 2 * mean ** 3
+        m4 = (s4 / cnt - 4 * mean * s3 / cnt + 6 * mean ** 2 * s2 / cnt
+              - 3 * mean ** 4)
+        moments[f] = (cnt, mean, var)
+        entry = {
+            "name": f, "count": cnt, "mean": mean,
+            "variance": var * cnt / max(cnt - 1, 1),  # sample variance
+            "skewness": (m3 / std ** 3) if std > 0 else 0.0,
+            "kurtosis": (m4 / var ** 2) if var > 0 else 0.0,
+            "covariance": {}, "correlation": {},
+        }
+        out_fields.append(entry)
+    by_name = {e["name"]: e for e in out_fields}
+    for i, fa in enumerate(fields):
+        for fb in fields[i + 1:]:
+            key = f"{fa}*{fb}"
+            if fa not in by_name or fb not in by_name:
+                continue
+            n = int(total(f"{key}::cnt"))
+            if n == 0:
+                continue
+            sxy = total(f"{key}::sumxy")
+            sx = total(f"{key}::sumx")
+            sy = total(f"{key}::sumy")
+            cov = sxy / n - (sx / n) * (sy / n)
+            cov_sample = cov * n / max(n - 1, 1)
+            _, _, var_a = moments[fa]
+            _, _, var_b = moments[fb]
+            corr = cov / ((var_a ** 0.5) * (var_b ** 0.5)) \
+                if var_a > 0 and var_b > 0 else 0.0
+            for a, b in ((fa, fb), (fb, fa)):
+                by_name[a]["covariance"][b] = cov_sample
+                by_name[a]["correlation"][b] = corr
+    for e in out_fields:
+        e["covariance"][e["name"]] = e["variance"]
+        e["correlation"][e["name"]] = 1.0
+    return {"doc_count": max((e["count"] for e in out_fields), default=0),
+            "fields": out_fields}

@@ -35,6 +35,7 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 ParsingError)
 from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.aggs.parse import parse_aggs
+from opensearch_tpu_torch.search.aggs.pipeline import apply_pipelines
 from opensearch_tpu_torch.search.aggs.reduce import reduce_aggs
 from opensearch_tpu_torch.search.executor import (_contains_hybrid,
                                                   _msearch_batchable,
@@ -239,7 +240,9 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
         "hits": hits_block,
     }
     if agg_nodes:
-        resp["aggregations"] = reduce_aggs(decoded_partials)
+        aggregations = reduce_aggs(decoded_partials)
+        apply_pipelines(agg_nodes, aggregations)
+        resp["aggregations"] = aggregations
     resp["took"] = int((time.monotonic() - start) * 1000)
     if page:
         # the position of the page's last hit (the REST layer drops it;

@@ -68,10 +68,12 @@ from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.aggs.engine import (_decode_agg_row,
                                                      agg_out_layout,
                                                      agg_statics,
-                                                     compile_aggs, eval_aggs,
+                                                     compile_aggs,
+                                                     device_nodes, eval_aggs,
                                                      pack_agg_rows,
                                                      unsupported_aggs)
 from opensearch_tpu_torch.search.aggs.parse import parse_aggs
+from opensearch_tpu_torch.search.aggs.pipeline import apply_pipelines
 from opensearch_tpu_torch.search.aggs.reduce import (decode_outputs,
                                                      reduce_aggs)
 from opensearch_tpu_torch.search.compile import (Compiler, Plan, ShardStats,
@@ -999,7 +1001,9 @@ class SearchExecutor:
                 responses[i] = _base_response(
                     int((time.monotonic() - start) * 1000), 0, None, [])
                 if i in aggs_by_i:
-                    responses[i]["aggregations"] = {}
+                    aggregations = {}
+                    apply_pipelines(entry_by_i[i][6], aggregations)
+                    responses[i]["aggregations"] = aggregations
 
     def execute_query_phase(self, body: dict, k: int):
         """This shard's query phase on the general path: (candidates with
@@ -1193,12 +1197,14 @@ class SearchExecutor:
                    agg_json: str, seg: Segment, meta: DeviceSegmentMeta):
         """Compiled agg plans of one (agg spec, segment), memoized on the
         snapshot's stats: a dashboard's repeated agg shapes skip the
-        per-query bucket-table work."""
+        per-query bucket-table work. Top-level sibling pipelines have no
+        plan: they run on the reduced tree."""
         key = ("aggc", id(seg), agg_json)
         plans = stats.memo.get(key)
         if plans is None:
             plans = stats.memo[key] = compile_aggs(
-                agg_nodes, self.reader.mapper, seg, meta, compiler)
+                device_nodes(agg_nodes), self.reader.mapper, seg, meta,
+                compiler)
         return plans
 
     def _respond(self, pending, fetched, entry_by_i, aggs_by_i, segments,
@@ -1254,8 +1260,9 @@ class SearchExecutor:
             responses[i] = _base_response(took_ms, per_query_total[i],
                                           max_score, hits)
             if i in aggs_by_i:
-                responses[i]["aggregations"] = reduce_aggs(
-                    per_query_decoded.get(i, []))
+                aggregations = reduce_aggs(per_query_decoded.get(i, []))
+                apply_pipelines(entry_by_i[i][6], aggregations)
+                responses[i]["aggregations"] = aggregations
 
 
     def _hit_dict(self, seg_i: int, ord_: int, score: Optional[float],

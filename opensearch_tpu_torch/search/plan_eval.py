@@ -16,6 +16,7 @@ from typing import Dict, List
 import torch
 
 from opensearch_tpu_torch.common.errors import QueryShardError
+from opensearch_tpu_torch.ops.agg_kernels import dense_numeric as _dense
 from opensearch_tpu_torch.ops.bm25 import (ordinal_terms_match,
                                            range_match_on_ranks,
                                            score_text_clause)
@@ -25,6 +26,17 @@ from opensearch_tpu_torch.ops.maxsim import (exact_maxsim_scores,
                                              maxsim_match_topk,
                                              pq_maxsim_scores)
 from opensearch_tpu_torch.search.compile import Plan
+
+
+def dense_numeric(seg: Dict, field: str, d_pad: int, missing: float = 0.0):
+    """A per-doc dense value column from a numeric field's (doc, value)
+    pairs through K15: (the doc's first (smallest) value, `missing` where
+    absent, f32 [Dp]; the field's exists bool [Dp]; the doc's value count
+    int32 [Dp]). Shared by matrix_stats and, once ported, the
+    script_score / function_score kernels."""
+    col = seg["numeric"][field]
+    value, counts = _dense(col["doc_ids"], col["values_f32"], d_pad, missing)
+    return value, col["exists"], counts
 
 
 def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],

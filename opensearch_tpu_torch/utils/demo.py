@@ -164,6 +164,74 @@ def structured_segments(n_docs: int, n_segments: int, seed: int = 42
         for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
 
 
+# structured_segment's fields plus two of nyc_taxis' shapes: a float fare
+# (in cents) that ~2% of docs lack and a small integer passenger count
+TAXI_MAPPING = {
+    "properties": {
+        **STRUCTURED_MAPPING["properties"],
+        "fare": {"type": "float"},
+        "passengers": {"type": "integer"},
+    }
+}
+FARE_MISSING = 0.02
+
+
+def taxi_columns(n_docs: int, seed: int = 42):
+    """structured_columns(n_docs, seed)'s tag / views / ts, then `fare` in
+    cents (lognormal, median 1,000 = $10, whole cents capped at 50,000,
+    so at most ~50,000 distinct values; NaN for the ~2% of docs without
+    one) and `passengers` uniform in 1..6: int64 / float64 arrays."""
+    tag, views, ts = structured_columns(n_docs, seed)
+    rng = np.random.default_rng(seed + 1)
+    fare = np.minimum(np.rint(np.exp(rng.normal(np.log(1000.0), 0.7,
+                                                n_docs))), 50_000.0)
+    fare = np.maximum(fare, 1.0)
+    fare[rng.random(n_docs) < FARE_MISSING] = np.nan
+    passengers = rng.integers(1, 7, n_docs)
+    return tag, views, ts, fare, passengers
+
+
+def taxi_docs(n_docs: int, seed: int = 42) -> List[dict]:
+    """taxi_columns as `_source` documents (a doc without a fare has no
+    `fare` key), for indexing through the REST surface."""
+    tag, views, ts, fare, passengers = taxi_columns(n_docs, seed)
+    out = []
+    for i in range(n_docs):
+        d = {"tag": f"cat{int(tag[i])}", "views": int(views[i]),
+             "ts": int(ts[i]), "passengers": int(passengers[i])}
+        if not np.isnan(fare[i]):
+            d["fare"] = float(fare[i])
+        out.append(d)
+    return out
+
+
+def taxi_segment(n_docs: int, seed: int = 42, seg_id: str = "s0"
+                 ) -> Tuple[MapperService, Segment]:
+    """One sealed segment of taxi_columns(n_docs, seed) with TAXI_MAPPING,
+    built from numpy columns like structured_segment (whose tag / views /
+    ts columns it shares): the 10M-doc counterpart of indexing
+    taxi_docs."""
+    mapper = MapperService(TAXI_MAPPING)
+    tag, views, ts, fare, passengers = taxi_columns(n_docs, seed)
+    arrays = _structured_arrays(tag, views, ts, 0, n_docs, seg_id)
+    has = ~np.isnan(fare)
+    docs = np.nonzero(has)[0].astype(np.int32)
+    unique, ranks = np.unique(fare[has], return_inverse=True)
+    arrays["numeric_dv"]["fare"] = {
+        "doc_ids": docs, "values": fare[has], "exists": has,
+        "counts": has.astype(np.int32),
+        "value_ords": ranks.astype(np.int32).reshape(-1), "unique": unique}
+    unique, ranks = np.unique(passengers.astype(np.float64),
+                              return_inverse=True)
+    arrays["numeric_dv"]["passengers"] = {
+        "doc_ids": np.arange(n_docs, dtype=np.int32),
+        "values": passengers.astype(np.float64),
+        "exists": np.ones(n_docs, dtype=bool),
+        "counts": np.ones(n_docs, np.int32),
+        "value_ords": ranks.astype(np.int32).reshape(-1), "unique": unique}
+    return mapper, segment_from_arrays(arrays)
+
+
 def query_terms(n_queries: int, vocab_size: int = 5000, seed: int = 7,
                 terms_per_query: int = 2) -> List[str]:
     """Query strings from the mid-frequency band of the zipf vocabulary."""

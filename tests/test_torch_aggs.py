@@ -43,7 +43,8 @@ from opensearch_tpu_torch.search.executor import ShardReader as TReader
 from test_aggs import DOCS, MAPPING
 from test_torch_common import (AGG_BODIES, DOCS_N, agg_msearch_bodies,
                                assert_same_response, bench_agg_bodies,
-                               load_docs_index, msearch_ndjson)
+                               f32_sum_bound, load_docs_index,
+                               load_sorted_index, msearch_ndjson)
 
 # the bodies of tests/test_aggs.py's terms, metrics, histogram,
 # date_histogram, filter, cardinality, stats-under-date_histogram and
@@ -345,10 +346,15 @@ def test_agg_out_layout_equals_reference(name):
 
 
 @pytest.mark.parametrize("body", [
-    {"aggs": {"p": {"percentiles": {"field": "n"}}}},
+    {"aggs": {"n": {"nested": {"path": "x"}}}},
     {"aggs": {"t": {"terms": {"field": "k"}, "aggs": {
-        "d": {"derivative": {"buckets_path": "_count"}}}}}}],
-    ids=["percentiles", "pipeline"])
+        "r": {"reverse_nested": {}}}}}},
+    {"aggs": {"g": {"geo_bounds": {"field": "n"}}}},
+    {"aggs": {"g": {"geohash_grid": {"field": "n"}}}},
+    {"aggs": {"i": {"ip_range": {"field": "n",
+                                 "ranges": [{"to": "10.0.0.5"}]}}}}],
+    ids=["nested", "reverse_nested", "geo_bounds", "geohash_grid",
+         "ip_range"])
 def test_unported_agg_types_answer_400(body):
     tn = TNode(device="cpu")
     tn.request("PUT", "/e", {"mappings": {"properties": {
@@ -368,3 +374,40 @@ def test_empty_index_aggs_match_reference():
             "k": {"type": "keyword"}, "n": {"type": "long"}}}})
         out.append(node.request("POST", "/e/_search", body))
     assert_same_response(out[1], out[0], "empty")
+
+
+def test_extended_stats_sums_hold_the_f64_bound():
+    """extended_stats and a stats sub-aggregation of histogram over
+    load_sorted_index's views, whose squares pass 2^24: both packages
+    within n * 2^-24 * sum|v| of the f64 sums, and the port's
+    sum_of_squares no further from the f64 sum than 4x the reference's
+    (K6's plain version sums in K6's two levels, chunk partials first)."""
+    body = {"size": 0, "aggs": {
+        "x": {"extended_stats": {"field": "views"}},
+        "h": {"histogram": {"field": "views", "interval": 2500},
+              "aggs": {"s": {"stats": {"field": "views"}}}}}}
+    out = []
+    for node in (JNode(), TNode(device="cpu")):
+        load_sorted_index(node)
+        out.append(node.request("POST", "/sorted/_search", body))
+    docs = node.request("POST", "/sorted/_search",
+                        {"size": 5000, "_source": ["views"]})["hits"]["hits"]
+    v = np.array([h["_source"]["views"] for h in docs
+                  if "views" in h["_source"]], dtype=np.float64)
+    n = len(v)
+    dist = []
+    for resp in out:
+        x = resp["aggregations"]["x"]
+        assert x["count"] == n
+        assert abs(x["sum"] - v.sum()) <= f32_sum_bound(n, v.sum())
+        d = abs(x["sum_of_squares"] - (v * v).sum())
+        assert d <= f32_sum_bound(n, (v * v).sum())
+        dist.append(d)
+        for b in resp["aggregations"]["h"]["buckets"]:
+            sel = v[(v >= b["key"]) & (v < b["key"] + 2500)]
+            assert b["s"]["count"] == len(sel)
+            assert abs(b["s"]["sum"] - sel.sum()) \
+                <= f32_sum_bound(len(sel), sel.sum())
+    print(f"sum_of_squares distance from f64: reference {dist[0]}, "
+          f"port {dist[1]}")
+    assert dist[1] <= 4 * dist[0]

@@ -32,7 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from opensearch_tpu_torch.utils.demo import query_terms, synth_docs
+from opensearch_tpu_torch.utils.demo import (TAXI_MAPPING, query_terms,
+                                             synth_docs, taxi_docs)
 
 # the suite runs these files beside other test workers: one intra-op thread
 # per worker keeps the port's small CPU tensors from oversubscribing cores
@@ -705,3 +706,272 @@ def big_knn_body() -> dict:
     q = np.random.RandomState(8).randn(BIG_DIMS).astype(np.float32)
     return {"query": {"knn": {"v": {"vector": q.tolist(), "k": 20000}}},
             "size": 25}
+
+
+# ------------------------------------------ the remaining agg kinds
+
+# utils/demo.taxi_docs (tag / views / ts plus a float `fare` in cents that
+# ~2% of docs lack and an integer `passengers`) with a short text `body`
+TAXI_N = 3000
+TAXI_WORDS = [f"w{i}" for i in range(40)]
+TAXI_INDEX_MAPPING = {"mappings": {"properties": {
+    **TAXI_MAPPING["properties"], "body": {"type": "text"}}}}
+
+
+def taxi_corpus(n_docs: int = TAXI_N):
+    docs = taxi_docs(n_docs, seed=11)
+    rng = np.random.default_rng(3)
+    for d in docs:
+        d["body"] = " ".join(rng.choice(TAXI_WORDS, 6))
+    return docs
+
+
+def load_taxi_index(node, index: str = "taxi", n_docs: int = TAXI_N):
+    """Three refreshes (three segments); the later ones re-index docs of
+    the first and delete some of every segment."""
+    docs = taxi_corpus(n_docs)
+    assert node.request("PUT", f"/{index}", TAXI_INDEX_MAPPING)["_status"] == 200
+    cuts = [0, n_docs // 3, 2 * n_docs // 3, n_docs]
+    for s in range(3):
+        batch = {f"d{i}": docs[i] for i in range(cuts[s], cuts[s + 1])}
+        deletes = []
+        if s:
+            batch.update({f"d{i}": docs[(i * 7) % n_docs]
+                          for i in range(s, cuts[s], 131)})
+            deletes = [f"d{i}" for i in range(s + 4, cuts[s], 97)]
+        res = node.request("POST", "/_bulk",
+                           bulk_ndjson(index, batch, deletes))
+        assert res["_status"] == 200 and not res["errors"]
+        node.request("POST", f"/{index}/_refresh")
+
+
+# the slice's kinds, each a (name, agg body) that goes at the root, under
+# `terms` and under `date_histogram`
+AGG_KINDS = {
+    "range": {"range": {"field": "fare", "ranges": [
+        {"to": 500}, {"from": 500, "to": 1500}, {"from": 1200, "to": 3000},
+        {"from": 3000}, {"key": "cheap", "to": 800}]}},
+    "range_sub": {"range": {"field": "views", "ranges": [
+        {"to": 5000}, {"from": 5000}]},
+        "aggs": {"p": {"max": {"field": "passengers"}}}},
+    "date_range": {"date_range": {"field": "ts", "ranges": [
+        {"to": BASE_TS + 20 * DAY_MS},
+        {"from": "2023-12-15", "to": "2024-01-10"},
+        {"from": BASE_TS + 60 * DAY_MS}]}},
+    "filters_keyed": {"filters": {"filters": {
+        "w1": {"match": {"body": "w1"}},
+        "big": {"range": {"fare": {"gte": 2000}}}}},
+        "aggs": {"s": {"sum": {"field": "passengers"}}}},
+    "filters_anon": {"filters": {"filters": [
+        {"term": {"tag": "cat3"}}, {"match": {"body": "w7 w8"}}]}},
+    "global": {"global": {}, "aggs": {
+        "c": {"value_count": {"field": "fare"}}}},
+    "missing": {"missing": {"field": "fare"},
+                "aggs": {"v": {"max": {"field": "views"}}}},
+    "missing_unmapped": {"missing": {"field": "ghost"}},
+    "percentiles": {"percentiles": {"field": "fare"}},
+    "percentiles_some": {"percentiles": {"field": "views",
+                                         "percents": [10, 50, 99.9]}},
+    "percentile_ranks": {"percentile_ranks": {"field": "fare",
+                                              "values": [500, 1000, 4000]}},
+    "mad": {"median_absolute_deviation": {"field": "passengers"}},
+    "weighted_avg": {"weighted_avg": {"value": {"field": "fare"},
+                                      "weight": {"field": "passengers"}}},
+    "composite": {"composite": {"size": 7, "sources": [
+        {"t": {"terms": {"field": "tag"}}},
+        {"p": {"terms": {"field": "passengers"}}}]}},
+    "composite_after": {"composite": {
+        "size": 5, "after": {"t": "cat12", "d": BASE_TS + 30 * DAY_MS},
+        "sources": [{"t": {"terms": {"field": "tag"}}},
+                    {"d": {"date_histogram": {"field": "ts",
+                                              "fixed_interval": "1d"}}}]},
+        "aggs": {"f": {"avg": {"field": "fare"}}}},
+    "multi_terms": {"multi_terms": {"terms": [{"field": "tag"},
+                                              {"field": "passengers"}],
+                                    "size": 6}},
+    "auto_date_histogram": {"auto_date_histogram": {"field": "ts",
+                                                    "buckets": 20}},
+    "significant_terms": {"significant_terms": {"field": "tag",
+                                                "min_doc_count": 1}},
+    "adjacency_matrix": {"adjacency_matrix": {"filters": {
+        "a": {"term": {"passengers": 1}}, "b": {"match": {"body": "w2"}},
+        "c": {"range": {"fare": {"lt": 700}}},
+        "d": {"term": {"tag": "cat5"}}}}},
+    "matrix_stats": {"matrix_stats": {"fields": ["fare", "views",
+                                                 "passengers"]}},
+}
+
+AGG_PLACES = ("root", "terms", "date_histogram")
+
+
+def kind_body(kind: str, place: str) -> dict:
+    agg = json.loads(json.dumps(AGG_KINDS[kind]))
+    if place == "root":
+        aggs = {"k": agg}
+    elif place == "terms":
+        aggs = {"t": {"terms": {"field": "tag", "size": 4},
+                      "aggs": {"k": agg}}}
+    else:
+        aggs = {"h": {"date_histogram": {"field": "ts",
+                                         "fixed_interval": "30d"},
+                      "aggs": {"k": agg}}}
+    return {"size": 0, "query": {"range": {"views": {"gte": 300}}},
+            "aggs": aggs}
+
+
+# one body per pipeline type
+PIPELINE_BODIES = {
+    "derivative": {"h": {"date_histogram": {"field": "ts",
+                                            "fixed_interval": "7d"},
+                         "aggs": {"s": {"sum": {"field": "fare"}},
+                                  "d": {"derivative": {
+                                      "buckets_path": "s"}}}}},
+    "cumulative_sum": {"h": {"histogram": {"field": "views",
+                                           "interval": 1000},
+                             "aggs": {"c": {"cumulative_sum": {
+                                 "buckets_path": "_count"}}}}},
+    "bucket_script": {"t": {"terms": {"field": "tag", "size": 5},
+                            "aggs": {"f": {"sum": {"field": "fare"}},
+                                     "p": {"sum": {"field": "passengers"}},
+                                     "r": {"bucket_script": {
+                                         "buckets_path": {"f": "f",
+                                                          "p": "p"},
+                                         "script": "params.f / params.p"}}}}},
+    "bucket_selector": {"t": {"terms": {"field": "tag", "size": 16},
+                              "aggs": {"v": {"avg": {"field": "views"}},
+                                       "keep": {"bucket_selector": {
+                                           "buckets_path": {"v": "v"},
+                                           "script": "params.v > 5000"}}}}},
+    "bucket_sort": {"t": {"terms": {"field": "tag", "size": 16},
+                          "aggs": {"f": {"max": {"field": "fare"}},
+                                   "o": {"bucket_sort": {
+                                       "sort": [{"f": {"order": "desc"}}],
+                                       "size": 3, "from": 1}}}}},
+    "serial_diff": {"h": {"date_histogram": {"field": "ts",
+                                             "fixed_interval": "7d"},
+                          "aggs": {"sd": {"serial_diff": {
+                              "buckets_path": "_count", "lag": 2}}}}},
+    "moving_avg": {"h": {"histogram": {"field": "views", "interval": 500},
+                         "aggs": {"m": {"max": {"field": "passengers"}},
+                                  "ma": {"moving_avg": {
+                                      "buckets_path": "m", "window": 3}}}}},
+    "moving_fn": {"h": {"histogram": {"field": "views", "interval": 500},
+                        "aggs": {"mf": {"moving_fn": {
+                            "buckets_path": "_count", "window": 4,
+                            "script": "values_max - values_min"}}}}},
+    "avg_bucket": {"t": {"terms": {"field": "tag", "size": 16}},
+                   "ab": {"avg_bucket": {"buckets_path": "t>_count"}}},
+    "max_bucket": {"h": {"date_histogram": {"field": "ts",
+                                            "fixed_interval": "1d"},
+                         "aggs": {"f": {"sum": {"field": "passengers"}}}},
+                   "mb": {"max_bucket": {"buckets_path": "h>f"}}},
+    "min_bucket": {"t": {"terms": {"field": "tag", "size": 16},
+                         "aggs": {"f": {"min": {"field": "fare"}}}},
+                   "mb": {"min_bucket": {"buckets_path": "t>f"}}},
+    "sum_bucket": {"t": {"terms": {"field": "passengers"}},
+                   "sb": {"sum_bucket": {"buckets_path": "t>_count"}}},
+    "stats_bucket": {"t": {"terms": {"field": "tag", "size": 16},
+                           "aggs": {"v": {"max": {"field": "views"}}}},
+                     "sb": {"stats_bucket": {"buckets_path": "t>v"}}},
+    "extended_stats_bucket": {
+        "t": {"terms": {"field": "passengers"}},
+        "sb": {"extended_stats_bucket": {"buckets_path": "t>_count"}}},
+    "percentiles_bucket": {
+        "t": {"terms": {"field": "tag", "size": 16}},
+        "pb": {"percentiles_bucket": {"buckets_path": "t>_count",
+                                      "percents": [25, 50, 90]}}},
+}
+
+
+def pipeline_body(name: str) -> dict:
+    return {"size": 0, "query": {"match": {"body": "w3 w4 w5"}},
+            "aggs": json.loads(json.dumps(PIPELINE_BODIES[name]))}
+
+
+AGG_KIND_BODIES = {f"{k}@{p}": kind_body(k, p)
+                   for k in AGG_KINDS for p in AGG_PLACES}
+AGG_KIND_BODIES.update({f"pipeline_{n}": pipeline_body(n)
+                        for n in PIPELINE_BODIES})
+# 33 filters, past the 32 of one K17 launch (the card takes one launch per
+# pair of filter blocks): overlapping views bands, passengers and fare.
+# At the root only: the reference compiles one scatter-add per cell, 561
+# here, which takes it a long while.
+ADJACENCY_33 = {"adjacency_matrix": {"filters": dict(
+    [(f"v{i:02d}", {"range": {"views": {"gte": 300 * i,
+                                        "lt": 300 * i + 700}}})
+     for i in range(30)]
+    + [("p1", {"term": {"passengers": 1}}),
+       ("p56", {"terms": {"passengers": [5, 6]}}),
+       ("cheap", {"range": {"fare": {"lt": 700}}})])}}
+AGG_KIND_BODIES["adjacency_matrix_33@root"] = {
+    "size": 0, "query": {"range": {"views": {"gte": 300}}},
+    "aggs": {"k": ADJACENCY_33}}
+
+
+# matrix_stats sums powers up to v^4, which round: each f32 sum lies within
+# n * 2^-24 * sum|term| of its exact value, below 9e-5 of sum|term| for
+# bins of at most ~1,500 docs (1,500 * 2^-24 < 9e-5), so two packages' sums
+# lie within MATRIX_SUM_REL of sum|term| of each other; each derived value
+# holds to that error carried through its formula (matrix_stats_tol), times
+# MATRIX_PROPAGATION for the errors of its denominator
+MATRIX_SUM_REL = 2e-4
+MATRIX_PROPAGATION = 4.0
+
+
+def _matrix_entry_tol(e: dict, by_name: dict, path: str, out: dict,
+                      sum_rel: float):
+    """Bounds for one matrix_stats field entry. Its values derive from raw
+    sums s_k = sum v^k (and sum xy) that each lie within `sum_rel` of
+    their exact value (every column of the taxi corpus is >= 0, so |s_k|
+    = sum |v|^k); a derived value moves by at most `sum_rel` times the
+    magnitudes of the raw terms in its formula, over its denominator,
+    times MATRIX_PROPAGATION for the denominator's own error."""
+    n = e["count"]
+    mu = abs(e["mean"])
+    var = e["variance"] * (n - 1) / n if n > 1 else e["variance"]
+    sd = math.sqrt(var) if var > 0 else 0.0
+    m2 = var + mu * mu                                    # s2 / n
+    m3 = e["skewness"] * sd ** 3 + 3 * mu * m2 - 2 * mu ** 3
+    m4 = (e["kurtosis"] * var * var + 4 * mu * abs(m3) - 6 * mu * mu * m2
+          + 3 * mu ** 4)
+    eps = sum_rel * MATRIX_PROPAGATION
+
+    def put(key, scale, denom):
+        out[f"{path}.{key}"] = eps * scale / denom if denom > 0 else eps
+
+    put("mean", mu, 1.0)
+    put("variance", m2 + mu * mu, 1.0)
+    put("skewness", abs(m3) + 3 * mu * m2 + 2 * mu ** 3, max(sd, 1e-300) ** 3)
+    put("kurtosis", abs(m4) + 4 * mu * abs(m3) + 6 * mu * mu * m2
+        + 3 * mu ** 4, max(var, 1e-300) ** 2)
+    for other, cov in e["covariance"].items():
+        o = by_name[other]
+        mo = abs(o["mean"])
+        vo = o["variance"] * (o["count"] - 1) / max(o["count"], 1)
+        scale = abs(cov) + 2 * mu * mo
+        put(f"covariance.{other}", scale, 1.0)
+        put(f"correlation.{other}", scale + abs(e["correlation"][other])
+            * (m2 + mu * mu + vo + 2 * mo * mo),
+            math.sqrt(max(var * vo, 1e-300)))
+
+
+def matrix_stats_tol(resp, path: str = "", out=None,
+                     sum_rel: float = MATRIX_SUM_REL):
+    """agg_sum_tol bounds for every float of each matrix_stats result in
+    a response: each raw sum within `sum_rel` of sum|term| (MATRIX_SUM_REL
+    for the test corpora), carried through _matrix_entry_tol."""
+    out = {} if out is None else out
+    if isinstance(resp, dict):
+        if "fields" in resp and "doc_count" in resp \
+                and isinstance(resp["fields"], list):
+            by_name = {e["name"]: e for e in resp["fields"]}
+            for i, e in enumerate(resp["fields"]):
+                _matrix_entry_tol(e, by_name, f"{path}.fields[{i}]", out,
+                                  sum_rel)
+            return out
+        for k, v in resp.items():
+            matrix_stats_tol(v, f"{path}.{k}", out, sum_rel)
+    elif isinstance(resp, list):
+        for i, v in enumerate(resp):
+            matrix_stats_tol(v, f"{path}[{i}]", out, sum_rel)
+    return out

@@ -9,7 +9,12 @@ run. The k-NN kernels: K7 and K8 scores, masks and chosen blocks bit for
 bit (every sum in dim order, one rounding per operation); K9 bit for bit
 too (one chunked member order on both sides), its means within the same
 sum bound of the f64 means. K13 (the sort key), K3's keyed entry (k up to
-40,000, past one CTA's sort) and K14 (the result page) bit for bit."""
+40,000, past one CTA's sort) and K14 (the result page) bit for bit. K15
+(dense_numeric) and K17 (adjacency_counts, also past one launch's 32
+filters) bit for bit; K16 (matrix_moments) counts exactly, its sums
+within depth * 2^-24 * sum|term| of the f64 sums of its f32 terms (depth:
+agg_kernels.moments_sum_depth, the additions on a term's path in the
+kernel's two levels) and the same bits from run to run."""
 
 import numpy as np
 import pytest
@@ -512,5 +517,127 @@ def test_page_merge_kernel_equals_plain(gpu, order):
     assert _build.LAUNCHES["page_merge"] == before + 1
     want = page.page_merge_plain(rows, order, sort_cols, dv_cols, 500,
                                  1 << 15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# ------------------------------------- remaining agg kinds (K15-K17)
+
+@pytest.mark.parametrize("field", ["fare", "views", "tag_pairs"])
+def test_dense_numeric_kernel_equals_plain(gpu, field):
+    """K15 bit for bit: a column with docs lacking it (fare), the identity
+    layout (views) and multi-valued pairs."""
+    from opensearch_tpu_torch.ops import agg_kernels
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.utils.demo import taxi_segment
+    if field == "tag_pairs":
+        arrays, _meta = _structured_image(30000, 3)
+        col = arrays["ordinal"]["tag"]
+        d, v = col["doc_ids"], col["ords"].to(torch.float32)
+        d_pad = arrays["live"].shape[0]
+    else:
+        _mapper, seg = taxi_segment(30000, seed=4)
+        arrays, meta = upload_segment(seg, gpu)
+        col = arrays["numeric"][field]
+        d, v, d_pad = col["doc_ids"], col["values_f32"], meta.d_pad
+    before = _build.LAUNCHES["dense_numeric"]
+    got = agg_kernels.dense_numeric(d, v.contiguous(), d_pad, -7.5)
+    assert _build.LAUNCHES["dense_numeric"] == before + 1
+    want = agg_kernels.dense_numeric_plain(d, v, d_pad, -7.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("total,n_fields", [(1, 3), (16, 3), (3000, 3),
+                                            (16, 5), (1, 2)])
+def test_matrix_moments_kernel_equals_plain(gpu, total, n_fields):
+    """K16: counts exactly; every sum within moments_sum_depth * 2^-24 *
+    sum|term| of the f64 sum of its f32 terms, and the same bits on two
+    runs (three fields: the fused kernel; five: the kernel that takes the
+    groups in turn)."""
+    # 2^17 docs in one bin: 512 chunks, pass 2 by block
+    d_pad, bsz = (1 << 17) if n_fields == 2 else (1 << 15), 5
+    gen = torch.Generator(device="cuda").manual_seed(total)
+    lanes = torch.randint(-1, total, (d_pad,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    _check_moments(binned.bin_csr(lanes, total), n_fields, d_pad, bsz, gen,
+                   None)
+
+
+@pytest.mark.parametrize("block", [False, True], ids=["warp", "block"])
+def test_matrix_moments_folds_of_a_skewed_parent(gpu, block):
+    """K16 with either pass-2 fold forced on a parent of one 300-chunk bin
+    among 2,000 one-chunk bins: the same bounds as above."""
+    d_pad = 1 << 17
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lanes = torch.randint(1, 2001, (d_pad,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    lanes[: 300 * binned.CSR_CHUNK] = 0
+    csr = binned.bin_csr(lanes, 2001)
+    assert csr.max_bin_chunks == 300
+    _check_moments(csr, 3, d_pad, 4, gen, block)
+
+
+def _check_moments(csr, n_fields, d_pad, bsz, gen, block):
+    from opensearch_tpu_torch.ops import agg_kernels
+    total = csr.total
+    vals = torch.randn(n_fields, d_pad, generator=gen, device="cuda") * 300
+    exists = torch.rand(n_fields, d_pad, generator=gen, device="cuda") < 0.9
+    mask = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.6
+    pmask = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.8
+    before = _build.LAUNCHES["matrix_moments"]
+    cnt, sums = agg_kernels.matrix_moments(csr, mask, pmask, vals, exists,
+                                           block)
+    again = agg_kernels.matrix_moments(csr, mask, pmask, vals, exists,
+                                       block)[1]
+    assert _build.LAUNCHES["matrix_moments"] == before + 2
+    want_cnt, want_sums = agg_kernels.matrix_moments_plain(
+        csr, mask, pmask, vals, exists)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, want_cnt)
+    assert torch.equal(sums.view(torch.int32), again.view(torch.int32))
+    docs = csr.lane_order.long()
+    ok = (mask & pmask)[:, docs]
+    v, e = vals[:, docs], exists[:, docs]
+    bins = csr.sorted_bins.long()
+    depth = agg_kernels.moments_sum_depth(
+        binned.CSR_CHUNK, csr.max_bin_chunks,
+        agg_kernels.moments_block_fold(csr) if block is None else block)
+    for g, (a, b) in enumerate(agg_kernels.moment_groups(n_fields)):
+        own = ok & e[a] & e[b]
+        x, y = v[a], v[b]
+        # each term as the kernel rounds it in f32: the bound is the sum's
+        x2 = x * x
+        terms = (x, x2, x2 * x, x2 * x2) if a == b else (x * y, x, y)
+        for k, t in enumerate(terms):
+            t = torch.where(own, t, 0.0).double()
+            exact = torch.zeros(bsz, total, dtype=torch.float64,
+                                device="cuda").index_add_(1, bins, t)
+            absum = torch.zeros_like(exact).index_add_(1, bins, t.abs())
+            bound = depth * 2.0 ** -24 * absum
+            assert bool(((sums[k, g].double() - exact).abs()
+                         <= bound).all()), (g, k)
+
+
+@pytest.mark.parametrize("n,card", [(4, 1), (9, 1), (3, 40), (5, 700),
+                                    (33, 1), (40, 6)])
+def test_adjacency_counts_kernel_equals_plain(gpu, n, card):
+    """K17 exactly, at the root and under parent bins (shared and global
+    cells), and past 32 filters (one launch per pair of filter blocks)."""
+    from opensearch_tpu_torch.ops import agg_kernels
+    d_pad, bsz = 1 << 16, 3
+    gen = torch.Generator(device="cuda").manual_seed(n * card)
+    masks = [torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.3
+             for _ in range(n)]
+    mask = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.7
+    pmask = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.9
+    pbin = None if card == 1 else torch.randint(
+        -1, card, (d_pad,), generator=gen, device="cuda", dtype=torch.int32)
+    before = _build.LAUNCHES["adjacency_counts"]
+    got = agg_kernels.adjacency_counts(masks, mask, pmask, pbin, card)
+    assert _build.LAUNCHES["adjacency_counts"] == before + len(
+        agg_kernels.adjacency_blocks(n))
+    want = agg_kernels.adjacency_counts_plain(masks, mask, pmask, pbin, card)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
