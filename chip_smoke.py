@@ -84,7 +84,32 @@ Phases, each printing what it finds; any failure exits nonzero:
     on a term's path in its kernel times 2^-24 * sum|term|, and every
     avg, weighted_avg and matrix_stats value within that error carried
     through its formula) and, on a 1M-doc shard, against
-    Node(device="cpu").
+    Node(device="cpu");
+12. relevance cell: phase 4's 1,000,000 passages plus two doc-value
+    columns made from the seed (`likes`, a long: lognormal, median 40,
+    capped at 10^6, 5% of docs without one; `published`, a date uniform
+    over 2019-2024), through Node().request: six families of 64 bodies
+    after the OpenSearch documentation's function_score / script_score
+    examples (field_value_factor log1p, gauss on a date, three functions
+    with sum / sum / max_boost / min_score, script_score with
+    Math.log(2 + likes), distance_feature in a should, boosting) over
+    2-4 term texts: B=1 p50 / p99, B=32 p50 / p99 and q/s, busy share;
+    every timed answer a 200; 16 sampled bodies a family on a
+    100,000-passage cut with the same columns against
+    Node(device="cpu")'s pages (scores to rtol 2e-6, atol 1e-7).
+
+Phase 2 also holds K18 function_score (three functions: fvf log1p, gauss
+on a date, a filtered weight) and K19's four entries (terms_set of three
+terms, distance_feature on the date, boosting, script_score's wrap) at
+phase 12's shapes (B=32, Dp 2^20) against their plain versions, bit for
+bit (0 ulps, NaN at the same places). Phase 3 adds a 600-doc scoring
+index (`rel`: text with the standard and the english analyzers, keyword,
+long, date, double, integer; two segments, deletes) served with every
+function_score kind and mode, script_score, boosting, terms_set,
+distance_feature, constant_score, ids, prefix / wildcard / regexp /
+fuzzy, match fuzziness, phrases, multi_match's four types, query_string
+and simple_query_string, and a `relc` index whose analyzers come from
+`settings.analysis`, through `_search` and two `_msearch`.
 
 Phase 2 also holds K15 dense_numeric (the fare and views columns into
 Dp 2^24), K16 matrix_moments (fare and views at B=32, at the root, under
@@ -174,6 +199,12 @@ SORTED_SINGLES = 100                # B=1 requests per body and index
 SORTED_DEEP_SINGLES = 20            # of the deep search_after body
 SORTED_CURSOR_HIT = 20000           # search_after's depth, in hits
 AGGKIND_BODIES_PER_FAMILY = 64      # the agg-kinds cell's bodies a family
+RELEVANCE_BODIES_PER_FAMILY = 64    # the relevance cell's bodies a family
+RELEVANCE_SAMPLE = 16               # of them checked against the plain
+RELEVANCE_CUT_DOCS = 100_000        # versions, on a cut of the passages
+# the scoring kinds' pages against the plain versions: transcendental
+# functions may differ by an ulp or two between the card and the CPU
+SCORING_RTOL, SCORING_ATOL = 2e-6, 1e-7
 DAY_MS = 86400_000
 
 
@@ -444,8 +475,10 @@ def phase_serving(torch, np, device=None):
         parity.load_big_index(node, "big")
         parity.load_sorted_index(node, "sorted")
         parity.load_taxi_index(node, "taxi")
+        parity.load_rel_index(node, "rel")
+        parity.load_rel_custom_index(node, "relc")
         if node is gpu:
-            log(f"serving: eight indices loaded on the card in "
+            log(f"serving: ten indices loaded on the card in "
                 f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
     for node in (gpu_page, cpu_page):
         parity.load_sorted_index(node, "sorted")
@@ -511,6 +544,18 @@ def phase_serving(torch, np, device=None):
     kind_payload = parity.msearch_ndjson(
         "taxi", [parity.AGG_KIND_BODIES[n] for n in kind_names[:32]])
     got_tm = gpu.request("POST", "/_msearch", kind_payload)
+    # the scoring and lexical query kinds, and the analyzers' indices
+    rel_requests = [("/rel/_search", n, b) for n, b in sorted(
+        {**parity.SCORING_BODIES, **parity.QUERY_KIND_BODIES}.items())]
+    rel_requests += [("/relc/_search", n, b)
+                     for n, b in sorted(parity.CUSTOM_BODIES.items())]
+    got_r = [gpu.request("POST", path, b) for path, _n, b in rel_requests]
+    rel_payloads = [
+        parity.msearch_ndjson("rel", [parity.SCORING_BODIES[n] for n in
+                                      sorted(parity.SCORING_BODIES)]),
+        parity.msearch_ndjson("rel", [parity.QUERY_KIND_BODIES[n] for n in
+                                      sorted(parity.QUERY_KIND_BODIES)])]
+    got_rm = [gpu.request("POST", "/_msearch", pl) for pl in rel_payloads]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -519,7 +564,8 @@ def phase_serving(torch, np, device=None):
         f"{len(knn_names)} knn _search + one B=32 knn _msearch, "
         f"{len(late)} maxsim / hybrid / k=20000 _search + two B=32 "
         f"_msearch, {len(got_s)} sorted _search + two B=8 sorted _msearch, "
-        f"{len(kind_names)} agg-kind / pipeline _search + one B=32 _msearch "
+        f"{len(kind_names)} agg-kind / pipeline _search + one B=32 _msearch, "
+        f"{len(rel_requests)} scoring / lexical _search + two _msearch "
         f"on the card in {wall * 1e3:.3f} ms; launches (loads included) "
         f"{json.dumps(launches)}")
     for n in names:
@@ -575,6 +621,18 @@ def phase_serving(torch, np, device=None):
     parity.assert_same_response(
         got_tm, want, "kinds msearch",
         agg_sum_tol=parity.matrix_stats_tol(want, "kinds msearch"))
+    for (path, name, b), got_one in zip(rel_requests, got_r):
+        if got_one["_status"] != 200 or not got_one["hits"]["hits"]:
+            raise AssertionError(f"{path} {name}: {got_one}")
+        parity.assert_same_response(
+            got_one, cpu.request("POST", path, b), name,
+            score_rtol=SCORING_RTOL, score_atol=SCORING_ATOL)
+    for pl, got_one in zip(rel_payloads, got_rm):
+        if any(r.get("status") != 200 for r in got_one["responses"]):
+            raise AssertionError(f"scoring msearch: {got_one}")
+        parity.assert_same_response(
+            got_one, cpu.request("POST", "/_msearch", pl), "rel msearch",
+            score_rtol=SCORING_RTOL, score_atol=SCORING_ATOL)
     if got_l[-1]["hits"]["total"]["value"] != 20000:
         raise AssertionError(f"knn k=20000: {got_l[-1]['hits']['total']}")
     for node in (gpu, cpu):
@@ -592,8 +650,11 @@ def phase_serving(torch, np, device=None):
         f"agg responses, {len(knn_names) + 32} knn pages, {len(late) + 64} "
         f"maxsim / hybrid / k=20000 pages, {len(got_s) + 16} sorted / "
         f"search_after / fetch pages (result page off and on) and "
-        f"{len(kind_names) + 32} agg-kind / pipeline responses equal the "
-        f"plain versions' (matrix_stats within matrix_stats_tol)")
+        f"{len(kind_names) + 32} agg-kind / pipeline responses and "
+        f"{len(rel_requests) + sum(len(r['responses']) for r in got_rm)} "
+        f"scoring / lexical pages equal the plain versions' (matrix_stats "
+        f"within matrix_stats_tol, the scoring kinds' scores to rtol "
+        f"{SCORING_RTOL})")
     return launches
 
 
@@ -2995,6 +3056,318 @@ def phase_aggkind_cell(torch, np, mapper, seg, card: str, out_dir=None,
     return out
 
 
+
+
+def _ulps(torch, np, got, want) -> int:
+    """The most f32 units in the last place between two float tensors
+    (NaN at the same places, and the same infinities, or it raises)."""
+    g = got.float().cpu().numpy()
+    w = want.float().cpu().numpy()
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError("kernel and plain version disagree on NaN")
+    fin = np.isfinite(g) & np.isfinite(w)
+    if not np.array_equal(g[~fin & ~np.isnan(g)], w[~fin & ~np.isnan(w)]):
+        raise AssertionError("kernel and plain version disagree on inf")
+    gi = g[fin].view(np.int32).astype(np.int64)
+    wi = w[fin].view(np.int32).astype(np.int64)
+    gi = np.where(gi < 0, -(gi & 0x7FFFFFFF), gi)
+    wi = np.where(wi < 0, -(wi & 0x7FFFFFFF), wi)
+    return int(np.max(np.abs(gi - wi), initial=0))
+
+
+def with_relevance_columns(np, mapper, seg):
+    """Phase 4's passages with the relevance cell's `likes` and `published`
+    doc-value columns (drawn from the seed; dropped again with
+    drop_relevance_columns)."""
+    from opensearch_tpu_torch.utils.demo import (add_numeric_field,
+                                                 relevance_columns)
+    likes, published = relevance_columns(seg.num_docs)
+    add_numeric_field(mapper, seg, "likes", "long", likes)
+    add_numeric_field(mapper, seg, "published", "date", published)
+    return likes, published
+
+
+def drop_relevance_columns(seg):
+    for field in ("likes", "published"):
+        seg.numeric_dv.pop(field, None)
+
+
+def phase_scoring_kernels(torch, np, mapper, seg, terms, dev,
+                          bsz: int = 32):
+    """K18 function_score and K19's four entries against their plain
+    versions at the relevance cell's shapes: phase 4's 1M passages (Dp =
+    2^20) with its likes / published columns, B=32 queries of 3 terms.
+    K18 over three functions (field_value_factor log1p on likes, gauss on
+    published, a weight filtered on likes >= 1000); K19's terms_set (the
+    three terms), distance_feature (published, pivot 7d), boosting and
+    script_score's wrap (_score * Math.log(2 + likes)). Each held to its
+    plain version bit for bit (the float outputs' ulps are measured and
+    must be 0, NaN at the same places); timed as a graph replay, a call
+    and the plain version; bound = bytes / 3.35 TB/s (each input plane
+    and column once, the outputs once); no single PyTorch call computes
+    either function, so library_ms is null."""
+    from opensearch_tpu_torch.ops import scoring
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.search import dsl
+    from opensearch_tpu_torch.search.compile import Compiler, ShardStats
+    from opensearch_tpu_torch.search.plan_eval import (
+        _eval_plan, _plane, _run_script, dense_numeric,
+        function_score_inputs)
+    from opensearch_tpu_torch.utils.demo import (RELEVANCE_ORIGIN,
+                                                 fast_query_terms)
+    with_relevance_columns(np, mapper, seg)
+    arrays, meta = upload_segment(seg, dev)
+    d_pad = meta.d_pad
+    comp = Compiler(mapper, ShardStats([seg]))
+    texts = fast_query_terms(bsz, terms, seed=91, terms_per_query=3)
+    others = fast_query_terms(bsz, terms, seed=92, terms_per_query=1)
+    elems = bsz * d_pad
+    results = {}
+
+    def stage(queries):
+        plans = [comp.compile(dsl.parse_query(q), seg, meta)
+                 for q in queries]
+        nodes, _ms = stacked_inputs(torch, plans, [-np.inf] * bsz, dev)
+        return plans[0], nodes
+
+    def children(plan, nodes):
+        cursor = [1]
+        return [_eval_plan(c, arrays, nodes, cursor, bsz)
+                for c in plan.children]
+
+    def record(name, shape, kern, plain, nbytes):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        for g, a in zip(got, again):
+            if not _same_bits(torch, torch.nan_to_num(g.float()),
+                              torch.nan_to_num(a.float())):
+                raise AssertionError(f"{name}: two runs differ")
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{name}: matches differ")
+        ulps = _ulps(torch, np, got[0], want[0])
+        err = max_abs_err(np, got[0].cpu().numpy(), want[0].cpu().numpy())
+        log(f"{name}: scores within {ulps} ulps of the plain version's "
+            f"(max abs err {err})")
+        if ulps:
+            raise AssertionError(f"{name}: {ulps} ulps from the plain "
+                                 f"version")
+        bound = _bound(nbytes, 0)
+        rec = {"shape": shape, "max_abs_err": err, "ulps": ulps,
+               "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
+               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "library_ms": None, "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+
+    # K18: the three functions the issue's cell names, multiply / multiply
+    fs_plan, nodes = stage([{"function_score": {
+        "query": {"match": {"body": t}},
+        "functions": [
+            {"field_value_factor": {"field": "likes", "factor": 1.2,
+                                    "modifier": "log1p", "missing": 1}},
+            {"gauss": {"published": {"origin": RELEVANCE_ORIGIN,
+                                     "scale": "30d", "offset": "7d",
+                                     "decay": 0.5}}},
+            {"filter": {"range": {"likes": {"gte": 1000}}}, "weight": 2}]}}
+        for t in texts])
+    args = function_score_inputs(fs_plan, arrays, nodes, [1], bsz, nodes[0])
+    record("function_score", f"B={bsz} Dp={d_pad} fvf log1p + gauss date "
+           f"+ filtered weight",
+           lambda: scoring.function_score(*args),
+           lambda: scoring.function_score_plain(*args),
+           (5 + 1 + 5) * elems + 2 * 5 * d_pad)
+    # K19 terms_set over the three terms
+    ts_plan, nodes = stage([{"terms_set": {"body": {"terms": t.split()}}}
+                            for t in texts])
+    kids = children(ts_plan, nodes)
+    my = nodes[0]
+    record("terms_set_scores", f"B={bsz} Dp={d_pad} 3 terms",
+           lambda: scoring.terms_set(kids, None, None, my["msm"],
+                                     my["boost"]),
+           lambda: scoring.terms_set_plain(kids, None, None, my["msm"],
+                                           my["boost"]),
+           (3 * 5 + 5) * elems)
+    # K19 distance_feature on the date column
+    df_plan, nodes = stage([{"distance_feature": {
+        "field": "published", "origin": RELEVANCE_ORIGIN, "pivot": "7d"}}]
+        * bsz)
+    value, exists, _ = dense_numeric(arrays, "published", d_pad)
+    my = nodes[0]
+    record("distance_feature_scores", f"B={bsz} Dp={d_pad} published",
+           lambda: scoring.distance_feature(value, exists, my["origin"],
+                                            my["pivot"], my["boost"]),
+           lambda: scoring.distance_feature_plain(
+               value, exists, my["origin"], my["pivot"], my["boost"]),
+           5 * d_pad + 5 * elems)
+    # K19 boosting, negative_boost 0.5 on a second term
+    bo_plan, nodes = stage([{"boosting": {
+        "positive": {"match": {"body": t}},
+        "negative": {"match": {"body": o}}, "negative_boost": 0.5}}
+        for t, o in zip(texts, others)])
+    (pos_s, pos_m), (_ns, neg_m) = children(bo_plan, nodes)
+    my = nodes[0]
+    record("boosting_scores", f"B={bsz} Dp={d_pad}",
+           lambda: scoring.boosting(pos_s, pos_m, neg_m, my["nb"],
+                                    my["boost"]),
+           lambda: scoring.boosting_plain(pos_s, pos_m, neg_m, my["nb"],
+                                          my["boost"]),
+           (4 + 1 + 1 + 5) * elems)
+    # K19 script_score's wrap of the cell's script plane
+    source = "_score * Math.log(2 + doc['likes'].value)"
+    ss_plan, nodes = stage([{"script_score": {
+        "query": {"bool": {"must": [{"match": {"body": t}}],
+                           "filter": [{"exists": {"field": "likes"}}]}},
+        "script": {"source": source}}} for t in texts])
+    ((child_s, child_m),) = children(ss_plan, nodes)
+    my = nodes[0]
+    plane = _plane(_run_script(arrays, d_pad, source, child_s, (), (), my,
+                               "p_"), bsz, d_pad, dev).contiguous()
+    record("script_score_wrap", f"B={bsz} Dp={d_pad}",
+           lambda: scoring.script_score_wrap(child_m, plane, my["boost"]),
+           lambda: scoring.script_score_wrap_plain(child_m, plane,
+                                                   my["boost"]),
+           (1 + 4 + 5) * elems)
+    del arrays
+    drop_relevance_columns(seg)
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_relevance_cell(torch, np, mapper, seg, terms, card: str,
+                         out_dir=None, bsz: int = 32,
+                         per_family: int = RELEVANCE_BODIES_PER_FAMILY,
+                         sample: int = RELEVANCE_SAMPLE,
+                         cut_docs: int = RELEVANCE_CUT_DOCS):
+    """The relevance cell through Node().request: phase 4's 1M passages
+    with `likes` (a long: lognormal, median 40, capped at 10^6, 5% of docs
+    without one) and `published` (a date, uniform over 2019-2024), six
+    families of 64 bodies after the OpenSearch documentation's
+    function_score and script_score examples (utils/demo.relevance_bodies)
+    over 2-4 term texts. Per family: B=1 `_search` p50 / p99 over 64
+    requests, B=32 `_msearch` p50 / p99 and q/s over 6 batches, the busy
+    share of 6 profiled waves; every timed answer a 200; then 16 sampled
+    bodies a family on a 100,000-passage cut with the same columns
+    against Node(device="cpu")'s pages."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.utils.demo import (RELEVANCE_FAMILIES,
+                                                 add_numeric_field,
+                                                 build_shards_fast,
+                                                 relevance_bodies)
+    parity = _parity()
+    t0 = time.perf_counter()
+    likes, published = with_relevance_columns(np, mapper, seg)
+    rel_mapping = {"mappings": {"properties": {
+        "body": {"type": "text"}, "likes": {"type": "long"},
+        "published": {"type": "date"}}}}
+
+    def index_of(node, segment):
+        assert node.request("PUT", "/news", rel_mapping)["_status"] == 200
+        shard = node.indices.get("news").shards[0]
+        shard.reader.add_segment(segment)
+        return shard
+
+    node = Node()
+    shard = index_of(node, seg)
+    torch.cuda.synchronize()
+    out = {"image_bytes": shard.reader.device_bytes()}
+    log(f"relevance: columns made and the image uploaded in "
+        f"{time.perf_counter() - t0:.3f} s: {out['image_bytes']} bytes")
+    bodies = {fam: relevance_bodies(fam, per_family, terms, seed=i + 1)
+              for i, fam in enumerate(RELEVANCE_FAMILIES)}
+
+    def msearch(n, chunk):
+        lines = []
+        for b in chunk:
+            lines += [{"index": "news"}, b]
+        return n.request("POST", "/_msearch", lines)
+
+    def batch(fam, k):
+        lo = (k * bsz) % per_family
+        return (bodies[fam] * 2)[lo:lo + bsz]
+    for fam in RELEVANCE_FAMILIES:       # first queries: plans, columns
+        t = time.perf_counter()
+        r = node.request("POST", "/news/_search", bodies[fam][0])
+        msearch(node, batch(fam, 0))
+        torch.cuda.synchronize()
+        out[f"{fam}_first_ms"] = (time.perf_counter() - t) * 1e3
+        if r["_status"] != 200:
+            raise AssertionError(f"relevance {fam}: {r}")
+    _build.reset_launches()
+    for fam in RELEVANCE_FAMILIES:
+        single = []
+        for b in bodies[fam]:
+            t = time.perf_counter()
+            r = node.request("POST", "/news/_search", b)
+            single.append((time.perf_counter() - t) * 1e3)
+            if r["_status"] != 200:
+                raise AssertionError(f"relevance {fam} _search: {r}")
+        batches = []
+        for k in range(6):
+            t = time.perf_counter()
+            r = msearch(node, batch(fam, k))
+            batches.append((time.perf_counter() - t) * 1e3)
+            if any(x.get("status") != 200 for x in r["responses"]):
+                raise AssertionError(f"relevance {fam} _msearch: "
+                                     f"{r['responses'][0]}")
+        torch.cuda.synchronize()
+        out[fam] = {"search_p50_ms": _pct(np, single, 50),
+                    "search_p99_ms": _pct(np, single, 99),
+                    "msearch32_p50_ms": _pct(np, batches, 50),
+                    "msearch32_p99_ms": _pct(np, batches, 99),
+                    "msearch32_qps": bsz * 1e3 / _pct(np, batches, 50)}
+        log(f"relevance {fam}: B=1 _search p50 "
+            f"{out[fam]['search_p50_ms']:.3f} p99 "
+            f"{out[fam]['search_p99_ms']:.3f} ms over {len(single)}; B={bsz}"
+            f" _msearch p50 {out[fam]['msearch32_p50_ms']:.3f} p99 "
+            f"{out[fam]['msearch32_p99_ms']:.3f} ms over {len(batches)} "
+            f"({out[fam]['msearch32_qps']:.1f} queries/s); card: {card}")
+    launches = dict(_build.LAUNCHES)
+    log(f"relevance: launches {json.dumps(launches)}")
+    _require_launched(launches, (
+        "function_score", "script_score_wrap", "distance_feature_scores",
+        "boosting_scores", "dense_numeric", "score_text_clause",
+        "masked_topk"), "relevance")
+    for fam in RELEVANCE_FAMILIES:
+        waves = [b for k in range(6) for b in batch(fam, k)]
+        out[fam].update(profile_waves(torch, shard.executor, waves, out_dir,
+                                      f"relevance_{fam}"))
+    del node, shard
+    drop_relevance_columns(seg)
+    torch.cuda.empty_cache()
+
+    # correctness: a 100,000-passage cut with the same columns, the card's
+    # Node against Node(device="cpu")
+    t0 = time.perf_counter()
+    cut_mapper, (cut,), cut_terms = build_shards_fast(
+        cut_docs, 1, vocab_size=20000, avg_len=60, seed=42,
+        materialize_terms=SCALE_MATERIALIZE_TERMS)
+    add_numeric_field(cut_mapper, cut, "likes", "long", likes[:cut_docs])
+    add_numeric_field(cut_mapper, cut, "published", "date",
+                      published[:cut_docs])
+    gpu, cpu = Node(), Node(device="cpu")
+    index_of(gpu, cut)
+    index_of(cpu, cut)
+    checked = 0
+    for i, fam in enumerate(RELEVANCE_FAMILIES):
+        fam_bodies = relevance_bodies(fam, sample, cut_terms, seed=50 + i)
+        for b in fam_bodies:
+            got = gpu.request("POST", "/news/_search", b)
+            if got["_status"] != 200:
+                raise AssertionError(f"relevance cut {fam}: {got}")
+            parity.assert_same_response(
+                got, cpu.request("POST", "/news/_search", b),
+                f"relevance {fam}", score_rtol=SCORING_RTOL,
+                score_atol=SCORING_ATOL)
+            checked += 1
+    log(f"relevance: {checked} sampled pages on a {cut_docs}-passage cut "
+        f"equal Node(device='cpu')'s (scores to rtol {SCORING_RTOL}, atol "
+        f"{SCORING_ATOL}) in {time.perf_counter() - t0:.3f} s")
+    out["checked_pages"] = checked
+    return out
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -3041,12 +3414,56 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
     return {f"{name}_device_busy": device_ms / wall_ms}
 
 
+CELLS = ("scale", "sorted", "aggkinds", "relevance")
+
+
+def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
+    """The named cells alone, each on its own corpus as the full run makes
+    it; prints `{"run": name, "card": ..., <the phase's results>}` per
+    cell, then the result line."""
+    from opensearch_tpu_torch.utils.demo import build_shards_fast
+    unknown = sorted(set(cells) - set(CELLS))
+    if unknown:
+        print(f"chip_smoke: unknown cells {unknown}", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    for cell in cells:
+        if cell in ("scale", "relevance"):
+            mapper, (seg,), terms = build_shards_fast(
+                SCALE_DOCS, 1, vocab_size=20000, avg_len=60, seed=42,
+                materialize_terms=SCALE_MATERIALIZE_TERMS)
+            res = phase_scale(torch, np, mapper, seg, dev, out_dir) \
+                if cell == "scale" else phase_relevance_cell(
+                    torch, np, mapper, seg, terms, card, out_dir)
+        elif cell == "sorted":
+            mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
+            res = phase_sorted_cell(torch, np, mapper, seg,
+                                    sorted_segments(np, AGG_SCALE_DOCS),
+                                    card, out_dir)
+        else:
+            mapper, seg = taxi_segment(np, AGG_SCALE_DOCS)
+            res = phase_aggkind_cell(torch, np, mapper, seg, card, out_dir)
+        print(json.dumps({"run": cell, "card": card, **res}), flush=True)
+        del mapper, seg
+        torch.cuda.empty_cache()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
                         help="directory for the long outputs (nvcc's ptxas "
                              "report, the profiler's kernel table)")
-    out_dir = parser.parse_args(argv).out
+    parser.add_argument("--cells", default=None,
+                        help="run only these cells after the build, comma "
+                             "separated: " + ", ".join(CELLS) + " (phases "
+                             "4, 10, 11 and 12): one JSON line each, to "
+                             "compare two checkouts on one card")
+    args = parser.parse_args(argv)
+    out_dir = args.out
     try:
         import numpy as np
         import torch
@@ -3083,9 +3500,11 @@ def main(argv) -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     dev = torch.device("cuda")
+    if args.cells:
+        return run_cells(torch, np, args.cells.split(","), card, out_dir)
 
     t0 = time.perf_counter()
-    mapper, segs, _terms = build_shards_fast(
+    mapper, segs, terms = build_shards_fast(
         SCALE_DOCS, 1, vocab_size=20000, avg_len=60, seed=42,
         materialize_terms=SCALE_MATERIALIZE_TERMS)
     seg = segs[0]
@@ -3121,6 +3540,8 @@ def main(argv) -> int:
     results.update(phase_sort_kernels(torch, np, agg_seg, four, dev))
     results.update(phase_aggkind_kernels(torch, np, taxi_mapper, taxi_seg,
                                          dev))
+    results.update(phase_scoring_kernels(torch, np, mapper, seg, terms,
+                                         dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -3153,6 +3574,9 @@ def main(argv) -> int:
                              out_dir)
     log("agg kinds: " + json.dumps(res))
     del taxi_seg
+    # phase 12: the relevance cell, over phase 4's passages
+    res = phase_relevance_cell(torch, np, mapper, seg, terms, card, out_dir)
+    log("relevance: " + json.dumps(res))
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -3164,7 +3588,9 @@ def main(argv) -> int:
             "pq_lut": 0, "maxsim_pq": 1, "hybrid_window": 0,
             "masked_topk_threshold": 0, "sort_key": 0,
             "masked_topk_keyed": 0, "page_merge": 0, "dense_numeric": 0,
-            "matrix_moments": 0, "adjacency_counts": 0}
+            "matrix_moments": 0, "adjacency_counts": 0, "function_score": 0,
+            "terms_set_scores": 0, "distance_feature_scores": 0,
+            "boosting_scores": 0, "script_score_wrap": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -3216,6 +3642,18 @@ def main(argv) -> int:
         "adjacency_counts": (
             "opensearch_tpu_torch/ops/csrc/adjacency_counts.cu",
             "opensearch_tpu/search/aggs/engine.py:1611"),
+        "function_score": ("opensearch_tpu_torch/ops/csrc/function_score.cu",
+                           "opensearch_tpu/search/plan_eval.py:261"),
+        "terms_set_scores": ("opensearch_tpu_torch/ops/csrc/score_kinds.cu",
+                             "opensearch_tpu/search/plan_eval.py:392"),
+        "distance_feature_scores": (
+            "opensearch_tpu_torch/ops/csrc/score_kinds.cu",
+            "opensearch_tpu/search/plan_eval.py:413"),
+        "boosting_scores": ("opensearch_tpu_torch/ops/csrc/score_kinds.cu",
+                            "opensearch_tpu/search/plan_eval.py:463"),
+        "script_score_wrap": (
+            "opensearch_tpu_torch/ops/csrc/score_kinds.cu",
+            "opensearch_tpu/search/plan_eval.py:246"),
     }
     kernels = []
     for name in _build.LAUNCHES:

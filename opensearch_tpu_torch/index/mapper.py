@@ -26,6 +26,7 @@ mapping follows the reference: a JSON string maps to `text` with a
 from __future__ import annotations
 
 import datetime as _dt
+import fnmatch
 import functools
 import math
 import re
@@ -500,3 +501,20 @@ class MapperService:
 
     def get_field(self, name: str) -> Optional[MappedFieldType]:
         return self.field_types.get(name)
+
+    def expand_field_patterns(self, fields) -> List[str]:
+        """Wildcard field specs ("text*", "*_name^2") expanded against the
+        mapping, in mapping order; a boost suffix carries to every
+        expansion. multi_match and query_string resolve their fields
+        here."""
+        out: List[str] = []
+        for fspec in fields:
+            fname, caret, fboost = str(fspec).partition("^")
+            if "*" not in fname:
+                out.append(fspec)
+                continue
+            for actual in self.field_types:
+                if fnmatch.fnmatchcase(actual, fname):
+                    out.append(f"{actual}^{fboost}" if caret else actual)
+        return out
+

@@ -233,7 +233,9 @@ class Segment:
                  ordinal_dv: Optional[Dict[str, OrdinalsColumn]] = None,
                  vector_dv: Optional[Dict[str, VectorColumn]] = None,
                  rank_vectors_dv: Optional[Dict[str, RankVectorsColumn]]
-                 = None):
+                 = None,
+                 positions: Optional[Dict[Tuple[str, str],
+                                          List[np.ndarray]]] = None):
         self.seg_id = seg_id
         self.uid = next(_SEGMENT_UID)
         self.num_docs = num_docs
@@ -248,6 +250,10 @@ class Segment:
         self.ordinal_dv = ordinal_dv or {}
         self.vector_dv = vector_dv or {}
         self.rank_vectors_dv = rank_vectors_dv or {}
+        # host-only term positions per (field, term): one sorted int32
+        # array per posting, parallel to the term's postings (phrase
+        # queries); the device image does not carry them
+        self.positions = positions or {}
         self.live = np.ones(num_docs, dtype=bool)
         # block-join layout: parent row per row (-1 = root). This slice
         # indexes root documents only, so every row is a root.
@@ -274,6 +280,31 @@ class Segment:
     def get_term(self, field: str, term: str) -> Optional[TermMeta]:
         return self.term_dict.get((field, term))
 
+    def _positions_for(self, field: str, term: str
+                       ) -> Optional[Dict[int, np.ndarray]]:
+        """doc ord -> positions of one term (host phrase matching),
+        memoized per term."""
+        key = (field, term)
+        pos_lists = self.positions.get(key)
+        meta = self.term_dict.get(key)
+        if pos_lists is None or meta is None:
+            return None
+        cache = getattr(self, "_pos_cache", None)
+        if cache is None:
+            cache = self._pos_cache = {}
+        if key not in cache:
+            docs = self.post_docs[
+                meta.start_block:meta.start_block + meta.num_blocks].ravel()
+            docs = docs[docs >= 0]
+            cache[key] = {int(d): pos_lists[i] for i, d in enumerate(docs)}
+        return cache[key]
+
+    def terms_for_field(self, field: str) -> List[str]:
+        """The field's terms in the term dictionary, in its (sorted)
+        order: what prefix, wildcard, regexp and fuzzy queries expand
+        against."""
+        return [t for (f, t) in self.term_dict if f == field]
+
     def memory_bytes(self) -> int:
         """Host bytes of the segment's columns (postings, norms, doc
         values, vectors)."""
@@ -294,6 +325,8 @@ class Segment:
                       + col.exists.nbytes)
             if col.codes is not None:
                 total += col.codes.nbytes + col.codebook.nbytes
+        for pos_lists in self.positions.values():
+            total += sum(p.nbytes for p in pos_lists)
         return total
 
 
@@ -325,6 +358,9 @@ def segment_from_arrays(arrays: dict) -> Segment:
       token matrices (lanes past a doc's token_count zero), int32 / bool
       [num_docs]; for a PQ field uint8 [num_docs, t_bucket, M] codes and a
       float32 [M, 256, dims / M] codebook, carried across as they are.
+    - positions: {(field, term): [int32 positions per posting]}
+      (optional): the host-only positions phrase queries read, one
+      sorted array per posting of the term, in postings order.
     """
     n = int(arrays["num_docs"])
     post_docs = np.ascontiguousarray(arrays["post_docs"], dtype=np.int32)
@@ -398,13 +434,22 @@ def segment_from_arrays(arrays: dict) -> Segment:
                  for f, c in (arrays.get("vector_dv") or {}).items()}
     rank_vectors_dv = {f: _rank_vectors_column(f, c, n) for f, c in
                        (arrays.get("rank_vectors_dv") or {}).items()}
+    positions = {}
+    for key, lists in (arrays.get("positions") or {}).items():
+        tm = term_dict.get(tuple(key))
+        if tm is None or len(lists) != tm.doc_freq:
+            raise ValueError(f"positions of {tuple(key)} must hold one array "
+                             f"per posting of a term in the dictionary")
+        positions[tuple(key)] = [np.asarray(p, dtype=np.int32)
+                                 for p in lists]
     seg = Segment(str(arrays["seg_id"]), n, list(arrays["doc_ids"]),
                   list(arrays["sources"]), term_dict, post_docs, post_tf,
                   norms, field_stats,
                   parent_ptr=None if parent_ptr is None
                   else np.asarray(parent_ptr, dtype=np.int32),
                   numeric_dv=numeric_dv, ordinal_dv=ordinal_dv,
-                  vector_dv=vector_dv, rank_vectors_dv=rank_vectors_dv)
+                  vector_dv=vector_dv, rank_vectors_dv=rank_vectors_dv,
+                  positions=positions)
     live = arrays.get("live")
     if live is not None:
         seg.live = np.array(live, dtype=bool)
@@ -486,6 +531,9 @@ class SegmentBuilder:
         self._vectors: Dict[str, Dict[int, List[float]]] = {}
         self._rank_vectors: Dict[str, Dict[int, List[List[float]]]] = {}
         self._field_stats: Dict[str, FieldStats] = {}
+        # (field, term) -> sorted positions per posting, parallel to
+        # _postings
+        self._positions: Dict[Tuple[str, str], List[np.ndarray]] = {}
 
     def __len__(self):
         return len(self.doc_ids)
@@ -504,11 +552,15 @@ class SegmentBuilder:
                 continue
             if pf.terms is not None and ft.index:
                 tf_map: Dict[str, int] = {}
-                for term, _pos in pf.terms:
+                pos_map: Dict[str, List[int]] = {}
+                for term, pos in pf.terms:
                     tf_map[term] = tf_map.get(term, 0) + 1
+                    pos_map.setdefault(term, []).append(pos)
                 for term, tf in tf_map.items():
                     self._postings.setdefault((field, term), []).append(
                         (ord_, tf))
+                    self._positions.setdefault((field, term), []).append(
+                        np.asarray(sorted(pos_map[term]), dtype=np.int32))
                 self._field_lengths.setdefault(field, {})[ord_] = pf.length
                 stats = self._field_stats.setdefault(field, FieldStats())
                 stats.doc_count += 1
@@ -667,4 +719,5 @@ class SegmentBuilder:
                        list(self.sources), term_dict, post_docs, post_tf,
                        norms, self._field_stats, numeric_dv=numeric_dv,
                        ordinal_dv=ordinal_dv, vector_dv=vector_dv,
-                       rank_vectors_dv=rank_vectors_dv)
+                       rank_vectors_dv=rank_vectors_dv,
+                       positions=dict(self._positions))

@@ -12,6 +12,7 @@ from typing import List, Optional
 
 import torch
 
+from opensearch_tpu_torch.analysis.registry import AnalysisRegistry
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 OpenSearchTpuError)
 from opensearch_tpu_torch.index.mapper import MapperService
@@ -37,7 +38,20 @@ class IndexService:
             raise IllegalArgumentError(
                 f"number_of_shards [{self.num_shards}]: opensearch_tpu_torch "
                 f"serves one shard per index so far")
-        self.mapper = MapperService(mapping)
+        # index.analysis.* settings, flattened at creation, nest back into
+        # the config the analysis registry reads (custom analyzers,
+        # tokenizers, token filters and char filters)
+        analysis_cfg: dict = {}
+        for key, value in settings.items():
+            if key.startswith("analysis."):
+                parts = key.split(".")[1:]
+                node = analysis_cfg
+                for part in parts[:-1]:
+                    node = node.setdefault(part, {})
+                node[parts[-1]] = value
+        self.mapper = MapperService(
+            mapping, analysis_registry=AnalysisRegistry(analysis_cfg)
+            if analysis_cfg else None)
         self.shards: List[IndexShard] = [
             IndexShard(0, self.mapper, device, index_name=index_name,
                        result_page=result_page)]

@@ -26,7 +26,12 @@ KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "pairs_match", "binned_popcount", "binned_reduce", "knn_exact",
            "ivf_probe", "kmeans_step", "maxsim_exact", "maxsim_pq",
            "hybrid_window", "sort_key", "page_merge", "dense_numeric",
-           "matrix_moments", "adjacency_counts")
+           "matrix_moments", "adjacency_counts", "function_score",
+           "score_kinds")
+# libraries with no entry of their own name: one C entry per kernel
+LIBRARY_ENTRIES = {"score_kinds": ("terms_set_scores",
+                                   "distance_feature_scores",
+                                   "boosting_scores", "script_score_wrap")}
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,10 +42,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # entry, and nowhere else (plain-version calls do not count). A library's
 # main entry shares its name; masked_topk.cu also holds
 # masked_topk_threshold and masked_topk_keyed, knn_exact.cu knn_topk_mark,
-# ivf_probe.cu ivf_block_keys and maxsim_pq.cu pq_lut.
+# ivf_probe.cu ivf_block_keys and maxsim_pq.cu pq_lut; score_kinds.cu
+# holds only its LIBRARY_ENTRIES.
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    *KERNELS, "masked_topk_threshold", "knn_topk_mark", "ivf_block_keys",
-    "pq_lut", "masked_topk_keyed")}
+    *(k for k in KERNELS if k not in LIBRARY_ENTRIES),
+    "masked_topk_threshold", "knn_topk_mark", "ivf_block_keys", "pq_lut",
+    "masked_topk_keyed", *(e for es in LIBRARY_ENTRIES.values()
+                           for e in es))}
 # compiler output (ptxas register / shared-memory report) of the last build
 # of each library (empty until one ran)
 BUILD_LOG: Dict[str, str] = {}

@@ -54,18 +54,51 @@ def collect_field_terms(node, mapper) -> Dict[str, List[str]]:
             for child in list(n.must) + list(n.should) + list(n.filter):
                 walk(child)  # must_not terms don't highlight
             return
+        if isinstance(n, (dsl.ConstantScoreQuery,)):
+            walk(n.filter)
+            return
         if isinstance(n, dsl.DisMaxQuery):
             for child in n.queries:
                 walk(child)
             return
-        if isinstance(n, dsl.MatchQuery):
+        if isinstance(n, dsl.BoostingQuery):
+            walk(n.positive)
+            return
+        if isinstance(n, (dsl.MatchQuery, dsl.MatchPhraseQuery,
+                          dsl.MatchBoolPrefixQuery)):
             add(n.field, analyze(n.field, n.query))
+            return
+        if isinstance(n, dsl.MultiMatchQuery):
+            for f in mapper.expand_field_patterns(list(n.fields)):
+                f = f.split("^")[0]
+                add(f, analyze(f, n.query))
             return
         if isinstance(n, dsl.TermQuery):
             add(n.field, [str(n.value)])
             return
         if isinstance(n, dsl.TermsQuery):
             add(n.field, [str(v) for v in n.values])
+            return
+        if isinstance(n, dsl.PrefixQuery):
+            # trailing-* marker: highlight_text prefix-matches these
+            add(n.field, [str(n.value) + "*"])
+            return
+        if isinstance(n, dsl.FuzzyQuery):
+            add(n.field, [str(n.value)])
+            return
+        if isinstance(n, (dsl.QueryStringQuery, dsl.SimpleQueryStringQuery)):
+            # best effort: bare terms against default/explicit fields
+            fields = [f.split("^")[0] for f in (n.fields or [])]
+            if getattr(n, "default_field", None):
+                fields.append(n.default_field)
+            text = re.sub(r'[+\-()"~*?:\\]|AND|OR|NOT', " ", n.query)
+            for token in text.split():
+                if ":" in token:
+                    f, v = token.split(":", 1)
+                    add(f, analyze(f, v))
+                else:
+                    for f in fields:
+                        add(f, analyze(f, token))
             return
         # leaf without highlightable terms (range / exists / knn / ...)
 

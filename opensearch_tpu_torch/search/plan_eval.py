@@ -1,13 +1,16 @@
 """Evaluation of compiled plans on a batch of B queries against one segment
 (the subset of opensearch_tpu.search.plan_eval the port needs):
-`match_all`, `match_none`, `text` (through K2), `precomputed` (a cached
-filter mask), the doc-value filters
-`num_terms` / `range_num` / `range_ord` (through K4), `exists`, `knn`
-(through K7 or K8, then K3), `maxsim` (through K10 or K11, then K3),
-`bool`, `dis_max` and `const_score`, as
-elementwise torch ops on [B, Dp] tensors. Plan inputs arrive stacked:
-per-query scalars are [B], per-lane inputs [B, QB], rank masks [B, Up],
-query vectors [B, dims], query token matrices [B, Tq, dims]."""
+`match_all`, `match_none`, `text` (through K2), `precomputed` (host-built
+scores and matches: ids, phrases; or a cached filter mask, score 0), the
+doc-value filters `num_terms` / `range_num` / `range_ord` (through K4),
+`exists`, `knn` (through K7 or K8, then K3), `maxsim` (through K10 or
+K11, then K3), `bool`, `dis_max`, `const_score`, and the scoring kinds
+`function_score` (K18), `terms_set`, `distance_feature`, `boosting` and
+`script_score` (K19; a script's expression is torch ops), their value
+columns through K15, as elementwise torch ops on [B, Dp] tensors. Plan
+inputs arrive stacked: per-query scalars are [B], per-lane inputs
+[B, QB], rank masks [B, Up], precomputed planes [B, Dp], query vectors
+[B, dims], query token matrices [B, Tq, dims]."""
 
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from opensearch_tpu_torch.ops.knn import (exact_knn_scores, ivf_knn_scores,
 from opensearch_tpu_torch.ops.maxsim import (exact_maxsim_scores,
                                              maxsim_match_topk,
                                              pq_maxsim_scores)
+from opensearch_tpu_torch.ops import scoring
+from opensearch_tpu_torch.script.painless import compile_score_script
 from opensearch_tpu_torch.search.compile import Plan
 
 
@@ -32,8 +37,8 @@ def dense_numeric(seg: Dict, field: str, d_pad: int, missing: float = 0.0):
     """A per-doc dense value column from a numeric field's (doc, value)
     pairs through K15: (the doc's first (smallest) value, `missing` where
     absent, f32 [Dp]; the field's exists bool [Dp]; the doc's value count
-    int32 [Dp]). Shared by matrix_stats and, once ported, the
-    script_score / function_score kernels."""
+    int32 [Dp]). Shared by matrix_stats and the scoring kinds
+    (script_score, function_score, terms_set, distance_feature)."""
     col = seg["numeric"][field]
     value, counts = _dense(col["doc_ids"], col["values_f32"], d_pad, missing)
     return value, col["exists"], counts
@@ -69,6 +74,8 @@ def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],
         return scores, matches
 
     if kind == "precomputed":
+        if "scores" in my:
+            return my["scores"], my["matches"]
         # a cached filter mask (indices/query_cache.py): a filter scores 0
         return (torch.zeros(bsz, d_pad, dtype=torch.float32, device=dev),
                 my["matches"])
@@ -181,5 +188,107 @@ def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],
         _, m = _eval_plan(plan.children[0], seg, inputs, cursor, bsz)
         return torch.where(m, my["boost"][:, None], 0.0), m
 
+    if kind == "script_score":
+        source, pkeys, static_params = plan.static
+        child_s, child_m = _eval_plan(plan.children[0], seg, inputs,
+                                      cursor, bsz)
+        new = _run_script(seg, d_pad, source, child_s, pkeys,
+                          static_params, my, "p_")
+        return scoring.script_score_wrap(child_m, _plane(new, bsz, d_pad,
+                                                         dev), my["boost"])
+
+    if kind == "function_score":
+        return scoring.function_score(*function_score_inputs(
+            plan, seg, inputs, cursor, bsz, my))
+
+    if kind == "terms_set":
+        field_msm = plan.static[0]
+        child = [_eval_plan(c, seg, inputs, cursor, bsz)
+                 for c in plan.children]
+        if not child:
+            return (torch.zeros(bsz, d_pad, dtype=torch.float32,
+                                device=dev),
+                    torch.zeros(bsz, d_pad, dtype=torch.bool, device=dev))
+        if field_msm is not None:
+            msm, msm_exists, _ = dense_numeric(seg, field_msm, d_pad)
+            return scoring.terms_set(child, msm, msm_exists, None,
+                                     my["boost"])
+        return scoring.terms_set(child, None, None, my["msm"], my["boost"])
+
+    if kind == "distance_feature":
+        value, exists, _ = dense_numeric(seg, plan.static[0], d_pad)
+        return scoring.distance_feature(value, exists, my["origin"],
+                                        my["pivot"], my["boost"])
+
+    if kind == "boosting":
+        pos_s, pos_m = _eval_plan(plan.children[0], seg, inputs, cursor,
+                                  bsz)
+        _, neg_m = _eval_plan(plan.children[1], seg, inputs, cursor, bsz)
+        return scoring.boosting(pos_s, pos_m, neg_m, my["nb"], my["boost"])
+
     raise QueryShardError(f"plan kind [{kind}] is not supported by "
                           f"opensearch_tpu_torch yet")
+
+
+def _run_script(seg, d_pad: int, source: str, score, pkeys, static_params,
+                my, prefix: str):
+    """A score script's value over the segment: its doc-value columns
+    through K15, numeric params as [B, 1] per-query columns."""
+    script = compile_score_script(source)
+    columns = {f: dense_numeric(seg, f, d_pad) for f in script.fields}
+    params = {k: my[f"{prefix}{k}"][:, None] for k in pkeys}
+    params.update(dict(static_params))
+    return script(columns, score, params)
+
+
+def _plane(value, bsz: int, d_pad: int, dev) -> torch.Tensor:
+    """A script's result as an f32 [B, Dp] plane."""
+    return torch.as_tensor(value, dtype=torch.float32, device=dev) \
+        .expand(bsz, d_pad)
+
+
+def function_score_inputs(plan: Plan, seg, inputs, cursor, bsz: int, my):
+    """K18's arguments for one function_score node: the child's (scores,
+    matches), each function's filter and value source (a K15 column or a
+    script's plane), the per-query parameter table and the modes."""
+    score_mode, boost_mode, fn_specs = plan.static
+    d_pad = seg["live"].shape[0]
+    dev = seg["live"].device
+    child_s, child_m = _eval_plan(plan.children[0], seg, inputs, cursor,
+                                  bsz)
+    zeros = torch.zeros(bsz, dtype=torch.float32, device=dev)
+    cols = [my["boost"], my["max_boost"], my.get("min_score", zeros)]
+    fns = []
+    child_i = 1
+    for i, spec in enumerate(fn_specs):
+        fkind, has_filter = spec[0], spec[-1]
+        fmask = None
+        if has_filter:
+            _, fmask = _eval_plan(plan.children[child_i], seg, inputs,
+                                  cursor, bsz)
+            child_i += 1
+        fn = scoring.ScoreFunction(kind=fkind, filter=fmask,
+                                   has_weight=f"f{i}_weight" in my)
+        if fkind == "fvf":
+            fn.modifier = spec[2]
+            if spec[1] is not None:
+                fn.value, fn.exists, _ = dense_numeric(seg, spec[1], d_pad)
+        elif fkind == "random":
+            fn.seed = spec[1]
+        elif fkind == "script":
+            source, pkeys, static_params = spec[1], spec[2], spec[3]
+            fn.plane = _plane(_run_script(seg, d_pad, source, child_s,
+                                          pkeys, static_params, my,
+                                          f"f{i}_p_"), bsz, d_pad, dev)
+        elif fkind == "decay":
+            fn.decay = spec[1]
+            if spec[2] is not None:
+                fn.value, fn.exists, _ = dense_numeric(seg, spec[2], d_pad)
+        elif fkind != "weight_only":
+            raise QueryShardError(f"unknown score function [{fkind}]")
+        fns.append(fn)
+        cols.extend(my.get(f"f{i}_{slot}", zeros)
+                    for slot in scoring.FN_SLOTS)
+    params = torch.stack(cols, dim=1)
+    return (child_s, child_m, fns, params, score_mode, boost_mode,
+            "min_score" in my)

@@ -9,7 +9,11 @@ one seed gives the same documents in both packages. `DEMO_MAPPING` and
 the clustered k-NN corpus of the reference's k-NN benchmark (the same
 random stream), and `vector_segment` seals such vectors into a one-field
 shard at million-vector scale; `add_vector_field` puts such a column on a
-`build_shards_fast` segment (the hybrid corpus). `clustered_tokens` draws
+`build_shards_fast` segment (the hybrid corpus), and `add_numeric_field`
+a numeric or date doc-value column (the relevance cell's `likes` and
+`published`, from `relevance_columns`, searched by
+`relevance_bodies`' function_score / script_score / distance_feature /
+boosting families). `clustered_tokens` draws
 ColBERT-shaped token matrices (unit vectors around clustered centers) and
 `rank_vectors_segment` seals them into a one-field `rank_vectors` shard.
 """
@@ -23,8 +27,8 @@ import numpy as np
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.segment import (FieldStats, Segment,
                                                 SegmentBuilder, TermMeta,
-                                                _hash64, _pad_to,
-                                                _vector_column,
+                                                DocValuesColumn, _hash64,
+                                                _pad_to, _vector_column,
                                                 segment_from_arrays,
                                                 smallfloat_int_to_byte4)
 
@@ -389,6 +393,119 @@ def add_vector_field(mapper: MapperService, seg: Segment, vectors: np.ndarray,
     seg.vector_dv[field] = _vector_column(
         field, {"vectors": vectors, "exists": np.ones(n, dtype=bool)},
         seg.num_docs)
+
+
+def add_numeric_field(mapper: MapperService, seg: Segment, field: str,
+                      ftype: str, values: np.ndarray) -> None:
+    """Give a sealed segment the doc-value column `field` of type `ftype`
+    (a numeric type or `date`, mapped on `mapper`): one value per doc from
+    the f64 [num_docs] `values`, NaN where the doc has none (dates in
+    epoch millis) - the numeric column a segment of `build_shards_fast`
+    lacks."""
+    mapper.merge({"properties": {field: {"type": ftype}}})
+    values = np.asarray(values, dtype=np.float64)
+    if values.shape != (seg.num_docs,):
+        raise ValueError(f"[{field}] needs one value per doc: "
+                         f"{seg.num_docs}, got {values.shape}")
+    exists = ~np.isnan(values)
+    docs = np.nonzero(exists)[0].astype(np.int32)
+    vals = values[exists]
+    unique, ranks = np.unique(vals, return_inverse=True)
+    seg.numeric_dv[field] = DocValuesColumn(
+        doc_ids=docs, values=vals, exists=exists,
+        counts=exists.astype(np.int32),
+        value_ords=ranks.astype(np.int32).reshape(-1), unique=unique)
+
+
+# the relevance cell's columns: `likes` a long, lognormal with median 40,
+# capped at 10^6, absent on 5% of docs; `published` a date, uniform over
+# 2019-01-01 .. 2024-12-31
+RELEVANCE_LIKES_MISSING = 0.05
+RELEVANCE_PUBLISHED = (1546300800000, 1735689600000)
+RELEVANCE_ORIGIN = "2024-06-01"
+RELEVANCE_FAMILIES = ("fvf_log1p", "gauss_date", "three_functions",
+                      "script_score", "distance_feature", "boosting")
+
+
+def relevance_columns(n_docs: int, seed: int = 42
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """(likes, published) f64 [n_docs] each, NaN where a doc has no
+    likes, drawn 65,536 docs at a time."""
+    rng = np.random.default_rng(seed)
+    likes = np.empty(n_docs)
+    published = np.empty(n_docs)
+    for lo in range(0, n_docs, 1 << 16):
+        n = min(1 << 16, n_docs - lo)
+        part = np.minimum(np.floor(rng.lognormal(np.log(40.0), 1.5, n)),
+                          1e6)
+        part[rng.random(n) < RELEVANCE_LIKES_MISSING] = np.nan
+        likes[lo:lo + n] = part
+        published[lo:lo + n] = rng.integers(*RELEVANCE_PUBLISHED, n)
+    return likes, published
+
+
+def relevance_bodies(family: str, n: int, terms: List[str],
+                     seed: int = 0) -> List[dict]:
+    """n `_search` bodies of one relevance family over `fast_query_terms`
+    texts of 2-4 terms, after the OpenSearch documentation's
+    function_score and script_score examples: `fvf_log1p`
+    (field_value_factor on likes, log1p, factor 1.2, missing 1),
+    `gauss_date` (gauss on published: origin 2024-06-01, scale 30d,
+    offset 7d, decay 0.5), `three_functions` (a weight of 2 on likes >=
+    1000, random_score, exp on published; sum / sum, max_boost 10,
+    min_score 5), `script_score` (_score * Math.log(2 + likes) over a bool
+    requiring likes), `distance_feature` (published, pivot 7d, a should
+    beside the match) and `boosting` (negative_boost 0.5 on a second
+    term)."""
+    texts = []
+    for k in (2, 3, 4):
+        texts += fast_query_terms(n // 3 + 1, terms, seed=seed * 10 + k,
+                                  terms_per_query=k)
+    rng = np.random.default_rng(seed)
+    texts = [texts[i] for i in rng.permutation(len(texts))[:n]]
+    others = fast_query_terms(n, terms, seed=seed * 10 + 9,
+                              terms_per_query=1)
+    out = []
+    for i, text in enumerate(texts):
+        match = {"match": {"body": text}}
+        if family == "fvf_log1p":
+            q = {"function_score": {"query": match, "field_value_factor": {
+                "field": "likes", "factor": 1.2, "modifier": "log1p",
+                "missing": 1}}}
+        elif family == "gauss_date":
+            q = {"function_score": {"query": match, "gauss": {"published": {
+                "origin": RELEVANCE_ORIGIN, "scale": "30d",
+                "offset": "7d", "decay": 0.5}}}}
+        elif family == "three_functions":
+            q = {"function_score": {
+                "query": match,
+                "functions": [
+                    {"filter": {"range": {"likes": {"gte": 1000}}},
+                     "weight": 2},
+                    {"random_score": {"seed": 1000 + i}},
+                    {"exp": {"published": {"origin": RELEVANCE_ORIGIN,
+                                           "scale": "60d"}}}],
+                "score_mode": "sum", "boost_mode": "sum",
+                "max_boost": 10, "min_score": 5}}
+        elif family == "script_score":
+            q = {"script_score": {
+                "query": {"bool": {"must": [match], "filter": [
+                    {"exists": {"field": "likes"}}]}},
+                "script": {"source":
+                           "_score * Math.log(2 + doc['likes'].value)"}}}
+        elif family == "distance_feature":
+            q = {"bool": {"must": [match], "should": [
+                {"distance_feature": {"field": "published",
+                                      "origin": RELEVANCE_ORIGIN,
+                                      "pivot": "7d"}}]}}
+        elif family == "boosting":
+            q = {"boosting": {"positive": match,
+                              "negative": {"match": {"body": others[i]}},
+                              "negative_boost": 0.5}}
+        else:
+            raise ValueError(f"unknown relevance family [{family}]")
+        out.append({"query": q, "size": 10})
+    return out
 
 
 def clustered_tokens(n_docs: int, dims: int, min_tokens: int,

@@ -975,3 +975,272 @@ def matrix_stats_tol(resp, path: str = "", out=None,
         for i, v in enumerate(resp):
             matrix_stats_tol(v, f"{path}[{i}]", out, sum_rel)
     return out
+
+
+# ------------------------------------- the scoring and lexical query corpus
+
+# a small word list with stems (running / runs / ran), phrases and
+# accented forms, so that phrases, multi-term expansion, the english and a
+# custom analyzer all find something
+REL_WORDS = ("quick brown fox jumps jumped jumping over the lazy dog dogs "
+             "running runs ran runner connection connected connecting "
+             "search engine engines relevance tuning café naïve résumé "
+             "alpha beta gamma delta and of a").split()
+REL_N = 600
+REL_MAPPING = {"mappings": {"properties": {
+    "body": {"type": "text"},
+    "title": {"type": "text", "analyzer": "english"},
+    "tag": {"type": "keyword"},
+    "likes": {"type": "long"},
+    "published": {"type": "date"},
+    "price": {"type": "double"},
+    "req": {"type": "integer"},
+}}}
+# a custom analyzer chain from settings.analysis, and another at search
+# time
+REL_CUSTOM_INDEX = {
+    "settings": {"analysis": {
+        "filter": {"short_stop": {"type": "stop",
+                                  "stopwords": ["the", "a", "of"]}},
+        "analyzer": {
+            "folded": {"type": "custom", "tokenizer": "standard",
+                       "filter": ["lowercase", "asciifolding",
+                                  "short_stop", "porter_stem"]},
+            "folded_search": {"tokenizer": "whitespace",
+                              "filter": ["lowercase", "asciifolding",
+                                         "porter_stem"]}}}},
+    "mappings": {"properties": {
+        "body": {"type": "text", "analyzer": "folded",
+                 "search_analyzer": "folded_search"},
+        "tag": {"type": "keyword"}}}}
+REL_BASE = 1700000000000
+
+
+def rel_corpus(n_docs: int = REL_N, seed: int = 11) -> List[dict]:
+    """Documents of the scoring corpus from a numpy seed: body and title
+    over REL_WORDS, tag, likes (lognormal, absent on every tenth doc),
+    published (90 days of millis), price (absent on every third, some
+    negative) and req (1-3)."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n_docs):
+        doc = {"body": " ".join(rng.choice(REL_WORDS, rng.integers(3, 14))),
+               "title": " ".join(rng.choice(REL_WORDS, rng.integers(2, 6))),
+               "tag": f"t{i % 7}",
+               "published": int(REL_BASE + rng.integers(0, 90) * DAY_MS
+                                + rng.integers(0, DAY_MS)),
+               "req": int(rng.integers(1, 4))}
+        if i % 10:
+            doc["likes"] = int(rng.lognormal(3.0, 1.5))
+        if i % 3:
+            doc["price"] = round(float(rng.uniform(-5, 50)), 2)
+        docs.append(doc)
+    return docs
+
+
+def load_rel_index(node, index: str = "rel", n_docs: int = REL_N,
+                   body: Optional[dict] = None) -> None:
+    """Two refreshes (two segments), re-indexed docs and deletes."""
+    docs = rel_corpus(n_docs)
+    half = n_docs // 2
+    assert node.request("PUT", f"/{index}",
+                        body or REL_MAPPING)["_status"] == 200
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, {f"r{i}": docs[i] for i in range(half)}))
+    assert res["_status"] == 200 and not res["errors"], res
+    node.request("POST", f"/{index}/_refresh")
+    second = {f"r{i}": docs[i] for i in range(half, n_docs)}
+    second.update({f"r{i}": docs[i + 1] for i in range(4, half, 97)})
+    res = node.request("POST", "/_bulk", bulk_ndjson(
+        index, second, [f"r{i}" for i in range(7, n_docs, 61)]))
+    assert res["_status"] == 200 and not res["errors"], res
+    node.request("POST", f"/{index}/_refresh")
+
+
+def load_rel_custom_index(node, index: str = "relc") -> None:
+    load_rel_index(node, index, 300, REL_CUSTOM_INDEX)
+
+
+_DATE_DECAY = {"origin": "2023-12-01", "scale": "10d", "offset": "2d",
+               "decay": 0.5}
+# function_score's functions, one of each kind (and a filtered weight, a
+# function on a field with no values, modifiers that give NaN / -inf)
+REL_FUNCTIONS = {
+    "weight": [{"filter": {"term": {"tag": "t2"}}, "weight": 3}],
+    "fvf_log1p": [{"field_value_factor": {"field": "likes", "factor": 1.2,
+                                          "modifier": "log1p",
+                                          "missing": 1}}],
+    "fvf_sqrt_weight": [{"field_value_factor": {
+        "field": "likes", "modifier": "sqrt"}, "weight": 0.5}],
+    "fvf_log_nan": [{"field_value_factor": {"field": "price",
+                                            "modifier": "log"}}],
+    "fvf_ln_missing": [{"field_value_factor": {
+        "field": "price", "modifier": "ln", "missing": 0}}],
+    "fvf_reciprocal": [{"field_value_factor": {
+        "field": "price", "modifier": "reciprocal", "missing": 2}}],
+    "random": [{"random_score": {"seed": 17}}],
+    "script": [{"script_score": {"script": {
+        "source": "params.a * _score + doc['req'].value",
+        "params": {"a": 0.5}}}}],
+    "gauss_date": [{"gauss": {"published": _DATE_DECAY}}],
+    "exp_num": [{"exp": {"likes": {"origin": 30, "scale": 20}},
+                 "weight": 2}],
+    "linear_num": [{"linear": {"price": {"origin": 10, "scale": 15,
+                                         "offset": 1, "decay": 0.3}}}],
+    "mixed": [
+        {"filter": {"range": {"likes": {"gte": 20}}}, "weight": 2},
+        {"filter": {"match": {"body": "fox"}},
+         "field_value_factor": {"field": "likes", "modifier": "ln2p",
+                                "missing": 3}},
+        {"random_score": {"seed": 5}},
+        {"filter": {"term": {"tag": "t1"}},
+         "exp": {"published": {"origin": "2023-12-20", "scale": "5d"}}},
+        {"linear": {"price": {"origin": 0, "scale": 30}}, "weight": 1.5}],
+}
+SCORE_MODES = ("multiply", "sum", "avg", "max", "min", "first")
+BOOST_MODES = ("multiply", "replace", "sum", "avg", "max", "min")
+
+
+def function_score_body(functions, score_mode: str = "multiply",
+                        boost_mode: str = "multiply", **extra) -> dict:
+    fs = {"query": {"match": {"body": "quick fox running"}},
+          "functions": functions, "score_mode": score_mode,
+          "boost_mode": boost_mode}
+    fs.update(extra)
+    return {"query": {"function_score": fs}, "size": 15}
+
+
+SCORING_BODIES: Dict[str, dict] = {
+    **{f"fs_{name}": function_score_body(fns)
+       for name, fns in REL_FUNCTIONS.items()},
+    **{f"fs_mixed_{sm}_{bm}": function_score_body(
+        REL_FUNCTIONS["mixed"], sm, bm)
+       for sm, bm in zip(SCORE_MODES, BOOST_MODES)},
+    **{f"fs_mixed_{sm}_{bm}": function_score_body(
+        REL_FUNCTIONS["mixed"], sm, bm)
+       for sm, bm in zip(SCORE_MODES, BOOST_MODES[3:] + BOOST_MODES[:3])},
+    "fs_min_score_max_boost": function_score_body(
+        REL_FUNCTIONS["mixed"], "sum", "sum", max_boost=4.0, min_score=6.0,
+        boost=1.5),
+    "fs_short_form": {"query": {"function_score": {
+        "query": {"match": {"title": "running dogs"}},
+        "field_value_factor": {"field": "likes", "modifier": "square",
+                               "factor": 0.1}, "boost_mode": "replace"}}},
+    "fs_no_functions": {"query": {"function_score": {
+        "query": {"term": {"tag": "t4"}}, "functions": [],
+        "boost": 2.0}}},
+    "fs_decay_unmapped_segment": function_score_body(
+        [{"gauss": {"req": {"origin": 2, "scale": 1}}}], "sum", "avg"),
+    "script_score": {"query": {"script_score": {
+        "query": {"match": {"body": "fox dog"}},
+        "script": {"source": "_score * Math.log(2 + doc['likes'].value)"},
+        "boost": 1.5}}},
+    "script_score_params": {"query": {"script_score": {
+        "query": {"match_all": {}},
+        "script": {"source": "doc['likes'].empty ? params.d : "
+                             "Math.sqrt(doc['likes'].value) * params.f "
+                             "+ doc['likes'].size() % 2",
+                   "params": {"f": 0.5, "d": 1.25, "label": "x"}}}},
+        "size": 20},
+    "boosting": {"query": {"boosting": {
+        "positive": {"match": {"body": "fox running"}},
+        "negative": {"term": {"body": "lazy"}}, "negative_boost": 0.25}}},
+    "terms_set_param": {"query": {"terms_set": {"body": {
+        "terms": ["fox", "dog", "quick"]}}}},
+    "terms_set_field": {"query": {"terms_set": {"body": {
+        "terms": ["fox", "dog", "quick", "lazy"],
+        "minimum_should_match_field": "req", "boost": 2.0}}}},
+    "distance_feature_num": {"query": {"distance_feature": {
+        "field": "likes", "origin": 20, "pivot": 10}}},
+    "distance_feature_date": {"query": {"bool": {
+        "must": [{"match": {"body": "engine"}}],
+        "should": [{"distance_feature": {
+            "field": "published", "origin": "2023-12-10",
+            "pivot": "7d", "boost": 3.0}}]}}},
+    "constant_score": {"query": {"constant_score": {
+        "filter": {"range": {"likes": {"gte": 10, "lt": 100}}},
+        "boost": 2.5}}, "size": 12},
+}
+
+QUERY_KIND_BODIES: Dict[str, dict] = {
+    "ids": {"query": {"ids": {"values": ["r1", "r350", "nope", "r7"]}}},
+    "ids_boost_bool": {"query": {"bool": {
+        "should": [{"ids": {"values": ["r3", "r4"], "boost": 4.0}},
+                   {"match": {"body": "fox"}}]}}},
+    "prefix": {"query": {"prefix": {"body": "conn"}}},
+    "prefix_ci": {"query": {"prefix": {"tag": {"value": "T1",
+                                               "case_insensitive": True}}}},
+    "wildcard": {"query": {"wildcard": {"body": {"value": "jump*g"}}}},
+    "regexp": {"query": {"regexp": {"body": "eng.*s?"}}},
+    "fuzzy": {"query": {"fuzzy": {"body": {"value": "dgo"}}}},
+    "fuzzy_prefix": {"query": {"fuzzy": {"body": {
+        "value": "runer", "fuzziness": 2, "prefix_length": 2}}}},
+    "match_fuzziness": {"query": {"match": {"body": {
+        "query": "quikc browm", "fuzziness": "AUTO"}}}},
+    "match_fuzziness_and": {"query": {"match": {"body": {
+        "query": "lazi dgo", "fuzziness": 1, "operator": "and"}}}},
+    "term_ci": {"query": {"term": {"tag": {"value": "T3",
+                                           "case_insensitive": True}}}},
+    "match_numeric": {"query": {"match": {"req": 2}}, "size": 5},
+    "phrase": {"query": {"match_phrase": {"body": "quick brown"}}},
+    "phrase_slop2": {"query": {"match_phrase": {"body": {
+        "query": "quick fox", "slop": 2}}}},
+    "phrase_one_term": {"query": {"match_phrase": {"body": "lazy"}}},
+    "phrase_prefix": {"query": {"match_phrase_prefix": {
+        "body": "the la"}}},
+    "bool_prefix": {"query": {"match_bool_prefix": {"body": "brown ju"}}},
+    "mm_best": {"query": {"multi_match": {
+        "query": "running dogs", "fields": ["body", "title^2"],
+        "tie_breaker": 0.3}}},
+    "mm_most": {"query": {"multi_match": {
+        "query": "running dogs", "fields": ["body", "title"],
+        "type": "most_fields"}}},
+    "mm_cross": {"query": {"multi_match": {
+        "query": "connected engines", "fields": ["t*", "body"],
+        "type": "cross_fields", "operator": "and"}}},
+    "mm_phrase": {"query": {"multi_match": {
+        "query": "brown fox", "fields": ["body", "title"],
+        "type": "phrase"}}},
+    "query_string": {"query": {"query_string": {
+        "query": "quick AND (fox OR dog) -lazy title:running"}}},
+    "query_string_fields": {"query": {"query_string": {
+        "query": "\"brown fox\" likes:[10 TO 100] +engine",
+        "default_field": "body"}}},
+    "query_string_and": {"query": {"query_string": {
+        "query": "search relevance", "fields": ["body", "title"],
+        "default_operator": "AND"}}},
+    "simple_query_string": {"query": {"simple_query_string": {
+        "query": "quick +brown -dog", "fields": ["body"]}}},
+    "english": {"query": {"match": {"title": "jumps running dogs"}}},
+    "english_phrase": {"query": {"match_phrase": {"title": "lazy dogs"}}},
+    "highlight_explain": {
+        "query": {"bool": {"must": [
+            {"match_phrase": {"body": "brown fox"}},
+            {"constant_score": {"filter": {"prefix": {"body": "ju"}}}}],
+            "should": [{"multi_match": {"query": "dog engine",
+                                        "fields": ["body", "title"]}}]}},
+        "highlight": {"fields": {"body": {}, "title": {}}},
+        "explain": True, "size": 5},
+}
+# the custom analyzer's index (`relc`): folding, stop words and stems at
+# index time, whitespace + folding + stems at search time
+CUSTOM_BODIES: Dict[str, dict] = {
+    "custom_match": {"query": {"match": {"body": "Cafe Resumes RUNNING"}}},
+    "custom_phrase": {"query": {"match_phrase": {"body": "naive cafe"}}},
+    "custom_override": {"query": {"match": {"body": {
+        "query": "the café", "analyzer": "folded"}}}},
+}
+# the query types the port leaves out answer a 400 naming them
+NOT_PORTED_BODIES: Dict[str, dict] = {
+    "nested": {"query": {"nested": {"path": "x", "query": {
+        "match_all": {}}}}},
+    "has_child": {"query": {"has_child": {"type": "c", "query": {
+        "match_all": {}}}}},
+    "more_like_this": {"query": {"more_like_this": {"like": "fox"}}},
+    "span_term": {"query": {"span_term": {"body": "fox"}}},
+    "intervals": {"query": {"intervals": {"body": {"match": {
+        "query": "fox"}}}}},
+    "rank_feature": {"query": {"rank_feature": {"field": "likes"}}},
+    "geo_distance": {"query": {"geo_distance": {"distance": "1km",
+                                                "loc": [0, 0]}}},
+}

@@ -14,7 +14,11 @@ sum bound of the f64 means. K13 (the sort key), K3's keyed entry (k up to
 filters) bit for bit; K16 (matrix_moments) counts exactly, its sums
 within depth * 2^-24 * sum|term| of the f64 sums of its f32 terms (depth:
 agg_kernels.moments_sum_depth, the additions on a term's path in the
-kernel's two levels) and the same bits from run to run."""
+kernel's two levels) and the same bits from run to run. K18
+(function_score) and K19's four entries (terms_set, distance_feature,
+boosting, script_score's wrap) bit for bit, logf / log1pf / expf
+included, NaN at the same places (torch's CUDA ops call the same
+libdevice functions as the kernels)."""
 
 import numpy as np
 import pytest
@@ -641,3 +645,155 @@ def test_adjacency_counts_kernel_equals_plain(gpu, n, card):
     want = agg_kernels.adjacency_counts_plain(masks, mask, pmask, pbin, card)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ K18 / K19
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits, NaN where the other has NaN (any NaN payload)."""
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def _fs_functions(gen, bsz, d_pad, kinds):
+    """Score functions of the given kinds on random columns, filters and
+    planes (a log modifier over a column with negative values and zeros:
+    NaN and -inf values)."""
+    from opensearch_tpu_torch.ops import scoring
+    fns = []
+    for j, kind in enumerate(kinds):
+        col = torch.randn(d_pad, generator=gen, device="cuda") * 40
+        col[::7] = 0.0
+        exists = torch.rand(d_pad, generator=gen, device="cuda") < 0.9
+        filt = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.6 \
+            if j % 2 else None
+        fn = scoring.ScoreFunction(kind=kind, filter=filt,
+                                   has_weight=j % 3 != 1)
+        if kind == "fvf":
+            fn.modifier = scoring.MODIFIERS[j % len(scoring.MODIFIERS)]
+            fn.value, fn.exists = col, exists
+        elif kind == "random":
+            fn.seed = 12345 + j
+        elif kind == "script":
+            fn.plane = torch.randn(bsz, d_pad, generator=gen,
+                                   device="cuda")
+        elif kind == "decay":
+            fn.decay = scoring.DECAYS[j % 3]
+            fn.value, fn.exists = col.abs() * 1e9 + 1.7e12, exists
+        fns.append(fn)
+    return fns
+
+
+def _fs_params(gen, bsz, n_fn):
+    from opensearch_tpu_torch.ops import scoring
+    p = torch.rand(bsz, scoring.FS_HEAD + len(scoring.FN_SLOTS) * n_fn,
+                   generator=gen, device="cuda") * 3 + 0.1
+    p[:, 1] = 2.5                         # max_boost
+    for j in range(n_fn):
+        base = scoring.FS_HEAD + len(scoring.FN_SLOTS) * j
+        p[:, base + 3] = 1.7e12           # origin (date millis)
+        p[:, base + 4] = 86400000.0 * 5   # scale
+        p[:, base + 5] = 86400000.0       # offset
+        p[:, base + 6] = 0.5              # decay
+    return p
+
+
+@pytest.mark.parametrize("score_mode", ["multiply", "sum", "avg", "max",
+                                        "min", "first"])
+@pytest.mark.parametrize("boost_mode", ["multiply", "replace", "sum", "avg",
+                                        "max", "min"])
+def test_function_score_kernel_equals_plain(gpu, score_mode, boost_mode):
+    """K18 bit for bit against its plain version on the card (NaN where
+    the plain version has NaN), every function kind, every modifier over
+    the functions of the three configurations, each decay, filters, a
+    weight on some, min_score on and off."""
+    from opensearch_tpu_torch.ops import scoring
+    bsz, d_pad = 3, 5000
+    gen = torch.Generator(device="cuda").manual_seed(
+        scoring.SCORE_MODES.index(score_mode) * 7
+        + scoring.BOOST_MODES.index(boost_mode))
+    child_s = torch.rand(bsz, d_pad, generator=gen, device="cuda") * 9
+    child_m = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.8
+    configs = [
+        ["fvf"] * len(scoring.MODIFIERS),
+        ["weight_only", "fvf", "random", "script", "decay", "decay",
+         "decay"],
+        ["decay", "fvf", "weight_only"] * 5 + ["random"]]
+    for c, kinds in enumerate(configs):
+        fns = _fs_functions(gen, bsz, d_pad, kinds)
+        params = _fs_params(gen, bsz, len(fns))
+        for has_min in (False, True):
+            before = _build.LAUNCHES["function_score"]
+            got = scoring.function_score(child_s, child_m, fns, params,
+                                         score_mode, boost_mode, has_min)
+            assert _build.LAUNCHES["function_score"] == before + 1
+            want = scoring.function_score_plain(
+                child_s, child_m, fns, params, score_mode, boost_mode,
+                has_min)
+            torch.cuda.synchronize()
+            assert _same(got[1], want[1]), (c, has_min)
+            assert _same(got[0], want[0]), (c, has_min)
+
+
+@pytest.mark.parametrize("n_children", [1, 5, 33, 70])
+@pytest.mark.parametrize("from_field", [False, True])
+def test_terms_set_kernel_equals_plain(gpu, n_children, from_field):
+    """K19 terms_set bit for bit, past one launch's 32 children."""
+    from opensearch_tpu_torch.ops import scoring
+    bsz, d_pad = 4, 3000
+    gen = torch.Generator(device="cuda").manual_seed(n_children)
+    children = [(torch.rand(bsz, d_pad, generator=gen, device="cuda"),
+                 torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.3)
+                for _ in range(n_children)]
+    boost = torch.rand(bsz, generator=gen, device="cuda") + 0.5
+    if from_field:
+        msm_v = (torch.rand(d_pad, generator=gen, device="cuda") * 6).floor()
+        msm_e = torch.rand(d_pad, generator=gen, device="cuda") < 0.8
+        args = (msm_v, msm_e, None)
+    else:
+        args = (None, None, torch.randint(0, 5, (bsz,), generator=gen,
+                                          device="cuda", dtype=torch.int32))
+    before = _build.LAUNCHES["terms_set_scores"]
+    got = scoring.terms_set(children, *args, boost)
+    assert _build.LAUNCHES["terms_set_scores"] == before + -(
+        -n_children // scoring.TS_MAX)
+    want = scoring.terms_set_plain(children, *args, boost)
+    torch.cuda.synchronize()
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+def test_distance_feature_boosting_script_kernels_equal_plain(gpu):
+    """K19 distance_feature (on date millis in f32), boosting and the
+    script_score wrap, bit for bit."""
+    from opensearch_tpu_torch.ops import scoring
+    bsz, d_pad = 5, 7000
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    value = 1.7e12 + torch.rand(d_pad, generator=gen, device="cuda") * 1e10
+    exists = torch.rand(d_pad, generator=gen, device="cuda") < 0.9
+    origin = torch.full((bsz,), 1.705e12, device="cuda")
+    pivot = torch.rand(bsz, generator=gen, device="cuda") * 1e9 + 1e8
+    boost = torch.rand(bsz, generator=gen, device="cuda") + 0.5
+    checks = [
+        ("distance_feature_scores",
+         scoring.distance_feature(value, exists, origin, pivot, boost),
+         scoring.distance_feature_plain(value, exists, origin, pivot,
+                                        boost))]
+    pos_s = torch.rand(bsz, d_pad, generator=gen, device="cuda") * 7
+    pos_m = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.5
+    neg_m = torch.rand(bsz, d_pad, generator=gen, device="cuda") < 0.5
+    nb = torch.rand(bsz, generator=gen, device="cuda")
+    checks.append(("boosting_scores",
+                   scoring.boosting(pos_s, pos_m, neg_m, nb, boost),
+                   scoring.boosting_plain(pos_s, pos_m, neg_m, nb, boost)))
+    plane = torch.randn(bsz, d_pad, generator=gen, device="cuda")
+    checks.append(("script_score_wrap",
+                   scoring.script_score_wrap(pos_m, plane, boost),
+                   scoring.script_score_wrap_plain(pos_m, plane, boost)))
+    torch.cuda.synchronize()
+    for name, got, want in checks:
+        assert _build.LAUNCHES[name] > 0
+        assert _same(got[0], want[0]) and _same(got[1], want[1]), name

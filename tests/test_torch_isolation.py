@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax():
                 "searchpipeline.hybrid", "searchpipeline.processors",
                 "searchpipeline.service", "indices.query_cache",
                 "search.fetch", "search.controller", "ops.sort_key",
-                "ops.page", "ops.agg_kernels", "search.aggs.pipeline"):
+                "ops.page", "ops.agg_kernels", "search.aggs.pipeline",
+                "script.painless", "ops.scoring", "analysis.porter",
+                "common.settings"):
         assert f"opensearch_tpu_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

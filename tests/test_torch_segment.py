@@ -245,3 +245,32 @@ def test_rank_vectors_images_are_equal():
             np.testing.assert_array_equal(got, want)
     assert tmeta.rank_vector_fields == tuple(jmeta.rank_vector_fields) \
         == (("pq", 16, "pq"), ("tok", 16, "none"))
+
+
+def test_positions_equal_the_reference(pair):
+    """The host positions phrase queries read: one sorted int32 array per
+    posting of each text term, across multi-valued fields' position gaps,
+    equal to the reference's; `_positions_for`, `terms_for_field` and a
+    `segment_from_arrays` round trip agree too."""
+    j, t = pair
+    assert list(t.positions) == list(j.positions)
+    for key, lists in j.positions.items():
+        got = t.positions[key]
+        assert len(got) == len(lists) == t.term_dict[key].doc_freq
+        for g, w in zip(got, lists):
+            assert g.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+    assert t.terms_for_field("passage") == j.terms_for_field("passage")
+    for term in ("w00001", "value", "first"):
+        want = j._positions_for("passage", term)
+        got = t._positions_for("passage", term)
+        assert sorted(got) == sorted(want)
+        for d in want:
+            np.testing.assert_array_equal(got[d], want[d])
+    arrays = segment_arrays(j)
+    arrays["positions"] = dict(j.positions)
+    carried = segment_from_arrays(arrays)
+    assert carried.memory_bytes() == j.memory_bytes()
+    bad = dict(arrays, positions={("passage", "value"): []})
+    with pytest.raises(ValueError, match="one array per posting"):
+        segment_from_arrays(bad)
