@@ -152,6 +152,28 @@ version. Phase 3 adds a three-segment structured index served with field
 sorts, search_after pages and the fetch subphases (highlight, explain,
 docvalue_fields, version) on a gate-off node and on a result-page node.
 
+Phase 2 also holds K20 blockmax_keep with K1's and K2's keep entries at
+B=32 on phase 4's 2-4-term queries and on one-term queries over the same
+passages, where lanes are pruned (k 10), K21's row_merge at R = 5 and
+8 rows (k 10, 1,000, 65,536) and its row_value_key over the 10M-doc
+`views` column, each bit for bit against its plain version. Phase 3 adds
+a 3-shard index and four daily indices behind `logs-*` (the multi-shard
+program, the host loop with can-match, DFS, `_msearch`) and, on a
+`search.blockmax.enabled` node pair, the zipf corpus on one and two
+shards (block-max on the envelope and on the program).
+13. sharded cell: phase 4's passages built as 5 shards
+    (build_shards_fast(n_shards=5)) in one index, 600 `match` bodies of
+    2-4 terms at B=1 (the multi-shard program: 5 rows, K21) and B=32
+    `_msearch`, block-max off and on (a second Node): p50 / p99, q/s,
+    busy share, image bytes, the share of pruned lanes; block-max pages
+    equal the gate-off pages and 64 program pages equal the card's own
+    host loop's; 64 `dfs_query_then_fetch` bodies on the 5 shards, each
+    page equal to one shard holding the five segments (p50 / p99);
+    block-max on phase 4's one-shard envelope (pages equal); phase 10's
+    four 2.5M-doc segments as four indices behind `logs-*` against the
+    same docs as one index and the f64 oracle; a 100,000-passage 5-shard
+    cut against Node(device="cpu"), dfs pages included.
+
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
 per-kernel tables, a copy of the log) under DIR. The card's name and power limit are printed in
 phase 1 and again on the third line from the end; the line before the last
@@ -460,6 +482,11 @@ def phase_serving(torch, np, device=None):
     gpu_page = Node(settings=page_settings) if device is None \
         else Node(device=device, settings=page_settings)
     cpu_page = Node(device="cpu", settings=page_settings)
+    # block-max (K20 and K1's / K2's keep entries) is a node-start setting
+    bm_settings = {"search.blockmax.enabled": True}
+    gpu_bm = Node(settings=bm_settings) if device is None \
+        else Node(device=device, settings=bm_settings)
+    cpu_bm = Node(device="cpu", settings=bm_settings)
     if gpu.device.type != (device or "cuda"):
         raise AssertionError(f"Node() resolved to {gpu.device}")
     # the k-NN path starts at indexing: a refresh seals the IVF lists of
@@ -477,11 +504,18 @@ def phase_serving(torch, np, device=None):
         parity.load_taxi_index(node, "taxi")
         parity.load_rel_index(node, "rel")
         parity.load_rel_custom_index(node, "relc")
+        # the multi-shard slice: a 3-shard index of two segments a shard
+        # (6 rows) and four one-shard daily indices behind logs-*
+        parity.load_sharded_index(node, "s3", 3)
+        parity.load_logs_indices(node)
         if node is gpu:
-            log(f"serving: ten indices loaded on the card in "
+            log(f"serving: fifteen indices loaded on the card in "
                 f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
     for node in (gpu_page, cpu_page):
         parity.load_sorted_index(node, "sorted")
+    for node in (gpu_bm, cpu_bm):
+        parity.load_zipf_index(node, "zipf", 1)
+        parity.load_zipf_index(node, "zipf2", 2)
     payload = parity.msearch_ndjson("passages", parity.msearch_bodies(32))
     knn_bodies = parity.knn_bodies()
     knn_payload = parity.msearch_ndjson("vecs",
@@ -556,6 +590,21 @@ def phase_serving(torch, np, device=None):
         parity.msearch_ndjson("rel", [parity.QUERY_KIND_BODIES[n] for n in
                                       sorted(parity.QUERY_KIND_BODIES)])]
     got_rm = [gpu.request("POST", "/_msearch", pl) for pl in rel_payloads]
+    # multi-shard and multi-index bodies (the program: K21, K3-keyed; the
+    # host loop with can-match; DFS), and block-max on the envelope (zipf:
+    # K20, K1's keep entry) and on the program (zipf2: K20, K2's keep
+    # entry, K21)
+    shard_requests = [(f"/{ix}/_search", b) for ix in ("s3", "logs-*")
+                      for b in parity.SHARD_BODIES.values()]
+    got_sh = [gpu.request("POST", path, b) for path, b in shard_requests]
+    shard_payload = parity.msearch_ndjson(
+        "s3", list(parity.SHARD_BODIES.values()))
+    got_shm = gpu.request("POST", "/_msearch", shard_payload)
+    bm_requests = [(f"/{ix}/_search", b) for ix in ("zipf", "zipf2")
+                   for b in parity.zipf_bodies((10, 100))]
+    got_bm = [gpu_bm.request("POST", path, b) for path, b in bm_requests]
+    bm_payload = parity.msearch_ndjson("zipf", parity.zipf_bodies())
+    got_bmm = gpu_bm.request("POST", "/_msearch", bm_payload)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -565,9 +614,11 @@ def phase_serving(torch, np, device=None):
         f"{len(late)} maxsim / hybrid / k=20000 _search + two B=32 "
         f"_msearch, {len(got_s)} sorted _search + two B=8 sorted _msearch, "
         f"{len(kind_names)} agg-kind / pipeline _search + one B=32 _msearch, "
-        f"{len(rel_requests)} scoring / lexical _search + two _msearch "
-        f"on the card in {wall * 1e3:.3f} ms; launches (loads included) "
-        f"{json.dumps(launches)}")
+        f"{len(rel_requests)} scoring / lexical _search + two _msearch, "
+        f"{len(shard_requests)} multi-shard / multi-index _search + one "
+        f"_msearch, {len(bm_requests)} block-max _search + one B=15 "
+        f"_msearch on the card in {wall * 1e3:.3f} ms; launches (loads "
+        f"included) {json.dumps(launches)}")
     for n in names:
         if got[n]["_status"] != 200:
             raise AssertionError(f"_search {n}: {got[n]}")
@@ -633,6 +684,25 @@ def phase_serving(torch, np, device=None):
         parity.assert_same_response(
             got_one, cpu.request("POST", "/_msearch", pl), "rel msearch",
             score_rtol=SCORING_RTOL, score_atol=SCORING_ATOL)
+    for (path, b), got_one in zip(shard_requests, got_sh):
+        if got_one["_status"] != 200:
+            raise AssertionError(f"{path}: {got_one}")
+        parity.assert_same_response(got_one, cpu.request("POST", path, b),
+                                    path)
+    parity.assert_same_response(got_shm, cpu.request("POST", "/_msearch",
+                                                     shard_payload),
+                                "shard msearch")
+    for (path, b), got_one in zip(bm_requests, got_bm):
+        if got_one["_status"] != 200 or not got_one["hits"]["hits"]:
+            raise AssertionError(f"{path}: {got_one}")
+        parity.assert_same_response(got_one,
+                                    cpu_bm.request("POST", path, b), path)
+    parity.assert_same_response(got_bmm, cpu_bm.request("POST", "/_msearch",
+                                                        bm_payload),
+                                "block-max msearch")
+    if not any(r["hits"]["total"]["relation"] == "gte"
+               for r in got_bm + got_bmm["responses"]):
+        raise AssertionError("block-max pruned nothing on the zipf corpus")
     if got_l[-1]["hits"]["total"]["value"] != 20000:
         raise AssertionError(f"knn k=20000: {got_l[-1]['hits']['total']}")
     for node in (gpu, cpu):
@@ -652,7 +722,10 @@ def phase_serving(torch, np, device=None):
         f"search_after / fetch pages (result page off and on) and "
         f"{len(kind_names) + 32} agg-kind / pipeline responses and "
         f"{len(rel_requests) + sum(len(r['responses']) for r in got_rm)} "
-        f"scoring / lexical pages equal the plain versions' (matrix_stats "
+        f"scoring / lexical pages, {len(shard_requests) + len(parity.SHARD_BODIES)} "
+        f"multi-shard / multi-index responses and "
+        f"{len(bm_requests) + len(got_bmm['responses'])} block-max pages "
+        f"equal the plain versions' (matrix_stats "
         f"within matrix_stats_tol, the scoring kinds' scores to rtol "
         f"{SCORING_RTOL})")
     return launches
@@ -1308,6 +1381,187 @@ def phase_sort_kernels(torch, np, seg, four, dev):
         raise AssertionError("page_merge: the wrapper's page differs from "
                              "the launch's")
     del images, rows, desc
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
+                       bsz: int = 32):
+    """K20 blockmax_keep with K1's and K2's keep entries at B=32 on phase
+    4's 2-4-term queries and on one-term queries, which prune lanes
+    (compiled with block-max's inputs, at least 16 lanes each; k 10),
+    K21's row_merge at R = 5 and 8 rows of k_r = k
+    lanes (k 10, 1,000, 65,536; keys from 40 values, so ties cross rows)
+    and K21's row_value_key over the 10M-doc `views` column, each bit for
+    bit against its plain version."""
+    from opensearch_tpu_torch.ops import bm25, spmd as kspmd
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.search import dsl
+    from opensearch_tpu_torch.search.compile import Compiler, ShardStats
+    from opensearch_tpu_torch.utils.demo import fast_query_terms
+
+    arrays, meta = upload_segment(seg, dev)
+    results = {}
+
+    def record(name, shape, kern, plain, library, nbytes, ops=0.0,
+               lib_note=None):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        for a, b, what in ((got, again, "two runs differ"),
+                           (got, want, "kernel and plain version differ")):
+            pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
+            if not all(_same_bits(torch, x, y) for x, y in pairs):
+                raise AssertionError(f"{name} {shape}: {what}")
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rec = {"shape": shape, "max_abs_err": 0.0,
+               "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
+               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "library_ms": None if library is None
+               else graph_ms(torch, library),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if lib_note:
+            rec["library"] = lib_note
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+        return got
+
+    # K20 and the keep entries, on two batches of 32 queries over phase 4's
+    # passages: its 2-4-term mix (whose slices hold no doc with two terms,
+    # so theta stays under every lane's bound and nothing is pruned), and
+    # one-term queries (theta is the 10th best posting of the term's top-8
+    # blocks, above the bound of many of its other blocks: lanes drop)
+    comp = Compiler(mapper, ShardStats([seg]), blockmax=True)
+    for label, per_query, seed in (("2-4 terms", (2, 3, 4), 800),
+                                   ("1 term", (1,), 900)):
+        plans, n = [], 0
+        while len(plans) < bsz:
+            q = fast_query_terms(1, terms, seed=seed + n,
+                                 terms_per_query=per_query[n % len(
+                                     per_query)])[0]
+            n += 1
+            p = comp.compile(dsl.parse_query({"match": {"body": q}}), seg,
+                             meta)
+            lanes = p.inputs["ids"].shape[0] if p.kind == "text" else 0
+            if bm25.BLOCKMAX_MIN_BLOCKS <= lanes \
+                    and lanes * 128 <= bm25.CANDIDATE_MAX_LANES:
+                plans.append(p)
+        nodes, ms = stacked_inputs(torch, plans, [-np.inf] * bsz, dev)
+        blk = nodes[0]
+        n_terms, k = max(p.static[1] for p in plans), 10
+        qb = blk["ids"].shape[1]
+        real = int((blk["ids"] >= 0).sum().item())
+
+        def k20(blk=blk, n_terms=n_terms, k=k, ms=ms):
+            return bm25.blockmax_keep_mask(arrays, blk, n_terms, k, ms)
+
+        def k20_plain(blk=blk, n_terms=n_terms, k=k, ms=ms):
+            return bm25.blockmax_keep_mask_plain(arrays, blk, n_terms, k, ms)
+        if per_query == (1,) and int(k20()[1].sum().item()) == 0:
+            raise AssertionError("blockmax_keep pruned no lane of the "
+                                 "one-term batch")
+        # per lane: id, w, tid, its bound and the keep byte; per query the
+        # slice's 1,024 postings (doc, tf, norm, live, root); the bound
+        # arithmetic, the slice's partials and run-sums (f32 operations)
+        keep, pruned = record(
+            "blockmax_keep", f"B={bsz} {label} QB={qb} lanes={real} "
+            f"terms<={n_terms} k={k}", k20, k20_plain, None,
+            bsz * qb * 17 + bsz * 1024 * 14 + bsz * 4,
+            bsz * (qb * 6 + 1024 * (10 + n_terms)))
+        kept_blocks = int(((blk["ids"] >= 0) & keep).sum().item())
+        log(f"blockmax_keep: {int(pruned.sum())} of {real} lanes pruned at "
+            f"B={bsz}, {label}, k={k}")
+        kept = dict(blk, ids=torch.where(keep, blk["ids"], -1))
+
+        def k1(blk=blk, n_terms=n_terms, k=k, ms=ms, keep=keep,
+               pruned=pruned):
+            return bm25.bm25_candidate(arrays, blk, n_terms, False, k, ms,
+                                       block_keep=keep, pruned=pruned)
+
+        def k1_plain(kept=kept, n_terms=n_terms, k=k, ms=ms, pruned=pruned):
+            rows = bm25.bm25_candidate_plain(arrays, kept, n_terms, False, k,
+                                             ms)
+            return torch.cat([rows, pruned[:, None].view(torch.float32)], 1)
+        record("bm25_candidate_keep", f"B={bsz} {label} QB={qb} kept "
+               f"blocks={kept_blocks} of {real} k={k}", k1, k1_plain, None,
+               kept_blocks * 128 * 14 + bsz * qb * 9 + bsz * (2 * k + 2) * 4,
+               kept_blocks * 128 * 10)
+
+        def k2(blk=blk, keep=keep):
+            return bm25.score_text_clause(arrays, blk, block_keep=keep)
+
+        def k2_plain(kept=kept):
+            return bm25.score_text_clause_plain(arrays, kept)
+        record("score_text_clause_keep", f"B={bsz} {label} QB={qb} kept "
+               f"blocks={kept_blocks} of {real} Dp={meta.d_pad}", k2,
+               k2_plain, None,
+               kept_blocks * 128 * 12 + bsz * qb * 9 + bsz * meta.d_pad * 8,
+               kept_blocks * 128 * 10)
+        del nodes, blk, kept
+    del arrays
+    torch.cuda.empty_cache()
+
+    # K21's merge: R rows of K3's keyed layout
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for n_rows in (5, 8):
+        for k in (10, 1000, 65536):
+            ks = [k] * n_rows
+            buf = torch.zeros(n_rows, 3 * k + 1, device=dev)
+            for r in range(n_rows):
+                keys = torch.randint(0, 40, (k,), generator=gen,
+                                     device=dev).float()
+                keys[torch.rand(k, generator=gen, device=dev) < 0.05] = \
+                    float("-inf")
+                buf[r, :k] = torch.sort(keys, descending=True).values
+                buf[r, k:2 * k] = torch.rand(k, generator=gen, device=dev)
+                buf[r, 2 * k:3 * k] = torch.randint(
+                    0, 1 << 20, (k,), generator=gen, device=dev,
+                    dtype=torch.int32).view(torch.float32)
+                buf[r, 3 * k] = torch.tensor(
+                    [k], dtype=torch.int32, device=dev).view(torch.float32)
+            pruned = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+
+            def k21(buf=buf, ks=ks, pruned=pruned, k=k):
+                return kspmd.row_merge(buf, ks, pruned, k)
+
+            def k21_plain(buf=buf, ks=ks, pruned=pruned, k=k):
+                return kspmd.row_merge_plain(buf, ks, pruned, k)
+            cat = buf[:, :k].reshape(-1).contiguous()
+
+            def library(cat=cat, k=k):
+                return torch.topk(cat, k)
+            # each row's keys, scores and ords read; the packed page written
+            record("row_merge", f"R={n_rows} k={k}", k21, k21_plain,
+                   library, n_rows * (3 * k + 1) * 4
+                   + kspmd.merged_width(k, n_rows) * 4, 0.0,
+                   "torch.topk of the concatenated row keys")
+
+    # K21's key entry over the 10M-doc views column
+    col = agg_seg.numeric_dv["views"]
+    d_pad = 1 << int(np.ceil(np.log2(agg_seg.num_docs)))
+    min_rank = np.full(d_pad, np.iinfo(np.int32).max, np.int32)
+    max_rank = np.full(d_pad, -1, np.int32)
+    np.minimum.at(min_rank, col.doc_ids, col.value_ords)
+    np.maximum.at(max_rank, col.doc_ids, col.value_ords)
+    exists = np.zeros(d_pad, bool)
+    exists[:agg_seg.num_docs] = col.exists
+    u_pad = 1 << int(np.ceil(np.log2(max(len(col.unique), 8))))
+    uniq = np.zeros(u_pad, np.float32)
+    uniq[:len(col.unique)] = col.unique.astype(np.float32)
+    dcol = {"min_rank": torch.from_numpy(min_rank).to(dev),
+            "max_rank": torch.from_numpy(max_rank).to(dev),
+            "exists": torch.from_numpy(exists).to(dev),
+            "unique_f32": torch.from_numpy(uniq).to(dev)}
+    for order in ("desc", "asc"):
+        def kv(order=order):
+            return kspmd.row_value_key(dcol, order, d_pad, dev)
+
+        def kv_plain(order=order):
+            return kspmd.row_value_key_plain(dcol, order)
+        # per doc the rank and exists bytes read and the key written; the
+        # values table (u_pad floats, cache resident) read once
+        record("row_value_key", f"views {order} Dp={d_pad}", kv, kv_plain,
+               None, d_pad * (4 + 1 + 4) + u_pad * 4)
+    del dcol
     torch.cuda.empty_cache()
     return results
 
@@ -2437,8 +2691,7 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
     single-segment pages against the four-segment ones."""
     from opensearch_tpu_torch.node import Node
     from opensearch_tpu_torch.ops import _build
-    from opensearch_tpu_torch.search import controller
-    from opensearch_tpu_torch.search.executor import SearchExecutor
+    from opensearch_tpu_torch.search import controller, spmd
     from opensearch_tpu_torch.utils.demo import STRUCTURED_MAPPING
     parity = _parity()
     node = Node()
@@ -2459,11 +2712,21 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
         f"s: {json.dumps(out)}")
     bodies = sorted_bodies(np, seg)
 
-    # the host split: the shard's query phase (device work, the one copy,
-    # the host decode), the fetch phase, and the rest (merge, cursor,
-    # render) as reduce
+    # the host split: the query phase (the shard's, or the four-segment
+    # index's multi-shard program: device work, the one copy, the host
+    # decode), the fetch phase, and the rest (merge, cursor, render) as
+    # reduce
     split = {"query": 0.0, "fetch": 0.0}
     real_build_hit = controller._build_hit
+    real_spmd = spmd.spmd_query_phase
+
+    def timed_spmd(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_spmd(*a, **kw)
+        finally:
+            split["query"] += (time.perf_counter() - t) * 1e3
+    spmd.spmd_query_phase = timed_spmd
 
     def timed_build_hit(*a, **kw):
         t = time.perf_counter()
@@ -2479,10 +2742,10 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
             ex = n.indices.get(name).shards[0].executor
             real_qp = ex.execute_query_phase
 
-            def timed_qp(body, k, real_qp=real_qp):
+            def timed_qp(body, k, real_qp=real_qp, **kw):
                 t = time.perf_counter()
                 try:
-                    return real_qp(body, k)
+                    return real_qp(body, k, **kw)
                 finally:
                     split["query"] += (time.perf_counter() - t) * 1e3
             ex.execute_query_phase = timed_qp
@@ -2520,16 +2783,24 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
                                      - split["fetch"]) / reps}
                 cell[f"{name}/{index}"] = rec
                 log(f"sorted {name} on {index}: " + json.dumps(rec))
-        # the views body on the result-page node: pages equal the
-        # gate-off node's
+        # the views body on the four segments takes the multi-shard
+        # program (one layout, an f32-sortable column); on the result-page
+        # node its host loop (pinned) merges on the device (K14): pages
+        # equal the gate-off node's
         vb = bodies["desc_sort_views_filtered"]
-        for _ in range(2):
-            search(page_node, "logs_four", vb)
-        walls = []
-        for _ in range(singles):
-            t = time.perf_counter()
-            resp = search(page_node, "logs_four", vb)
-            walls.append((time.perf_counter() - t) * 1e3)
+        n0 = spmd.SPMD_QUERIES[0]
+        search(node, "logs_four", vb)
+        if spmd.SPMD_QUERIES[0] != n0 + 1:
+            raise AssertionError("sorted: the four-segment views body did "
+                                 "not take the multi-shard program")
+        with spmd.force_host_loop():
+            for _ in range(2):
+                search(page_node, "logs_four", vb)
+            walls = []
+            for _ in range(singles):
+                t = time.perf_counter()
+                resp = search(page_node, "logs_four", vb)
+                walls.append((time.perf_counter() - t) * 1e3)
         parity.assert_same_response(resp, answers[(
             "desc_sort_views_filtered", "logs_four")], "result page")
         cell["desc_sort_views_filtered/logs_four/result_page"] = {
@@ -2541,6 +2812,7 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
         launches = dict(_build.LAUNCHES)
     finally:
         controller._build_hit = real_build_hit
+        spmd.spmd_query_phase = real_spmd
     from opensearch_tpu_torch.indices.query_cache import QUERY_CACHE
     log(f"sorted: launches {json.dumps(launches)}; filter cache "
         f"{json.dumps(QUERY_CACHE.stats())}")
@@ -3368,6 +3640,360 @@ def phase_relevance_cell(torch, np, mapper, seg, terms, card: str,
     return out
 
 
+SHARDED_SHARDS = 5           # Elasticsearch's default before 7.0
+SHARDED_QUERIES = 600
+SHARDED_HOST_LOOP_CHECKS = 64
+SHARDED_CUT_DOCS = 100_000
+SHARDED_CUT_PAGES = 32
+SHARDED_CUT_DFS_PAGES = 8
+SHARDED_DFS_BODIES = 64
+LOGS_SINGLES = 50
+
+
+def _page_of(resp):
+    return ([(h["_id"], h["_score"], h.get("sort"))
+             for h in resp["hits"]["hits"]],
+            resp["hits"].get("total"), resp["hits"]["max_score"])
+
+
+def phase_sharded_cell(torch, np, mapper, seg, terms, agg_seg, four, dev,
+                       card: str, out_dir=None, n_docs: int = SCALE_DOCS,
+                       n_queries: int = SHARDED_QUERIES,
+                       cut_docs: int = SHARDED_CUT_DOCS,
+                       logs_singles: int = LOGS_SINGLES, bsz: int = 32):
+    """The sharded cell through Node().request:
+    - phase 4's msmarco-shaped passages built as 5 shards
+      (build_shards_fast(n_shards=5)) in one index: 2-4-term `match`
+      bodies at B=1 (the multi-shard program, 5 rows) and B=32 `_msearch`
+      (each body through search()), block-max off and on (a second Node
+      with `search.blockmax.enabled`): p50 / p99, q/s, busy share, image
+      bytes, the share of pruned lanes; block-max pages equal the gate-off
+      pages, and the program's pages equal the card's own host loop's on
+      64 bodies; `dfs_query_then_fetch` on 64 of the bodies (sharded_dfs);
+    - block-max in the envelope: phase 4's one-shard index, gate on and
+      off, B=1 and B=32, pages equal;
+    - `logs-*` over phase 10's four 2.5M-doc segments as four one-shard
+      indices, against the same docs as one index (and the f64 oracle):
+      pages, totals and aggregations equal, B=1 p50 / p99 per body;
+    - a 100,000-passage cut in 5 shards against Node(device="cpu"), 32
+      pages and 8 dfs pages."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.search import dsl, spmd
+    from opensearch_tpu_torch.search.compile import Compiler
+    from opensearch_tpu_torch.search.executor import (SearchExecutor,
+                                                      ShardReader)
+    from opensearch_tpu_torch.utils.demo import (DEMO_MAPPING,
+                                                 STRUCTURED_MAPPING,
+                                                 build_shards_fast,
+                                                 fast_query_terms)
+    parity = _parity()
+    t_cell = time.perf_counter()
+    out = {}
+    texts = []
+    for n in (2, 3, 4):
+        texts += fast_query_terms(n_queries // 3, terms, seed=700 + n,
+                                  terms_per_query=n)
+    np.random.default_rng(1).shuffle(texts)
+    bodies = [{"query": {"match": {"body": t}}} for t in texts]
+
+    def sharded_index(node, name, segs):
+        assert node.request("PUT", f"/{name}", {
+            "settings": {"number_of_shards": len(segs)},
+            "mappings": DEMO_MAPPING})["_status"] == 200
+        svc = node.indices.get(name)
+        for shard, sg in zip(svc.shards, segs):
+            shard.reader.add_segment(sg)
+        return svc
+
+    # (a) BM25 over 5 shards, block-max off and on
+    t0 = time.perf_counter()
+    _m5, segs5, _t5 = build_shards_fast(
+        n_docs, SHARDED_SHARDS, vocab_size=20000, avg_len=60, seed=42,
+        materialize_terms=SCALE_MATERIALIZE_TERMS)
+    log(f"sharded: {n_docs} passages in {len(segs5)} shards "
+        f"({[s.num_docs for s in segs5]}) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    nodes = {"off": Node(),
+             "on": Node(settings={"search.blockmax.enabled": True})}
+    svcs = {}
+    for gate, node in nodes.items():
+        svcs[gate] = sharded_index(node, "msm5", segs5)
+    out["image_bytes"] = sum(sh.reader.device_bytes()
+                             for sh in svcs["off"].shards)
+    for node in nodes.values():
+        for b in bodies[:10]:
+            node.request("POST", "/msm5/_search", b)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    pages = {}
+    for gate, node in nodes.items():
+        n0 = spmd.SPMD_QUERIES[0]
+        walls, got = [], []
+        for b in bodies:
+            t = time.perf_counter()
+            resp = node.request("POST", "/msm5/_search", b)
+            walls.append((time.perf_counter() - t) * 1e3)
+            got.append(resp)
+        if spmd.SPMD_QUERIES[0] - n0 != len(bodies):
+            raise AssertionError(f"sharded {gate}: only "
+                                 f"{spmd.SPMD_QUERIES[0] - n0} of "
+                                 f"{len(bodies)} bodies took the program")
+        batches = []
+        for i in range(0, len(bodies) - bsz + 1, bsz):
+            payload = parity.msearch_ndjson("msm5", bodies[i:i + bsz])
+            t = time.perf_counter()
+            resp = node.request("POST", "/_msearch", payload)
+            batches.append((time.perf_counter() - t) * 1e3)
+            if any(r.get("status") != 200 for r in resp["responses"]):
+                raise AssertionError(f"sharded msearch {gate}: {resp}")
+        pages[gate] = got
+        rec = {"search_p50_ms": _pct(np, walls, 50),
+               "search_p99_ms": _pct(np, walls, 99),
+               "msearch32_p50_ms": _pct(np, batches, 50),
+               "msearch32_p99_ms": _pct(np, batches, 99),
+               "msearch32_qps": bsz * 1e3 / _pct(np, batches, 50),
+               "gte_responses": sum(r["hits"]["total"]["relation"] == "gte"
+                                    for r in got)}
+        rec.update(profile_waves(torch, svcs[gate], bodies, out_dir,
+                                 f"sharded_{gate}"))
+        out[f"bm25_5_shards_blockmax_{gate}"] = rec
+        log(f"sharded 5-shard BM25, block-max {gate}: " + json.dumps(rec))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _require_launched(launches, ("score_text_clause", "masked_topk_keyed",
+                                 "row_merge", "blockmax_keep",
+                                 "score_text_clause_keep"), "sharded cell")
+    for i, (a, b) in enumerate(zip(pages["off"], pages["on"])):
+        pa, pb = _page_of(a), _page_of(b)
+        if pa[0] != pb[0] or pa[2] != pb[2]:
+            raise AssertionError(f"sharded: block-max page {i} differs "
+                                 f"from the gate-off page")
+        if pb[1]["relation"] == "eq" and pb[1] != pa[1]:
+            raise AssertionError(f"sharded: block-max total {i} differs")
+    # the share of pruned lanes on the program, from the rows' plans
+    ex_on = [sh.executor for sh in svcs["on"].shards]
+    rows = spmd.spmd_rows(ex_on)
+    pruned = lanes = 0
+    for b in bodies[:SHARDED_HOST_LOOP_CHECKS]:
+        pruned += spmd.spmd_query_phase(ex_on, b, 10, rows)[3]
+        for ex in ex_on:
+            stats, segs_, dev_ = ex.reader.stats_snapshot()
+            comp = Compiler(ex.reader.mapper, stats, blockmax=True)
+            for sg, (_a, m) in zip(segs_, dev_):
+                p = comp.compile(dsl.parse_query(b["query"]), sg, m)
+                if p.kind == "text":
+                    lanes += int((p.inputs["ids"] >= 0).sum())
+    out["pruned_lane_share"] = pruned / max(lanes, 1)
+    # the program's pages against the card's own host loop
+    for b in bodies[:SHARDED_HOST_LOOP_CHECKS]:
+        want = nodes["off"].request("POST", "/msm5/_search", b)
+        with spmd.force_host_loop():
+            got_h = nodes["off"].request("POST", "/msm5/_search", b)
+        if _page_of(want) != _page_of(got_h):
+            raise AssertionError(f"sharded: the program's page differs "
+                                 f"from the host loop's for {b}")
+    log(f"sharded: {len(bodies)} block-max pages equal the gate-off pages; "
+        f"pruned lanes {pruned} of {lanes} ({out['pruned_lane_share']:.4f}) "
+        f"over {SHARDED_HOST_LOOP_CHECKS} bodies; "
+        f"{SHARDED_HOST_LOOP_CHECKS} program pages equal the host loop's")
+    out["bm25_5_shards_dfs"] = sharded_dfs(np, nodes["off"], segs5, bodies,
+                                           pages["off"])
+    del nodes, svcs, ex_on, segs5
+    torch.cuda.empty_cache()
+
+    # (b) block-max in the envelope: phase 4's one-shard index
+    reader = ShardReader(mapper, dev, index_name="msm1")
+    reader.add_segment(seg)
+    exs = {"off": SearchExecutor(reader),
+           "on": SearchExecutor(reader, blockmax=True)}
+    for ex in exs.values():
+        for b in bodies[:10]:
+            ex.search(b)
+    _build.reset_launches()
+    env = {}
+    for gate, ex in exs.items():
+        walls, got = [], []
+        for b in bodies:
+            t = time.perf_counter()
+            got.append(ex.search(b))
+            walls.append((time.perf_counter() - t) * 1e3)
+        batches, got_m = [], []
+        for i in range(0, len(bodies) - bsz + 1, bsz):
+            t = time.perf_counter()
+            got_m.append(ex.multi_search(bodies[i:i + bsz]))
+            batches.append((time.perf_counter() - t) * 1e3)
+        env[gate] = (got, got_m)
+        rec = {"search_p50_ms": _pct(np, walls, 50),
+               "search_p99_ms": _pct(np, walls, 99),
+               "msearch32_p50_ms": _pct(np, batches, 50),
+               "msearch32_qps": bsz * 1e3 / _pct(np, batches, 50),
+               "gte_responses": sum(r["hits"]["total"]["relation"] == "gte"
+                                    for r in got)}
+        rec.update(profile_waves(torch, ex, bodies, out_dir,
+                                 f"envelope_{gate}"))
+        rec["msearch32_device_ms"] = device_split_ms(
+            torch, lambda ex=ex: ex.multi_search(bodies[:bsz]))
+        out[f"bm25_envelope_blockmax_{gate}"] = rec
+        log(f"sharded envelope (1 shard), block-max {gate}: "
+            + json.dumps(rec))
+    torch.cuda.synchronize()
+    _require_launched(dict(_build.LAUNCHES), (
+        "blockmax_keep", "bm25_candidate_keep"), "envelope block-max")
+    for a, b in zip(env["off"][0], env["on"][0]):
+        if _page_of(a)[0] != _page_of(b)[0]:
+            raise AssertionError("envelope: a block-max page differs")
+    for ma, mb in zip(env["off"][1], env["on"][1]):
+        for a, b in zip(ma["responses"], mb["responses"]):
+            if _page_of(a)[0] != _page_of(b)[0]:
+                raise AssertionError("envelope: a block-max B=32 page "
+                                     "differs")
+    del exs, reader, env
+    torch.cuda.empty_cache()
+
+    # (c) logs-* over four daily indices against the same docs as one
+    node = Node()
+    t0 = time.perf_counter()
+    for name, segs_ in (("logs_one", [agg_seg]),
+                        *((f"logs-{j}", [sg]) for j, sg in enumerate(four))):
+        assert node.request("PUT", f"/{name}", {
+            "mappings": STRUCTURED_MAPPING})["_status"] == 200
+        node.indices.get(name).shards[0].reader.add_segment(segs_[0])
+    log(f"sharded: logs_one and logs-0..3 uploaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+    logs_bodies = dict(sorted_bodies(np, agg_seg))
+    logs_bodies = {
+        "desc_sort_timestamp": logs_bodies["desc_sort_timestamp"],
+        "desc_sort_views_filtered": logs_bodies["desc_sort_views_filtered"],
+        "terms_tag_date_histogram": {"size": 0, "aggs": {
+            "t": {"terms": {"field": "tag", "size": 10}},
+            "d": {"date_histogram": {"field": "ts",
+                                     "fixed_interval": "1d"}}}},
+        "cardinality": {"size": 0, "aggs": {"c": {"cardinality": {
+            "field": "tag"}}}},
+        "dfs_match": {"query": {"match": {"views": 4242}},
+                      "search_type": "dfs_query_then_fetch", "size": 10},
+    }
+    logs = {}
+    for name, body in logs_bodies.items():
+        one = node.request("POST", "/logs_one/_search", body)
+        node.request("POST", "/logs-*/_search", body)
+        n0 = spmd.SPMD_QUERIES[0]
+        walls = []
+        for _ in range(logs_singles):
+            t = time.perf_counter()
+            resp = node.request("POST", "/logs-*/_search", body)
+            walls.append((time.perf_counter() - t) * 1e3)
+        if resp["_status"] != 200 or one["_status"] != 200:
+            raise AssertionError(f"logs-* {name}: {resp}")
+        if resp["_shards"]["total"] != 4:
+            raise AssertionError(f"logs-* {name}: {resp['_shards']}")
+        _sorted_oracle(np, agg_seg, name, body, resp)
+        same = ([(h["_id"], h.get("sort"), h["_score"])
+                 for h in resp["hits"]["hits"]]
+                == [(h["_id"], h.get("sort"), h["_score"])
+                    for h in one["hits"]["hits"]]
+                and resp["hits"]["total"] == one["hits"]["total"]
+                and resp.get("aggregations") == one.get("aggregations"))
+        if not same:
+            raise AssertionError(f"logs-* {name}: differs from the "
+                                 f"one-index answer")
+        route = "program" if spmd.SPMD_QUERIES[0] > n0 else "host loop"
+        # the same body on the pinned host loop, for the route's cost
+        host = []
+        with spmd.force_host_loop():
+            for _ in range(logs_singles):
+                t = time.perf_counter()
+                pinned = node.request("POST", "/logs-*/_search", body)
+                host.append((time.perf_counter() - t) * 1e3)
+        if pinned.get("aggregations") != resp.get("aggregations") \
+                or pinned["hits"]["total"] != resp["hits"]["total"]:
+            raise AssertionError(f"logs-* {name}: the host loop's answer "
+                                 f"differs")
+        logs[name] = {"search_p50_ms": _pct(np, walls, 50),
+                      "search_p99_ms": _pct(np, walls, 99),
+                      "route": route,
+                      "host_loop_p50_ms": _pct(np, host, 50)}
+        log(f"sharded logs-* {name}: " + json.dumps(logs[name]))
+    out["logs"] = logs
+    del node
+    torch.cuda.empty_cache()
+
+    # (d) a 100,000-passage cut in 5 shards against Node(device="cpu")
+    t0 = time.perf_counter()
+    _mc, cut, _tc = build_shards_fast(
+        cut_docs, SHARDED_SHARDS, vocab_size=20000, avg_len=60, seed=42,
+        materialize_terms=SCALE_MATERIALIZE_TERMS)
+    gpu, cpu = Node(), Node(device="cpu")
+    for node in (gpu, cpu):
+        sharded_index(node, "cut5", cut)
+    cut_bodies = [dict(b, size=20) for b in bodies[:SHARDED_CUT_PAGES]] + [
+        dict(b, size=20, search_type="dfs_query_then_fetch")
+        for b in bodies[:SHARDED_CUT_DFS_PAGES]]
+    for body in cut_bodies:
+        parity.assert_same_response(
+            gpu.request("POST", "/cut5/_search", body),
+            cpu.request("POST", "/cut5/_search", body), "cut5")
+    log(f"sharded: {SHARDED_CUT_PAGES} pages and {SHARDED_CUT_DFS_PAGES} "
+        f"dfs pages of the {cut_docs}-passage 5-shard cut equal "
+        f"Node(device='cpu')'s ({time.perf_counter() - t0:.3f} s)")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    out["cell_s"] = time.perf_counter() - t_cell
+    log(f"sharded cell: {out['cell_s']:.3f} s; card: {card}")
+    return out
+
+
+def sharded_dfs(np, node, segs5, bodies, plain_pages) -> dict:
+    """`dfs_query_then_fetch` text `match` bodies on the 5-shard index:
+    each shard scores with the merged term statistics, so every page
+    equals that of one shard holding the same five segments (its own
+    statistics are the merged ones), and some pages differ from plain
+    query_then_fetch's, where each shard scores with its own. B=1 p50 /
+    p99 of the dfs requests (the host loop: DFS pins per-shard
+    statistics)."""
+    from opensearch_tpu_torch.search import spmd
+    from opensearch_tpu_torch.search.controller import execute_search
+    from opensearch_tpu_torch.utils.demo import DEMO_MAPPING
+    t0 = time.perf_counter()
+    assert node.request("PUT", "/msm_one", {
+        "mappings": DEMO_MAPPING})["_status"] == 200
+    one = node.indices.get("msm_one").shards[0]
+    for sg in segs5:
+        one.reader.add_segment(sg)
+    upload_s = time.perf_counter() - t0
+    dfs = [dict(b, search_type="dfs_query_then_fetch")
+           for b in bodies[:SHARDED_DFS_BODIES]]
+    for b in dfs[:10]:
+        node.request("POST", "/msm5/_search", b)
+    walls, moved, n0 = [], 0, spmd.SPMD_QUERIES[0]
+    for b, plain in zip(dfs, plain_pages):
+        t = time.perf_counter()
+        resp = node.request("POST", "/msm5/_search", b)
+        walls.append((time.perf_counter() - t) * 1e3)
+        if resp["_status"] != 200 or not resp["hits"]["hits"] \
+                or resp["_shards"]["total"] != SHARDED_SHARDS:
+            raise AssertionError(f"sharded dfs: {resp}")
+        want = execute_search([one.executor], {"query": b["query"]})
+        if _page_of(resp) != _page_of(want):
+            raise AssertionError(f"sharded dfs: the page of {b} differs "
+                                 f"from the one-shard index's")
+        moved += _page_of(resp) != _page_of(plain)
+    if spmd.SPMD_QUERIES[0] - n0 != len(dfs):
+        raise AssertionError("sharded dfs: the one-shard index's answers "
+                             "did not take the program")
+    if not moved:
+        raise AssertionError("sharded dfs: no page differs from the "
+                             "per-shard statistics' page")
+    rec = {"search_p50_ms": _pct(np, walls, 50),
+           "search_p99_ms": _pct(np, walls, 99), "route": "host loop",
+           "bodies": len(dfs), "pages_moved_by_dfs": moved,
+           "upload_s": upload_s, "section_s": time.perf_counter() - t0}
+    log(f"sharded 5-shard BM25, dfs_query_then_fetch: {json.dumps(rec)}; "
+        f"every page equals the one-shard index's")
+    return rec
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -3542,6 +4168,8 @@ def main(argv) -> int:
                                          dev))
     results.update(phase_scoring_kernels(torch, np, mapper, seg, terms,
                                          dev))
+    results.update(phase_spmd_kernels(torch, np, mapper, seg, sorted(
+        t for _, t in seg.term_dict), agg_seg, dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -3568,7 +4196,6 @@ def main(argv) -> int:
     res = phase_sorted_cell(torch, np, agg_mapper, agg_seg, four, card,
                             out_dir)
     log("sorted: " + json.dumps(res))
-    del agg_seg, four
     # phase 11: the agg-kinds cell
     res = phase_aggkind_cell(torch, np, taxi_mapper, taxi_seg, card,
                              out_dir)
@@ -3577,6 +4204,11 @@ def main(argv) -> int:
     # phase 12: the relevance cell, over phase 4's passages
     res = phase_relevance_cell(torch, np, mapper, seg, terms, card, out_dir)
     log("relevance: " + json.dumps(res))
+    # phase 13: the sharded cell (5 shards, block-max, logs-*)
+    res = phase_sharded_cell(torch, np, mapper, seg, sorted(
+        t for _, t in seg.term_dict), agg_seg, four, dev, card, out_dir)
+    log("sharded: " + json.dumps(res))
+    del agg_seg, four
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -3590,7 +4222,10 @@ def main(argv) -> int:
             "masked_topk_keyed": 0, "page_merge": 0, "dense_numeric": 0,
             "matrix_moments": 0, "adjacency_counts": 0, "function_score": 0,
             "terms_set_scores": 0, "distance_feature_scores": 0,
-            "boosting_scores": 0, "script_score_wrap": 0}
+            "boosting_scores": 0, "script_score_wrap": 0,
+            "blockmax_keep": 1, "bm25_candidate_keep": 1,
+            "score_text_clause_keep": 1, "row_merge": 0,
+            "row_value_key": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -3654,6 +4289,18 @@ def main(argv) -> int:
         "script_score_wrap": (
             "opensearch_tpu_torch/ops/csrc/score_kinds.cu",
             "opensearch_tpu/search/plan_eval.py:246"),
+        "blockmax_keep": ("opensearch_tpu_torch/ops/csrc/blockmax_keep.cu",
+                          "opensearch_tpu/ops/bm25.py:54"),
+        "bm25_candidate_keep": (
+            "opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
+            "opensearch_tpu/search/executor.py:1351"),
+        "score_text_clause_keep": (
+            "opensearch_tpu_torch/ops/csrc/score_text_clause.cu",
+            "opensearch_tpu/parallel/distributed.py:357"),
+        "row_merge": ("opensearch_tpu_torch/ops/csrc/row_merge.cu",
+                      "opensearch_tpu/parallel/distributed.py:397"),
+        "row_value_key": ("opensearch_tpu_torch/ops/csrc/row_merge.cu",
+                          "opensearch_tpu/ops/topk.py:61"),
     }
     kernels = []
     for name in _build.LAUNCHES:

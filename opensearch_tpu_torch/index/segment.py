@@ -264,6 +264,10 @@ class Segment:
                            if d is not None}
         self.doc_meta: Dict[str, Tuple[int, int, int]] = {}
 
+    @property
+    def live_doc_count(self) -> int:
+        return int(self.live.sum())
+
     def ord_of(self, doc_id: str) -> Optional[int]:
         ord_ = self._id_to_ord.get(doc_id)
         if ord_ is None or not self.live[ord_]:

@@ -1,5 +1,6 @@
 """IndexShard: one shard's write engine, device-resident reader and search
-executor (the subset of opensearch_tpu.index.shard the BM25 slice needs)."""
+executor (the subset of opensearch_tpu.index.shard the port needs), with
+its shard id within the index."""
 
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ from opensearch_tpu_torch.search.executor import SearchExecutor, ShardReader
 class IndexShard:
     def __init__(self, shard_id: int, mapper: MapperService,
                  device: torch.device, index_name: str = "_index",
-                 result_page: bool = False):
+                 result_page: bool = False, blockmax: bool = False):
         self.shard_id = shard_id
         self.index_name = index_name
         self.engine = InternalEngine(mapper, device=device)
         self.reader = ShardReader(mapper, device, index_name=index_name)
-        self.executor = SearchExecutor(self.reader, result_page=result_page)
+        self.executor = SearchExecutor(self.reader, result_page=result_page,
+                                       blockmax=blockmax)
 
     def index_doc(self, doc_id: str, source: dict,
                   op_type: str = "index") -> EngineResult:

@@ -52,10 +52,13 @@ def _normalize_settings(settings: Optional[dict]) -> dict:
 
 
 class IndicesService:
-    def __init__(self, device: torch.device, result_page: bool = False):
+    def __init__(self, device: torch.device, result_page: bool = False,
+                 blockmax: bool = False):
         self.device = device
-        # the node's search.result_page.enabled, handed to every shard
+        # the node's search.result_page.enabled and search.blockmax.enabled,
+        # handed to every shard
         self.result_page = result_page
+        self.blockmax = blockmax
         self.indices: Dict[str, IndexService] = {}
 
     def create_index(self, name: str, body: Optional[dict] = None
@@ -68,7 +71,8 @@ class IndicesService:
         svc = IndexService(name, self.device,
                            mapping=body.get("mappings") or None,
                            settings=_normalize_settings(body.get("settings")),
-                           result_page=self.result_page)
+                           result_page=self.result_page,
+                           blockmax=self.blockmax)
         self.indices[name] = svc
         return svc
 

@@ -35,15 +35,22 @@ class Node:
         `device="cpu"` runs every kernel's plain PyTorch version.
         `settings`: node-start settings; `search.result_page.enabled`
         (static, default false) merges a field-sorted page's segments on
-        the device (K14) for every index of this node."""
+        the device (K14) for every index of this node;
+        `search.blockmax.enabled` (static, default false) prunes posting
+        blocks that cannot reach a text query's top k (K20) on the
+        envelope's candidate kernel and the multi-shard program."""
         self.node_name = node_name
         self.settings = dict(settings or {})
         self.device = resolve_device(device)
         raw_page = self.settings.get("search.result_page.enabled")
         self.result_page = False if raw_page is None else _parse_bool(
             raw_page, "search.result_page.enabled")
+        raw_bm = self.settings.get("search.blockmax.enabled")
+        self.blockmax = False if raw_bm is None else _parse_bool(
+            raw_bm, "search.blockmax.enabled")
         self.indices = IndicesService(self.device,
-                                      result_page=self.result_page)
+                                      result_page=self.result_page,
+                                      blockmax=self.blockmax)
         self.search_pipelines = SearchPipelineService()
         self.controller = RestController()
         register_actions(self, self.controller)

@@ -27,11 +27,14 @@ KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "ivf_probe", "kmeans_step", "maxsim_exact", "maxsim_pq",
            "hybrid_window", "sort_key", "page_merge", "dense_numeric",
            "matrix_moments", "adjacency_counts", "function_score",
-           "score_kinds")
-# libraries with no entry of their own name: one C entry per kernel
+           "score_kinds", "blockmax_keep", "row_merge")
+# libraries whose C entries are not only the one of their own name (every
+# entry listed): score_kinds.cu has one per kernel and none of its name;
+# row_merge.cu holds K21's merge and its key entry
 LIBRARY_ENTRIES = {"score_kinds": ("terms_set_scores",
                                    "distance_feature_scores",
-                                   "boosting_scores", "script_score_wrap")}
+                                   "boosting_scores", "script_score_wrap"),
+                   "row_merge": ("row_merge", "row_value_key")}
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,12 +46,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # main entry shares its name; masked_topk.cu also holds
 # masked_topk_threshold and masked_topk_keyed, knn_exact.cu knn_topk_mark,
 # ivf_probe.cu ivf_block_keys and maxsim_pq.cu pq_lut; score_kinds.cu
-# holds only its LIBRARY_ENTRIES.
+# and row_merge.cu hold their LIBRARY_ENTRIES. K1's and K2's calls with
+# K20's keep mask (the block-max arm) count as bm25_candidate_keep and
+# score_text_clause_keep.
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     *(k for k in KERNELS if k not in LIBRARY_ENTRIES),
     "masked_topk_threshold", "knn_topk_mark", "ivf_block_keys", "pq_lut",
-    "masked_topk_keyed", *(e for es in LIBRARY_ENTRIES.values()
-                           for e in es))}
+    "masked_topk_keyed", "bm25_candidate_keep", "score_text_clause_keep",
+    *(e for es in LIBRARY_ENTRIES.values() for e in es))}
 # compiler output (ptxas register / shared-memory report) of the last build
 # of each library (empty until one ran)
 BUILD_LOG: Dict[str, str] = {}

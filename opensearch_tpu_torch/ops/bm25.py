@@ -1,7 +1,8 @@
 """BM25 scoring kernels -- the dense per-clause scorer (K2,
 `score_text_clause`) and the candidate-buffer query phase (K1,
 `bm25_candidate`) -- and the doc-value filter kernel (K4, `pairs_match`),
-each a CUDA kernel with its plain PyTorch version.
+each a CUDA kernel with its plain PyTorch version, and block-max phase A
+(K20, `blockmax_keep_mask`), whose keep mask K1 and K2 take.
 
 A text clause gathers its terms' 128-wide posting blocks from the resident
 `[NBp, 128]` matrices and computes the BM25 partial per lane,
@@ -26,12 +27,30 @@ from typing import Dict
 import torch
 
 from opensearch_tpu_torch.ops import _build
-from opensearch_tpu_torch.ops.topk import NEG_INF, pack_rows, stable_topk
+from opensearch_tpu_torch.ops.topk import (NEG_INF, pack_rows, stable_topk,
+                                           total_order_topk)
 
 # sort key of a padding lane in the candidate buffer (above every doc id)
 CANDIDATE_PAD_DOC = 1 << 30
 CANDIDATE_MAX_LANES = 1 << 14
 CANDIDATE_MAX_TERMS = 16
+
+# Block-max pruning (K20): skip posting blocks whose seal-time score bound
+# cannot reach the query's top-k threshold, rank-exact by construction.
+# Phase A scores the BLOCKMAX_SLICE_BLOCKS highest-bound blocks exactly;
+# the k-th best eligible doc of that slice lower-bounds the true k-th best,
+# and every block whose bound falls below it is beaten. Clauses of fewer
+# than BLOCKMAX_MIN_BLOCKS lanes skip phase A (the slice would cover most
+# of their postings). The gate is the node setting
+# `search.blockmax.enabled` (off by default).
+BLOCKMAX_SLICE_BLOCKS = 8
+BLOCKMAX_MIN_BLOCKS = 16
+# a min_score above this is a caller's floor (or an inert row): phase A
+# stands down and keeps every block
+BLOCKMAX_MIN_SCORE_OFF = -1e30
+# the largest clause term count K20 serves (the compiler's expansion cap)
+BLOCKMAX_MAX_TERMS = 1024
+_SLICE_SENTINEL = (1 << 31) - 1
 
 
 def idf(doc_count: int, doc_freq: int) -> float:
@@ -56,6 +75,147 @@ def _lane_partials(seg: Dict[str, torch.Tensor], blk: Dict[str, torch.Tensor]):
     denom = tfs + k1 * (1.0 - b + b * dl / blk["avgdl"][:, None, None])
     partial = blk["w"][:, :, None] * tfs * (k1 + 1.0) / denom
     return docs, partial, valid & lane_real[:, :, None]
+
+
+# ----------------------------------------------------------------- K20 ------
+
+def _kept_ids(blk, keep):
+    """The clause's block ids with every lane the keep mask drops turned
+    into a padding lane (-1): such a lane gathers nothing and adds
+    nothing, as the reference's masked gather."""
+    return torch.where(keep, blk["ids"], -1)
+
+
+def blockmax_keep_mask_plain(seg, blk, n_terms: int, k: int, min_score):
+    """Plain version of K20 (the reference's blockmax_keep_mask for B
+    queries). Per lane: self_ub = max(w, 0) * (k1 + 1) * bscale *
+    post_bound[id]; the per-term maxima tmax and their sum S, added term
+    by term; ub = self_ub + (S - tmax[tid]). The top
+    BLOCKMAX_SLICE_BLOCKS lanes by ub (ties to the lowest lane) are scored
+    exactly, their (doc, partial, hit) entries sorted by (doc, position),
+    summed over a window of n_terms at each doc's first entry; theta is
+    the k-th best eligible doc score of the slice (-inf when fewer, or when
+    min_score > BLOCKMAX_MIN_SCORE_OFF). keep = ub >= theta; pruned counts
+    the real lanes dropped. Returns (keep bool [B, QB], pruned i32 [B])."""
+    ids = blk["ids"]
+    bsz, qb = ids.shape
+    dev = ids.device
+    lane_real = ids >= 0
+    safe_ids = torch.where(lane_real, ids, 0).long()
+    tid = blk["tid"]
+    k1 = blk["k1"][:, None]
+    w_pos = torch.maximum(blk["w"], torch.zeros((), device=dev))
+    self_ub = w_pos * (k1 + 1.0) * blk["bscale"][:, None] \
+        * seg["post_bound"][safe_ids]
+    self_ub = torch.where(lane_real, self_ub, 0.0)
+    tmax = torch.stack([
+        torch.where(lane_real & (tid == t), self_ub, 0.0).amax(dim=1)
+        for t in range(n_terms)], dim=1)                       # [B, T]
+    total_max = torch.zeros(bsz, dtype=torch.float32, device=dev)
+    for t in range(n_terms):
+        total_max = total_max + tmax[:, t]
+    safe_tid = torch.where(lane_real, tid, 0).long()
+    ub = self_ub + (total_max[:, None] - tmax.gather(1, safe_tid))
+
+    n_slice = min(BLOCKMAX_SLICE_BLOCKS, qb)
+    _, sidx = total_order_topk(torch.where(lane_real, ub, NEG_INF), n_slice)
+    s_real = lane_real.gather(1, sidx)
+    sid = safe_ids.gather(1, sidx)
+    docs = seg["post_docs"][sid]                               # [B, S, 128]
+    tfs = seg["post_tf"][sid]
+    valid = (docs >= 0) & s_real[:, :, None]
+    safe_docs = torch.where(valid, docs, 0).long()
+    norm_bytes = seg["norms"][blk["row"].long()[:, None, None], safe_docs]
+    dl = seg["length_table"][norm_bytes.long()]
+    b = blk["b"][:, None, None]
+    k1b = blk["k1"][:, None, None]
+    denom = tfs + k1b * (1.0 - b + b * dl / blk["avgdl"][:, None, None])
+    partial = blk["w"].gather(1, sidx)[:, :, None] * tfs * (k1b + 1.0) \
+        / denom
+    elig0 = valid & seg["live"][safe_docs] & seg["root"][safe_docs]
+    flat_docs = torch.where(elig0, docs, _SLICE_SENTINEL).reshape(bsz, -1)
+    flat_p = torch.where(elig0, partial, 0.0).reshape(bsz, -1)
+    flat_h = elig0.to(torch.int32).reshape(bsz, -1)
+    n = flat_docs.shape[1]
+    sdocs, order = torch.sort(flat_docs, dim=1, stable=True)
+    sp = flat_p.gather(1, order)
+    sh = flat_h.gather(1, order)
+    tot, hits = sp, sh
+    for j in range(1, n_terms):
+        same = torch.zeros_like(sdocs, dtype=torch.bool)
+        prev_p = torch.zeros_like(sp)
+        prev_h = torch.zeros_like(sh)
+        if j < n:
+            same[:, :-j] = sdocs[:, j:] == sdocs[:, :-j]
+            prev_p[:, :-j] = sp[:, j:]
+            prev_h[:, :-j] = sh[:, j:]
+        tot = tot + torch.where(same, prev_p, 0.0)
+        hits = hits + torch.where(same, prev_h, 0)
+    head = torch.ones_like(sdocs, dtype=torch.bool)
+    head[:, 1:] = sdocs[:, 1:] != sdocs[:, :-1]
+    elig = head & (sdocs < _SLICE_SENTINEL) \
+        & (hits >= blk["min_hits"][:, None])
+    cand = torch.where(elig, tot, NEG_INF)
+    theta = total_order_topk(cand, min(k, n))[0][:, -1]
+    theta = torch.where(min_score > BLOCKMAX_MIN_SCORE_OFF, NEG_INF, theta)
+    keep = ub >= theta[:, None]
+    pruned = (lane_real & ~keep).sum(dim=1, dtype=torch.int32)
+    return keep, pruned
+
+
+def blockmax_keep_mask(seg, blk, n_terms: int, k: int, min_score):
+    """K20: block-max phase A for B text-clause queries against one
+    segment. Replaces opensearch_tpu/ops/bm25.py:blockmax_keep_mask.
+
+    seg: the device image with its `post_bound` leaf. blk: the clause's
+    ids / w / tid [B, QB] (QB >= 8) and bscale / row / avgdl / b / k1 /
+    min_hits [B]; min_score f32 [B]; n_terms the clause's distinct-term
+    count (<= BLOCKMAX_MAX_TERMS) and 0 < k <= BLOCKMAX_SLICE_BLOCKS * 128.
+    Returns (keep bool [B, QB], pruned int32 [B])."""
+    if not seg["post_docs"].is_cuda:
+        return blockmax_keep_mask_plain(seg, blk, n_terms, k, min_score)
+    ids = blk["ids"]
+    bsz, qb = ids.shape
+    d_pad = seg["live"].shape[0]
+    dev = ids.device
+    if qb < 8:
+        raise ValueError(f"blockmax_keep_mask takes QB >= 8, got {qb}")
+    if not 1 <= n_terms <= BLOCKMAX_MAX_TERMS:
+        raise ValueError(f"blockmax_keep_mask takes 1..{BLOCKMAX_MAX_TERMS}"
+                         f" terms, got {n_terms}")
+    if not 0 < k <= BLOCKMAX_SLICE_BLOCKS * 128:
+        raise ValueError(f"blockmax_keep_mask takes 0 < k <= "
+                         f"{BLOCKMAX_SLICE_BLOCKS * 128}, got {k}")
+    _require_image(seg, d_pad)
+    nb = seg["post_docs"].shape[0]
+    _require(seg["post_bound"], torch.float32, (nb,), dev, "post_bound")
+    _require(ids, torch.int32, (bsz, qb), dev, "ids")
+    _require(blk["w"], torch.float32, (bsz, qb), dev, "w")
+    _require(blk["tid"], torch.int32, (bsz, qb), dev, "tid")
+    for key, dt in (("bscale", torch.float32), ("row", torch.int32),
+                    ("avgdl", torch.float32), ("b", torch.float32),
+                    ("k1", torch.float32), ("min_hits", torch.int32)):
+        _require(blk[key], dt, (bsz,), dev, key)
+    _require(min_score, torch.float32, (bsz,), dev, "min_score")
+    keep = torch.empty(bsz, qb, dtype=torch.bool, device=dev)
+    pruned = torch.empty(bsz, dtype=torch.int32, device=dev)
+    scratch = torch.empty(bsz * qb, dtype=torch.float32, device=dev)
+    fn = _build.entry("blockmax_keep", [ctypes.c_void_p] * 17
+                      + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
+    code = fn(_build.ptr(ids), _build.ptr(blk["w"]), _build.ptr(blk["tid"]),
+              _build.ptr(blk["bscale"]), _build.ptr(blk["row"]),
+              _build.ptr(blk["avgdl"]), _build.ptr(blk["b"]),
+              _build.ptr(blk["k1"]), _build.ptr(blk["min_hits"]),
+              _build.ptr(min_score), _build.ptr(seg["post_bound"]),
+              _build.ptr(seg["post_docs"]), _build.ptr(seg["post_tf"]),
+              _build.ptr(seg["norms"]), _build.ptr(seg["length_table"]),
+              _build.ptr(seg["live"]), _build.ptr(seg["root"]),
+              bsz, qb, d_pad, nb, n_terms, k, _build.ptr(keep),
+              _build.ptr(pruned), _build.ptr(scratch),
+              _build.stream_of(dev))
+    _build.LAUNCHES["blockmax_keep"] += 1
+    _build.check("blockmax_keep", code)
+    return keep, pruned
 
 
 # ----------------------------------------------------------------- K2 -------
@@ -91,15 +251,19 @@ def score_text_clause_plain(seg, blk):
     return scores, hits
 
 
-def score_text_clause(seg, blk):
+def score_text_clause(seg, blk, block_keep=None):
     """K2: one text clause of B queries scored into dense per-doc vectors.
     Replaces opensearch_tpu/ops/bm25.py:score_text_clause.
 
     seg: device segment image (post_docs, post_tf, norms, length_table,
     live). blk: ids i32 [B, QB] (-1 = padding lane), w f32 [B, QB], row i32
-    [B], avgdl / b / k1 f32 [B]. Returns (scores f32 [B, Dp], hits i32
-    [B, Dp]); hits counts the clause terms that matched each doc."""
+    [B], avgdl / b / k1 f32 [B]. block_keep: K20's bool [B, QB] mask, or
+    None; a lane it drops contributes nothing. Returns (scores f32 [B, Dp],
+    hits i32 [B, Dp]); hits counts the clause terms that matched each
+    doc."""
     if not seg["post_docs"].is_cuda:
+        if block_keep is not None:
+            blk = dict(blk, ids=_kept_ids(blk, block_keep))
         return score_text_clause_plain(seg, blk)
     ids = blk["ids"]
     bsz, qb = ids.shape
@@ -111,18 +275,24 @@ def score_text_clause(seg, blk):
     for key, dt in (("row", torch.int32), ("avgdl", torch.float32),
                     ("b", torch.float32), ("k1", torch.float32)):
         _require(blk[key], dt, (bsz,), dev, key)
+    if block_keep is not None:
+        _require(block_keep, torch.bool, (bsz, qb), dev, "block_keep")
     scores = torch.empty(bsz, d_pad, dtype=torch.float32, device=dev)
     hits = torch.empty(bsz, d_pad, dtype=torch.int32, device=dev)
-    fn = _build.entry("score_text_clause", [ctypes.c_void_p] * 10 + [
+    fn = _build.entry("score_text_clause", [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
-    code = fn(_build.ptr(ids), _build.ptr(blk["w"]), _build.ptr(blk["row"]),
+    code = fn(_build.ptr(ids),
+              ctypes.c_void_p(0) if block_keep is None
+              else _build.ptr(block_keep),
+              _build.ptr(blk["w"]), _build.ptr(blk["row"]),
               _build.ptr(blk["avgdl"]), _build.ptr(blk["b"]),
               _build.ptr(blk["k1"]), _build.ptr(seg["post_docs"]),
               _build.ptr(seg["post_tf"]), _build.ptr(seg["norms"]),
               _build.ptr(seg["length_table"]), bsz, qb, d_pad,
               seg["post_docs"].shape[0], _build.ptr(scores),
               _build.ptr(hits), _build.stream_of(dev))
-    _build.LAUNCHES["score_text_clause"] += 1
+    _build.LAUNCHES["score_text_clause" if block_keep is None
+                    else "score_text_clause_keep"] += 1
     _build.check("score_text_clause", code)
     return scores, hits
 
@@ -179,7 +349,8 @@ def bm25_candidate_plain(seg, blk, n_terms: int, constant: bool, k: int,
 
 
 def bm25_candidate(seg, blk, n_terms: int, constant: bool, k: int,
-                   min_score: torch.Tensor) -> torch.Tensor:
+                   min_score: torch.Tensor, block_keep=None,
+                   pruned=None) -> torch.Tensor:
     """K1: the candidate-buffer query phase of B single-text-clause queries
     against one segment. Replaces opensearch_tpu/search/executor.py:
     build_candidate_query_phase (`one`, family bm25_candidate).
@@ -187,10 +358,19 @@ def bm25_candidate(seg, blk, n_terms: int, constant: bool, k: int,
     blk: ids i32 [B, QB] with QB a power of two and QB*128 <= 16384, w f32
     [B, QB]; per query row, min_hits i32, avgdl / b / k1 / boost f32 [B].
     min_score f32 [B]. n_terms <= 16 is the clause's distinct-term count,
-    the longest run one doc can have. Returns f32 [B, 2k+1] packed rows."""
+    the longest run one doc can have. Returns f32 [B, 2k+1] packed rows.
+    With K20's block_keep bool [B, QB] and pruned i32 [B] (the block-max
+    arm) a dropped lane contributes nothing and each row gains a trailing
+    lane, the pruned count's int32 bits: f32 [B, 2k+2]."""
     if not seg["post_docs"].is_cuda:
-        return bm25_candidate_plain(seg, blk, n_terms, constant, k,
-                                    min_score)
+        if block_keep is None:
+            return bm25_candidate_plain(seg, blk, n_terms, constant, k,
+                                        min_score)
+        rows = bm25_candidate_plain(
+            seg, dict(blk, ids=_kept_ids(blk, block_keep)), n_terms,
+            constant, k, min_score)
+        return torch.cat([rows, pruned.to(torch.int32)[:, None].view(
+            torch.float32)], dim=1)
     ids = blk["ids"]
     bsz, qb = ids.shape
     d_pad = seg["live"].shape[0]
@@ -209,10 +389,18 @@ def bm25_candidate(seg, blk, n_terms: int, constant: bool, k: int,
                     ("min_hits", torch.int32), ("boost", torch.float32)):
         _require(blk[key], dt, (bsz,), dev, key)
     _require(min_score, torch.float32, (bsz,), dev, "min_score")
-    out = torch.empty(bsz, 2 * k + 1, dtype=torch.float32, device=dev)
-    fn = _build.entry("bm25_candidate", [ctypes.c_void_p] * 15 + [
+    null = ctypes.c_void_p(0)
+    if block_keep is not None:
+        _require(block_keep, torch.bool, (bsz, qb), dev, "block_keep")
+        _require(pruned, torch.int32, (bsz,), dev, "pruned")
+    out = torch.empty(bsz, 2 * k + 1 + (block_keep is not None),
+                      dtype=torch.float32, device=dev)
+    fn = _build.entry("bm25_candidate", [ctypes.c_void_p] * 17 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-    code = fn(_build.ptr(ids), _build.ptr(blk["w"]), _build.ptr(blk["row"]),
+    code = fn(_build.ptr(ids),
+              null if block_keep is None else _build.ptr(block_keep),
+              null if pruned is None else _build.ptr(pruned),
+              _build.ptr(blk["w"]), _build.ptr(blk["row"]),
               _build.ptr(blk["avgdl"]), _build.ptr(blk["b"]),
               _build.ptr(blk["k1"]), _build.ptr(blk["min_hits"]),
               _build.ptr(blk["boost"]), _build.ptr(min_score),
@@ -221,7 +409,9 @@ def bm25_candidate(seg, blk, n_terms: int, constant: bool, k: int,
               _build.ptr(seg["live"]), _build.ptr(seg["root"]),
               bsz, qb, d_pad, n_terms, int(bool(constant)), k,
               _build.ptr(out), _build.stream_of(dev))
-    _build.LAUNCHES["bm25_candidate"] += 1
+    # the keep entry (the block-max arm) counts apart
+    _build.LAUNCHES["bm25_candidate" if block_keep is None
+                    else "bm25_candidate_keep"] += 1
     _build.check("bm25_candidate", code)
     return out
 

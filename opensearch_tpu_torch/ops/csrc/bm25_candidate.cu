@@ -7,6 +7,9 @@
 // the BM25 partial per lane, a stable sort of (doc, partial, hit) by doc, an
 // exact backward windowed run-sum over <= n_terms lanes, min_hits / live /
 // root / min_score eligibility with the total, and the top-k over the buffer.
+// The block-max arm (the reference's `bm` variant) takes K20's keep mask
+// [B, QB]: a dropped lane gathers nothing, and each row gains a trailing
+// lane, the query's pruned-lane count (f32 [B, 2k+2]).
 //
 // What bounds it on an H100: per query it reads QB x 128 x 8 B of postings
 // plus a norm per posting, which is little; the work is the in-CTA sorting
@@ -69,7 +72,10 @@ __device__ void bitonic_sort(unsigned long long* a, int n, bool descending) {
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-bm25_candidate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
+bm25_candidate_kernel(const int* __restrict__ ids,
+                      const uint8_t* __restrict__ keep,
+                      const int* __restrict__ pruned,
+                      const float* __restrict__ w,
                       const int* __restrict__ row,
                       const float* __restrict__ avgdl,
                       const float* __restrict__ bb,
@@ -107,7 +113,8 @@ bm25_candidate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
   for (int lane = t; lane < n; lane += THREADS) {
     const int blk = lane >> 7;
     const int id = qids[blk];
-    const bool lane_real = id >= 0;
+    const bool lane_real =
+        id >= 0 && (keep == nullptr || keep[(size_t)q * QB + blk]);
     const size_t off = (size_t)(lane_real ? id : 0) * 128 + (lane & 127);
     const int doc = post_docs[off];
     const float tf = post_tf[off];
@@ -174,7 +181,8 @@ bm25_candidate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
   __syncthreads();
   bitonic_sort(keys, n, true);
 
-  float* o = out + (size_t)q * (2 * k + 1);
+  const int width = 2 * k + 1 + (keep != nullptr);
+  float* o = out + (size_t)q * width;
   const int k_eff = min(k, n);
   for (int r = t; r < k; r += THREADS) {
     if (r < k_eff) {
@@ -186,12 +194,18 @@ bm25_candidate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
       o[k + r] = __int_as_float(0);
     }
   }
-  if (t == 0) o[2 * k] = __int_as_float(s_total);
+  if (t == 0) {
+    o[2 * k] = __int_as_float(s_total);
+    if (keep != nullptr) o[2 * k + 1] = __int_as_float(pruned[q]);
+  }
 }
 
 }  // namespace
 
-extern "C" int bm25_candidate(const int* ids, const float* w, const int* row,
+// keep (u8 [B, QB]) and pruned (i32 [B]): K20's outputs, or both null.
+extern "C" int bm25_candidate(const int* ids, const uint8_t* keep,
+                              const int* pruned, const float* w,
+                              const int* row,
                               const float* avgdl, const float* b,
                               const float* k1, const int* min_hits,
                               const float* boost, const float* min_score,
@@ -214,7 +228,8 @@ extern "C" int bm25_candidate(const int* ids, const float* w, const int* row,
     smem_set = true;
   }
   bm25_candidate_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      ids, w, row, avgdl, b, k1, min_hits, boost, min_score, post_docs,
+      ids, keep, pruned, w, row, avgdl, b, k1, min_hits, boost, min_score,
+      post_docs,
       post_tf, norms, length_table, live, root, QB, Dp, n_terms, constant, k,
       out);
   return (int)cudaGetLastError();

@@ -3,7 +3,8 @@
 //
 // Replaces opensearch_tpu/ops/bm25.py:score_text_clause (a gather of the
 // clause's [QB, 128] posting blocks, the BM25 partial per lane, and a
-// scatter-add into [Dp]).
+// scatter-add into [Dp]); with K20's keep mask [B, QB] (`block_keep`) a
+// dropped lane adds nothing.
 //
 // What bounds it on an H100: bytes. Per query it reads QB posting blocks
 // (128 x (4 B doc + 4 B tf)), one norm byte-as-int per posting and writes
@@ -35,6 +36,7 @@ constexpr int CHUNK = 4096;  // docs owned by one CTA (32 KB of shared)
 
 __global__ void __launch_bounds__(LANES)
 score_text_clause_kernel(const int* __restrict__ ids,
+                         const uint8_t* __restrict__ keep,
                          const float* __restrict__ w,
                          const int* __restrict__ row,
                          const float* __restrict__ avgdl,
@@ -78,7 +80,8 @@ score_text_clause_kernel(const int* __restrict__ ids,
     if (j < QB) {
       id = qids[j];
       wj = qw[j];
-      if (id >= 0 && id < NB) {
+      if (id >= 0 && id < NB &&
+          (keep == nullptr || keep[(size_t)q * QB + j])) {
         const int* pd = post_docs + (size_t)id * LANES;
         const int first = pd[0];
         int last = pd[LANES - 1];
@@ -118,7 +121,9 @@ score_text_clause_kernel(const int* __restrict__ ids,
 
 }  // namespace
 
-extern "C" int score_text_clause(const int* ids, const float* w,
+// keep: u8 [B, QB] (K20's mask) or null.
+extern "C" int score_text_clause(const int* ids, const uint8_t* keep,
+                                 const float* w,
                                  const int* row, const float* avgdl,
                                  const float* b, const float* k1,
                                  const int* post_docs, const float* post_tf,
@@ -128,7 +133,8 @@ extern "C" int score_text_clause(const int* ids, const float* w,
   if (B <= 0 || Dp <= 0) return 0;
   dim3 grid((Dp + CHUNK - 1) / CHUNK, B);
   score_text_clause_kernel<<<grid, LANES, 0, (cudaStream_t)stream>>>(
-      ids, w, row, avgdl, b, k1, post_docs, post_tf, norms, length_table, QB,
+      ids, keep, w, row, avgdl, b, k1, post_docs, post_tf, norms,
+      length_table, QB,
       Dp, NB, scores, hits);
   return (int)cudaGetLastError();
 }

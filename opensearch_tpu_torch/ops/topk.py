@@ -260,7 +260,7 @@ def unpack_keyed_rows(packed, k: int):
 
 
 def masked_topk_keyed(scores, matches, live, root, num_docs: int,
-                      min_score, key, k: int) -> torch.Tensor:
+                      min_score, key, k: int, out=None) -> torch.Tensor:
     """K3's keyed entry: the general path's query phase
     (opensearch_tpu/search/executor.py:build_query_phase in "field" mode,
     and in "score" mode with `key` None). Eligibility and total as K3; the
@@ -268,12 +268,23 @@ def masked_topk_keyed(scores, matches, live, root, num_docs: int,
 
     scores f32 [B, Dp], matches bool [B, Dp], live / root bool [Dp],
     min_score f32 [B], key f32 [Dp] (shared by the batch) or None.
-    Returns f32 [B, 3k+1]: keys | scores | indices | total."""
-    if not scores.is_cuda:
-        return masked_topk_keyed_plain(scores, matches, live, root,
-                                       num_docs, min_score, key, k)
+    Returns f32 [B, 3k+1]: keys | scores | indices | total, written into
+    `out` when given (a contiguous f32 [B, 3k+1] view, e.g. a row of the
+    multi-shard merge buffer)."""
     bsz, d_pad = scores.shape
     dev = scores.device
+    if out is not None and (out.dtype != torch.float32
+                            or tuple(out.shape) != (bsz, 3 * k + 1)
+                            or out.device != dev
+                            or not out.is_contiguous()):
+        raise ValueError(f"[out] must be a contiguous float32 tensor of "
+                         f"shape ({bsz}, {3 * k + 1}) on {dev}")
+    if not scores.is_cuda:
+        rows = masked_topk_keyed_plain(scores, matches, live, root,
+                                       num_docs, min_score, key, k)
+        if out is None:
+            return rows
+        return out.copy_(rows)
     if not 0 <= k <= d_pad:
         raise ValueError(f"masked_topk_keyed takes 0 <= k <= Dp, got k={k} "
                          f"with Dp={d_pad}")
@@ -288,7 +299,8 @@ def masked_topk_keyed(scores, matches, live, root, num_docs: int,
     p2 = 1
     while p2 < k:
         p2 <<= 1
-    out = torch.empty(bsz, 3 * k + 1, dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty(bsz, 3 * k + 1, dtype=torch.float32, device=dev)
     # scratch: K3's select state, then the collected keys and the merge
     # buffer (p2 each per row)
     scratch = torch.empty(bsz * (260 + 2 * p2), dtype=torch.int64,

@@ -1,7 +1,8 @@
 """REST handlers (the subset of opensearch_tpu.rest.actions the port
-serves): index create / delete, document index / delete, `_bulk`,
-`_refresh`, `_search` and `_msearch` (with search-pipeline resolution),
-and search-pipeline CRUD (`/_search/pipeline/{id}`)."""
+serves): index create / delete, document index / delete and `_bulk` (with
+`routing`), `_refresh`, `_search` and `_msearch` over index expressions
+(every shard of every resolved index; `search_type`; search-pipeline
+resolution), and search-pipeline CRUD (`/_search/pipeline/{id}`)."""
 
 from __future__ import annotations
 
@@ -34,20 +35,16 @@ def _validate_doc_id(doc_id: Optional[str]) -> None:
             f"512 bytes but was: {len(doc_id.encode('utf-8'))}")
 
 
-def _search_index(node, expression) -> Optional[str]:
-    """The one index a search expression (a name, `_all`, `*`, commas,
-    wildcards, `-` exclusions, or None for every index) resolves to, None
-    when it resolves to none. An expression over several indices answers
-    400: the port serves one index per search until the cross-shard merge
-    is ported."""
-    names = node.indices.resolve(expression)
-    if len(names) <= 1:
-        return names[0] if names else None
-    shown = expression if isinstance(expression, str) else (
-        "_all" if expression is None else ",".join(expression))
-    raise IllegalArgumentError(
-        f"index expression [{shown}] resolves to {len(names)} indices "
-        f"{names}: opensearch_tpu_torch serves one index per search so far")
+def _search_targets(node, expression):
+    """The indices a search expression (a name, `_all`, `*`, commas,
+    wildcards, `-` exclusions, or None for every index) resolves to, and
+    every shard's executor of each, in resolve order (the order of the
+    rows of the multi-shard program, hence of its ties). Alias filters are
+    not ported: no per-index filter rides along (the reference's
+    extra_filters are None for an index without one)."""
+    services = [node.indices.get(n) for n in node.indices.resolve(expression)]
+    executors = [shard.executor for svc in services for shard in svc.shards]
+    return services, executors
 
 
 def _shards_header(node, names) -> dict:
@@ -55,26 +52,29 @@ def _shards_header(node, names) -> dict:
     return {"total": total, "successful": total, "failed": 0}
 
 
-def _run_search(node, index: Optional[str], body: Optional[dict],
+def _run_search(node, expression, body: Optional[dict],
                 search_pipeline=None) -> dict:
-    """One search with its pipeline: the request parameter, else an inline
+    """One search over every shard of the indices `expression` resolves
+    to, with its pipeline: the request parameter, else an inline
     `search_pipeline` definition in the body, else the index's
-    `index.search.default_pipeline`; the pipeline's
-    normalization-processor spec rides along for a hybrid query. An
-    expression that resolved to no index (`index` None) finds nothing."""
-    if index is None:
+    `index.search.default_pipeline` (a search of one index); the
+    pipeline's normalization-processor spec rides along for a hybrid
+    query. An expression that resolves to no index finds nothing."""
+    from opensearch_tpu_torch.search.controller import execute_search
+    services, executors = _search_targets(node, expression)
+    if not services:
         return {"took": 0, "timed_out": False,
                 "_shards": {"total": 0, "successful": 0, "skipped": 0,
                             "failed": 0},
                 "hits": {"total": {"value": 0, "relation": "eq"},
                          "max_score": None, "hits": []}}
-    svc = node.indices.get(index)
     body = dict(body or {})
     inline = body.pop("search_pipeline", None)
     pipeline = node.search_pipelines.resolve(
-        search_pipeline if search_pipeline is not None else inline, [svc])
-    res = svc.search(body, pipeline.phase_spec()
-                     if pipeline is not None else None)
+        search_pipeline if search_pipeline is not None else inline, services)
+    res = execute_search(executors, body, pipeline.phase_spec()
+                         if pipeline is not None else None,
+                         allow_envelope=True)
     # the general path's page cursor is internal (an _msearch item of the
     # envelope route keeps it, as the reference's does)
     res.pop("_page_cursor", None)
@@ -102,13 +102,14 @@ def register_actions(node, c: RestController) -> None:
         if not isinstance(source, dict):
             raise IllegalArgumentError("request body is required")
         _validate_doc_id(req.param("id"))
-        res = svc.index_doc(req.param("id"), source)
+        res = svc.index_doc(req.param("id"), source,
+                            routing=req.param("routing"))
         maybe_refresh(req, svc)
         return (201 if res["result"] == "created" else 200), res
 
     def do_delete(req):
         svc = node.indices.get(req.param("index"))
-        res = svc.delete_doc(req.param("id"))
+        res = svc.delete_doc(req.param("id"), routing=req.param("routing"))
         maybe_refresh(req, svc)
         return (200 if res["result"] == "deleted" else 404), res
 
@@ -128,9 +129,11 @@ def register_actions(node, c: RestController) -> None:
                 raise IllegalArgumentError(
                     f"Unknown action [{op}], expected one of "
                     f"[create, delete, index]")
+            routing = meta.get("routing", meta.get("_routing"))
             entry = {"action": op, "index": meta.get("_index", default_index),
                      "id": None if meta.get("_id") is None
-                     else str(meta["_id"])}
+                     else str(meta["_id"]),
+                     "routing": None if routing is None else str(routing)}
             if entry["index"] is None:
                 raise IllegalArgumentError("bulk item missing _index")
             if op != "delete":
@@ -169,6 +172,8 @@ def register_actions(node, c: RestController) -> None:
 
     def do_search(req):
         body = dict(req.body) if isinstance(req.body, dict) else {}
+        if req.param("search_type"):
+            body["search_type"] = req.param("search_type")
         for key in ("size", "from"):
             if req.param(key) is not None:
                 body[key] = req.param(key)
@@ -189,8 +194,8 @@ def register_actions(node, c: RestController) -> None:
             body["_source"] = {
                 **({"includes": includes.split(",")} if includes else {}),
                 **({"excludes": excludes.split(",")} if excludes else {})}
-        return _run_search(node, _search_index(node, req.param("index")),
-                           body, req.param("search_pipeline"))
+        return _run_search(node, req.param("index"), body,
+                           req.param("search_pipeline"))
 
     def do_msearch(req):
         lines = _ndjson_lines(req)
@@ -200,15 +205,10 @@ def register_actions(node, c: RestController) -> None:
                 "(header, body pairs)")
         exprs = [lines[i].get("index", req.param("index"))
                  for i in range(0, len(lines), 2)]
-        pairs = []
-        for expr, body in zip(exprs, lines[1::2]):
-            try:
-                pairs.append((_search_index(node, expr), body))
-            except OpenSearchTpuError as e:
-                pairs.append((e, body))
+        pairs = list(zip(exprs, lines[1::2]))
         # the batch route takes items that all name one concrete index;
         # an expression (a wildcard, `_all`, a header `{}`) runs item by
-        # item, as the reference's does
+        # item
         only = exprs[0] if exprs and all(e == exprs[0] for e in exprs) \
             else None
         if isinstance(only, str) and only in node.indices.indices \
@@ -229,8 +229,6 @@ def register_actions(node, c: RestController) -> None:
         took = 0
         for index_expr, body in pairs:
             try:
-                if isinstance(index_expr, OpenSearchTpuError):
-                    raise index_expr
                 res = _run_search(node, index_expr, body)
                 res["status"] = 200
                 took = max(took, res.get("took", 0))

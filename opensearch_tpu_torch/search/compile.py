@@ -26,7 +26,7 @@ import bisect
 import datetime as _dt
 import fnmatch
 import re
-from dataclasses import dataclass, field as dc_field
+from dataclasses import dataclass, field as dc_field, fields as dc_fields
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +39,8 @@ from opensearch_tpu_torch.common.settings import parse_time_value
 from opensearch_tpu_torch.index.mapper import (MapperService,
                                                MappedFieldType,
                                                parse_date_millis)
-from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, Segment,
+from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, SEAL_B,
+                                                SEAL_K1, Segment,
                                                 ident_pairs, pad_bucket)
 from opensearch_tpu_torch.ops.bm25 import idf as bm25_idf
 from opensearch_tpu_torch.ops.device_segment import DeviceSegmentMeta
@@ -128,6 +129,117 @@ class ShardStats:
         return cached
 
 
+class StaticStats:
+    """Term and field statistics fixed by a DFS pre-phase
+    (dfs_query_then_fetch): every shard scores with the global df and
+    avgdl instead of its own, so scores compare across shards however the
+    terms are spread. Terms the pre-phase did not collect fall back to the
+    shard's own statistics."""
+
+    def __init__(self, local: ShardStats,
+                 field_stats: Dict[str, Tuple[int, int]],
+                 term_df: Dict[str, Dict[str, int]]):
+        self.segments = local.segments
+        self._local = local
+        self._fields = field_stats
+        self._term_df = term_df
+        self.memo: Dict[Any, Any] = {}       # per request (never shared)
+
+    def field_stats(self, field: str) -> Tuple[int, int]:
+        got = self._fields.get(field)
+        return tuple(got) if got is not None else \
+            self._local.field_stats(field)
+
+    def avgdl(self, field: str) -> float:
+        dc, ttf = self.field_stats(field)
+        return (ttf / dc) if dc > 0 else 1.0
+
+    def df(self, field: str, term: str) -> int:
+        got = (self._term_df.get(field) or {}).get(term)
+        return got if got is not None else self._local.df(field, term)
+
+    def idf(self, field: str, term: str) -> float:
+        df = self.df(field, term)
+        if df == 0:
+            return 0.0
+        dc, _ = self.field_stats(field)
+        return bm25_idf(dc, df)
+
+
+def collect_query_term_stats(node: dsl.QueryNode, mapper: MapperService,
+                             stats: ShardStats):
+    """The shard-local half of the DFS phase: every (field, term) the
+    query scores with, this shard's df for each, and the field-level
+    (doc_count, sum_ttf). query_string / simple_query_string rewrite
+    through the compiler's parser. Query shapes it does not recognize
+    contribute nothing (they score with the shard's own statistics)."""
+    fields: Dict[str, Tuple[int, int]] = {}
+    term_df: Dict[str, Dict[str, int]] = {}
+
+    def record(field: str, terms):
+        if not terms:
+            return
+        fields[field] = stats.field_stats(field)
+        bucket = term_df.setdefault(field, {})
+        for t in terms:
+            if t not in bucket:
+                bucket[t] = stats.df(field, t)
+
+    def analyze(field: str, text, analyzer=None):
+        return analyze_query_text(mapper, mapper.get_field(field), text,
+                                  analyzer)
+
+    def walk(n):
+        if isinstance(n, dsl.QueryStringQuery):
+            walk(_parse_query_string(n.query, n.default_field or "*",
+                                     list(n.fields), n.default_operator,
+                                     mapper))
+            return
+        if isinstance(n, dsl.SimpleQueryStringQuery):
+            walk(_parse_query_string(n.query, "*", list(n.fields),
+                                     n.default_operator, mapper,
+                                     simple=True))
+            return
+        if isinstance(n, (dsl.MatchQuery, dsl.MatchBoolPrefixQuery,
+                          dsl.MatchPhraseQuery)):
+            record(n.field, analyze(n.field, n.query, n.analyzer))
+        elif isinstance(n, dsl.TermQuery):
+            record(n.field, [str(n.value)])
+        elif isinstance(n, dsl.TermsQuery):
+            record(n.field, [str(v) for v in n.values])
+        elif isinstance(n, dsl.MultiMatchQuery):
+            for fspec in n.fields:
+                fname = fspec.partition("^")[0]
+                record(fname, analyze(fname, n.query))
+        for f in dc_fields(n):
+            sub = getattr(n, f.name, None)
+            if isinstance(sub, dsl.QueryNode):
+                walk(sub)
+            elif isinstance(sub, (list, tuple)):
+                for s in sub:
+                    if isinstance(s, dsl.QueryNode):
+                        walk(s)
+
+    walk(node)
+    return fields, term_df
+
+
+def merge_dfs_stats(parts):
+    """The coordinator's aggregateDfs: df and field statistics summed over
+    the shards' contributions."""
+    fields: Dict[str, Tuple[int, int]] = {}
+    term_df: Dict[str, Dict[str, int]] = {}
+    for f_part, t_part in parts:
+        for field, (dc, ttf) in f_part.items():
+            have = fields.get(field, (0, 0))
+            fields[field] = (have[0] + dc, have[1] + ttf)
+        for field, bucket in t_part.items():
+            tgt = term_df.setdefault(field, {})
+            for term, df in bucket.items():
+                tgt[term] = tgt.get(term, 0) + df
+    return fields, term_df
+
+
 MATCH_NONE = Plan("match_none")
 
 
@@ -138,9 +250,13 @@ def _match_all(boost: float) -> Plan:
 class Compiler:
     """Compiles one parsed query for one segment of a shard."""
 
-    def __init__(self, mapper: MapperService, stats: ShardStats):
+    def __init__(self, mapper: MapperService, stats: ShardStats,
+                 blockmax: bool = False):
         self.mapper = mapper
         self.stats = stats
+        # the node's `search.blockmax.enabled`: text clauses carry block-max
+        # phase A's inputs (`tid`, `bscale`)
+        self.blockmax = blockmax
         # the segment filter cache's splice point
         # (indices/query_cache.FilterCacheContext), installed per segment
         # by the general path's query phase; None elsewhere
@@ -166,13 +282,14 @@ class Compiler:
         has_norms = ft is not None and ft.is_text and row is not None
         b_eff = b if has_norms else 0.0
         avgdl = self.stats.avgdl(field)
-        ids, ws = [], []
-        for term, w in weighted_terms:
+        ids, ws, tids = [], [], []
+        for t_i, (term, w) in enumerate(weighted_terms):
             tm = seg.get_term(field, term)
             if tm is None:
                 continue
             ids.extend(range(tm.start_block, tm.start_block + tm.num_blocks))
             ws.extend([w] * tm.num_blocks)
+            tids.extend([t_i] * tm.num_blocks)
         qb = pad_bucket(max(len(ids), 1), minimum=8)
         pad = qb - len(ids)
         inputs = {
@@ -185,10 +302,45 @@ class Compiler:
             "min_hits": _i32(min_hits),
             "boost": _f32(boost),
         }
+        if self.blockmax:
+            # block-max phase A (ops/bm25.blockmax_keep_mask): each lane's
+            # clause-term index and the segment's bound scale
+            inputs["tid"] = _i32(tids + [0] * pad)
+            inputs["bscale"] = _f32(
+                self._blockmax_scale(seg, field, k1, b_eff, avgdl))
         # static[1], the distinct-term count, bounds how many lanes one doc
         # can hold: the candidate kernel's run-sum window
         return Plan("text", static=(bool(constant), len(weighted_terms)),
                     inputs=inputs)
+
+    def _blockmax_scale(self, seg: Segment, field: str, k1: float,
+                        b_eff: float, avgdl: float) -> float:
+        """A ceiling on g_query / g_seal over the doc lengths that occur in
+        the segment's field, where g = tf / (tf + k1 * c(dl)): the seal-time
+        bounds (SEAL_K1, SEAL_B, the segment's own avgdl) times this factor
+        stay upper bounds under the query's k1, b and shard avgdl
+        ((tf + A) / (tf + B) <= max(1, A / B) for tf >= 0)."""
+        key = ("bms", seg.uid, field, k1, b_eff, avgdl)
+        cached = self.stats.memo.get(key)
+        if cached is not None:
+            return cached
+        norm = seg.norms.get(field)
+        fstats = seg.field_stats.get(field)
+        k1_q = max(k1, 1e-9)
+        if norm is None or fstats is None or fstats.doc_count <= 0:
+            # the seal used c = 1 for a norm-less field; the query's b is 0
+            scale = max(1.0, SEAL_K1 / k1_q)
+        else:
+            avgdl_s = max(fstats.sum_total_term_freq / fstats.doc_count,
+                          1e-9)
+            occurring = np.flatnonzero(np.bincount(norm, minlength=256))
+            dl = LENGTH_TABLE[occurring].astype(np.float64)
+            c_s = 1.0 - SEAL_B + SEAL_B * dl / avgdl_s
+            c_q = 1.0 - b_eff + b_eff * dl / (avgdl if avgdl > 0 else 1.0)
+            ratio = (SEAL_K1 * c_s) / np.maximum(k1_q * c_q, 1e-9)
+            scale = float(max(1.0, ratio.max()))
+        self.stats.memo[key] = scale
+        return scale
 
     def _analyze_query_terms(self, ft: MappedFieldType, text,
                              analyzer_override=None) -> List[str]:

@@ -1,29 +1,36 @@
 """The search controller (the subset of opensearch_tpu.search.controller
-the port needs): query-then-fetch over one shard's executor.
+the port needs): query-then-fetch over the shard executors of every index
+a request targets.
 
-A score-sorted plain body runs as the msearch envelope at B=1, as the
-reference's does (opensearch_tpu/search/controller.py:431-448), and a
-top-level `hybrid` query runs through the fused hybrid phase and the
-normalization merge (searchpipeline/hybrid.py). Every other body takes
-the general path, `_execute_search_impl`:
+On one shard, a score-sorted plain body runs as the msearch envelope at
+B=1, as the reference's does (opensearch_tpu/search/controller.py:
+431-448), and a top-level `hybrid` query runs through the fused hybrid
+phase and the normalization merge (searchpipeline/hybrid.py). Every other
+body takes the general path, `_execute_search_impl`:
 - validation: `SEARCH_BODY_KEYS`, `from` / `size` and the result window,
   the sort, `track_scores`, `search_after` (with `from` > 0 refused),
   `track_total_hits`;
-- the shard's query phase (`SearchExecutor.execute_query_phase`), its
-  candidates merged by exact sort values with missing values last, then
-  (shard, segment, doc);
+- `search_type: dfs_query_then_fetch`: every shard's term statistics for
+  the query, merged (compile.StaticStats), score every shard;
+- the query phase: with 2-8 (shard, segment) rows of one structure, the
+  multi-shard program (search/spmd.py: every row and the merge on the
+  device, K21); else the host loop over the shards that can match
+  (search/canmatch.py; the rest count in `_shards.skipped`), each shard's
+  `SearchExecutor.execute_query_phase`; the candidates merged by exact
+  sort values with missing values last, then (shard, segment, doc);
 - `search_after`: the cursor filters the merged candidates; when it
   reaches past the fetched window, k grows 4x and the query phase runs
   again (up to 65,536);
 - the page and the fetch phase (`_build_hit`: `_source`, `sort`,
   `highlight`, `explain`, `docvalue_fields`, `_version`);
-- the hits block (`track_total_hits` true, false or a threshold;
-  `max_score` only when a score is wanted) and the `_shards` block.
+- the hits block (`track_total_hits` true, false or a threshold, the
+  relation `gte` when block-max pruned lanes; `max_score` only when a
+  score is wanted) and the `_shards` block.
 
 Body keys the reference acts on that the port does not serve yet answer
-400 naming the key (`UNPORTED_BODY_KEYS`, and `search_type:
-dfs_query_then_fetch`); keys the reference accepts and ignores are
-ignored here too.
+400 naming the key (`UNPORTED_BODY_KEYS`); keys the reference accepts and
+ignores are ignored here too. A shard's error raises (the reference's
+partial results, `timeout` and fault hooks are not ported).
 """
 
 from __future__ import annotations
@@ -33,10 +40,14 @@ from typing import Any, List, Optional
 
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 ParsingError)
-from opensearch_tpu_torch.search import dsl
+from opensearch_tpu_torch.search import dsl, spmd
 from opensearch_tpu_torch.search.aggs.parse import parse_aggs
 from opensearch_tpu_torch.search.aggs.pipeline import apply_pipelines
 from opensearch_tpu_torch.search.aggs.reduce import reduce_aggs
+from opensearch_tpu_torch.search.canmatch import shard_can_match
+from opensearch_tpu_torch.search.compile import (StaticStats,
+                                                 collect_query_term_stats,
+                                                 merge_dfs_stats)
 from opensearch_tpu_torch.search.executor import (_contains_hybrid,
                                                   _msearch_batchable,
                                                   _parse_sort,
@@ -101,7 +112,7 @@ SEARCH_BODY_KEYS = frozenset({
 })
 
 # body keys the reference acts on that the port does not serve yet (each
-# a 400 naming it while set); `search_type: dfs_query_then_fetch` too
+# a 400 naming it while set)
 UNPORTED_BODY_KEYS = ("rescore", "collapse", "suggest", "profile",
                       "script_fields", "slice", "pit", "scroll", "timeout",
                       "allow_partial_search_results")
@@ -119,31 +130,23 @@ def _refuse_unported(body: dict) -> None:
             raise IllegalArgumentError(
                 f"search body key [{key}] is not supported by "
                 f"opensearch_tpu_torch yet")
-    if body.get("search_type") == "dfs_query_then_fetch":
-        raise IllegalArgumentError(
-            "search body key [search_type] with value "
-            "[dfs_query_then_fetch] is not supported by opensearch_tpu_torch "
-            "yet")
 
 
 def execute_search(executors: List, body: Optional[dict],
                    phase_spec: Optional[dict] = None,
                    allow_envelope: bool = False) -> dict:
-    """Query-then-fetch over the shard executors. `phase_spec` is the
-    search pipeline's normalization spec for a hybrid query (None: the
-    defaults); `allow_envelope` (the top-level serving entry points) lets
-    a plain score-sorted body run in the B=1 msearch envelope."""
-    if len(executors) != 1:
-        raise IllegalArgumentError(
-            f"opensearch_tpu_torch searches one shard per request so far, "
-            f"got {len(executors)}")
+    """Query-then-fetch over the shard executors (every shard of every
+    target index, in resolve order). `phase_spec` is the search pipeline's
+    normalization spec for a hybrid query (None: the defaults);
+    `allow_envelope` (the top-level serving entry points) lets a plain
+    score-sorted body on one shard run in the B=1 msearch envelope."""
     body = body or {}
     _validate_search_body_keys(body)
     if _contains_hybrid(body.get("query")):
         from opensearch_tpu_torch.searchpipeline.hybrid import \
             execute_hybrid_search
         return execute_hybrid_search(executors, body, phase_spec)
-    if allow_envelope and _msearch_batchable(body):
+    if allow_envelope and len(executors) == 1 and _msearch_batchable(body):
         return executors[0].multi_search(
             [body], _raise_item_errors=True)["responses"][0]
     return _execute_search_impl(executors, body)
@@ -180,10 +183,52 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
     k = max(from_ + size, 10)
     max_k = 1 << 16
 
+    # DFS query-then-fetch: every shard's statistics for the query terms,
+    # merged, pinned on every shard's compile (scores compare across
+    # shards)
+    dfs_overrides = None
+    if body.get("search_type") == "dfs_query_then_fetch" and executors:
+        qnode = dsl.parse_query(body.get("query"))
+        parts = [collect_query_term_stats(qnode, ex.reader.mapper,
+                                          ex.reader.stats_snapshot()[0])
+                 for ex in executors]
+        fields, term_df = merge_dfs_stats(parts)
+        dfs_overrides = [StaticStats(ex.reader.stats_snapshot()[0], fields,
+                                     term_df) for ex in executors]
+
+    # can-match (computed once, only for the host loop): a shard whose
+    # segment metadata proves emptiness is skipped; when every shard
+    # would be, one still runs so the response is fully shaped
+    flags_box: List = [None]
+    skipped_box = [0]
+    pruned_box = [0]    # block-max pruned lanes: total -> "gte"
+
+    def can_match_flags():
+        if flags_box[0] is None:
+            flags = [shard_can_match(ex, body) for ex in executors]
+            if flags and not any(flags):
+                flags[0] = True
+            flags_box[0] = flags
+        return flags_box[0]
+
     def run_query_phase(k_eff):
         candidates, decoded_partials, total = [], [], 0
+        pruned_box[0] = 0
+        rows = spmd.spmd_rows(executors)
+        if spmd.eligible(executors, body, rows, sort_specs):
+            out = spmd.spmd_query_phase(executors, body, k_eff, rows)
+            if out is not None:
+                candidates, decoded_partials, total, pruned_box[0] = out
+                sort_candidates(candidates, sort_specs)
+                return candidates, decoded_partials, total
+        flags = can_match_flags()
+        skipped_box[0] = len(executors) - sum(flags)
         for shard_i, ex in enumerate(executors):
-            cands, decoded, shard_total = ex.execute_query_phase(body, k_eff)
+            if not flags[shard_i]:
+                continue                # provably empty: a skipped shard
+            cands, decoded, shard_total = ex.execute_query_phase(
+                body, k_eff, stats_override=dfs_overrides[shard_i]
+                if dfs_overrides else None)
             for c in cands:
                 c.shard_i = shard_i
             candidates.extend(cands)
@@ -221,8 +266,10 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
 
     n_shards = len(executors)
     hits_block: dict = {"max_score": max_score, "hits": hits}
+    # block-max pruning: pruned blocks' docs were never counted
+    exact_rel = "eq" if not pruned_box[0] else "gte"
     if track_total is True:
-        hits_block = {"total": {"value": total, "relation": "eq"},
+        hits_block = {"total": {"value": total, "relation": exact_rel},
                       **hits_block}
     elif track_total is not False:
         threshold = int(track_total)
@@ -230,13 +277,13 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
             hits_block = {"total": {"value": threshold, "relation": "gte"},
                           **hits_block}
         else:
-            hits_block = {"total": {"value": total, "relation": "eq"},
+            hits_block = {"total": {"value": total, "relation": exact_rel},
                           **hits_block}
     resp = {
         "took": 0,
         "timed_out": False,
         "_shards": {"total": n_shards, "successful": n_shards,
-                    "skipped": 0, "failed": 0},
+                    "skipped": skipped_box[0], "failed": 0},
         "hits": hits_block,
     }
     if agg_nodes:

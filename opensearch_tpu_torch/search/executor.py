@@ -51,8 +51,11 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 QueryShardError)
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.segment import Segment, pad_bucket
-from opensearch_tpu_torch.ops.bm25 import (CANDIDATE_MAX_LANES,
+from opensearch_tpu_torch.ops.bm25 import (BLOCKMAX_MIN_BLOCKS,
+                                           BLOCKMAX_SLICE_BLOCKS,
+                                           CANDIDATE_MAX_LANES,
                                            CANDIDATE_MAX_TERMS,
+                                           blockmax_keep_mask,
                                            bm25_candidate)
 from opensearch_tpu_torch.ops.device_segment import (DeviceSegmentMeta,
                                                      live_mask, tree_nbytes,
@@ -240,6 +243,28 @@ def stage_single(flat: List[Dict[str, np.ndarray]], min_score: float,
     return inputs, ms
 
 
+def stage_rows(flats: List[List[Dict[str, np.ndarray]]], min_score: float,
+               dev: torch.device):
+    """The multi-shard query phase's inputs: every row's plan inputs (B=1
+    each) packed into ONE (pinned) host buffer and uploaded once. Returns
+    (per-row input dicts, per-row min_score f32 [1] views)."""
+    leaves: List[np.ndarray] = []
+    parts = []
+    for flat in flats:
+        stacked, treedef = stack_flat_inputs([flat])
+        parts.append((treedef, len(stacked)))
+        leaves.extend(stacked)
+    leaves.append(np.full(len(flats), min_score, dtype=np.float32))
+    buf, layout = pack_leaves(leaves, pin=dev.type == "cuda")
+    views = unpack_leaves(buf.to(dev, non_blocking=True), layout)
+    out, i = [], 0
+    for treedef, n in parts:
+        out.append(unflatten_inputs(treedef, views[i:i + n]))
+        i += n
+    ms = views[-1]
+    return out, [ms[r:r + 1] for r in range(len(flats))]
+
+
 def unflatten_inputs(treedef, leaves: List[torch.Tensor]):
     """Inverse of stack_flat_inputs' flattening: one input dict per plan
     node, in flatten order."""
@@ -270,13 +295,34 @@ def _envelope_kernel(plan: Plan) -> str:
         if _candidate_kernel_fits(plan.kind, n_terms, qb128) else "dense"
 
 
-def build_candidate_query_phase(plan: Plan, k: int):
+def _blockmax_admitted(plan: Optional[Plan], k: int) -> bool:
+    """Block-max admission in the envelope, shared by the runner (which
+    kernels launch) and the decode (whether the packed rows carry the
+    pruned-count lane): a non-constant text clause compiled with the gate
+    on (it carries `tid`), on the candidate kernel, with enough lanes for
+    a slice pass and a k the slice can cover."""
+    if plan is None or plan.kind != "text" or plan.static[0] \
+            or "tid" not in plan.inputs:
+        return False
+    n_blocks = plan.inputs["ids"].shape[-1]
+    return (n_blocks >= BLOCKMAX_MIN_BLOCKS
+            and 0 < k <= BLOCKMAX_SLICE_BLOCKS * 128
+            and _envelope_kernel(plan) == "candidate")
+
+
+def build_candidate_query_phase(plan: Plan, k: int, bm: bool = False):
     """B single-text-clause queries against one segment through the
-    candidate-buffer kernel (K1)."""
+    candidate-buffer kernel (K1); with `bm` (block-max admitted) K20's
+    keep mask first, and each packed row gains the pruned-count lane."""
     constant = plan.static[0]
     n_terms = plan.static[1]
 
     def run(seg, inputs, min_score):
+        if bm:
+            keep, pruned = blockmax_keep_mask(seg, inputs[0], n_terms, k,
+                                              min_score)
+            return bm25_candidate(seg, inputs[0], n_terms, constant, k,
+                                  min_score, block_keep=keep, pruned=pruned)
         return bm25_candidate(seg, inputs[0], n_terms, constant, k,
                               min_score)
     return run
@@ -456,7 +502,8 @@ def _accumulate_hybrid_row(result: HybridShardResult, row: np.ndarray,
 
 def _envelope_runner(plan: Plan, meta: DeviceSegmentMeta, k: int):
     if _envelope_kernel(plan) == "candidate":
-        return build_candidate_query_phase(plan, k)
+        return build_candidate_query_phase(
+            plan, k, bm=_blockmax_admitted(plan, k))
     return build_batched_query_phase(plan, meta, k)
 
 
@@ -718,12 +765,17 @@ def _req_min_score(body: dict) -> float:
 class SearchExecutor:
     """Executes search requests against one shard (query + fetch)."""
 
-    def __init__(self, reader: ShardReader, result_page: bool = False):
+    def __init__(self, reader: ShardReader, result_page: bool = False,
+                 blockmax: bool = False):
         self.reader = reader
         self.max_result_window = 10000
         # the node's static `search.result_page.enabled`: field-sorted
         # pages merge their segments on the device (K14)
         self.result_page = result_page
+        # the node's static `search.blockmax.enabled`: text clauses compile
+        # with block-max phase A's inputs, and the envelope's candidate
+        # kernel and the multi-shard program prune blocks (K20)
+        self.blockmax = blockmax
 
     def search(self, body: Optional[dict] = None,
                phase_spec: Optional[dict] = None,
@@ -821,7 +873,8 @@ class SearchExecutor:
         k)]: grouped by plan structure, input shapes and window, each group
         one batch per segment, every group's rows fetched in ONE copy."""
         stats, segments, device = self.reader.stats_snapshot()
-        compiler = Compiler(self.reader.mapper, stats)
+        compiler = Compiler(self.reader.mapper, stats,
+                            blockmax=self.blockmax)
         dev = self.reader.torch_device
         groups: Dict[Any, List[int]] = {}
         prepared: Dict[int, tuple] = {}
@@ -914,7 +967,8 @@ class SearchExecutor:
     def _run_batch(self, batchable, responses, start: float,
                    raise_item_errors: bool) -> None:
         stats, segments, device = self.reader.stats_snapshot()
-        compiler = Compiler(self.reader.mapper, stats)
+        compiler = Compiler(self.reader.mapper, stats,
+                            blockmax=self.blockmax)
         dev = self.reader.torch_device
         groups: Dict[Any, List[int]] = {}
         plans_by_i: Dict[int, List[Optional[Plan]]] = {}
@@ -990,7 +1044,11 @@ class SearchExecutor:
                     run = _envelope_runner(plan0, meta, k_seg)
                     out_layout = None
                 out = run(arrays, inputs, ms)
-                pending.append((idxs, seg_i, k_seg, out, out_layout))
+                # bm: the packed rows carry the pruned-count lane (the
+                # runner's own admission on the same plan and k)
+                pending.append((idxs, seg_i, k_seg, out, out_layout,
+                                agg_sig is None
+                                and _blockmax_admitted(plan0, k_seg)))
         if pending:
             fetched = _fetch_rows([p[3] for p in pending])
             self._respond(pending, fetched, entry_by_i, aggs_by_i, segments,
@@ -1005,14 +1063,16 @@ class SearchExecutor:
                     apply_pipelines(entry_by_i[i][6], aggregations)
                     responses[i]["aggregations"] = aggregations
 
-    def execute_query_phase(self, body: dict, k: int):
+    def execute_query_phase(self, body: dict, k: int, stats_override=None):
         """This shard's query phase on the general path: (candidates with
         their exact sort values, per-segment decoded agg partials, total
         hits) for the controller's merge. Per segment: the plan compiled
         with the filter cache installed, the sort key (K13), the plan and
         K3's keyed top-k of k + 128 lanes (and the agg pass), all on the
         device; every segment's row comes back in ONE copy, or, on the
-        result page, the packed page (K14) does."""
+        result page, the packed page (K14) does. `stats_override`: a DFS
+        request's merged statistics (compile.StaticStats), which score in
+        place of the shard's own."""
         from opensearch_tpu_torch.indices.query_cache import \
             FilterCacheContext
         node = dsl.parse_query(body.get("query"))
@@ -1021,8 +1081,10 @@ class SearchExecutor:
         score_sorted = sort_specs[0][0] == "_score"
         primary = None if score_sorted else sort_specs[0]
         stats, segments, device = self.reader.stats_snapshot()
+        if stats_override is not None:
+            stats = stats_override
         mapper = self.reader.mapper
-        compiler = Compiler(mapper, stats)
+        compiler = Compiler(mapper, stats, blockmax=self.blockmax)
         agg_spec = body.get("aggs") or body.get("aggregations")
         agg_nodes = parse_aggs(agg_spec)
         missing = unsupported_aggs(agg_nodes)
@@ -1212,10 +1274,17 @@ class SearchExecutor:
         per_query_segs: Dict[int, list] = {}
         per_query_total: Dict[int, int] = {}
         per_query_decoded: Dict[int, list] = {}
-        for (idxs, seg_i, k_seg, _, out_layout), packed in zip(pending,
-                                                               fetched):
+        per_query_pruned: Dict[int, int] = {}
+        for (idxs, seg_i, k_seg, _, out_layout, bm), packed in zip(pending,
+                                                                   fetched):
             scores_b, idx_b, total_b = unpack_rows(packed, k_seg)
             totals = total_b.tolist()
+            if bm:
+                # K20's pruned lanes ride the packed row's trailing lane
+                pruned = packed[:, 2 * k_seg + 1].copy().view(np.int32)
+                for row, i in enumerate(idxs):
+                    per_query_pruned[i] = per_query_pruned.get(i, 0) \
+                        + int(pruned[row])
             for row, i in enumerate(idxs):
                 per_query_total[i] = per_query_total.get(i, 0) + totals[row]
                 per_query_segs.setdefault(i, []).append(
@@ -1259,6 +1328,10 @@ class SearchExecutor:
                     for seg_i, o, s in page]
             responses[i] = _base_response(took_ms, per_query_total[i],
                                           max_score, hits)
+            if per_query_pruned.get(i):
+                # pruned blocks never reach the hit count: the total is a
+                # lower bound (the page itself is rank-exact)
+                responses[i]["hits"]["total"]["relation"] = "gte"
             if i in aggs_by_i:
                 aggregations = reduce_aggs(per_query_decoded.get(i, []))
                 apply_pipelines(entry_by_i[i][6], aggregations)

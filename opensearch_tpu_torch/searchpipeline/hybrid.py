@@ -225,8 +225,7 @@ def execute_hybrid_search(executors: List, body: dict,
     """Hybrid query-then-fetch over shard executors: each shard's fused
     phase returns per-sub-query windows and bounds; the merge reduces the
     bounds globally, normalizes every candidate, combines them into one
-    score per doc and renders the page. A shard's error raises (the port
-    serves one shard per index)."""
+    score per doc and renders the page. A shard's error raises."""
     start = time.monotonic()
     spec = resolve_spec(phase_spec)
     node = dsl.parse_query(body.get("query"))

@@ -1244,3 +1244,109 @@ NOT_PORTED_BODIES: Dict[str, dict] = {
     "geo_distance": {"query": {"geo_distance": {"distance": "1km",
                                                 "loc": [0, 0]}}},
 }
+
+
+# ----------------------------------- multi-shard indices and block-max
+
+def create_index(node, index: str, mapping: dict, shards: int,
+                 **settings) -> None:
+    """An index of `shards` shards (and further index settings)."""
+    body = json.loads(json.dumps(mapping))
+    body["settings"] = {"number_of_shards": shards, **settings}
+    res = node.request("PUT", f"/{index}", body)
+    assert res["_status"] == 200, res
+
+
+def bulk_refresh(node, index: str, docs: Dict[str, dict],
+                 deletes=()) -> None:
+    res = node.request("POST", "/_bulk", bulk_ndjson(index, docs, deletes))
+    assert res["_status"] == 200 and not res["errors"], res
+    node.request("POST", f"/{index}/_refresh")
+
+
+def load_sharded_index(node, index: str, shards: int, n_docs: int = 1200,
+                       two_refreshes: bool = True) -> None:
+    """The structured corpus on a multi-shard index: with two refreshes
+    (re-indexed docs and deletes between them) every shard holds two
+    segments, else one."""
+    docs = docs_corpus(n_docs)
+    create_index(node, index, DOCS_MAPPING, shards)
+    if not two_refreshes:
+        bulk_refresh(node, index, {f"d{i}": d for i, d in enumerate(docs)})
+        return
+    half = n_docs // 2
+    bulk_refresh(node, index, {f"d{i}": docs[i] for i in range(half)})
+    second = {f"d{i}": docs[i] for i in range(half, n_docs)}
+    second.update({f"d{i}": docs[i + 1] for i in range(3, half, 151)})
+    bulk_refresh(node, index, second, [f"d{i}" for i in range(5, n_docs, 173)])
+
+
+LOGS = ("logs-0", "logs-1", "logs-2", "logs-3")
+
+
+def load_logs_indices(node, n_docs: int = 1200) -> None:
+    """The structured corpus split by day over four one-shard indices
+    `logs-0..3` (http_logs' daily indices behind `logs-*`)."""
+    docs = docs_corpus(n_docs)
+    by_day = sorted(range(n_docs), key=lambda i: docs[i]["ts"])
+    quarter = n_docs // 4
+    for j, index in enumerate(LOGS):
+        create_index(node, index, DOCS_MAPPING, 1)
+        bulk_refresh(node, index, {f"d{i}": docs[i] for i in
+                                   by_day[j * quarter:(j + 1) * quarter]})
+
+
+ZIPF_MAPPING = {"mappings": {"properties": {"body": {"type": "text"},
+                                            "n": {"type": "integer"}}}}
+ZIPF_QUERIES = ("w4", "w4 w0", "w1 w2", "w4 w1 w7", "w3 w4 w5 w6 w8")
+
+
+def zipf_docs(n: int = 3000, burst: int = 60, seed: int = 7) -> List[dict]:
+    """The block-max corpus of the reference's suite: a zipf-ish 50-word
+    vocabulary and a doc-id-clustered high-tf burst (the first `burst`
+    docs repeat w4 40 times), so a few blocks' bounds stand far above the
+    rest."""
+    import random
+    rng = random.Random(seed)
+    vocab = [f"w{i}" for i in range(50)]
+    weights = [1.0 / (j + 1) for j in range(50)]
+    out = []
+    for i in range(n):
+        words = rng.choices(vocab, weights=weights, k=30)
+        if i < burst:
+            words = words + ["w4"] * 40
+        out.append({"body": " ".join(words), "n": i})
+    return out
+
+
+def load_zipf_index(node, index: str, shards: int, deleted=()) -> None:
+    create_index(node, index, ZIPF_MAPPING, shards)
+    bulk_refresh(node, index, {f"d{i}": d for i, d in enumerate(zipf_docs())})
+    if deleted:
+        bulk_refresh(node, index, {}, deleted)
+
+
+def zipf_bodies(sizes=(1, 10, 100)) -> List[dict]:
+    return [{"query": {"match": {"body": q}}, "size": s}
+            for s in sizes for q in ZIPF_QUERIES]
+
+
+# bodies over the multi-shard structured indices: the program's score and
+# numeric sorts, the host loop's date and keyword sorts, aggregations
+SHARD_BODIES: Dict[str, dict] = {
+    "match": {"query": {"match": {"body": "w00011 w00004"}}, "size": 12},
+    "bool_filters": {"query": {"bool": {
+        "must": [{"match": {"body": "w00021 w00005"}}],
+        "filter": [{"range": {"views": {"gte": 1000, "lt": 7000}}},
+                   {"terms": {"tag": ["cat1", "cat2", "cat3", "multi"]}}],
+        "must_not": [{"term": {"tag": "cat2"}}]}}, "size": 15},
+    "views_desc": {"query": {"match": {"body": "w00011 w00004"}},
+                   "sort": [{"views": "desc"}], "size": 10},
+    "ts_desc": {"sort": [{"ts": "desc"}], "size": 9},
+    "tag_keyword": {"sort": [{"tag": "asc"}], "size": 11,
+                    "query": {"range": {"views": {"lt": 3000}}}},
+    "date_histogram": {"query": {"match": {"body": "w00011"}}, "aggs": {
+        "d": {"date_histogram": {"field": "ts", "fixed_interval": "1d"}}}},
+    "dfs": {"query": {"match": {"body": "w00011 w00004"}},
+            "search_type": "dfs_query_then_fetch", "size": 10},
+}

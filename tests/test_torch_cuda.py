@@ -797,3 +797,152 @@ def test_distance_feature_boosting_script_kernels_equal_plain(gpu):
     for name, got, want in checks:
         assert _build.LAUNCHES[name] > 0
         assert _same(got[0], want[0]) and _same(got[1], want[1]), name
+
+
+# ---------------------------------------- K20 blockmax_keep and K21 row_merge
+
+def _bm_batch(card, bsz, seed, per_query=(2, 3, 4)):
+    """B text queries of 2-4 terms (or `per_query`'s counts, in turn)
+    compiled with block-max's inputs, each of at least BLOCKMAX_MIN_BLOCKS
+    lanes, staged as one batch."""
+    mapper, seg, terms, arrays, meta = card
+    comp = Compiler(mapper, ShardStats([seg]), blockmax=True)
+    plans, n = [], 0
+    while len(plans) < bsz:
+        q = fast_query_terms(1, terms, seed + n,
+                             per_query[n % len(per_query)])[0]
+        n += 1
+        p = comp.compile(dsl.parse_query({"match": {"body": q}}), seg, meta)
+        if p.kind == "text" and \
+                p.inputs["ids"].shape[0] >= bm25.BLOCKMAX_MIN_BLOCKS:
+            plans.append(p)
+    stacked, tree = stack_flat_inputs([p.flatten_inputs([]) for p in plans])
+    stacked.append(np.where(np.arange(bsz) % 5 == 4, 1.0,
+                            -np.inf).astype(np.float32))
+    buf, layout = pack_leaves(stacked, pin=True)
+    leaves = unpack_leaves(buf.to("cuda"), layout)
+    return plans, unflatten_inputs(tree, leaves[:-1])[0], leaves[-1]
+
+
+@pytest.mark.parametrize("bsz,k", [(1, 10), (7, 1), (32, 10), (5, 1024)])
+def test_blockmax_keep_kernel_equals_plain(card, bsz, k):
+    """K20's keep mask and pruned counts bit for bit; every fifth row has
+    a min_score floor (no pruning)."""
+    plans, blk, ms = _bm_batch(card, bsz, 70 + bsz)
+    arrays = card[3]
+    n = max(p.static[1] for p in plans)
+    before = _build.LAUNCHES["blockmax_keep"]
+    keep, pruned = bm25.blockmax_keep_mask(arrays, blk, n, k, ms)
+    assert _build.LAUNCHES["blockmax_keep"] == before + 1
+    want_keep, want_pruned = bm25.blockmax_keep_mask_plain(arrays, blk, n, k,
+                                                           ms)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want_keep)
+    assert torch.equal(pruned, want_pruned)
+    assert int(pruned[4::5].sum()) == 0 if bsz > 4 else True
+
+
+def test_blockmax_keep_prunes_one_term_queries(card):
+    """On one-term queries theta (the 10th best posting of the term's
+    top-8 blocks) stands above many other blocks' bounds: K20 prunes
+    lanes, bit for bit with its plain version."""
+    plans, blk, ms = _bm_batch(card, 32, 95, per_query=(1,))
+    arrays = card[3]
+    keep, pruned = bm25.blockmax_keep_mask(arrays, blk, 1, 10, ms)
+    want_keep, want_pruned = bm25.blockmax_keep_mask_plain(arrays, blk, 1,
+                                                           10, ms)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want_keep)
+    assert torch.equal(pruned, want_pruned)
+    assert int(pruned.sum()) > 0
+    assert int(pruned[4::5].sum()) == 0
+
+
+def test_keep_entries_of_k1_and_k2_equal_plain(card):
+    """K1 and K2 with K20's keep mask against their plain versions (K1's
+    row with the trailing pruned lane), counted under their keep keys."""
+    _check_keep_entries(card, *_bm_batch(card, 8, 90))
+
+
+def test_keep_entries_drop_pruned_lanes(card):
+    """The same on one-term queries, where K20 prunes lanes: a dropped
+    lane adds nothing to K1's row or K2's scores."""
+    _check_keep_entries(card, *_bm_batch(card, 32, 95, per_query=(1,)),
+                        want_pruned=True)
+
+
+def _check_keep_entries(card, plans, blk, ms, want_pruned=False):
+    arrays = card[3]
+    n = max(p.static[1] for p in plans)
+    keep, pruned = bm25.blockmax_keep_mask(arrays, blk, n, 10, ms)
+    assert int(pruned.sum()) > 0 or not want_pruned
+    before = (_build.LAUNCHES["bm25_candidate_keep"],
+              _build.LAUNCHES["score_text_clause_keep"])
+    if blk["ids"].shape[1] * 128 <= bm25.CANDIDATE_MAX_LANES:
+        got = bm25.bm25_candidate(arrays, blk, n, False, 10, ms,
+                                  block_keep=keep, pruned=pruned)
+        want = bm25.bm25_candidate(
+            {k: v.cpu() if torch.is_tensor(v) else v
+             for k, v in arrays.items()},
+            {k: v.cpu() for k, v in blk.items()}, n, False, 10, ms.cpu(),
+            block_keep=keep.cpu(), pruned=pruned.cpu())
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        assert _build.LAUNCHES["bm25_candidate_keep"] == before[0] + 1
+    ks, kh = bm25.score_text_clause(arrays, blk, block_keep=keep)
+    ps, ph = bm25.score_text_clause_plain(
+        arrays, dict(blk, ids=torch.where(keep, blk["ids"], -1)))
+    torch.cuda.synchronize()
+    assert torch.equal(kh, ph) and torch.equal(ks, ps)
+    assert _build.LAUNCHES["score_text_clause_keep"] == before[1] + 1
+
+
+@pytest.mark.parametrize("ks,k", [([10] * 5, 10), ([1000] * 8, 1000),
+                                  ([7, 0, 300, 65, 1, 300], 100),
+                                  ([65536] * 8, 65536)])
+def test_row_merge_kernel_equals_plain(gpu, ks, k):
+    """K21's merge bit for bit: keys drawn from 50 values (ties across and
+    within rows), -inf slots, -0.0 and +0.0 keys."""
+    from opensearch_tpu_torch.ops import spmd as kspmd
+    gen = torch.Generator(device="cuda").manual_seed(len(ks) + k)
+    width = 3 * max(ks) + 1
+    buf = torch.zeros(len(ks), width, device="cuda")
+    for r, kr in enumerate(ks):
+        keys = torch.randint(-25, 25, (kr,), generator=gen,
+                             device="cuda").float()
+        keys[torch.rand(kr, generator=gen, device="cuda") < 0.1] = -np.inf
+        keys[keys == 0] = -0.0 if r % 2 else 0.0
+        buf[r, :kr] = torch.sort(keys, descending=True).values
+        buf[r, kr:2 * kr] = torch.rand(kr, generator=gen, device="cuda")
+        buf[r, 2 * kr:3 * kr] = torch.randint(
+            0, 1 << 20, (kr,), generator=gen, device="cuda",
+            dtype=torch.int32).view(torch.float32)
+        buf[r, 3 * kr] = torch.tensor([kr * 3], dtype=torch.int32,
+                                      device="cuda").view(torch.float32)
+    pruned = torch.arange(len(ks), dtype=torch.int32, device="cuda")
+    before = _build.LAUNCHES["row_merge"]
+    got = kspmd.row_merge(buf, ks, pruned, k)
+    assert _build.LAUNCHES["row_merge"] == before + 1
+    want = kspmd.row_merge_plain(buf.cpu(), ks, pruned.cpu(), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("order", ["asc", "desc"])
+def test_row_value_key_kernel_equals_plain(gpu, order):
+    from opensearch_tpu_torch.ops import spmd as kspmd
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    d_pad, n_u = 1 << 16, 600
+    col = {"unique_f32": torch.sort(torch.randn(1024, generator=gen,
+                                                device="cuda")).values,
+           "min_rank": torch.randint(-5, n_u + 5, (d_pad,), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+           "max_rank": torch.randint(-5, n_u + 5, (d_pad,), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+           "exists": torch.rand(d_pad, generator=gen, device="cuda") < 0.8}
+    before = _build.LAUNCHES["row_value_key"]
+    got = kspmd.row_value_key(col, order, d_pad, gpu)
+    assert _build.LAUNCHES["row_value_key"] == before + 1
+    want = kspmd.row_value_key_plain({k: v.cpu() for k, v in col.items()},
+                                     order)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

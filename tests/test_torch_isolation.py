@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax():
                 "search.fetch", "search.controller", "ops.sort_key",
                 "ops.page", "ops.agg_kernels", "search.aggs.pipeline",
                 "script.painless", "ops.scoring", "analysis.porter",
-                "common.settings"):
+                "common.settings", "cluster.routing", "search.canmatch",
+                "parallel.distributed", "ops.spmd"):
         assert f"opensearch_tpu_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

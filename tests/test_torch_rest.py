@@ -7,9 +7,8 @@ each test sends the same requests to both Nodes.
   single write, and a `_bulk` item takes it as the reference does;
 - index expressions (`_all`, `*`, wildcards, commas, `-` exclusions, an
   `_msearch` header `{}`) resolve as the reference resolves them: one
-  index is served with the reference's response, none finds nothing, and
-  several answer 400 naming the expression until the cross-shard merge is
-  ported;
+  index or several are served with the reference's response, none finds
+  nothing;
 - generated ids are 20 url-safe characters, as the reference's.
 """
 
@@ -149,21 +148,22 @@ def test_bare_search_and_empty_msearch_header_one_index(one_index):
                                   "/s1,p1/_search", "/*1/_search"])
 def test_expression_resolving_to_several_indices_answers_400(two_indices,
                                                              path):
-    """The reference serves these across both indices; the port answers 400
-    naming the expression (never 404: both indices exist)."""
+    """Expressions over both indices: the port serves them across both,
+    as the reference does (it answered 400 before the multi-shard query
+    phase was ported; the name stays). `_search`, a sorted body and an
+    `_msearch` mixing such an expression with one index agree."""
     jn, tn = two_indices
-    assert jn.request("POST", path, {})["_status"] == 200
-    got = tn.request("POST", path, {})
-    assert got["_status"] == 400
-    assert got["error"]["type"] == "illegal_argument_exception"
-    expr = path.split("/")[1] if path != "/_search" else "_all"
-    assert f"index expression [{expr}] resolves to 2 indices" \
-        in got["error"]["reason"]
-    ms = tn.request("POST", "/_msearch", _ndjson([{}, {}, {"index": "s1"},
-                                                  {}]))
-    assert ms["_status"] == 200
-    assert ms["responses"][0]["status"] == 400
-    assert ms["responses"][1]["status"] == 200
+    for body in ({}, {"query": {"term": {"t": "v1"}},
+                      "sort": [{"n": "desc"}], "size": 4}):
+        want = jn.request("POST", path, body)
+        assert want["_status"] == 200
+        assert want["_shards"]["total"] == 2
+        assert_same_response(tn.request("POST", path, body), want, path)
+    payload = _ndjson([{"index": path.split("/")[1]} if path != "/_search"
+                       else {}, {}, {"index": "s1"}, {}])
+    want = jn.request("POST", "/_msearch", payload)
+    assert [r["status"] for r in want["responses"]] == [200, 200]
+    assert_same_response(tn.request("POST", "/_msearch", payload), want)
 
 
 def test_unknown_index_is_404_in_both(two_indices):

@@ -21,6 +21,7 @@ from opensearch_tpu.node import Node as JNode
 from opensearch_tpu.ops.device_segment import upload_segment as j_upload
 from opensearch_tpu.search import dsl as jdsl
 from opensearch_tpu.search import executor as jex
+from opensearch_tpu.search import spmd as jspmd
 from opensearch_tpu.search.compile import Compiler as JCompiler
 from opensearch_tpu.search.compile import ShardStats as JStats
 
@@ -30,6 +31,7 @@ from opensearch_tpu_torch.ops import page, sort_key, topk
 from opensearch_tpu_torch.ops.device_segment import upload_segment
 from opensearch_tpu_torch.search import dsl as tdsl
 from opensearch_tpu_torch.search import executor as tex
+from opensearch_tpu_torch.search import spmd as tspmd
 from opensearch_tpu_torch.search.compile import Compiler as TCompiler
 from opensearch_tpu_torch.search.compile import ShardStats as TStats
 from opensearch_tpu_torch.search.executor import stage_single
@@ -124,12 +126,23 @@ def test_track_scores(nodes):
 def test_result_page_routes(nodes, page_calls):
     """A single numeric sort (and a score sort) rides the page; an
     epoch-millis `ts` sort does not pass f32_sortable and takes the host
-    merge; a keyword sort and a multi-key sort never ask for a page."""
+    merge; a keyword sort and a multi-key sort never ask for a page. The
+    page lives on the host loop: on this index every body takes it in
+    both packages, since the third segment has no `views` column (the
+    layout check of the multi-shard program, the reference's
+    canonical_meta), and under force_host_loop() it takes it anyway."""
     jn, tn, tp = nodes
     for name, field_page in (("views_asc", "asc"), ("dv_sorted", "desc")):
         page_calls.clear()
+        j0, t0 = jspmd.SPMD_QUERIES.value, tspmd.SPMD_QUERIES[0]
         assert_same_response(_search(tp, SORT_BODIES[name]),
                              _search(jn, SORT_BODIES[name]))
+        assert page_calls == [field_page]
+        assert (jspmd.SPMD_QUERIES.value, tspmd.SPMD_QUERIES[0]) == (j0, t0)
+        page_calls.clear()
+        with tspmd.force_host_loop():
+            assert_same_response(_search(tp, SORT_BODIES[name]),
+                                 _search(jn, SORT_BODIES[name]))
         assert page_calls == [field_page]
     score_body = {"query": {"match": {"body": "w00011"}}, "size": 5,
                   "highlight": {"fields": {"body": {}}}}
@@ -233,8 +246,14 @@ def test_errors_match_reference(nodes, body, reason):
     ("search_type", "dfs_query_then_fetch"),
 ])
 def test_unported_keys_answer_400(nodes, key, value):
-    _jn, tn, _tp = nodes
-    res = _search(tn, {"sort": [{"views": "asc"}], key: value})
+    jn, tn, _tp = nodes
+    body = {"sort": [{"views": "asc"}], key: value}
+    if key == "search_type":
+        # dfs_query_then_fetch is served since the multi-shard slice
+        # (it answered 400 before): the reference's response
+        assert_same_response(_search(tn, body), _search(jn, body))
+        return
+    res = _search(tn, body)
     assert res["_status"] == 400
     assert f"[{key}]" in res["error"]["reason"]
     assert "not supported by opensearch_tpu_torch" in res["error"]["reason"]
@@ -304,9 +323,9 @@ def test_deep_cursor_grows_k_past_the_sort_limit(deep, monkeypatch):
     ex = tn.indices.get("deep").shards[0].executor
     real = ex.execute_query_phase
 
-    def spy(body, k):
+    def spy(body, k, **kw):
         ks.append(k)
-        return real(body, k)
+        return real(body, k, **kw)
     monkeypatch.setattr(ex, "execute_query_phase", spy)
     body = {"sort": [{"n": "desc"}], "size": 10, "search_after": [900]}
     want = jn.request("POST", "/deep/_search", body)
