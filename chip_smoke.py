@@ -173,6 +173,40 @@ shards (block-max on the envelope and on the program).
     four 2.5M-doc segments as four indices behind `logs-*` against the
     same docs as one index and the f64 oracle; a 100,000-passage 5-shard
     cut against Node(device="cpu"), dfs pages included.
+14. nested cell: 2,000,000 StackOverflow-shaped questions with nested
+    answers (rally-tracks' nested track, cut from ~11M to one segment of
+    Dp 2^23; answers.user a long id, not the track's keyword;
+    utils/demo.qa_segment), through Node().request: eight families of 64
+    bodies (nested bool{term answers.user, range answers.date} in score
+    modes avg / sum / max / min / none, avg with inner_hits of 3, size 0
+    nested -> terms answers.user, nested -> monthly date_histogram ->
+    reverse_nested -> terms tag): B=1 p50 / p99, B=32 p50 and q/s, busy
+    share, the inner hits' copies; terms counts against numpy; a
+    20,000-question cut against Node(device="cpu");
+15. geo cell: 10,000,000 GeoNames-shaped places around 5,000 city
+    centres (rally-tracks' geonames; population mapped as rank_feature,
+    not the track's long; utils/demo.geonames_segment), through
+    Node().request: seven families of 64 bodies (geo_bounding_box,
+    geo_distance 50 km, bool{filter geo_distance 200 km, should
+    rank_feature saturation}, distance_feature pivot 10 km filtered by a
+    country_code term, size 0 terms country_code -> geo_bounds +
+    geo_centroid, geohash_grid precision 5 and geotile_grid zoom 8 over a
+    map viewport): walls as phase 14 and the first query's; bbox totals
+    against numpy; the grid keys' numpy form against the scalar functions
+    on a seeded 100,000-place sample; a 200,000-place cut against
+    Node(device="cpu").
+
+Phase 2 also holds K22 nested_join (sum, avg, max), K23 nested_aggs
+(nested under the root, reverse_nested under a monthly date_histogram)
+at phase 14's shapes (B=32, Dp 2^23) and K24 binned_scatter
+(geo_centroid's sums and geo_bounds' extrema under terms country_code)
+and K25's four geo / rank_feature entries at phase 15's (B=32, Dp
+2^24), each against its plain version (K22, K24 and K25 bit for bit,
+K23 exactly, K24's sums also within n * 2^-24 * sum|v| of the f64 sums).
+Phase 3 adds the Q&A index (`qa`: nested answers, two segments,
+re-indexed and deleted blocks) with every score mode, inner hits and the
+aggregations under nested / reverse_nested, and the places index (`geo`)
+with the geo and rank_feature queries and the geo aggregations.
 
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
 per-kernel tables, a copy of the log) under DIR. The card's name and power limit are printed in
@@ -218,7 +252,9 @@ HYBRID_DIMS = 768                   # msmarco-distilbert-base-tas-b
 HYBRID_QUERIES = 320
 SORTED_SEGMENTS = 4                 # the sorted cell's multi-segment index
 SORTED_SINGLES = 100                # B=1 requests per body and index
-SORTED_DEEP_SINGLES = 20            # of the deep search_after body
+SORTED_DEEP_SINGLES = 4             # of the deep search_after body (cut
+                                    # from 20 to fit phases 14-15)
+TIMING_BUDGET_MS = 1000.0           # of one timed measurement's reps
 SORTED_CURSOR_HIT = 20000           # search_after's depth, in hits
 AGGKIND_BODIES_PER_FAMILY = 64      # the agg-kinds cell's bodies a family
 RELEVANCE_BODIES_PER_FAMILY = 64    # the relevance cell's bodies a family
@@ -233,12 +269,15 @@ DAY_MS = 86400_000
 # with --out DIR, every log line also goes to DIR/log.txt (a runner that
 # keeps only the end of the standard output loses the early phases)
 _LOG_FILE = None
+_T0 = time.perf_counter()
 
 
 def log(*args):
     print(*args, flush=True)
     if _LOG_FILE is not None:
-        print(*args, file=_LOG_FILE, flush=True)
+        # the log file's lines carry the seconds since the script started
+        print(f"[{time.perf_counter() - _T0:.1f} s]", *args, file=_LOG_FILE,
+              flush=True)
 
 
 def card_line() -> str:
@@ -254,14 +293,20 @@ def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3,
     """Median milliseconds of one call of fn() on the stream, between CUDA
     events, L2 flushed before each rep. A call whose host work outlasts its
     device work (a wrapper's checks and launch, a plain version's syncs)
-    is measured with that host time included. With `lead` the stream
+    is measured with that host time included; a call slower than
+    TIMING_BUDGET_MS / reps gets fewer reps. With `lead` the stream
     first spins for about 10 ms, so that the events and fn's launches are
     all queued before the first event runs and a stall of the host thread
     (another thread holding the GIL) is not counted."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if warmup:
+        # a slow call is timed fewer times: about TIMING_BUDGET_MS of reps
+        each = (time.perf_counter() - t0) * 1e3 / warmup
+        reps = max(1, min(reps, int(TIMING_BUDGET_MS / max(each, 1e-3))))
     times = []
     for _ in range(reps):
         flush.zero_()
@@ -394,7 +439,7 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
                         f"terms={n_terms} k={k}",
                "max_abs_err": err, "ms": graph_ms(torch, kern),
                "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
                "library_ms": None,
                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                flops / F32_FLOPS) * 1e3,
@@ -429,7 +474,7 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
         rec = {"shape": f"B={bsz} QB={qb} Dp={d_pad} blocks={blocks}",
                "max_abs_err": err, "ms": graph_ms(torch, kern2),
                "call_ms": cuda_ms(torch, kern2),
-               "plain_ms": cuda_ms(torch, plain2, reps=5),
+               "plain_ms": cuda_ms(torch, plain2, reps=3, warmup=1),
                "library_ms": None,
                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                flops / F32_FLOPS) * 1e3,
@@ -457,7 +502,7 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
             rec = {"shape": f"B={bsz} Dp={d_pad} k={k}",
                    "max_abs_err": err, "ms": graph_ms(torch, kern3),
                    "call_ms": cuda_ms(torch, kern3),
-                   "plain_ms": cuda_ms(torch, plain3, reps=5),
+                   "plain_ms": cuda_ms(torch, plain3, reps=3, warmup=1),
                    "library_ms": graph_ms(torch, library),
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                    "bound_by": "bytes"}
@@ -508,8 +553,11 @@ def phase_serving(torch, np, device=None):
         # (6 rows) and four one-shard daily indices behind logs-*
         parity.load_sharded_index(node, "s3", 3)
         parity.load_logs_indices(node)
+        # nested documents and places (K22-K25)
+        parity.load_qa_index(node, "qa")
+        parity.load_geo_index(node, "geo")
         if node is gpu:
-            log(f"serving: fifteen indices loaded on the card in "
+            log(f"serving: seventeen indices loaded on the card in "
                 f"{(time.perf_counter() - t_load) * 1e3:.3f} ms")
     for node in (gpu_page, cpu_page):
         parity.load_sorted_index(node, "sorted")
@@ -605,6 +653,24 @@ def phase_serving(torch, np, device=None):
     got_bm = [gpu_bm.request("POST", path, b) for path, b in bm_requests]
     bm_payload = parity.msearch_ndjson("zipf", parity.zipf_bodies())
     got_bmm = gpu_bm.request("POST", "/_msearch", bm_payload)
+    # nested documents (K22, K23, K24) and places (K24, K25): every score
+    # mode, inner hits, the aggregations under nested / reverse_nested,
+    # geo queries, rank_feature and the geo aggregations
+    nest_requests = [("/qa/_search", parity.qa_match_body(u, 40 * u, m))
+                     for u, m in enumerate(parity.NESTED_MODES)]
+    nest_requests += [("/qa/_search", parity.qa_match_body(
+        0, 0, "avg", {"size": 2, "name": "ans"}, size=20))]
+    nest_requests += [("/qa/_search", {"size": 0, "aggs": {"n": b}})
+                      for b in parity.NESTED_AGG_BODIES.values()]
+    nest_requests += [("/geo/_search", b)
+                      for b in parity.GEO_QUERY_BODIES.values()]
+    nest_requests += [("/geo/_search", {"size": 0, "aggs": b})
+                      for b in parity.GEO_AGG_BODIES.values()]
+    got_nest = [gpu.request("POST", path, b) for path, b in nest_requests]
+    nest_payload = parity.msearch_ndjson("qa", [
+        parity.qa_match_body(u, 20 * u, parity.NESTED_MODES[u % 5])
+        for u in range(32)])
+    got_nestm = gpu.request("POST", "/_msearch", nest_payload)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -700,6 +766,18 @@ def phase_serving(torch, np, device=None):
     parity.assert_same_response(got_bmm, cpu_bm.request("POST", "/_msearch",
                                                         bm_payload),
                                 "block-max msearch")
+    for (path, b), got_one in zip(nest_requests, got_nest):
+        if got_one["_status"] != 200:
+            raise AssertionError(f"{path}: {got_one}")
+        want = cpu.request("POST", path, b)
+        parity.assert_same_response(
+            got_one, want, path, score_rtol=SCORING_RTOL,
+            score_atol=SCORING_ATOL,
+            agg_sum_tol={**parity.matrix_stats_tol(want),
+                         **parity.centroid_tol(want)})
+    parity.assert_same_response(got_nestm, cpu.request("POST", "/_msearch",
+                                                       nest_payload),
+                                "nested msearch")
     if not any(r["hits"]["total"]["relation"] == "gte"
                for r in got_bm + got_bmm["responses"]):
         raise AssertionError("block-max pruned nothing on the zipf corpus")
@@ -725,6 +803,7 @@ def phase_serving(torch, np, device=None):
         f"scoring / lexical pages, {len(shard_requests) + len(parity.SHARD_BODIES)} "
         f"multi-shard / multi-index responses and "
         f"{len(bm_requests) + len(got_bmm['responses'])} block-max pages "
+        f"and {len(nest_requests) + 32} nested / geo responses "
         f"equal the plain versions' (matrix_stats "
         f"within matrix_stats_tol, the scoring kinds' scores to rtol "
         f"{SCORING_RTOL})")
@@ -810,7 +889,7 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
         err = check(got, want)
         rec = {"shape": shape, "max_abs_err": err,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
@@ -1028,7 +1107,7 @@ def phase_aggkind_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
         err = check(got, want)
         rec = {"shape": shape, "max_abs_err": err,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
                "library_ms": None if library is None
                # a library call that syncs (bincount) is timed per call
                else (cuda_ms(torch, library) if library_note
@@ -1251,7 +1330,7 @@ def phase_sort_kernels(torch, np, seg, four, dev):
         rec = {"shape": shape, "max_abs_err": 0.0,
                "ms": graph_ms(torch, kern),
                "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
@@ -1415,7 +1494,7 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
         bound_ms, bound_by = _bound(nbytes, ops)
         rec = {"shape": shape, "max_abs_err": 0.0,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": bound_ms, "bound_by": bound_by}
@@ -3426,7 +3505,7 @@ def phase_scoring_kernels(torch, np, mapper, seg, terms, dev,
         bound = _bound(nbytes, 0)
         rec = {"shape": shape, "max_abs_err": err, "ulps": ulps,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=5),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
                "library_ms": None, "bound_ms": bound[0],
                "bound_by": bound[1]}
         results.setdefault(name, []).append(rec)
@@ -3647,7 +3726,7 @@ SHARDED_CUT_DOCS = 100_000
 SHARDED_CUT_PAGES = 32
 SHARDED_CUT_DFS_PAGES = 8
 SHARDED_DFS_BODIES = 64
-LOGS_SINGLES = 50
+LOGS_SINGLES = 20                   # cut from 50 to fit phases 14-15
 
 
 def _page_of(resp):
@@ -3994,6 +4073,605 @@ def sharded_dfs(np, node, segs5, bodies, plain_pages) -> dict:
     return rec
 
 
+# ------------------------------- nested documents, geo_point, rank_feature
+
+NESTED_QUESTIONS = 2_000_000     # rally nested track: ~11M questions, cut
+GEO_PLACES = 10_000_000          # rally geonames track: ~11.4M places
+NESTED_BODIES_PER_FAMILY = 64
+NESTED_CUT_QUESTIONS = 20_000    # the cut held against Node(device="cpu")
+GEO_CUT_PLACES = 200_000
+CUT_PAGES = 8                    # bodies a family on the cuts
+GRID_SAMPLE = 100_000            # places whose grid keys meet the scalar form
+NESTED_FAMILIES = ("avg", "sum", "max", "min", "none", "inner_hits",
+                   "terms_user", "tree")
+GEO_FAMILIES = ("bbox", "distance", "radius_rank", "distance_feature",
+                "country_geo", "geohash5", "geotile8")
+
+
+def nested_cell_bodies(np, family: str, n: int, seed: int) -> list:
+    """The nested cell's bodies: answers by a zipf-drawn user after a date
+    in a score mode (avg again with inner_hits of 3); `size: 0` with
+    nested -> terms answers.user size 10, and nested -> date_histogram
+    answers.date (month) -> reverse_nested -> terms tag, each over a
+    creationDate window."""
+    from opensearch_tpu_torch.utils.demo import (QA_BASE_MS, QA_USERS,
+                                                 _zipf_draw)
+    rng = np.random.default_rng(seed)
+    users = _zipf_draw(rng, QA_USERS, n)
+    days = rng.integers(0, 5 * 365, n)
+    out = []
+    for i in range(n):
+        since = QA_BASE_MS + int(days[i]) * DAY_MS
+        if family in NESTED_MODES_CELL or family == "inner_hits":
+            nested = {"path": "answers",
+                      "score_mode": "avg" if family == "inner_hits"
+                      else family,
+                      "query": {"bool": {"must": [
+                          {"term": {"answers.user": int(users[i])}},
+                          {"range": {"answers.date": {"gte": since}}}]}}}
+            if family == "inner_hits":
+                nested["inner_hits"] = {"size": 3}
+            out.append({"query": {"nested": nested}, "size": 10})
+            continue
+        window = {"range": {"creationDate": {
+            "gte": since, "lt": since + 180 * DAY_MS}}}
+        if family == "terms_user":
+            aggs = {"a": {"nested": {"path": "answers"}, "aggs": {
+                "u": {"terms": {"field": "answers.user", "size": 10}}}}}
+        else:
+            aggs = {"a": {"nested": {"path": "answers"}, "aggs": {
+                "m": {"date_histogram": {"field": "answers.date",
+                                         "calendar_interval": "month"},
+                      "aggs": {"back": {"reverse_nested": {}, "aggs": {
+                          "t": {"terms": {"field": "tag"}}}}}}}}}
+        out.append({"size": 0, "query": window, "aggs": aggs})
+    return out
+
+
+NESTED_MODES_CELL = ("avg", "sum", "max", "min", "none")
+
+
+def geo_cell_bodies(np, family: str, n: int, seed: int, centres) -> list:
+    """The geo cell's bodies around seeded city centres: a bounding box (as
+    rally geonames' geo queries), geo_distance 50 km, bool{filter
+    geo_distance 200 km, should rank_feature population saturation},
+    distance_feature (pivot 10 km) filtered by a country_code term, `size:
+    0` terms country_code size 20 -> geo_bounds + geo_centroid over a
+    population range, and geohash_grid precision 5 / geotile_grid zoom 8
+    over a map viewport (a 10-degree box)."""
+    rng = np.random.default_rng(seed)
+    pick = centres[rng.integers(0, len(centres), n)]
+    out = []
+    for i in range(n):
+        lat, lon = float(pick[i][0]), float(pick[i][1])
+        point = {"lat": lat, "lon": lon}
+        half = float(rng.uniform(0.5, 3.0))
+        box = {"top": min(lat + half, 90.0), "bottom": max(lat - half, -90.0),
+               "left": ((lon - half + 180.0) % 360.0) - 180.0,
+               "right": ((lon + half + 180.0) % 360.0) - 180.0}
+        if family == "bbox":
+            out.append({"query": {"geo_bounding_box": {"location": box}},
+                        "size": 10})
+        elif family == "distance":
+            out.append({"query": {"bool": {"filter": [{"geo_distance": {
+                "distance": "50km", "location": point}}]}}, "size": 10})
+        elif family == "radius_rank":
+            out.append({"query": {"bool": {
+                "filter": [{"geo_distance": {"distance": "200km",
+                                             "location": point}}],
+                "should": [{"rank_feature": {"field": "population",
+                                             "saturation": {}}}]}},
+                "size": 10})
+        elif family == "distance_feature":
+            out.append({"query": {"bool": {
+                "must": [{"distance_feature": {
+                    "field": "location", "origin": point,
+                    "pivot": "10km"}}],
+                "filter": [{"term": {"country_code":
+                                     f"c{int(rng.integers(0, 20)):03d}"}}]}},
+                "size": 10})
+        elif family == "country_geo":
+            lo = float(rng.uniform(0, 2000))
+            out.append({"size": 0, "query": {"range": {"population": {
+                "gte": lo}}}, "aggs": {"cc": {
+                    "terms": {"field": "country_code", "size": 20},
+                    "aggs": {"gb": {"geo_bounds": {"field": "location"}},
+                             "gc": {"geo_centroid": {
+                                 "field": "location"}}}}}})
+        else:
+            view = {"top": min(lat + 5, 90.0), "bottom": max(lat - 5, -90.0),
+                    "left": max(lon - 5, -180.0),
+                    "right": min(lon + 5, 180.0)}
+            grid = {"geohash_grid": {"field": "location", "precision": 5}} \
+                if family == "geohash5" else \
+                {"geotile_grid": {"field": "location", "precision": 8}}
+            out.append({"size": 0, "query": {"geo_bounding_box": {
+                "location": view}}, "aggs": {"g": grid}})
+    return out
+
+
+def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
+                             bsz: int = 32):
+    """K22-K25 against their plain versions at the cells' shapes: K22
+    nested_join and K23 nested_aggs on the nested cell's image (2M
+    questions, Dp 2^23, B=32: the child plan of bool{term answers.user,
+    range answers.date}; nested under the root and reverse_nested under a
+    monthly date_histogram of the answers), K24 binned_scatter and K25's
+    four entries on the geo cell's image (10M places, Dp 2^24, B=32:
+    geo_centroid's sums and geo_bounds' extrema under terms
+    country_code; geo_distance, geo_bbox, distance_feature and
+    rank_feature saturation). K22, K24's sums and K25 bit for bit (the
+    float outputs' ulps measured: 0), K23 and K24's counts and extrema
+    exactly, K24's sums also within n * 2^-24 * sum|v| of the f64 sums.
+    Each timed as a graph replay, a call, the plain version and, where one
+    PyTorch call computes the same function, that call: K22 sum the
+    index_add_ of the selected child scores into the roots, K23 nested
+    the bincount of the own rows' buckets, K24 scatter_reduce_ of the
+    reduction; bound = max(bytes / 3.35 TB/s, f32 ops / 67 TFLOP/s)."""
+    from opensearch_tpu_torch.ops import binned, geo, nested
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.search import dsl
+    from opensearch_tpu_torch.search.compile import Compiler, ShardStats
+    from opensearch_tpu_torch.search.plan_eval import (_eval_plan,
+                                                       dense_numeric)
+    from opensearch_tpu_torch.index.mapper import MapperService
+    from opensearch_tpu_torch.utils.demo import QA_BASE_MS, QA_MAPPING
+    results = {}
+
+    def record(name, shape, kern, plain, library, nbytes, check,
+               ops: float = 0.0):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        for g, a in zip(got, again):
+            if not _same_bits(torch, g, a):
+                raise AssertionError(f"{name}: two runs differ")
+        err = check(got, want)
+        bound = _bound(nbytes, ops)
+        rec = {"shape": shape, "max_abs_err": err,
+               "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
+               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "library_ms": None if library is None
+               else cuda_ms(torch, library, reps=5, warmup=1),
+               "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        results.setdefault(name, []).append(rec)
+        log(name, json.dumps(rec))
+
+    def exact(got, want):
+        for g, w in zip(got, want):
+            if not _same_bits(torch, g, w):
+                raise AssertionError("kernel and plain version differ")
+        return 0.0
+
+    def scores_bits(got, want):
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError("matches differ")
+        if not _same_bits(torch, got[0], want[0]):
+            raise AssertionError(f"{_ulps(torch, np, got[0], want[0])} "
+                                 f"ulps from the plain version")
+        return 0.0
+
+    # ---- K22 / K23 on the nested cell
+    t0 = time.perf_counter()
+    arrays, meta = upload_segment(qa_seg, dev)
+    d_pad = meta.d_pad
+    qa_mapper = MapperService(QA_MAPPING)
+    comp = Compiler(qa_mapper, ShardStats([qa_seg]))
+    rng = np.random.default_rng(71)
+    plans = [comp.compile(dsl.parse_query({"bool": {"must": [
+        {"term": {"answers.user": int(u)}},
+        {"range": {"answers.date": {"gte": QA_BASE_MS + int(d) * DAY_MS}}}
+    ]}}), qa_seg, meta) for u, d in zip(rng.integers(0, 50, bsz),
+                                        rng.integers(0, 1500, bsz))]
+    nodes, _ms = stacked_inputs(torch, plans, [-np.inf] * bsz, dev)
+    child_s, child_m = _eval_plan(plans[0], arrays, nodes, [0], bsz)
+    child_s, child_m = child_s.contiguous(), child_m.contiguous()
+    path_ord = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    boost = torch.ones(bsz, dtype=torch.float32, device=dev)
+    elems = bsz * d_pad
+    log(f"nested kernels: image uploaded and the child plans run in "
+        f"{time.perf_counter() - t0:.3f} s (Dp {d_pad})")
+    pptr = arrays["parent_ptr"]
+    pidx = torch.where(pptr >= 0, pptr, d_pad).long()
+    sel = child_m & arrays["live"][None, :] & (arrays["nested_path"] == 0)
+    csel = torch.where(sel, child_s, 0.0)
+    for mode in ("sum", "avg", "max"):
+        record("nested_join", f"B={bsz} Dp={d_pad} {mode}",
+               lambda mode=mode: nested.nested_join(
+                   child_s, child_m, arrays, path_ord, boost, mode),
+               lambda mode=mode: nested.nested_join_plain(
+                   child_s, child_m, arrays["live"], arrays["nested_path"],
+                   pptr, arrays["child_start"], arrays["child_rows"],
+                   path_ord, boost, mode),
+               (lambda: torch.zeros(bsz, d_pad + 1, device=dev).index_add_(
+                   1, pidx, csel)) if mode == "sum" else None,
+               (5 + 5) * elems + 13 * d_pad, scores_bits,
+               ops=2.0 * elems)
+    roots = arrays["root"] & arrays["live"]
+    mask = roots[None, :].expand(bsz, d_pad).contiguous()
+    peff = torch.where(mask, 0, -1).to(torch.int32)
+    own, child_eff, _c = nested.nested_agg(mask, peff, arrays, path_ord, 1)
+    record("nested_agg", f"B={bsz} Dp={d_pad} root context",
+           lambda: nested.nested_agg(mask, peff, arrays, path_ord, 1),
+           lambda: nested.nested_agg_plain(
+               mask, peff, arrays["live"], arrays["nested_path"], pptr,
+               path_ord, 1),
+           lambda: torch.bincount(torch.where(
+               own, child_eff + torch.arange(bsz, device=dev)[:, None], bsz
+           ).reshape(-1), minlength=bsz + 1),
+           (1 + 4 + 1 + 4) * elems + 9 * d_pad, exact)
+    # reverse_nested under a monthly date_histogram of the answers
+    date, _e, _n = dense_numeric(arrays, "answers.date", d_pad)
+    month = ((date.double() - QA_BASE_MS) // (30 * DAY_MS)).to(torch.int32)
+    months = int(month.max()) + 1
+    rev_eff = torch.where(own, month[None, :], -1).to(torch.int32)
+    record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
+           f"buckets",
+           lambda: nested.reverse_nested_agg(own, rev_eff, arrays, months),
+           lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr,
+                                                   months),
+           None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
+    del arrays, nodes, child_s, child_m, sel, csel, mask, peff, own
+    del child_eff, rev_eff, pidx
+    torch.cuda.empty_cache()
+
+    # ---- K24 / K25 on the geo cell
+    t0 = time.perf_counter()
+    arrays, meta = upload_segment(geo_seg, dev)
+    d_pad = meta.d_pad
+    elems = bsz * d_pad
+    lat, exists, _ = dense_numeric(arrays, "location.lat", d_pad)
+    lon, _, _ = dense_numeric(arrays, "location.lon", d_pad)
+    pop, pexists, _ = dense_numeric(arrays, "population", d_pad)
+    log(f"geo kernels: image uploaded and the columns made in "
+        f"{time.perf_counter() - t0:.3f} s (Dp {d_pad})")
+    country = arrays["ordinal"]["country_code"]["ords"]
+    card = 20
+    gen = torch.Generator(device=dev).manual_seed(72)
+    floor = torch.rand(bsz, device=dev, generator=gen) * 2000
+    elig = exists[None, :] & arrays["live"][None, :] \
+        & (pop[None, :] >= floor[:, None])
+    lanes = torch.where(elig & (country[None, :d_pad] < card),
+                        country[None, :d_pad], card).to(torch.int32) \
+        .contiguous()
+    idx = lanes.long()
+
+    def sums_check(got, want):
+        exact(got, want)
+        for k, vals in (("sum", lat),):
+            ok = (idx < card)
+            v64 = torch.where(ok, vals[None, :], 0.0).double()
+            truth = torch.zeros(bsz, card + 1, dtype=torch.float64,
+                                device=dev).scatter_add_(1, idx, v64)
+            mag = torch.zeros(bsz, card + 1, dtype=torch.float64,
+                              device=dev).scatter_add_(1, idx, v64.abs())
+            cnt = got[0].double()
+            for side in (got, want):
+                e = (side[1].double() - truth[:, :card]).abs()
+                if not bool((e <= cnt * F32_SUM_EPS * mag[:, :card]).all()):
+                    raise AssertionError("K24 sums outside n * 2^-24 * "
+                                         "sum|v|")
+        return float((got[1] - want[1]).abs().max())
+    record("binned_scatter", f"B={bsz} n={d_pad} bins={card} cnt + sum "
+           f"(geo_centroid lat under terms country_code)",
+           lambda: tuple(binned.binned_scatter(lanes, card, lat,
+                                               ("cnt", "sum")).values()),
+           lambda: tuple(binned.binned_scatter_plain(
+               lanes, card, lat, ("cnt", "sum")).values()),
+           lambda: torch.zeros(bsz, card + 1, device=dev).scatter_reduce_(
+               1, idx, lat[None, :].expand(bsz, -1), "sum"),
+           4 * elems + 4 * d_pad + 8 * bsz * card, sums_check,
+           ops=float(elems))
+    record("binned_scatter", f"B={bsz} n={d_pad} bins={card} cnt + min + "
+           f"max (geo_bounds lat)",
+           lambda: tuple(binned.binned_scatter(
+               lanes, card, lat, ("cnt", "min", "max")).values()),
+           lambda: tuple(binned.binned_scatter_plain(
+               lanes, card, lat, ("cnt", "min", "max")).values()),
+           lambda: torch.full((bsz, card + 1), float("inf"),
+                              device=dev).scatter_reduce_(
+               1, idx, lat[None, :].expand(bsz, -1), "amin"),
+           4 * elems + 4 * d_pad + 12 * bsz * card, exact)
+    q = torch.rand(bsz, 2, device=dev, generator=gen)
+    qlat = (q[:, 0] * 120 - 60).contiguous()
+    qlon = (q[:, 1] * 360 - 180).contiguous()
+    dist = torch.full((bsz,), 50000.0, device=dev)
+    pivot = torch.full((bsz,), 10000.0, device=dev)
+    ones = torch.ones(bsz, device=dev)
+    top, bottom = (qlat + 2).contiguous(), (qlat - 2).contiguous()
+    left, right = (qlon - 2).contiguous(), (qlon + 2).contiguous()
+    cols = 9 * d_pad
+    hav_ops = 30.0 * elems
+    record("geo_distance_scores", f"B={bsz} Dp={d_pad} 50 km",
+           lambda: geo.geo_distance(lat, lon, exists, qlat, qlon, dist,
+                                    ones),
+           lambda: geo.geo_distance_plain(lat, lon, exists, qlat, qlon,
+                                          dist, ones),
+           None, cols + 5 * elems, scores_bits, ops=hav_ops)
+    record("geo_bbox_scores", f"B={bsz} Dp={d_pad} 4-degree boxes",
+           lambda: geo.geo_bbox(lat, lon, exists, top, left, bottom, right,
+                                ones),
+           lambda: geo.geo_bbox_plain(lat, lon, exists, top, left, bottom,
+                                      right, ones),
+           None, cols + 5 * elems, scores_bits, ops=6.0 * elems)
+    record("distance_feature_geo_scores", f"B={bsz} Dp={d_pad} pivot 10 km",
+           lambda: geo.distance_feature_geo(lat, lon, exists, qlat, qlon,
+                                            pivot, ones),
+           lambda: geo.distance_feature_geo_plain(lat, lon, exists, qlat,
+                                                  qlon, pivot, ones),
+           None, cols + 5 * elems, scores_bits, ops=hav_ops + 3.0 * elems)
+    ppiv = torch.full((bsz,), float(pop[pexists].mean()), device=dev)
+    record("rank_feature_scores", f"B={bsz} Dp={d_pad} saturation",
+           lambda: geo.rank_feature(pop, pexists, "saturation", ppiv, ones,
+                                    ones, ones),
+           lambda: geo.rank_feature_plain(pop, pexists, "saturation", ppiv,
+                                          ones, ones, ones),
+           None, 5 * d_pad + 5 * elems, scores_bits, ops=4.0 * elems)
+    del arrays, lanes, idx, elig
+    torch.cuda.empty_cache()
+    return results
+
+
+def _cell_walls(torch, np, node, index, bodies, bsz, name, card, out):
+    """One family's B=1 `_search` p50 / p99 and B=32 `_msearch` p50 and
+    q/s; every answer a 200. Returns the responses of the singles."""
+    single, resps = [], []
+    for b in bodies:
+        t = time.perf_counter()
+        r = node.request("POST", f"/{index}/_search", b)
+        single.append((time.perf_counter() - t) * 1e3)
+        if r["_status"] != 200:
+            raise AssertionError(f"{name} _search: {r}")
+        resps.append(r)
+    batches = []
+    for k in range(0, len(bodies), bsz):
+        lines = []
+        for b in bodies[k:k + bsz]:
+            lines += [{"index": index}, b]
+        t = time.perf_counter()
+        r = node.request("POST", "/_msearch", lines)
+        batches.append((time.perf_counter() - t) * 1e3)
+        if any(x.get("status") != 200 for x in r["responses"]):
+            raise AssertionError(f"{name} _msearch: {r['responses'][0]}")
+    torch.cuda.synchronize()
+    out[name] = {"search_p50_ms": _pct(np, single, 50),
+                 "search_p99_ms": _pct(np, single, 99),
+                 "msearch32_p50_ms": _pct(np, batches, 50),
+                 "msearch32_qps": bsz * 1e3 / _pct(np, batches, 50)}
+    log(f"{name}: B=1 _search p50 {out[name]['search_p50_ms']:.3f} p99 "
+        f"{out[name]['search_p99_ms']:.3f} ms over {len(single)}; B={bsz} "
+        f"_msearch p50 {out[name]['msearch32_p50_ms']:.3f} ms over "
+        f"{len(batches)} ({out[name]['msearch32_qps']:.1f} queries/s); "
+        f"card: {card}")
+    return resps
+
+
+def _cut_parity(np, gpu, cpu, index, bodies, what, tol_of):
+    """Each body on the cut: the card's Node against Node(device='cpu')."""
+    parity = _parity()
+    for b in bodies:
+        got = gpu.request("POST", f"/{index}/_search", b)
+        want = cpu.request("POST", f"/{index}/_search", b)
+        if got["_status"] != 200:
+            raise AssertionError(f"{what} cut: {got}")
+        parity.assert_same_response(got, want, what,
+                                    agg_sum_tol=tol_of(want),
+                                    score_rtol=SCORING_RTOL,
+                                    score_atol=SCORING_ATOL)
+    return len(bodies)
+
+
+def phase_nested_cell(torch, np, qa_seg, card: str, out_dir=None,
+                      bsz: int = 32,
+                      per_family: int = NESTED_BODIES_PER_FAMILY,
+                      cut_questions: int = NESTED_CUT_QUESTIONS):
+    """The nested cell through Node().request, after rally-tracks' nested
+    track: 2,000,000 StackOverflow-shaped questions (the track's ~11M cut
+    to fit one segment's Dp 2^23 with their ~4.8M answers; answers.user a
+    long id, not the track's keyword), eight families of 64 bodies
+    (nested_cell_bodies): B=1 p50 / p99, B=32 p50 and q/s, the busy share
+    of 6 profiled B=32 waves; every answer a 200; the terms family's
+    answer counts against a numpy oracle (exact); then 8 bodies a family
+    on a 20,000-question cut against Node(device='cpu')."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.search import fetch as fetch_phase
+    from opensearch_tpu_torch.utils.demo import (QA_MAPPING, qa_columns,
+                                                 qa_segment)
+    parity = _parity()
+    log(f"nested cell: {NESTED_QUESTIONS} questions (rally nested: ~11M, "
+        f"cut to one Dp 2^23 segment), answers.user a long id (the track's "
+        f"is a keyword)")
+    t0 = time.perf_counter()
+
+    def index_of(node, segment):
+        assert node.request("PUT", "/qa", {"mappings": QA_MAPPING})[
+            "_status"] == 200
+        shard = node.indices.get("qa").shards[0]
+        shard.reader.add_segment(segment)
+        return shard
+
+    node = Node()
+    shard = index_of(node, qa_seg)
+    torch.cuda.synchronize()
+    out = {"image_bytes": shard.reader.device_bytes(),
+           "rows": qa_seg.num_docs}
+    log(f"nested cell: image uploaded in {time.perf_counter() - t0:.3f} s: "
+        f"{out['image_bytes']} bytes, {qa_seg.num_docs} rows")
+    bodies = {f: nested_cell_bodies(np, f, per_family, 100 + i)
+              for i, f in enumerate(NESTED_FAMILIES)}
+    for f in NESTED_FAMILIES:      # first queries: plans, columns
+        r = node.request("POST", "/qa/_search", bodies[f][0])
+        if r["_status"] != 200:
+            raise AssertionError(f"nested {f}: {r}")
+    _build.reset_launches()
+    copies0 = dict(fetch_phase.INNER_HITS_COPIES)
+    resps = {}
+    for f in NESTED_FAMILIES:
+        resps[f] = _cell_walls(torch, np, node, "qa", bodies[f], bsz,
+                               f"nested {f}", card, out)
+    launches = dict(_build.LAUNCHES)
+    log(f"nested cell: launches {json.dumps(launches)}")
+    _require_launched(launches, ("nested_join", "nested_agg",
+                                 "reverse_nested_agg", "binned_scatter",
+                                 "pairs_match", "masked_topk"),
+                      "nested cell")
+    copies = {k: fetch_phase.INNER_HITS_COPIES[k] - copies0[k]
+              for k in copies0}
+    out["inner_hits_copies"] = copies
+    log(f"nested cell: inner_hits copies {json.dumps(copies)} (one dense "
+        f"(scores, matches) copy per (segment, nested query))")
+    if not any(r["hits"]["hits"] for r in resps["avg"]):
+        raise AssertionError("nested cell: the avg family matched nothing")
+    # the terms family's counts against numpy at the full size
+    n_ans, _tag, created, user, _date, _score = qa_columns(NESTED_QUESTIONS)
+    ans_created = np.repeat(created, n_ans)
+    for b, r in zip(bodies["terms_user"][:16], resps["terms_user"][:16]):
+        w = b["query"]["range"]["creationDate"]
+        sel = (ans_created >= w["gte"]) & (ans_created < w["lt"])
+        counts = np.bincount(user[sel])
+        order = sorted(np.nonzero(counts)[0], key=lambda u: (-counts[u], u))
+        want = [{"key": int(u), "doc_count": int(counts[u])}
+                for u in order[:10]]
+        agg = r["aggregations"]["a"]
+        got = [{"key": x["key"], "doc_count": x["doc_count"]}
+               for x in agg["u"]["buckets"]]
+        if agg["doc_count"] != int(sel.sum()) or got != want:
+            raise AssertionError(f"nested terms: {got[:3]} != {want[:3]}")
+    log("nested cell: 16 terms bodies' answer counts equal numpy's")
+    for f in NESTED_FAMILIES:
+        waves = (bodies[f] * 3)[:6 * bsz]
+        out[f"nested {f}"].update(profile_waves(torch, shard.executor, waves,
+                                                out_dir, f"nested_{f}"))
+    del node, shard
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _m, cut = qa_segment(cut_questions, seed=7)
+    gpu, cpu = Node(), Node(device="cpu")
+    index_of(gpu, cut)
+    index_of(cpu, cut)
+    checked = 0
+    for i, f in enumerate(NESTED_FAMILIES):
+        checked += _cut_parity(np, gpu, cpu, "qa",
+                               nested_cell_bodies(np, f, CUT_PAGES, 300 + i),
+                               f"nested {f}", lambda w: {})
+    log(f"nested cell: {checked} pages on a {cut_questions}-question cut "
+        f"equal Node(device='cpu')'s in {time.perf_counter() - t0:.3f} s")
+    out["checked_pages"] = checked
+    return out
+
+
+def phase_geo_cell(torch, np, geo_seg, card: str, out_dir=None,
+                   bsz: int = 32, per_family: int = NESTED_BODIES_PER_FAMILY,
+                   cut_places: int = GEO_CUT_PLACES):
+    """The geo cell through Node().request, after rally-tracks' geonames
+    track: 10,000,000 places around 5,000 seeded city centres (population
+    a rank_feature here, the track's a long), seven families of 64 bodies
+    (geo_cell_bodies): walls as the nested cell, the grid bodies' first
+    query wall (the host cell keys); the bbox family's totals against
+    numpy on the f32 columns (exact); the grid keys' vector form against
+    the scalar functions on a seeded 100,000-place sample; then 8 bodies a
+    family on a 200,000-place cut against Node(device='cpu')."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.search.aggs.engine import (geohash_key,
+                                                         geotile_key,
+                                                         grid_buckets)
+    from opensearch_tpu_torch.utils.demo import (GEONAMES_MAPPING,
+                                                 geonames_columns,
+                                                 geonames_segment)
+    parity = _parity()
+    log(f"geo cell: {GEO_PLACES} places (rally geonames: ~11.4M), "
+        f"population mapped as rank_feature (the track's is a long)")
+    centres, lat, lon, _country, _pop = geonames_columns(GEO_PLACES)
+    # the grid keys' numpy form against the scalar (reference) form
+    rng = np.random.default_rng(73)
+    sample = rng.choice(GEO_PLACES, GRID_SAMPLE, replace=False)
+    t0 = time.perf_counter()
+    for kind, fn, prec in (("geohash_grid", geohash_key, 5),
+                           ("geotile_grid", geotile_key, 8)):
+        keys, bucket = grid_buckets(kind, lat[sample], lon[sample],
+                                    np.ones(GRID_SAMPLE, bool), prec)
+        want = [fn(a, o, prec) for a, o in zip(lat[sample], lon[sample])]
+        if [keys[b] for b in bucket] != want:
+            raise AssertionError(f"{kind}: numpy keys differ from the "
+                                 f"scalar form")
+    log(f"geo cell: geohash 5 and geotile 8 keys of {GRID_SAMPLE} sampled "
+        f"places equal the scalar functions' ({time.perf_counter() - t0:.3f}"
+        f" s)")
+    t0 = time.perf_counter()
+
+    def index_of(node, segment):
+        assert node.request("PUT", "/geo", {"mappings": GEONAMES_MAPPING})[
+            "_status"] == 200
+        shard = node.indices.get("geo").shards[0]
+        shard.reader.add_segment(segment)
+        return shard
+
+    node = Node()
+    shard = index_of(node, geo_seg)
+    torch.cuda.synchronize()
+    out = {"image_bytes": shard.reader.device_bytes()}
+    log(f"geo cell: image uploaded in {time.perf_counter() - t0:.3f} s: "
+        f"{out['image_bytes']} bytes")
+    bodies = {f: geo_cell_bodies(np, f, per_family, 200 + i, centres)
+              for i, f in enumerate(GEO_FAMILIES)}
+    for f in GEO_FAMILIES:
+        t = time.perf_counter()
+        r = node.request("POST", "/geo/_search", bodies[f][0])
+        torch.cuda.synchronize()
+        out[f"{f}_first_ms"] = (time.perf_counter() - t) * 1e3
+        if r["_status"] != 200:
+            raise AssertionError(f"geo {f}: {r}")
+    log("geo cell: first queries " + json.dumps(
+        {f: round(out[f"{f}_first_ms"], 3) for f in GEO_FAMILIES}))
+    _build.reset_launches()
+    resps = {}
+    for f in GEO_FAMILIES:
+        resps[f] = _cell_walls(torch, np, node, "geo", bodies[f], bsz,
+                               f"geo {f}", card, out)
+    launches = dict(_build.LAUNCHES)
+    log(f"geo cell: launches {json.dumps(launches)}")
+    _require_launched(launches, (
+        "geo_distance_scores", "geo_bbox_scores",
+        "distance_feature_geo_scores", "rank_feature_scores",
+        "binned_scatter", "dense_numeric", "masked_topk"), "geo cell")
+    lat32, lon32 = lat.astype(np.float32), lon.astype(np.float32)
+    for b, r in zip(bodies["bbox"][:16], resps["bbox"][:16]):
+        box = {k: np.float32(v) for k, v in
+               b["query"]["geo_bounding_box"]["location"].items()}
+        in_lat = (lat32 <= box["top"]) & (lat32 >= box["bottom"])
+        in_lon = ((lon32 >= box["left"]) & (lon32 <= box["right"])) \
+            if box["left"] <= box["right"] else \
+            ((lon32 >= box["left"]) | (lon32 <= box["right"]))
+        if r["hits"]["total"]["value"] != int((in_lat & in_lon).sum()):
+            raise AssertionError(f"geo bbox total {r['hits']['total']}")
+    log("geo cell: 16 bbox totals equal numpy's")
+    for f in GEO_FAMILIES:
+        waves = (bodies[f] * 3)[:6 * bsz]
+        out[f"geo {f}"].update(profile_waves(torch, shard.executor, waves,
+                                             out_dir, f"geo_{f}"))
+    del node, shard
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _m, cut = geonames_segment(cut_places, seed=7)
+    gpu, cpu = Node(), Node(device="cpu")
+    index_of(gpu, cut)
+    index_of(cpu, cut)
+    checked = 0
+    for i, f in enumerate(GEO_FAMILIES):
+        # pages compare whole: a place within 4 ulps of a radius (where
+        # the card's and the CPU's sines may disagree) would show here
+        checked += _cut_parity(np, gpu, cpu, "geo",
+                               geo_cell_bodies(np, f, CUT_PAGES, 400 + i,
+                                               centres),
+                               f"geo {f}", parity.centroid_tol)
+    log(f"geo cell: {checked} pages on a {cut_places}-place cut equal "
+        f"Node(device='cpu')'s in {time.perf_counter() - t0:.3f} s")
+    out["checked_pages"] = checked
+    return out
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -4040,7 +4718,7 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
     return {f"{name}_device_busy": device_ms / wall_ms}
 
 
-CELLS = ("scale", "sorted", "aggkinds", "relevance")
+CELLS = ("scale", "sorted", "aggkinds", "relevance", "nested", "geo")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -4061,6 +4739,13 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
             res = phase_scale(torch, np, mapper, seg, dev, out_dir) \
                 if cell == "scale" else phase_relevance_cell(
                     torch, np, mapper, seg, terms, card, out_dir)
+        elif cell in ("nested", "geo"):
+            from opensearch_tpu_torch.utils.demo import (geonames_segment,
+                                                         qa_segment)
+            mapper, seg = qa_segment(NESTED_QUESTIONS) if cell == "nested" \
+                else geonames_segment(GEO_PLACES)
+            res = (phase_nested_cell if cell == "nested" else
+                   phase_geo_cell)(torch, np, seg, card, out_dir)
         elif cell == "sorted":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_sorted_cell(torch, np, mapper, seg,
@@ -4086,8 +4771,8 @@ def main(argv) -> int:
     parser.add_argument("--cells", default=None,
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
-                             "4, 10, 11 and 12): one JSON line each, to "
-                             "compare two checkouts on one card")
+                             "4, 10, 11, 12, 14 and 15): one JSON line "
+                             "each, to compare two checkouts on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
     try:
@@ -4153,10 +4838,22 @@ def main(argv) -> int:
     codebook_job = pool.submit(train_pq, pq_sample(np, mc), PQ_M)
 
     # phase 2: kernels against their plain versions on the card
+    log(f"timing: a median of up to 15 reps, fewer for a call slower than "
+        f"{TIMING_BUDGET_MS / 15:.1f} ms (about {TIMING_BUDGET_MS:.0f} ms "
+        f"of reps, at least one)")
     results = phase_kernels(torch, np, seg, mapper, arrays, meta, dev)
     del arrays
     results.update(phase_agg_kernels(torch, np, agg_mapper, agg_seg, dev))
     results.update(phase_knn_kernels(torch, np, corpora, dev))
+    # the nested and geo cells' segments, built on the host while the
+    # codebook still trains
+    t0 = time.perf_counter()
+    from opensearch_tpu_torch.utils.demo import geonames_segment, qa_segment
+    _qm, qa_seg = qa_segment(NESTED_QUESTIONS)
+    _gm, geo_seg = geonames_segment(GEO_PLACES)
+    log(f"nested and geo cells: {NESTED_QUESTIONS} questions in "
+        f"{qa_seg.num_docs} rows and {GEO_PLACES} places built in "
+        f"{time.perf_counter() - t0:.3f} s")
     codebook = codebook_job.result()
     pool.shutdown()
     log(f"pq codebook: [{PQ_M}, 256, {MAXSIM_SHAPE[2] // PQ_M}] trained by "
@@ -4170,6 +4867,7 @@ def main(argv) -> int:
                                          dev))
     results.update(phase_spmd_kernels(torch, np, mapper, seg, sorted(
         t for _, t in seg.term_dict), agg_seg, dev))
+    results.update(phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -4193,6 +4891,9 @@ def main(argv) -> int:
         t for _, t in seg.term_dict), dev, card, out_dir)
     log("hybrid: " + json.dumps(res))
     # phase 10: the sorted cell, over phase 5's docs
+    log(f"sorted: the deep search_after body at {SORTED_DEEP_SINGLES} B=1 "
+        f"requests an index (cut from 20 to keep the run in its time "
+        f"limit)")
     res = phase_sorted_cell(torch, np, agg_mapper, agg_seg, four, card,
                             out_dir)
     log("sorted: " + json.dumps(res))
@@ -4205,10 +4906,20 @@ def main(argv) -> int:
     res = phase_relevance_cell(torch, np, mapper, seg, terms, card, out_dir)
     log("relevance: " + json.dumps(res))
     # phase 13: the sharded cell (5 shards, block-max, logs-*)
+    log(f"sharded: the logs-* bodies at {LOGS_SINGLES} B=1 requests a route "
+        f"(cut from 50 to keep the run in its time limit)")
     res = phase_sharded_cell(torch, np, mapper, seg, sorted(
         t for _, t in seg.term_dict), agg_seg, four, dev, card, out_dir)
     log("sharded: " + json.dumps(res))
     del agg_seg, four
+    # phase 14: the nested cell
+    res = phase_nested_cell(torch, np, qa_seg, card, out_dir)
+    log("nested: " + json.dumps(res))
+    del qa_seg
+    # phase 15: the geo cell
+    res = phase_geo_cell(torch, np, geo_seg, card, out_dir)
+    log("geo: " + json.dumps(res))
+    del geo_seg
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -4225,7 +4936,10 @@ def main(argv) -> int:
             "boosting_scores": 0, "script_score_wrap": 0,
             "blockmax_keep": 1, "bm25_candidate_keep": 1,
             "score_text_clause_keep": 1, "row_merge": 0,
-            "row_value_key": 0}
+            "row_value_key": 0, "nested_join": 0, "nested_agg": 0,
+            "reverse_nested_agg": 0, "binned_scatter": 0,
+            "geo_distance_scores": 0, "geo_bbox_scores": 0,
+            "distance_feature_geo_scores": 0, "rank_feature_scores": 0}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -4301,6 +5015,24 @@ def main(argv) -> int:
                       "opensearch_tpu/parallel/distributed.py:397"),
         "row_value_key": ("opensearch_tpu_torch/ops/csrc/row_merge.cu",
                           "opensearch_tpu/ops/topk.py:61"),
+        "nested_join": ("opensearch_tpu_torch/ops/csrc/nested_join.cu",
+                        "opensearch_tpu/search/plan_eval.py:100"),
+        "nested_agg": ("opensearch_tpu_torch/ops/csrc/nested_aggs.cu",
+                       "opensearch_tpu/search/aggs/engine.py:1559"),
+        "reverse_nested_agg": (
+            "opensearch_tpu_torch/ops/csrc/nested_aggs.cu",
+            "opensearch_tpu/search/aggs/engine.py:1579"),
+        "binned_scatter": ("opensearch_tpu_torch/ops/csrc/binned_scatter.cu",
+                           "opensearch_tpu/search/aggs/engine.py:1115"),
+        "geo_distance_scores": ("opensearch_tpu_torch/ops/csrc/geo_scores.cu",
+                                "opensearch_tpu/search/plan_eval.py:443"),
+        "geo_bbox_scores": ("opensearch_tpu_torch/ops/csrc/geo_scores.cu",
+                            "opensearch_tpu/search/plan_eval.py:451"),
+        "distance_feature_geo_scores": (
+            "opensearch_tpu_torch/ops/csrc/geo_scores.cu",
+            "opensearch_tpu/search/plan_eval.py:420"),
+        "rank_feature_scores": ("opensearch_tpu_torch/ops/csrc/geo_scores.cu",
+                                "opensearch_tpu/search/plan_eval.py:428"),
     }
     kernels = []
     for name in _build.LAUNCHES:

@@ -129,9 +129,13 @@ class InternalEngine:
             if len(self.builder):
                 new_seg = self.builder.seal(device=self.device)
                 # within-buffer supersession: only the last ord per id
-                # stays live, and none of an id deleted after it
+                # stays live, and none of an id deleted after it; nested
+                # rows (no id) take their root's verdict: a block lives or
+                # dies whole
                 for ord_ in range(new_seg.num_docs):
                     did = new_seg.doc_ids[ord_]
+                    if did is None:
+                        continue
                     vv = self.version_map.get(did)
                     if self._builder_ords.get(did) != ord_ \
                             or (vv is not None and vv.deleted):
@@ -139,6 +143,10 @@ class InternalEngine:
                     elif vv is not None:
                         new_seg.doc_meta[did] = (vv.version, vv.seq_no,
                                                  vv.primary_term)
+                if new_seg.nested_paths:
+                    child = new_seg.parent_ptr >= 0
+                    new_seg.live[child] = \
+                        new_seg.live[new_seg.parent_ptr[child]]
                 self.segments.append(new_seg)
                 self.builder = SegmentBuilder(self.mapper,
                                               self._next_seg_id())

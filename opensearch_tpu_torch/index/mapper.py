@@ -14,6 +14,14 @@ opensearch_tpu.index.mapper the port needs).
 - rank_vectors   -> one [tokens, dims] f32 matrix per doc (late
                     interaction), scored by `maxsim`; `compression: pq`
                     adds seal-trained product-quantization codes.
+- rank_feature   -> a numeric column (positive floats scored by the
+                    `rank_feature` query).
+- geo_point      -> two hidden aligned double columns `<field>.lat` /
+                    `<field>.lon` (the field itself keeps the lats of the
+                    points it parsed, for `exists`).
+- nested         -> each object under the path becomes its own segment
+                    row (`ParsedDocument.children`), joined to its root
+                    row as Lucene's doc blocks are.
 
 Objects map to dotted sub-fields and `fields` declares multi-fields, as in
 the reference. Other field types are not ported yet: mapping one raises a
@@ -30,7 +38,7 @@ import fnmatch
 import functools
 import math
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
 
 from opensearch_tpu_torch.analysis.registry import AnalysisRegistry
@@ -39,7 +47,10 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
 
 TEXT_TYPES = {"text"}
 KEYWORD_TYPES = {"keyword"}
-NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float"}
+NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float",
+                 # rank features are positive floats with doc values; their
+                 # scoring lives in the rank_feature query
+                 "rank_feature"}
 DATE_TYPES = {"date"}
 BOOL_TYPES = {"boolean"}
 VECTOR_TYPES = {"knn_vector", "dense_vector"}
@@ -48,8 +59,10 @@ VECTOR_TYPES = {"knn_vector", "dense_vector"}
 RANK_VECTOR_TYPES = {"rank_vectors"}
 RANK_VECTORS_COMPRESSION = ("none", "pq")
 DEFAULT_MAX_TOKENS = 128
+GEO_POINT = "geo_point"
 PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES | DATE_TYPES
-                | BOOL_TYPES | VECTOR_TYPES | RANK_VECTOR_TYPES)
+                | BOOL_TYPES | VECTOR_TYPES | RANK_VECTOR_TYPES
+                | {GEO_POINT})
 DEFAULT_MAPPING_LIMIT = 1000  # index.mapping.total_fields.limit default
 
 _INT_BOUNDS = {
@@ -232,9 +245,14 @@ class ParsedField:
 
 @dataclass
 class ParsedDocument:
+    """`children` holds one (nested path, fields) entry per nested object:
+    each becomes its own row of the segment's doc block, the children
+    before their root row (Lucene's block-join order)."""
     doc_id: str
     source: dict
     fields: Dict[str, ParsedField]
+    children: List[Tuple[str, Dict[str, ParsedField]]] = \
+        dc_field(default_factory=list)
 
 
 class MapperService:
@@ -249,6 +267,9 @@ class MapperService:
         self.analysis = analysis_registry or AnalysisRegistry()
         self.field_types: Dict[str, MappedFieldType] = {}
         self._multi_children: Dict[str, List[str]] = {}
+        # nested object paths: each value under such a path becomes its
+        # own segment row
+        self.nested_paths: set = set()
         self.dynamic = dynamic
         self.total_fields_limit = total_fields_limit
         if mapping:
@@ -268,6 +289,10 @@ class MapperService:
                     f"Expected map for property [{prefix}{name}]")
             full = f"{prefix}{name}"
             sub_properties = spec.get("properties")
+            if spec.get("type") == "nested":
+                self.nested_paths.add(full)
+                self._merge_properties(f"{full}.", sub_properties or {})
+                continue
             if sub_properties is not None or spec.get("type") == "object":
                 self._merge_properties(f"{full}.", sub_properties or {})
                 continue
@@ -334,6 +359,12 @@ class MapperService:
         if method_name in ("hnsw", "ivf"):
             method_name = "ivf"
         method_params = method_spec.get("parameters", {}) or {}
+        if ftype == GEO_POINT:
+            # two aligned hidden columns: a sorted value-pair column would
+            # lose which value belongs to which axis
+            for axis in ("lat", "lon"):
+                self.field_types[f"{full_name}.{axis}"] = MappedFieldType(
+                    name=f"{full_name}.{axis}", type="double")
         self.field_types[full_name] = MappedFieldType(
             name=full_name, type=ftype, analyzer=analyzer,
             search_analyzer=spec.get("search_analyzer"),
@@ -364,19 +395,42 @@ class MapperService:
             raise MapperParsingError(
                 "failed to parse: document must be an object")
         fields: Dict[str, ParsedField] = {}
-        self._parse_object("", source, fields)
-        return ParsedDocument(doc_id=doc_id, source=source, fields=fields)
+        children: List[Tuple[str, Dict[str, ParsedField]]] = []
+        self._parse_object("", source, fields, children)
+        return ParsedDocument(doc_id=doc_id, source=source, fields=fields,
+                              children=children)
 
     def _parse_object(self, prefix: str, obj: dict,
-                      out: Dict[str, ParsedField]):
+                      out: Dict[str, ParsedField],
+                      children: Optional[List] = None):
         for key, value in obj.items():
             full = f"{prefix}{key}"
+            if full in self.nested_paths and children is not None:
+                # each nested object becomes its own row; its sub-fields
+                # stay off the parent row. A nested path inside a nested
+                # object appends its own rows to the same block (each
+                # joins the root)
+                elems = value if isinstance(value, list) else [value]
+                for elem in elems:
+                    if elem is None:
+                        continue
+                    if not isinstance(elem, dict):
+                        raise MapperParsingError(
+                            f"object mapping for [{full}] tried to parse "
+                            f"field as object, but found a concrete value")
+                    child_fields: Dict[str, ParsedField] = {}
+                    self._parse_object(f"{full}.", elem, child_fields,
+                                       children)
+                    children.append((full, child_fields))
+                continue
             if isinstance(value, dict):
-                self._parse_object(f"{full}.", value, out)
+                # a {"lat", "lon"} geo_point lands in its hidden columns
+                # as two dotted doubles, as in the reference
+                self._parse_object(f"{full}.", value, out, children)
             elif isinstance(value, list) and value and all(
                     isinstance(v, dict) for v in value):
                 for v in value:
-                    self._parse_object(f"{full}.", v, out)
+                    self._parse_object(f"{full}.", v, out, children)
             else:
                 self._parse_value(full, value, out)
 
@@ -498,6 +552,28 @@ class MapperService:
                     f"Vector dimension mismatch for field [{name}]: "
                     f"expected {ft.dims}, got {len(vec)}")
             pf.vector = vec
+        elif ft.type == GEO_POINT:
+            # "lat,lon" strings and [lon, lat] arrays (one point or a list
+            # of them); the field keeps the lats, its hidden columns both
+            # axes
+            if isinstance(value, (list, tuple)) and len(value) == 2 \
+                    and all(isinstance(v, (int, float)) for v in value):
+                points = [list(value)]
+            elif isinstance(value, list):
+                points = value
+            else:
+                points = [value]
+            nums = pf.numeric_values or []
+            lat_pf = out.setdefault(f"{name}.lat", ParsedField())
+            lon_pf = out.setdefault(f"{name}.lon", ParsedField())
+            lat_pf.numeric_values = lat_pf.numeric_values or []
+            lon_pf.numeric_values = lon_pf.numeric_values or []
+            for v in points:
+                lat, lon = parse_geo_point(v)
+                nums.append(lat)
+                lat_pf.numeric_values.append(lat)
+                lon_pf.numeric_values.append(lon)
+            pf.numeric_values = nums
 
     def get_field(self, name: str) -> Optional[MappedFieldType]:
         return self.field_types.get(name)
@@ -518,3 +594,15 @@ class MapperService:
                     out.append(f"{actual}^{fboost}" if caret else actual)
         return out
 
+
+def parse_geo_point(value: Any) -> Tuple[float, float]:
+    """(lat, lon) of a geo point in its wire shapes: {"lat", "lon"}, a
+    GeoJSON [lon, lat] pair and a "lat,lon" string."""
+    if isinstance(value, dict):
+        return float(value["lat"]), float(value["lon"])
+    if isinstance(value, (list, tuple)) and len(value) == 2:
+        return float(value[1]), float(value[0])
+    if isinstance(value, str) and "," in value:
+        lat, lon = value.split(",", 1)
+        return float(lat), float(lon)
+    raise MapperParsingError(f"failed to parse geo_point [{value}]")

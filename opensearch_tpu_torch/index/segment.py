@@ -229,6 +229,8 @@ class Segment:
                  norms: Dict[str, np.ndarray],
                  field_stats: Dict[str, FieldStats],
                  parent_ptr: Optional[np.ndarray] = None,
+                 path_ords: Optional[np.ndarray] = None,
+                 nested_paths: Optional[List[str]] = None,
                  numeric_dv: Optional[Dict[str, DocValuesColumn]] = None,
                  ordinal_dv: Optional[Dict[str, OrdinalsColumn]] = None,
                  vector_dv: Optional[Dict[str, VectorColumn]] = None,
@@ -255,10 +257,14 @@ class Segment:
         # queries); the device image does not carry them
         self.positions = positions or {}
         self.live = np.ones(num_docs, dtype=bool)
-        # block-join layout: parent row per row (-1 = root). This slice
-        # indexes root documents only, so every row is a root.
+        # block-join layout (Lucene's doc blocks): a nested object's row
+        # points at its root row (-1 = a root) and carries the ordinal of
+        # its nested path in `nested_paths` (-1 = a root)
         self.parent_ptr = parent_ptr if parent_ptr is not None \
             else np.full(num_docs, -1, dtype=np.int32)
+        self.path_ords = path_ords if path_ords is not None \
+            else np.full(num_docs, -1, dtype=np.int32)
+        self.nested_paths = list(nested_paths or [])
         self.root = self.parent_ptr < 0
         self._id_to_ord = {d: i for i, d in enumerate(doc_ids)
                            if d is not None}
@@ -279,6 +285,9 @@ class Segment:
         if ord_ is None or not self.live[ord_]:
             return False
         self.live[ord_] = False
+        if self.nested_paths:
+            # the whole block dies with its root
+            self.live[self.parent_ptr == ord_] = False
         return True
 
     def get_term(self, field: str, term: str) -> Optional[TermMeta]:
@@ -347,7 +356,11 @@ def segment_from_arrays(arrays: dict) -> Segment:
     - norms: {field: uint8 [num_docs]}
     - field_stats: {field: (doc_count, sum_total_term_freq, sum_doc_freq)}
     - live: bool [num_docs] (optional, default all live)
-    - parent_ptr: int32 [num_docs] (optional, default all roots)
+    - parent_ptr: int32 [num_docs] (optional, default all roots): a
+      nested row's root row, -1 for a root
+    - path_ords: int32 [num_docs] (optional, default -1): a nested row's
+      ordinal in nested_paths, -1 for a root
+    - nested_paths: list of str (optional): the segment's nested paths
     - numeric_dv: {field: {doc_ids, values, exists, counts, value_ords,
       unique}} (optional): DocValuesColumn fields as arrays
     - ordinal_dv: {field: {doc_ids, ords, exists, dictionary,
@@ -389,6 +402,24 @@ def segment_from_arrays(arrays: dict) -> Segment:
     field_stats = {f: FieldStats(*map(int, v))
                    for f, v in arrays["field_stats"].items()}
     parent_ptr = arrays.get("parent_ptr")
+    path_ords = arrays.get("path_ords")
+    nested_paths = [str(p) for p in arrays.get("nested_paths") or []]
+    if parent_ptr is not None:
+        parent_ptr = np.asarray(parent_ptr, dtype=np.int32)
+        kids = parent_ptr[parent_ptr >= 0] if parent_ptr.shape == (n,) \
+            else None
+        if kids is None or (n and (
+                parent_ptr.max() >= n or parent_ptr.min() < -1
+                or np.any(parent_ptr[kids] >= 0))):
+            raise ValueError("parent_ptr must point each nested row at a "
+                             "root row of the segment")
+    if path_ords is not None:
+        path_ords = np.asarray(path_ords, dtype=np.int32)
+        if path_ords.shape != (n,) or (n and (
+                path_ords.max() >= len(nested_paths)
+                or path_ords.min() < -1)):
+            raise ValueError("path_ords must index nested_paths (-1 for a "
+                             "root)")
     numeric_dv = {}
     for f, c in (arrays.get("numeric_dv") or {}).items():
         col = DocValuesColumn(
@@ -449,8 +480,8 @@ def segment_from_arrays(arrays: dict) -> Segment:
     seg = Segment(str(arrays["seg_id"]), n, list(arrays["doc_ids"]),
                   list(arrays["sources"]), term_dict, post_docs, post_tf,
                   norms, field_stats,
-                  parent_ptr=None if parent_ptr is None
-                  else np.asarray(parent_ptr, dtype=np.int32),
+                  parent_ptr=parent_ptr, path_ords=path_ords,
+                  nested_paths=nested_paths,
                   numeric_dv=numeric_dv, ordinal_dv=ordinal_dv,
                   vector_dv=vector_dv, rank_vectors_dv=rank_vectors_dv,
                   positions=positions)
@@ -538,6 +569,11 @@ class SegmentBuilder:
         # (field, term) -> sorted positions per posting, parallel to
         # _postings
         self._positions: Dict[Tuple[str, str], List[np.ndarray]] = {}
+        # doc blocks: each row's root row (-1 = a root) and nested-path
+        # ordinal (-1 = a root); a document's nested rows come before it
+        self._parent_ptr: List[int] = []
+        self._path_ords: List[int] = []
+        self._nested_paths: List[str] = []
 
     def __len__(self):
         return len(self.doc_ids)
@@ -547,10 +583,26 @@ class SegmentBuilder:
         return len(self.doc_ids)
 
     def add(self, doc: ParsedDocument) -> int:
+        """Append a document's block: one row per nested object, then the
+        root row. Returns the root row's ordinal."""
+        child_ords = []
+        for path, child_fields in doc.children:
+            if path not in self._nested_paths:
+                self._nested_paths.append(path)
+            child_ords.append(self._add_row(
+                None, None, child_fields, self._nested_paths.index(path)))
+        ord_ = self._add_row(doc.doc_id, doc.source, doc.fields, -1)
+        for c in child_ords:
+            self._parent_ptr[c] = ord_
+        return ord_
+
+    def _add_row(self, doc_id, source, fields, path_ord: int) -> int:
         ord_ = len(self.doc_ids)
-        self.doc_ids.append(doc.doc_id)
-        self.sources.append(doc.source)
-        for field, pf in doc.fields.items():
+        self.doc_ids.append(doc_id)
+        self.sources.append(source)
+        self._parent_ptr.append(-1)
+        self._path_ords.append(path_ord)
+        for field, pf in fields.items():
             ft = self.mapper.get_field(field)
             if ft is None:
                 continue
@@ -721,7 +773,11 @@ class SegmentBuilder:
 
         return Segment(self.seg_id, n_docs, list(self.doc_ids),
                        list(self.sources), term_dict, post_docs, post_tf,
-                       norms, self._field_stats, numeric_dv=numeric_dv,
+                       norms, self._field_stats,
+                       parent_ptr=np.asarray(self._parent_ptr, np.int32),
+                       path_ords=np.asarray(self._path_ords, np.int32),
+                       nested_paths=list(self._nested_paths),
+                       numeric_dv=numeric_dv,
                        ordinal_dv=ordinal_dv, vector_dv=vector_dv,
                        rank_vectors_dv=rank_vectors_dv,
                        positions=dict(self._positions))

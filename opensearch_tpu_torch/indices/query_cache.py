@@ -34,7 +34,7 @@ _CACHEABLE_LEAVES = (
     dsl.TermQuery, dsl.TermsQuery, dsl.RangeQuery, dsl.ExistsQuery,
     dsl.MatchQuery, dsl.MatchAllQuery, dsl.MatchNoneQuery,
 )
-_CACHEABLE_COMPOUND = (dsl.BoolQuery,)
+_CACHEABLE_COMPOUND = (dsl.BoolQuery, dsl.NestedQuery)
 
 
 def cacheable_node(node) -> bool:

@@ -27,14 +27,20 @@ KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "ivf_probe", "kmeans_step", "maxsim_exact", "maxsim_pq",
            "hybrid_window", "sort_key", "page_merge", "dense_numeric",
            "matrix_moments", "adjacency_counts", "function_score",
-           "score_kinds", "blockmax_keep", "row_merge")
+           "score_kinds", "blockmax_keep", "row_merge", "nested_join",
+           "nested_aggs", "binned_scatter", "geo_scores")
 # libraries whose C entries are not only the one of their own name (every
-# entry listed): score_kinds.cu has one per kernel and none of its name;
-# row_merge.cu holds K21's merge and its key entry
+# entry listed): score_kinds.cu and geo_scores.cu have one per kernel and
+# none of their name; row_merge.cu holds K21's merge and its key entry;
+# nested_aggs.cu K23's nested and reverse_nested entries
 LIBRARY_ENTRIES = {"score_kinds": ("terms_set_scores",
                                    "distance_feature_scores",
                                    "boosting_scores", "script_score_wrap"),
-                   "row_merge": ("row_merge", "row_value_key")}
+                   "row_merge": ("row_merge", "row_value_key"),
+                   "nested_aggs": ("nested_agg", "reverse_nested_agg"),
+                   "geo_scores": ("geo_distance_scores", "geo_bbox_scores",
+                                  "distance_feature_geo_scores",
+                                  "rank_feature_scores")}
 # --fmad=false: no multiply-add contraction, so each kernel rounds its
 # arithmetic exactly like its plain PyTorch version (one rounding per op)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,8 +51,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # entry, and nowhere else (plain-version calls do not count). A library's
 # main entry shares its name; masked_topk.cu also holds
 # masked_topk_threshold and masked_topk_keyed, knn_exact.cu knn_topk_mark,
-# ivf_probe.cu ivf_block_keys and maxsim_pq.cu pq_lut; score_kinds.cu
-# and row_merge.cu hold their LIBRARY_ENTRIES. K1's and K2's calls with
+# ivf_probe.cu ivf_block_keys and maxsim_pq.cu pq_lut; score_kinds.cu,
+# row_merge.cu, nested_aggs.cu and geo_scores.cu hold their
+# LIBRARY_ENTRIES. K1's and K2's calls with
 # K20's keep mask (the block-max arm) count as bm25_candidate_keep and
 # score_text_clause_keep.
 LAUNCHES: Dict[str, int] = {name: 0 for name in (

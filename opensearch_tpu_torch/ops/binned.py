@@ -1,6 +1,8 @@
 """Binned reductions of the aggregation engine: the popcount counter (K5,
-`binned_popcount`) and the CSR reducer (K6, `binned_reduce`), each a CUDA
-kernel with its plain PyTorch version, plus the static layouts they read.
+`binned_popcount`), the CSR reducer (K6, `binned_reduce`) and the
+per-query-bin reducer (K24, `binned_scatter`, at the end), each a CUDA
+kernel with its plain PyTorch version, plus the static layouts K5 and K6
+read.
 
 Both reduce per-lane contributions into bins whose lane assignment is
 static for an aggregation plan and a segment (`bin_lanes`: int32 [n], a
@@ -325,3 +327,166 @@ def _require(t: torch.Tensor, dtype, shape, device, what: str) -> None:
             f"[{what}] must be a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
             f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+# ----------------------------------------------------------------- K24 ------
+#
+# The dynamic-bin route: bins that are per query (under a `nested` or
+# `reverse_nested` aggregation, and geo_bounds / geo_centroid) take part in
+# no static CSR. Counts, min and max are order-free; a sum takes the fixed
+# two-level order of K6 over each query's lanes sorted by (bin, lane): one
+# partial per chunk of CSR_CHUNK lanes of a bin's run, then the bin's
+# partials in chunk order, each level summed from 0 one addition at a time.
+
+def _dyn_runs(lanes: torch.Tensor, total: int):
+    """Each query's binned lanes sorted by (bin, lane): (bins long [B, n]
+    sorted, total for a dropped lane; their lanes long [B, n]; the count
+    of each bin long [B, total])."""
+    bsz, n = lanes.shape
+    ok = (lanes >= 0) & (lanes < total)
+    bins = torch.where(ok, lanes.long(), total)
+    key = bins * n + torch.arange(n, device=lanes.device)
+    key, order = torch.sort(key, dim=1)
+    counts = torch.zeros(bsz, total + 1, dtype=torch.int64,
+                         device=lanes.device).scatter_add_(
+        1, bins, torch.ones_like(bins))[:, :total]
+    return key // n, order, counts
+
+
+def dynamic_sum_plain(lanes: torch.Tensor, total: int,
+                      contrib: torch.Tensor) -> torch.Tensor:
+    """Per-bin f32 sums of contrib [B, n] (or [n], the same for every
+    query) in K24's order: for each query, the lanes of a bin in lane order
+    cut into chunks of CSR_CHUNK, each chunk summed from 0, then the
+    chunks summed from 0 in order. Returns f32 [B, total]."""
+    bsz, n = lanes.shape
+    dev = lanes.device
+    _, order, counts = _dyn_runs(lanes, total)
+    if contrib.dim() == 1:
+        contrib = contrib[None, :].expand(bsz, -1)
+    vals = torch.gather(contrib, 1, order)
+    chunks = (counts + CSR_CHUNK - 1) // CSR_CHUNK          # [B, total]
+    chunk_base = torch.cumsum(chunks, 1) - chunks           # first chunk
+    run_start = torch.cumsum(counts, 1) - counts            # first lane
+    n_chunks = int(chunks.sum(1).max()) if total else 0
+    if n_chunks == 0:
+        return torch.zeros(bsz, total, dtype=torch.float32, device=dev)
+    # chunk c of a query: its bin, its first sorted position, its length
+    c_idx = torch.arange(n_chunks, device=dev).expand(bsz, -1).contiguous()
+    c_bin = torch.searchsorted(torch.cumsum(chunks, 1), c_idx,
+                               right=True).clamp(max=total - 1)
+    in_bin = c_idx - torch.gather(chunk_base, 1, c_bin)
+    c_start = torch.gather(run_start, 1, c_bin) + in_bin * CSR_CHUNK
+    c_len = (torch.gather(counts, 1, c_bin) - in_bin * CSR_CHUNK).clamp(
+        0, CSR_CHUNK)
+    c_len = torch.where(c_idx < chunks.sum(1, keepdim=True), c_len, 0)
+    partial = torch.zeros(bsz, n_chunks, dtype=torch.float32, device=dev)
+    for j in range(int(c_len.max())):
+        pos = (c_start + j).clamp(max=n - 1)
+        partial = partial + torch.where(j < c_len,
+                                        torch.gather(vals, 1, pos), 0.0)
+    out = torch.zeros(bsz, total, dtype=torch.float32, device=dev)
+    for j in range(int(chunks.max())):
+        idx = (chunk_base + j).clamp(max=n_chunks - 1)
+        out = out + torch.where(j < chunks,
+                                torch.gather(partial, 1, idx), 0.0)
+    return out
+
+
+def binned_scatter_plain(lanes: torch.Tensor, total: int, values,
+                         needs: Sequence[str], cval: float = 0.0
+                         ) -> Dict[str, torch.Tensor]:
+    """Plain version of K24: counts by scatter_add_, min / max by
+    scatter_reduce_, sums (`sum`, and `sumsq` of v * v) in K24's order
+    (`dynamic_sum_plain`); empty bins: count 0, sums 0, min +inf, max
+    -inf."""
+    bsz, n = lanes.shape
+    dev = lanes.device
+    ok = (lanes >= 0) & (lanes < total)
+    bins = torch.where(ok, lanes.long(), total)
+    if values is None:
+        values = torch.full((n,), cval, dtype=torch.float32, device=dev)
+    v = values.expand(bsz, -1) if values.dim() == 1 else values
+    out: Dict[str, torch.Tensor] = {}
+    if "cnt" in needs:
+        out["cnt"] = torch.zeros(bsz, total + 1, dtype=torch.int32,
+                                 device=dev).scatter_add_(
+            1, bins, ok.to(torch.int32))[:, :total]
+    if "sum" in needs:
+        out["sum"] = dynamic_sum_plain(lanes, total,
+                                       torch.where(ok, v, 0.0))
+    if "sumsq" in needs:
+        out["sumsq"] = dynamic_sum_plain(lanes, total,
+                                         torch.where(ok, v * v, 0.0))
+    if "min" in needs:
+        out["min"] = torch.full((bsz, total + 1), POS_INF,
+                                device=dev).scatter_reduce_(
+            1, bins, torch.where(ok, v, POS_INF), "amin")[:, :total]
+    if "max" in needs:
+        out["max"] = torch.full((bsz, total + 1), NEG_INF,
+                                device=dev).scatter_reduce_(
+            1, bins, torch.where(ok, v, NEG_INF), "amax")[:, :total]
+    return out
+
+
+def binned_scatter(lanes: torch.Tensor, total: int, values,
+                   needs: Sequence[str], cval: float = 0.0
+                   ) -> Dict[str, torch.Tensor]:
+    """K24: per-query binned count / sum / sumsq / min / max. lanes int32
+    [B, n]: each query's bin per lane (outside [0, total): dropped, so the
+    eligibility folds into the bin); values f32 [n] (shared) or [B, n], or
+    None (every lane contributes cval). Returns {need: [B, total]} with
+    int32 counts and f32 statistics. Replaces the scatter route of
+    opensearch_tpu/search/aggs/engine.py:_binned_sums (:1157-1167) under a
+    dynamic context and the geo_metric scatters (:1675-1700)."""
+    if not lanes.is_cuda:
+        return binned_scatter_plain(lanes, total, values, needs, cval)
+    unknown = set(needs) - set(NEEDS_BITS)
+    if unknown:
+        raise ValueError(f"binned_scatter computes {sorted(NEEDS_BITS)}, "
+                         f"got {sorted(unknown)}")
+    dev = lanes.device
+    bsz, n = lanes.shape
+    if total <= 0 or n <= 0 or n >= 1 << 30:
+        raise ValueError(f"binned_scatter takes 1..2^30 lanes and a bin, "
+                         f"got n={n}, total={total}")
+    _require(lanes, torch.int32, (bsz, n), dev, "lanes")
+    per_query = 0
+    if values is not None:
+        per_query = int(values.dim() == 2)
+        _require(values, torch.float32, (bsz, n) if per_query else (n,),
+                 dev, "values")
+    bits = 0
+    out: Dict[str, torch.Tensor] = {}
+    for name in needs:
+        bits |= NEEDS_BITS[name]
+        out[name] = torch.empty(bsz, total, device=dev,
+                                dtype=torch.int32 if name == "cnt"
+                                else torch.float32)
+    sums = bits & (NEEDS_BITS["sum"] | NEEDS_BITS["sumsq"])
+    p2 = 1 << max(n - 1, 1).bit_length() if sums else 1
+    # the sort's keys and its second buffer, then one chunk partial per
+    # sorted position per summed statistic
+    keys = torch.empty(2 * bsz * p2 if sums else 1, dtype=torch.int64,
+                       device=dev)
+    partial = torch.empty(2 * bsz * p2 if sums else 1, dtype=torch.float32,
+                          device=dev)
+    # each bin's lane count and first sorted position
+    scratch = torch.empty(2 * bsz * total if sums else 1, dtype=torch.int32,
+                          device=dev)
+    null = ctypes.c_void_p(0)
+
+    def p(name):
+        return _build.ptr(out[name]) if name in out else null
+    fn = _build.entry("binned_scatter", [ctypes.c_void_p] + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_int, ctypes.c_int]
+                      + [ctypes.c_void_p] * 9)
+    code = fn(_build.ptr(lanes), bsz, n, total,
+              null if values is None else _build.ptr(values), per_query,
+              float(cval), bits, p2, _build.ptr(keys), _build.ptr(partial),
+              _build.ptr(scratch), p("cnt"), p("sum"), p("sumsq"), p("min"),
+              p("max"), _build.stream_of(dev))
+    _build.LAUNCHES["binned_scatter"] += 1
+    _build.check("binned_scatter", code)
+    return out

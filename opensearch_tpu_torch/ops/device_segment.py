@@ -7,7 +7,11 @@ values:
   `post_bound` float32 `[NBp]` (seal-time block score bounds, 0 padding);
 - `norms` int32 `[F, Dp]`, one row per normed text field (row index in
   `DeviceSegmentMeta.norm_rows`), and `length_table` float32 `[256]`;
-- `live`, `root` bool `[Dp]`, `parent_ptr`, `nested_path` int32 `[Dp]`;
+- `live`, `root` bool `[Dp]`, `parent_ptr`, `nested_path` int32 `[Dp]`
+  (a nested row's root row and path ordinal, -1 for a root), and K22's
+  static per-root child CSR: `child_start` int32 `[Dp + 1]` and
+  `child_rows` int32 `[NCp]`, a root's nested rows in row order (-1
+  padded);
 - `numeric[field]`: value-pair leaves `doc_ids` / `val_ords` int32 and
   `values_f32` float32 `[NVp]` (padded -1 / 0 / 0), per-doc `exists` bool,
   `min_rank` / `max_rank` int32 `[Dp]` (INT32_MAX / -1 where absent), and
@@ -107,8 +111,9 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
     root[:seg.num_docs] = seg.root
     parent_ptr = np.full(d_pad, -1, dtype=np.int32)
     parent_ptr[:seg.num_docs] = seg.parent_ptr
-    # every row of this slice is a root document: path ordinal -1
     nested_path = np.full(d_pad, -1, dtype=np.int32)
+    nested_path[:seg.num_docs] = seg.path_ords
+    child_start, child_rows = root_child_csr(seg.parent_ptr, d_pad)
 
     arrays = {
         "post_docs": post_docs,
@@ -120,6 +125,8 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
         "root": root,
         "parent_ptr": parent_ptr,
         "nested_path": nested_path,
+        "child_start": child_start,
+        "child_rows": child_rows,
         "numeric": {},
         "ordinal": {},
         "vector": {},
@@ -209,6 +216,21 @@ def segment_image(seg: Segment) -> Tuple[Dict[str, np.ndarray],
         vector_fields=tuple(sorted(seg.vector_dv)),
         rank_vector_fields=tuple(rank_vector_fields))
     return arrays, meta
+
+
+def root_child_csr(parent_ptr: np.ndarray, d_pad: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """K22's static CSR: the nested rows of each row (only roots have
+    any) in row order, whatever their place in the segment: (start int32
+    [Dp + 1], rows int32 [NCp], -1 padded)."""
+    kids = np.nonzero(parent_ptr >= 0)[0].astype(np.int32)
+    order = np.argsort(parent_ptr[kids], kind="stable")
+    rows = np.full(pad_bucket(max(len(kids), 1)), -1, dtype=np.int32)
+    rows[:len(kids)] = kids[order]
+    counts = np.bincount(parent_ptr[kids], minlength=d_pad)
+    start = np.zeros(d_pad + 1, dtype=np.int32)
+    np.cumsum(counts, out=start[1:])
+    return start, rows
 
 
 def upload_segment(seg: Segment, device: torch.device

@@ -1,8 +1,6 @@
 """Aggregation engine: builder tree -> per-segment `AggPlan` -> batched
-device partials (the subset of opensearch_tpu.search.aggs.engine the port
-needs: `terms`, `histogram`, `date_histogram`, `filter`, the `min` / `max`
-/ `sum` / `avg` / `stats` / `extended_stats` / `value_count` metrics and
-`cardinality`).
+device partials (the port of opensearch_tpu.search.aggs.engine, without
+`ip_range`, `top_hits` and `scripted_metric`).
 
 Every bucket aggregation becomes a lookup from the field's value rank (or
 keyword ordinal) to a bucket, a segment-STATIC lane -> bin assignment, and
@@ -22,12 +20,22 @@ the segment (`agg_statics`); per query only the masks move:
 
 Plans evaluate for a batch of B queries: the eligibility mask is bool
 [B, Dp] and every partial is [B, bins].
+
+`nested` and `reverse_nested` (K23) hand their sub-aggregations buckets
+that depend on the query: a dynamic context whose bins are int32 [B, Dp].
+Under it every kind folds its eligibility into per-query lane bins and
+reduces through K24 `binned_scatter` (the reference's scatter route);
+geo_bounds / geo_centroid (`geo_metric`) take K24 in any context.
+geohash_grid / geotile_grid compute each doc's cell on the host at
+compile (numpy forms of the reference's per-doc functions) and bucket
+like composite.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 import hashlib
+import math
 import re
 from collections import OrderedDict
 from dataclasses import dataclass, field as dc_field, replace as dc_replace
@@ -48,10 +56,11 @@ from opensearch_tpu_torch.ops.agg_kernels import (adjacency_counts,
                                                   matrix_moments,
                                                   matrix_stats_names,
                                                   matrix_stats_partials,
-                                                  moments_csr)
+                                                  moment_groups, moments_csr)
 from opensearch_tpu_torch.ops.binned import (BinCSR, bin_csr,
                                              binned_popcount, binned_reduce,
-                                             lane_bits)
+                                             binned_scatter, lane_bits)
+from opensearch_tpu_torch.ops.nested import nested_agg, reverse_nested_agg
 from opensearch_tpu_torch.search import dsl
 from opensearch_tpu_torch.search.aggs.parse import PIPELINE_TYPES, AggNode
 from opensearch_tpu_torch.search.compile import (Compiler, Plan,
@@ -704,10 +713,16 @@ def _dense_first_value(ctx: _Ctx, field: str):
     if col is None:
         return None, np.zeros(d, dtype=bool)
     value = np.zeros(d, dtype=np.float64)
-    # doc_ids are grouped ascending: the first occurrence is the smallest
-    docs, first_idx = np.unique(col.doc_ids, return_index=True)
-    value[docs] = col.values[first_idx]
+    # doc_ids are grouped ascending: the first of a run is the smallest
+    first_idx = _run_starts(col.doc_ids)
+    value[col.doc_ids[first_idx]] = col.values[first_idx]
     return value, col.exists.copy()
+
+
+def _run_starts(doc_ids: np.ndarray) -> np.ndarray:
+    """The first index of each run of equal doc ids (grouped ascending)."""
+    return np.flatnonzero(np.r_[True, doc_ids[1:] != doc_ids[:-1]]) \
+        if len(doc_ids) else np.zeros(0, dtype=np.int64)
 
 
 def _dense_first_ord(ctx: _Ctx, field: str):
@@ -716,8 +731,8 @@ def _dense_first_ord(ctx: _Ctx, field: str):
     if col is None:
         return None, np.zeros(d, dtype=bool), []
     ords = np.zeros(d, dtype=np.int64)
-    docs, first_idx = np.unique(col.doc_ids, return_index=True)
-    ords[docs] = col.ords[first_idx]
+    first_idx = _run_starts(col.doc_ids)
+    ords[col.doc_ids[first_idx]] = col.ords[first_idx]
     return ords, col.exists.copy(), list(col.dictionary)
 
 
@@ -886,9 +901,187 @@ def _c_matrix_stats(node: AggNode, ctx: _Ctx) -> AggPlan:
                            "body": node.body})
 
 
-# the reference's compilers without nested / reverse_nested, geo_bounds /
-# geo_centroid, geohash_grid / geotile_grid (they wait for the nested and
-# geo_point types) and ip_range (for the ip type)
+def _c_nested(node: AggNode, ctx: _Ctx) -> AggPlan:
+    """The doc set becomes the path's nested rows whose root is in the
+    current buckets; each row takes its root's bucket (K23)."""
+    path = (node.body or {}).get("path")
+    paths = ctx.seg.nested_paths
+    path_ord = paths.index(path) if path in paths else -1
+    children = [_compile_node(c, ctx) for c in node.children]
+    return AggPlan(node.name, "nested",
+                   inputs={"path_ord": np.asarray(path_ord, np.int32)},
+                   children=children, render={"kind": "filter"})
+
+
+def _c_reverse_nested(node: AggNode, ctx: _Ctx) -> AggPlan:
+    if (node.body or {}).get("path"):
+        # joining back to an intermediate level needs parent pointers the
+        # flat block layout does not keep: refused, as in the reference
+        raise QueryShardError(
+            "[reverse_nested] with an explicit [path] is not supported; "
+            "omit path to join back to the root level")
+    children = [_compile_node(c, ctx) for c in node.children]
+    return AggPlan(node.name, "reverse_nested", children=children,
+                   render={"kind": "filter"})
+
+
+def _c_geo_bounds(node: AggNode, ctx: _Ctx) -> AggPlan:
+    """geo_bounds and geo_centroid: one geo_metric node whose partials
+    are the kind's own (extrema, or the coordinate sums), per bucket."""
+    present = f"{node.field}.lat" in ctx.seg.numeric_dv
+    return AggPlan(node.name, "geo_metric",
+                   static=(node.field, node.type, present),
+                   render={"kind": node.type, "body": node.body})
+
+
+def _geo_metric_names(kind: str, present: bool) -> List[str]:
+    if not present:
+        return []
+    if kind == "geo_centroid":
+        return ["cnt", "sum_lat", "sum_lon"]
+    return ["cnt", "max_lat", "max_lon", "min_lat", "min_lon"]
+
+
+def _c_geohash_grid(node: AggNode, ctx: _Ctx) -> AggPlan:
+    """geohash_grid / geotile_grid: each doc's cell key (of its first lat
+    and first lon) on the host, then the bucket_dense plan."""
+    precision = int(node.body.get("precision", 5))
+    lat, lat_exists = _dense_first_value(ctx, f"{node.field}.lat")
+    lon, _ = _dense_first_value(ctx, f"{node.field}.lon")
+    if lat is None or lon is None:
+        return AggPlan(node.name, "empty",
+                       render={"kind": "grid", "keys": [], "body": node.body})
+    keys, doc_bucket = grid_buckets(node.type, lat, lon, lat_exists,
+                                    precision)
+    return _bucket_dense_plan(node, ctx, doc_bucket, max(len(keys), 1),
+                              render={"kind": "grid", "keys": keys,
+                                      "body": node.body})
+
+
+_BASE32 = "0123456789bcdefghjkmnpqrstuvwxyz"
+_BASE32_BYTES = np.frombuffer(_BASE32.encode(), dtype=np.uint8)
+
+
+def geohash_key(lat: float, lon: float, precision: int) -> str:
+    """One point's geohash (the reference's scalar loop)."""
+    lat_lo, lat_hi = -90.0, 90.0
+    lon_lo, lon_hi = -180.0, 180.0
+    out = []
+    bit = 0
+    ch = 0
+    even = True
+    while len(out) < precision:
+        if even:
+            mid = (lon_lo + lon_hi) / 2
+            if lon >= mid:
+                ch = ch * 2 + 1
+                lon_lo = mid
+            else:
+                ch = ch * 2
+                lon_hi = mid
+        else:
+            mid = (lat_lo + lat_hi) / 2
+            if lat >= mid:
+                ch = ch * 2 + 1
+                lat_lo = mid
+            else:
+                ch = ch * 2
+                lat_hi = mid
+        even = not even
+        bit += 1
+        if bit == 5:
+            out.append(_BASE32[ch])
+            bit = 0
+            ch = 0
+    return "".join(out)
+
+
+def geotile_key(lat: float, lon: float, zoom: int) -> str:
+    """One point's geotile "zoom/x/y" (the reference's scalar form)."""
+    n = 2 ** zoom
+    x = int((lon + 180.0) / 360.0 * n)
+    lat_r = math.radians(max(min(lat, 85.0511), -85.0511))
+    y = int((1.0 - math.log(math.tan(lat_r) + 1 / math.cos(lat_r))
+             / math.pi) / 2.0 * n)
+    return f"{zoom}/{min(x, n - 1)}/{min(y, n - 1)}"
+
+
+def geohash_codes(lat: np.ndarray, lon: np.ndarray,
+                  precision: int) -> np.ndarray:
+    """geohash_key over f64 columns as int64 codes (5 bits a character):
+    the same halvings and comparisons, each midpoint exact in f64, so the
+    codes spell geohash_key's strings; fixed-length codes sort as those
+    strings do (the base-32 alphabet is in ASCII order)."""
+    lo = [np.full(len(lat), -180.0), np.full(len(lat), -90.0)]
+    hi = [np.full(len(lat), 180.0), np.full(len(lat), 90.0)]
+    pts = (lon, lat)
+    code = np.zeros(len(lat), dtype=np.int64)
+    for i in range(5 * precision):
+        axis = i % 2
+        mid = (lo[axis] + hi[axis]) / 2
+        up = pts[axis] >= mid
+        code = code * 2 + up
+        lo[axis] = np.where(up, mid, lo[axis])
+        hi[axis] = np.where(up, hi[axis], mid)
+    return code
+
+
+def _geohash_strings(codes: np.ndarray, precision: int) -> List[str]:
+    """geohash_codes' int64 codes spelled as strings, one base-32
+    character per 5 bits, most significant first."""
+    shifts = 5 * np.arange(precision - 1, -1, -1, dtype=np.int64)
+    chars = _BASE32_BYTES[(codes[:, None] >> shifts[None, :]) & 31]
+    return chars.view(f"S{precision}").reshape(-1) \
+        .astype(f"U{precision}").tolist()
+
+
+def geotile_xy(lat: np.ndarray, lon: np.ndarray, zoom: int):
+    """geotile_key's (x, y) over f64 columns. x takes the same f64
+    operations; y's log / tan / cos are numpy's, which may differ from
+    the math module's by an ulp, so every y within 1e-6 of a tile edge is
+    recomputed by geotile_key's own formula."""
+    n = 2 ** zoom
+    x = np.trunc((lon + 180.0) / 360.0 * n).astype(np.int64)
+    lat_r = np.clip(lat, -85.0511, 85.0511) * (math.pi / 180.0)
+    yf = (1.0 - np.log(np.tan(lat_r) + 1 / np.cos(lat_r)) / math.pi) \
+        / 2.0 * n
+    y = np.trunc(yf).astype(np.int64)
+    for i in np.nonzero(np.abs(yf - np.round(yf)) < 1e-6)[0]:
+        la = math.radians(max(min(float(lat[i]), 85.0511), -85.0511))
+        y[i] = int((1.0 - math.log(math.tan(la) + 1 / math.cos(la))
+                    / math.pi) / 2.0 * n)
+    return np.minimum(x, n - 1), np.minimum(y, n - 1)
+
+
+def grid_buckets(kind: str, lat: np.ndarray, lon: np.ndarray,
+                 exists: np.ndarray, precision: int):
+    """(sorted cell keys, per-doc bucket int32: the key's rank, -1 where
+    the doc has no point) of geohash_grid / geotile_grid, as the
+    reference's per-doc loop computes them."""
+    if kind == "geotile_grid":
+        x, y = geotile_xy(lat, lon, precision)
+        code = x * (2 ** precision) + y
+    else:
+        code = geohash_codes(lat, lon, precision)
+    uniq, inverse = np.unique(code[exists], return_inverse=True)
+    if kind == "geotile_grid":
+        n = 2 ** precision
+        names = [f"{precision}/{c // n}/{c % n}" for c in uniq.tolist()]
+        order = sorted(range(len(names)), key=names.__getitem__)
+        keys = [names[i] for i in order]
+        rank = np.empty(len(order), dtype=np.int32)
+        rank[order] = np.arange(len(order), dtype=np.int32)
+    else:
+        keys = _geohash_strings(uniq, precision)
+        rank = np.arange(len(uniq), dtype=np.int32)
+    doc_bucket = np.full(len(lat), -1, dtype=np.int32)
+    if len(uniq):
+        doc_bucket[exists] = rank[inverse.reshape(-1)]
+    return keys, doc_bucket
+
+
+# the reference's compilers but ip_range (it waits for the ip type),
+# top_hits and scripted_metric
 _COMPILERS = {
     "terms": _c_terms,
     "histogram": _c_histogram,
@@ -912,6 +1105,12 @@ _COMPILERS = {
     "significant_terms": _c_significant_terms,
     "adjacency_matrix": _c_adjacency_matrix,
     "matrix_stats": _c_matrix_stats,
+    "nested": _c_nested,
+    "reverse_nested": _c_reverse_nested,
+    "geo_bounds": _c_geo_bounds,
+    "geo_centroid": _c_geo_bounds,
+    "geohash_grid": _c_geohash_grid,
+    "geotile_grid": _c_geohash_grid,
 }
 
 
@@ -1147,6 +1346,11 @@ def _eval_agg(plan: AggPlan, seg: Dict, inputs: List[Dict],
     def children(child_ctx):
         for c in plan.children:
             _eval_agg(c, seg, inputs, cursor, mask, child_ctx, outs, statics)
+
+    if kind in _SCATTER_KINDS or _dynamic(pbin):
+        _eval_dynamic(plan, seg, inputs, cursor, mask, ctx, outs, statics,
+                      node, my)
+        return
 
     if kind == "empty":
         outs.append({})
@@ -1396,12 +1600,349 @@ def _eval_agg(plan: AggPlan, seg: Dict, inputs: List[Dict],
                           f"opensearch_tpu_torch yet")
 
 
+# -------------------------------------------------- the dynamic context
+#
+# Under `nested` and `reverse_nested` a bucket is per query: the context's
+# `pbin` is int32 [B, Dp]. Every kind then folds its eligibility into
+# per-query lane bins, int32 [B, n] (a dropped lane: the bin `total`), and
+# reduces them through K24 (`binned_scatter`), the reference's scatter
+# route; its child contexts stay dynamic. nested, reverse_nested (K23)
+# and geo_metric read the collapsed per-query parent bins in any context,
+# as the reference's scatter-path kinds do.
+
+_SCATTER_KINDS = frozenset({"nested", "reverse_nested", "geo_metric"})
+
+
+def _dynamic(pbin) -> bool:
+    return pbin is not None and pbin.dim() == 2
+
+
+def _cols(arr: torch.Tensor, safe_doc: torch.Tensor, ident: bool):
+    """arr[:, safe_doc] of a [B, Dp] tensor, or a slice on the identity
+    layout (lane k <-> doc k)."""
+    if ident:
+        n = safe_doc.shape[0]
+        if n == arr.shape[1]:
+            return arr
+        if n < arr.shape[1]:
+            return arr[:, :n]
+    return arr[:, safe_doc]
+
+
+def _parent_eff(pbin, pmask, bsz: int, d_pad: int, dev) -> torch.Tensor:
+    """The context collapsed to each query's parent bin per doc, int32
+    [B, Dp] (-1: none): the reference's _ctx_parent_eff."""
+    if pbin is None and pmask is None:
+        return torch.zeros(bsz, d_pad, dtype=torch.int32, device=dev)
+    if pbin is None:
+        return torch.where(pmask, 0, -1).to(torch.int32)
+    base = pbin if pbin.dim() == 2 else pbin[None, :].expand(bsz, d_pad)
+    if pmask is None:
+        return base.contiguous()
+    return torch.where(pmask & (base >= 0), base, -1).to(torch.int32)
+
+
+def _doc_lanes(pbin, ok, total: int) -> torch.Tensor:
+    """Per-query doc-space lanes: the parent bin where `ok` and the doc
+    has one, else `total`."""
+    return torch.where(ok & (pbin >= 0), pbin, total).to(torch.int32)
+
+
+def _dyn_pairs(col, ident: bool, mask, pmask, pbin, card: int, total: int,
+               b=None, b_ok=None):
+    """Per-query lanes of a pairs-space node (one lane per (doc, value)
+    pair): (lanes int32 [B, n], bin_ok bool [B, n]: the lane has a bin,
+    lane_bin int32 [B, n]: parent bin * card + the lane's own bucket b, or
+    the parent bin alone where b is None, safe_doc long [n])."""
+    doc_ids = col["doc_ids"]
+    valid = doc_ids >= 0
+    safe_doc = torch.where(valid, doc_ids, 0).long()
+    pb = _cols(pbin, safe_doc, ident)
+    bin_ok = (valid if b_ok is None else valid & b_ok)[None, :] & (pb >= 0)
+    lane_bin = pb if b is None else pb * card + b[None, :]
+    ok = _cols(mask, safe_doc, ident)
+    if pmask is not None:
+        ok = ok & _cols(pmask, safe_doc, ident)
+    lanes = torch.where(bin_ok & ok, lane_bin, total).to(torch.int32)
+    return lanes, bin_ok, lane_bin, safe_doc
+
+
+def _dyn_child_bins(lane_bin, bin_ok, safe_doc, total: int,
+                    d_pad: int) -> torch.Tensor:
+    """Per-query child bucket of each doc: the largest bin of its binned
+    lanes, -1 for none (K24 max with one bin per doc)."""
+    if total > MAX_AGG_BINS:
+        raise IllegalArgumentError(
+            f"a bucket aggregation with sub-aggregations needs {total} "
+            f"bins (> {MAX_AGG_BINS}); reduce the bucket count")
+    docs = torch.where(bin_ok, safe_doc[None, :], d_pad).to(torch.int32)
+    mx = binned_scatter(docs.contiguous(), d_pad,
+                        lane_bin.to(torch.float32).contiguous(),
+                        ("max",))["max"]
+    return torch.where(mx > float("-inf"), mx, -1.0).to(torch.int32)
+
+
+def _k24(lanes, total: int, needs, values=None, cval: float = 0.0):
+    return binned_scatter(lanes.contiguous(), total, values, needs, cval)
+
+
+def _eval_dynamic(plan: AggPlan, seg: Dict, inputs: List[Dict],
+                  cursor: List[int], mask, ctx, outs: List,
+                  statics: AggStatics, node: Dict, my: Dict) -> None:
+    """One agg node under a dynamic context (pbin [B, Dp]), or a
+    scatter-path kind in any context."""
+    d_pad = seg["live"].shape[0]
+    dev = seg["live"].device
+    bsz = mask.shape[0]
+    kind = plan.kind
+    pbin, pmask, parent_card = ctx
+
+    def children(child_mask, child_ctx):
+        for c in plan.children:
+            _eval_agg(c, seg, inputs, cursor, child_mask, child_ctx, outs,
+                      statics)
+
+    if kind == "nested":
+        peff = _parent_eff(pbin, pmask, bsz, d_pad, dev)
+        own, child_eff, counts = nested_agg(mask.contiguous(), peff, seg,
+                                            my["path_ord"], parent_card)
+        outs.append({"counts": counts})
+        children(own, (child_eff, None, parent_card))
+        return
+
+    if kind == "reverse_nested":
+        peff = _parent_eff(pbin, pmask, bsz, d_pad, dev)
+        own, root_eff, counts = reverse_nested_agg(mask.contiguous(), peff,
+                                                   seg, parent_card)
+        outs.append({"counts": counts})
+        children(own, (root_eff, None, parent_card))
+        return
+
+    if kind == "geo_metric":
+        field, gkind, present = plan.static
+        if not present:
+            outs.append({})
+            return
+        peff = _parent_eff(pbin, pmask, bsz, d_pad, dev)
+        lat, exists, _ = dense_numeric(seg, f"{field}.lat", d_pad)
+        lon, _, _ = dense_numeric(seg, f"{field}.lon", d_pad)
+        lanes = _doc_lanes(peff, mask & exists[None, :], parent_card)
+        if gkind == "geo_centroid":
+            a = _k24(lanes, parent_card, ("cnt", "sum"), lat)
+            b = _k24(lanes, parent_card, ("sum",), lon)
+            outs.append({"cnt": a["cnt"], "sum_lat": a["sum"],
+                         "sum_lon": b["sum"]})
+        else:
+            a = _k24(lanes, parent_card, ("cnt", "min", "max"), lat)
+            b = _k24(lanes, parent_card, ("min", "max"), lon)
+            outs.append({"cnt": a["cnt"], "min_lat": a["min"],
+                         "max_lat": a["max"], "min_lon": b["min"],
+                         "max_lon": b["max"]})
+        return
+
+    okm = mask if pmask is None else mask & pmask
+
+    if kind == "empty":
+        outs.append({})
+        if plan.children:
+            if "pbin" not in node:
+                node["pbin"] = torch.full((d_pad,), -1, dtype=torch.int32,
+                                          device=dev)
+            children(mask, (node["pbin"], pmask, parent_card))
+        return
+
+    if kind in ("bucket_ord", "bucket_num"):
+        field, card, ident = plan.static
+        is_ord = kind == "bucket_ord"
+        col = seg["ordinal" if is_ord else "numeric"][field]
+        total = parent_card * card
+        b = node.get("dyn_b")
+        if b is None:
+            b = node["dyn_b"] = col["ords"] if is_ord else torch.from_numpy(
+                plan.inputs["table"]).to(dev)[col["val_ords"].long()]
+        lanes, bin_ok, lane_bin, safe_doc = _dyn_pairs(
+            col, ident, mask, pmask, pbin, card, total, b,
+            None if is_ord else b >= 0)
+        outs.append({"counts": _k24(lanes, total, ("cnt",))["cnt"]})
+        if plan.children:
+            child = _dyn_child_bins(lane_bin, bin_ok, safe_doc, total,
+                                    d_pad)
+            children(mask, (child, okm, total))
+        return
+
+    if kind == "filter":
+        _scores, matches = _eval_plan(plan.query_plan, seg, inputs, cursor,
+                                      bsz)
+        lanes = _doc_lanes(pbin, okm & matches, parent_card)
+        outs.append({"counts": _k24(lanes, parent_card, ("cnt",))["cnt"]})
+        children(mask, (pbin, okm & matches, parent_card))
+        return
+
+    if kind == "metric_missing_only":
+        needs, missing = plan.static
+        res = _k24(_doc_lanes(pbin, okm, parent_card), parent_card, needs,
+                   cval=missing)
+        outs.append({k: res[k] for k in needs})
+        return
+
+    if kind == "metric_num":
+        field, needs, ident, missing = plan.static
+        col = seg["numeric"][field]
+        lanes, *_ = _dyn_pairs(col, ident, mask, pmask, pbin, 1,
+                               parent_card)
+        out = _k24(lanes, parent_card, needs, col["values_f32"])
+        if missing is not None:
+            # docs WITHOUT the field contribute the substitute value
+            res = _k24(_doc_lanes(pbin, okm & ~col["exists"][None, :],
+                                  parent_card), parent_card, needs,
+                       cval=missing)
+            for k in needs:
+                if k == "min":
+                    out[k] = torch.minimum(out[k], res[k])
+                elif k == "max":
+                    out[k] = torch.maximum(out[k], res[k])
+                else:
+                    out[k] = out[k] + res[k]
+        outs.append({k: out[k] for k in needs})
+        return
+
+    if kind == "count_ord":
+        field, ident = plan.static
+        col = seg["ordinal"][field]
+        lanes, *_ = _dyn_pairs(col, ident, mask, pmask, pbin, 1,
+                               parent_card)
+        outs.append(_k24(lanes, parent_card, ("cnt",)))
+        return
+
+    if kind in ("presence_ord", "presence_num", "value_hist"):
+        field, card, ident = plan.static
+        col = seg["ordinal" if kind == "presence_ord" else "numeric"][field]
+        total = parent_card * card
+        if total > MAX_AGG_BINS:
+            raise IllegalArgumentError(
+                f"aggregation [{plan.name}] needs {total} bins "
+                f"(> {MAX_AGG_BINS}); reduce bucket count or cardinality")
+        ords = col["ords"] if kind == "presence_ord" else col["val_ords"]
+        lanes, *_ = _dyn_pairs(col, ident, mask, pmask, pbin, card, total,
+                               ords)
+        hist = _k24(lanes, total, ("cnt",))["cnt"]
+        outs.append({"hist": hist} if kind == "value_hist"
+                    else {"present": hist > 0})
+        return
+
+    if kind == "multi":
+        outs.append({})
+        children(mask, ctx)
+        return
+
+    if kind == "global":
+        gmask = seg["live"][None, :].expand(bsz, d_pad)
+        gok = gmask if pmask is None else gmask & pmask
+        outs.append({"counts": _k24(_doc_lanes(pbin, gok, parent_card),
+                                    parent_card, ("cnt",))["cnt"]})
+        children(gmask.contiguous(), ctx)
+        return
+
+    if kind == "missing":
+        ctype, field = plan.static
+        if ctype == "none":
+            exists = torch.zeros(d_pad, dtype=torch.bool, device=dev)
+        else:
+            exists = seg[ctype][field]["exists"]
+        miss_bin = torch.where(exists[None, :], -1, pbin).to(torch.int32)
+        outs.append({"counts": _k24(_doc_lanes(miss_bin, okm, parent_card),
+                                    parent_card, ("cnt",))["cnt"]})
+        children(mask, (miss_bin, okm, parent_card))
+        return
+
+    if kind == "bucket_dense":
+        card, = plan.static
+        total = parent_card * card
+        b = node.get("dyn_b")
+        if b is None:
+            b = node["dyn_b"] = torch.from_numpy(
+                plan.inputs["doc_bucket"]).to(dev)
+        bin_ok = (b >= 0)[None, :] & (pbin >= 0)
+        lane = pbin * card + b[None, :]
+        lanes = torch.where(bin_ok & okm, lane, total).to(torch.int32)
+        outs.append({"counts": _k24(lanes, total, ("cnt",))["cnt"]})
+        children(mask, (torch.where(bin_ok, lane, -1).to(torch.int32), okm,
+                        total))
+        return
+
+    if kind == "weighted_avg":
+        vf, wf, ident = plan.static
+        vcol = seg["numeric"][vf]
+        if "wv" not in node:
+            wcol = seg["numeric"][wf]
+            safe_doc = torch.where(vcol["doc_ids"] >= 0, vcol["doc_ids"],
+                                   0).long()
+            up = wcol["unique_f32"].shape[0]
+            w_dense = wcol["unique_f32"][wcol["min_rank"].clamp(
+                0, up - 1).long()]
+            has_w = wcol["exists"][safe_doc]
+            w = torch.where(has_w, w_dense[safe_doc], 0.0)
+            node["has_w"] = has_w
+            node["wv"] = (vcol["values_f32"] * w).contiguous()
+            node["w"] = w.contiguous()
+        lanes, *_ = _dyn_pairs(vcol, ident, mask, pmask, pbin, 1,
+                               parent_card, b_ok=node["has_w"])
+        outs.append({
+            "sum_wv": _k24(lanes, parent_card, ("sum",), node["wv"])["sum"],
+            "sum_w": _k24(lanes, parent_card, ("sum",), node["w"])["sum"]})
+        return
+
+    if kind == "adjacency":
+        peff = _parent_eff(pbin, pmask, bsz, d_pad, dev)
+        masks = [_eval_plan(qp, seg, inputs, cursor, bsz)[1] & mask
+                 for qp in plan.query_plans]
+        n = plan.static[0]
+        out = {}
+        for i in range(n):
+            for j in range(i, n):
+                out[f"c_{i}_{j}"] = _k24(
+                    _doc_lanes(peff, masks[i] & masks[j], parent_card),
+                    parent_card, ("cnt",))["cnt"]
+        outs.append(out)
+        return
+
+    if kind == "matrix_stats":
+        fields = plan.static[1]
+        peff = _parent_eff(pbin, pmask, bsz, d_pad, dev)
+        dense = [dense_numeric(seg, f, d_pad) for f in fields]
+        out = {}
+        for name, g, k in matrix_stats_names(fields):
+            fa, fb = moment_groups(len(fields))[g]
+            own = mask & dense[fa][1][None, :] & dense[fb][1][None, :]
+            lanes = _doc_lanes(peff, own, parent_card)
+            if k < 0:
+                out[name] = _k24(lanes, parent_card, ("cnt",))["cnt"]
+                continue
+            x = torch.where(own, dense[fa][0][None, :], 0.0)
+            if fa == fb:
+                x2 = x * x
+                term = (x, x2, x2 * x, x2 * x2)[k]
+            else:
+                y = torch.where(own, dense[fb][0][None, :], 0.0)
+                term = (x * y, x, y)[k]
+            out[name] = _k24(lanes, parent_card, ("sum",),
+                             term.contiguous())["sum"]
+        outs.append(out)
+        return
+
+    raise QueryShardError(f"aggregation kind [{kind}] is not supported by "
+                          f"opensearch_tpu_torch yet")
+
+
 # ------------------------------------------------------- envelope layout
 
 _OUT_DTYPE = {"counts": "int32", "cnt": "int32", "present": "bool",
               "sum": "float32", "sumsq": "float32", "min": "float32",
               "max": "float32", "hist": "int32", "sum_wv": "float32",
-              "sum_w": "float32"}
+              "sum_w": "float32", "sum_lat": "float32",
+              "sum_lon": "float32", "min_lat": "float32",
+              "max_lat": "float32", "min_lon": "float32",
+              "max_lon": "float32"}
 
 
 def _out_dtype(key: str) -> str:
@@ -1476,6 +2017,12 @@ def agg_out_layout(plans: List[AggPlan]) -> Tuple[tuple, int]:
             fields = p.static[1]
             put([k for k, _g, _i in matrix_stats_names(fields)],
                 parent_card)
+        elif kind in ("nested", "reverse_nested"):
+            put(["counts"], parent_card)
+            for c in p.children:
+                walk(c, parent_card)
+        elif kind == "geo_metric":
+            put(_geo_metric_names(p.static[1], p.static[2]), parent_card)
         else:
             raise QueryShardError(f"aggregation kind [{kind}] is not "
                                   f"supported by opensearch_tpu_torch yet")

@@ -1,5 +1,5 @@
 """Host-side aggregation reduce and response rendering (the port's copy of
-opensearch_tpu.search.aggs.reduce, without the nested and geo kinds):
+opensearch_tpu.search.aggs.reduce):
 per-segment partials arrive as flat numpy arrays per (segment, node); they
 merge by bucket key across segments and render the REST "aggregations"
 shapes. Pipeline aggregations then run on the reduced tree
@@ -8,6 +8,7 @@ shapes. Pipeline aggregations then run on the reduced tree
 
 from __future__ import annotations
 
+import heapq
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -81,8 +82,13 @@ def _merge_node(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
         return out
 
     if kind == "bucket_dense":
-        return _merge_composite(entries,
-                                multi=render.get("kind") == "multi_terms")
+        rkind = render.get("kind")
+        if rkind in ("composite", "multi_terms"):
+            return _merge_composite(entries, multi=rkind == "multi_terms")
+        return _merge_grid(entries)
+
+    if kind == "geo_metric":
+        return _merge_geo(entries)
 
     if kind == "adjacency":
         return _merge_adjacency(entries)
@@ -95,7 +101,7 @@ def _merge_node(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
             return _merge_filters(entries)
         return _merge_ranges(entries)
 
-    if kind in ("filter", "global", "missing"):
+    if kind in ("filter", "global", "missing", "nested", "reverse_nested"):
         count = sum(int(d.out["counts"][p]) for d, p in entries
                     if "counts" in d.out)
         result = {"doc_count": count}
@@ -204,50 +210,64 @@ def _merge_terms(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
     (order_key, order_dir), = order.items() if order \
         else (("_count", "desc"),)
 
-    acc: Dict[Any, Dict[str, Any]] = {}
+    reverse = (order_dir == "desc")
+    # each segment's non-zero counts: (partials, parent bin, card
+    # indices, counts)
+    parts = []
     for d, p in entries:
         if "counts" not in d.out:
             continue
-        keys = d.plan.render["keys"]
         card = d.plan.static[1]
-        counts = d.out["counts"]
-        base = p * card
-        for c in range(min(card, len(keys))):
-            n = int(counts[base + c])
-            if n <= 0:
-                continue
-            slot = acc.setdefault(keys[c], {"doc_count": 0, "segments": []})
-            slot["doc_count"] += n
-            slot["segments"].append((d, p, c))
+        run = d.out["counts"].reshape(-1)[
+            p * card:p * card + min(card, len(d.plan.render["keys"]))]
+        nz = np.flatnonzero(run > 0)
+        parts.append((d, p, nz, run[nz]))
+    total = sum(int(cnt.sum()) for *_, cnt in parts)
+    if len(parts) == 1 and order_key == "_count":
+        # one segment (its keys are distinct): only the counts that can
+        # reach the first `size` (at or past the size-th count) need a key
+        d, p, nz, cnt = parts[0]
+        ok = cnt >= min_doc_count
+        nz, cnt = nz[ok], cnt[ok]
+        if 0 < size < len(cnt):
+            kth = np.partition(cnt, len(cnt) - size)[len(cnt) - size] \
+                if reverse else np.partition(cnt, size - 1)[size - 1]
+            near = cnt >= kth if reverse else cnt <= kth
+            nz, cnt = nz[near], cnt[near]
+        parts = [(d, p, nz, cnt)]
+    # key -> [doc_count, [(partials, parent bin, card index)]]
+    acc: Dict[Any, list] = {}
+    for d, p, nz, cnt in parts:
+        keys = d.plan.render["keys"]
+        for c, n in zip(nz.tolist(), cnt.tolist()):
+            slot = acc.get(keys[c])
+            if slot is None:
+                acc[keys[c]] = [n, [(d, p, c)]]
+            else:
+                slot[0] += n
+                slot[1].append((d, p, c))
 
-    total = sum(v["doc_count"] for v in acc.values())
-
-    def sort_key(item):
-        key, slot = item
-        if order_key == "_key":
-            return key
-        return slot["doc_count"]
-    reverse = (order_dir == "desc")
-    items = sorted(acc.items(), key=sort_key, reverse=reverse)
-    if order_key == "_count":  # secondary: key ascending
-        items = sorted(items, key=lambda kv: _orderable(kv[0]))
-        items = sorted(items, key=lambda kv: kv[1]["doc_count"],
-                       reverse=reverse)
+    eligible = [kv for kv in acc.items() if kv[1][0] >= min_doc_count]
+    # the first `size` of the full order: by count with ties by key
+    # ascending, or by key, or (other order keys) by count, stable
+    if order_key == "_count":
+        sign = -1 if reverse else 1
+        items = heapq.nsmallest(size, eligible, key=lambda kv: (
+            sign * kv[1][0], _orderable(kv[0])))
+    elif order_key == "_key":
+        items = (heapq.nlargest if reverse else heapq.nsmallest)(
+            size, eligible, key=lambda kv: kv[0])
+    else:
+        items = sorted(eligible, key=lambda kv: kv[1][0],
+                       reverse=reverse)[:size]
 
     buckets = []
-    taken = 0
-    for key, slot in items:
-        if slot["doc_count"] < min_doc_count:
-            continue
-        if taken >= size:
-            break
-        taken += 1
-        bucket: Dict[str, Any] = {"key": key,
-                                  "doc_count": slot["doc_count"]}
-        first = entries[0][0]
+    first = entries[0][0]
+    for key, (doc_count, segments) in items:
+        bucket: Dict[str, Any] = {"key": key, "doc_count": doc_count}
         for j, child in enumerate(first.children):
             child_entries = [(d.children[j], p * d.plan.static[1] + c)
-                             for d, p, c in slot["segments"]]
+                             for d, p, c in segments]
             bucket[child.plan.name] = _merge_node(child_entries)
         buckets.append(bucket)
     shown = sum(b["doc_count"] for b in buckets)
@@ -767,6 +787,53 @@ def _merge_significant_terms(entries: List[Tuple[Decoded, int]]
     scored.sort(key=lambda b: -b["score"])
     return {"doc_count": subset_size, "bg_count": bg_total,
             "buckets": scored[:size]}
+
+
+def _merge_grid(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    """geohash_grid / geotile_grid: counts summed by cell key across
+    segments, by count descending then key."""
+    body = entries[0][0].plan.render.get("body", {})
+    totals: Dict[str, int] = {}
+    for d, p in entries:
+        counts = d.out.get("counts")
+        if counts is None:
+            continue
+        keys = d.plan.render.get("keys", [])  # per-segment key table
+        card = max(len(keys), 1)
+        arr = np.asarray(counts[p * card:(p + 1) * card])
+        for i in np.nonzero(arr)[0]:
+            if i < len(keys):
+                totals[keys[i]] = totals.get(keys[i], 0) + int(arr[i])
+    size = int(body.get("size", 10000))
+    buckets = sorted(totals.items(), key=lambda kv: (-kv[1], kv[0]))[:size]
+    return {"buckets": [{"key": k, "doc_count": c} for k, c in buckets]}
+
+
+def _merge_geo(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:
+    """geo_bounds (top_left / bottom_right of the extrema) and
+    geo_centroid (the mean point, f32 sums added across segments in
+    f64)."""
+    kind = entries[0][0].plan.render.get("kind", "geo_bounds")
+    cnt = sum(int(d.out["cnt"][p]) for d, p in entries if "cnt" in d.out)
+    if cnt == 0:
+        return {"doc_count": 0} if kind == "geo_centroid" else {}
+    if kind == "geo_centroid":
+        sum_lat = sum(float(d.out["sum_lat"][p]) for d, p in entries
+                      if "sum_lat" in d.out)
+        sum_lon = sum(float(d.out["sum_lon"][p]) for d, p in entries
+                      if "sum_lon" in d.out)
+        return {"location": {"lat": sum_lat / cnt, "lon": sum_lon / cnt},
+                "count": cnt}
+
+    def agg(key, fn, init):
+        return fn([float(d.out[key][p]) for d, p in entries
+                   if key in d.out] or [init])
+    return {"bounds": {
+        "top_left": {"lat": agg("max_lat", max, 0.0),
+                     "lon": agg("min_lon", min, 0.0)},
+        "bottom_right": {"lat": agg("min_lat", min, 0.0),
+                         "lon": agg("max_lon", max, 0.0)},
+    }}
 
 
 def _merge_adjacency(entries: List[Tuple[Decoded, int]]) -> Dict[str, Any]:

@@ -26,6 +26,7 @@ import bisect
 import datetime as _dt
 import fnmatch
 import re
+import weakref
 from dataclasses import dataclass, field as dc_field, fields as dc_fields
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -36,9 +37,10 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 ParsingError,
                                                 QueryShardError)
 from opensearch_tpu_torch.common.settings import parse_time_value
-from opensearch_tpu_torch.index.mapper import (MapperService,
+from opensearch_tpu_torch.index.mapper import (GEO_POINT, MapperService,
                                                MappedFieldType,
-                                               parse_date_millis)
+                                               parse_date_millis,
+                                               parse_geo_point)
 from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, SEAL_B,
                                                 SEAL_K1, Segment,
                                                 ident_pairs, pad_bucket)
@@ -245,6 +247,23 @@ MATCH_NONE = Plan("match_none")
 
 def _match_all(boost: float) -> Plan:
     return Plan("match_all", inputs={"boost": _f32(boost)})
+
+
+
+# (segment, field) -> (the column's values array, their mean): a sealed
+# segment's columns never change, so rank_feature's default pivot is
+# computed once per column, not per query
+_COLUMN_MEANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _column_mean(seg, field: str) -> float:
+    memo = _COLUMN_MEANS.setdefault(seg, {})
+    values = seg.numeric_dv[field].values
+    hit = memo.get(field)
+    if hit is None or hit[0] is not values:
+        hit = memo[field] = (values, float(np.mean(values)) if len(values)
+                             else 1.0)
+    return hit[1]
 
 
 class Compiler:
@@ -939,13 +958,26 @@ class Compiler:
 
     def _c_DistanceFeatureQuery(self, node: dsl.DistanceFeatureQuery, seg,
                                 meta) -> Plan:
-        """distance_feature on a numeric or date column (the geo_point
-        branch waits for the geo_point type)."""
+        """distance_feature on a numeric, date or geo_point column."""
         ft = self.mapper.get_field(node.field)
         if ft is None:
             raise QueryShardError(
                 f"Can't load fielddata on [{node.field}] because the field "
                 f"does not exist")
+        if ft.type == GEO_POINT:
+            # geo origin in any geo_point wire shape, pivot a distance:
+            # boost * pivot / (pivot + haversine(doc, origin))
+            if f"{node.field}.lat" not in seg.numeric_dv:
+                return MATCH_NONE
+            lat, lon = parse_geo_point(node.origin)
+            pivot_m = dsl.parse_distance(node.pivot)
+            if pivot_m <= 0:
+                raise IllegalArgumentError(
+                    "[distance_feature] pivot distance must be positive")
+            return Plan("distance_feature_geo", static=(node.field,),
+                        inputs={"lat": _f32(lat), "lon": _f32(lon),
+                                "pivot": _f32(pivot_m),
+                                "boost": _f32(node.boost)})
         if node.field not in seg.numeric_dv:
             return MATCH_NONE
         if ft.is_date:
@@ -957,6 +989,97 @@ class Compiler:
         return Plan("distance_feature", static=(node.field,),
                     inputs={"origin": _f32(origin), "pivot": _f32(pivot),
                             "boost": _f32(node.boost)})
+
+
+    def _c_RankFeatureQuery(self, node: dsl.RankFeatureQuery, seg,
+                            meta) -> Plan:
+        if node.field not in seg.numeric_dv:
+            return MATCH_NONE
+        pivot = node.pivot
+        if pivot is None:
+            # the default pivot: the mean of the segment's values (dead
+            # docs' too), as the reference approximates the per-index
+            # default of the feature distribution
+            pivot = _column_mean(seg, node.field)
+        return Plan("rank_feature", static=(node.field, node.function),
+                    inputs={"pivot": _f32(max(pivot, 1e-9)),
+                            "scaling_factor": _f32(node.scaling_factor),
+                            "exponent": _f32(node.exponent),
+                            "boost": _f32(node.boost)})
+
+    def _c_GeoDistanceQuery(self, node: dsl.GeoDistanceQuery, seg,
+                            meta) -> Plan:
+        self._require_geo(node.field)
+        if f"{node.field}.lat" not in seg.numeric_dv:
+            return MATCH_NONE
+        return Plan("geo_distance", static=(node.field,),
+                    inputs={"lat": _f32(node.lat), "lon": _f32(node.lon),
+                            "dist": _f32(node.distance_m),
+                            "boost": _f32(node.boost)})
+
+    def _c_GeoBoundingBoxQuery(self, node: dsl.GeoBoundingBoxQuery, seg,
+                               meta) -> Plan:
+        self._require_geo(node.field)
+        if f"{node.field}.lat" not in seg.numeric_dv:
+            return MATCH_NONE
+        return Plan("geo_bbox", static=(node.field,),
+                    inputs={"top": _f32(node.top), "left": _f32(node.left),
+                            "bottom": _f32(node.bottom),
+                            "right": _f32(node.right),
+                            "boost": _f32(node.boost)})
+
+    def _require_geo(self, field: str):
+        ft = self.mapper.get_field(field)
+        if ft is None or ft.type != GEO_POINT:
+            raise QueryShardError(
+                f"failed to find geo_point field [{field}]")
+
+    def _c_NestedQuery(self, node: dsl.NestedQuery, seg, meta) -> Plan:
+        """Block-join: the inner query over the path's nested rows, joined
+        to their root rows (Lucene's ToParentBlockJoinQuery)."""
+        if node.path not in self.mapper.nested_paths:
+            if node.ignore_unmapped:
+                return MATCH_NONE
+            raise QueryShardError(
+                f"[nested] failed to find nested object under path "
+                f"[{node.path}]")
+        if node.score_mode not in NESTED_SCORE_MODES:
+            raise QueryShardError(
+                f"[nested] unknown score_mode [{node.score_mode}]")
+        if _has_nested(node.query):
+            # every nested row joins its root directly, so an outer nested
+            # cannot see an inner one's join: refused, as in the reference
+            raise QueryShardError(
+                f"[nested] queries nested inside [nested] are not "
+                f"supported; query path [{node.path}]'s deepest nested "
+                f"path directly instead")
+        inner = self.compile(node.query, seg, meta)
+        paths = seg.nested_paths
+        path_ord = paths.index(node.path) if node.path in paths else -1
+        return Plan("nested", static=(node.score_mode,),
+                    inputs={"path_ord": _i32(path_ord),
+                            "boost": _f32(node.boost)},
+                    children=[inner])
+
+
+# K22's score modes, in its mode-code order
+NESTED_SCORE_MODES = ("avg", "sum", "max", "min", "none")
+
+
+def _has_nested(n) -> bool:
+    """Whether a query tree holds a nested query (every QueryNode-valued
+    field is walked, so no compound hides one)."""
+    if isinstance(n, dsl.NestedQuery):
+        return True
+    for f in dc_fields(n):
+        sub = getattr(n, f.name, None)
+        if isinstance(sub, dsl.QueryNode) and _has_nested(sub):
+            return True
+        if isinstance(sub, (list, tuple)) and any(
+                isinstance(x, dsl.QueryNode) and _has_nested(x)
+                for x in sub):
+            return True
+    return False
 
 
 def _split_params(params) -> Tuple[tuple, tuple, dict]:

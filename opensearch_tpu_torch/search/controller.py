@@ -22,7 +22,8 @@ body takes the general path, `_execute_search_impl`:
   reaches past the fetched window, k grows 4x and the query phase runs
   again (up to 65,536);
 - the page and the fetch phase (`_build_hit`: `_source`, `sort`,
-  `highlight`, `explain`, `docvalue_fields`, `_version`);
+  `highlight`, `explain`, `docvalue_fields`, `_version`, a nested
+  query's `inner_hits`);
 - the hits block (`track_total_hits` true, false or a threshold, the
   relation `gte` when block-max pruned lanes; `max_score` only when a
   score is wanted) and the `_shards` block.
@@ -259,9 +260,11 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
                 max_score = c.score
 
     query_node = dsl.parse_query(body.get("query"))
+    from opensearch_tpu_torch.search import fetch as fetch_phase
+    inner = (fetch_phase.collect_inner_hit_specs(query_node), {})
     hits = [_build_hit(executors[c.shard_i], c, body,
                        c.score if wants_score else None, query_node,
-                       score_sorted)
+                       score_sorted, inner)
             for c in page]
 
     n_shards = len(executors)
@@ -304,8 +307,9 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
 
 
 def _build_hit(ex, c, body: dict, score: Optional[float], query_node,
-               score_sorted: bool) -> dict:
-    """One page hit and its fetch subphases."""
+               score_sorted: bool, inner=((), None)) -> dict:
+    """One page hit and its fetch subphases. `inner`: the request's
+    nested queries with inner_hits and their evaluation cache."""
     from opensearch_tpu_torch.search import fetch as fetch_phase
 
     hit = ex._hit_dict(c.seg_i, c.ord, score, body)
@@ -334,4 +338,8 @@ def _build_hit(ex, c, body: dict, score: Optional[float], query_node,
         # doc_meta carries the (version, seq_no, primary_term) of the write
         meta = seg.doc_meta.get(hit["_id"])
         hit["_version"] = meta[0] if meta else 1
+    specs, cache = inner
+    if specs:
+        hit["inner_hits"] = fetch_phase.build_inner_hits(
+            ex, c.seg_i, c.ord, specs, cache)
     return hit

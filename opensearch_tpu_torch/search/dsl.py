@@ -7,8 +7,10 @@ the reference's REST wire shapes and error types:
 - term level: `term`, `terms`, `terms_set`, `range`, `exists`, `ids`,
   `prefix`, `wildcard`, `regexp`, `fuzzy`;
 - compound and scoring: `bool`, `dis_max`, `constant_score`, `boosting`,
-  `function_score`, `script_score`, `distance_feature`, `match_all`,
-  `match_none`;
+  `function_score`, `script_score`, `distance_feature` (numeric, date or
+  geo_point), `rank_feature`, `match_all`, `match_none`;
+- nested documents: `nested` (with `inner_hits`);
+- geo: `geo_distance`, `geo_bounding_box`;
 - vectors: `knn`, `maxsim` and the top-level `hybrid`.
 
 The reference's other query kinds (`NOT_PORTED`) answer a 400 naming them
@@ -17,17 +19,17 @@ as not supported by the port yet; any other name raises the reference's
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field as dc_field
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from opensearch_tpu_torch.common.errors import ParsingError
+from opensearch_tpu_torch.index.mapper import parse_geo_point
 
-# query kinds of the reference the port does not serve yet (the join and
-# nested queries wait for the nested / join field types, the geo and
-# rank_feature queries for theirs)
+# query kinds of the reference the port does not serve yet (the join
+# queries wait for the join field type, geo_shape for its type)
 NOT_PORTED = frozenset({
-    "nested", "has_child", "has_parent", "parent_id", "rank_feature",
-    "geo_distance", "geo_bounding_box", "geo_shape", "span_term",
+    "has_child", "has_parent", "parent_id", "geo_shape", "span_term",
     "span_near", "span_first", "span_or", "span_not", "span_containing",
     "span_within", "span_multi", "field_masking_span", "intervals",
     "more_like_this", "percolate"})
@@ -212,6 +214,69 @@ class DistanceFeatureQuery(QueryNode):
     field: str = ""
     origin: Any = None
     pivot: Any = None
+
+
+@dataclass
+class RankFeatureQuery(QueryNode):
+    field: str = ""
+    function: str = "saturation"     # saturation | log | sigmoid | linear
+    pivot: Optional[float] = None
+    scaling_factor: float = 1.0
+    exponent: float = 1.0
+
+
+@dataclass
+class GeoDistanceQuery(QueryNode):
+    field: str = ""
+    lat: float = 0.0
+    lon: float = 0.0
+    distance_m: float = 0.0
+
+
+@dataclass
+class GeoBoundingBoxQuery(QueryNode):
+    field: str = ""
+    top: float = 90.0
+    left: float = -180.0
+    bottom: float = -90.0
+    right: float = 180.0
+
+
+@dataclass
+class NestedQuery(QueryNode):
+    """Block-join of a nested path's rows to their root rows."""
+    path: str = ""
+    query: Optional[QueryNode] = None
+    score_mode: str = "avg"          # avg | sum | min | max | none
+    ignore_unmapped: bool = False
+    inner_hits: Optional[Dict[str, Any]] = None
+
+
+_DISTANCE_UNITS_M = {
+    "mm": 0.001, "cm": 0.01, "m": 1.0, "km": 1000.0, "mi": 1609.344,
+    "miles": 1609.344, "yd": 0.9144, "ft": 0.3048, "in": 0.0254,
+    "nm": 1852.0, "nmi": 1852.0, "nauticalmiles": 1852.0,
+}
+
+
+def parse_distance(value: Any) -> float:
+    """A distance ("12km", "500m", bare meters) in meters."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    m = re.fullmatch(r"\s*([\d.]+)\s*([a-zA-Z]*)\s*", str(value))
+    if not m:
+        raise ParsingError(f"failed to parse distance [{value}]")
+    unit = m.group(2).lower() or "m"
+    if unit not in _DISTANCE_UNITS_M:
+        raise ParsingError(f"unknown distance unit [{unit}]")
+    return float(m.group(1)) * _DISTANCE_UNITS_M[unit]
+
+
+def _parse_inner_hits(body: dict) -> Optional[Dict[str, Any]]:
+    ih = body.get("inner_hits")
+    if ih is not None and not isinstance(ih, dict):
+        raise ParsingError("[inner_hits] must be an object")
+    return ih
 
 
 @dataclass
@@ -513,6 +578,64 @@ def parse_query(q: Any) -> QueryNode:
                                     origin=body["origin"],
                                     pivot=body["pivot"],
                                     boost=float(body.get("boost", 1.0)))
+
+    if name == "rank_feature":
+        if "field" not in body:
+            raise ParsingError("[rank_feature] requires a [field]")
+        fn, params = "saturation", {}
+        for candidate in ("saturation", "log", "sigmoid", "linear"):
+            if candidate in body:
+                fn, params = candidate, body[candidate] or {}
+        return RankFeatureQuery(
+            field=body["field"], function=fn,
+            pivot=(float(params["pivot"]) if params.get("pivot") is not None
+                   else None),
+            scaling_factor=float(params.get("scaling_factor", 1.0)),
+            exponent=float(params.get("exponent", 1.0)),
+            boost=float(body.get("boost", 1.0)))
+
+    if name == "nested":
+        if "path" not in body or "query" not in body:
+            raise ParsingError("[nested] requires [path] and [query]")
+        return NestedQuery(path=body["path"],
+                           query=parse_query(body["query"]),
+                           score_mode=str(body.get("score_mode", "avg")),
+                           ignore_unmapped=bool(body.get("ignore_unmapped",
+                                                         False)),
+                           inner_hits=_parse_inner_hits(body),
+                           boost=float(body.get("boost", 1.0)))
+
+    if name == "geo_distance":
+        body = dict(body)
+        boost = float(body.pop("boost", 1.0))
+        distance = body.pop("distance", None)
+        body.pop("distance_type", None)
+        body.pop("validation_method", None)
+        if distance is None or len(body) != 1:
+            raise ParsingError("[geo_distance] requires [distance] and "
+                               "exactly one field")
+        field, point = next(iter(body.items()))
+        lat, lon = parse_geo_point(point)
+        return GeoDistanceQuery(field=field, lat=lat, lon=lon,
+                                distance_m=parse_distance(distance),
+                                boost=boost)
+
+    if name == "geo_bounding_box":
+        body = dict(body)
+        boost = float(body.pop("boost", 1.0))
+        body.pop("validation_method", None)
+        if len(body) != 1:
+            raise ParsingError("[geo_bounding_box] requires exactly one "
+                               "field")
+        field, spec = next(iter(body.items()))
+        if "top_left" in spec:
+            top, left = parse_geo_point(spec["top_left"])
+            bottom, right = parse_geo_point(spec["bottom_right"])
+        else:
+            top, left = float(spec["top"]), float(spec["left"])
+            bottom, right = float(spec["bottom"]), float(spec["right"])
+        return GeoBoundingBoxQuery(field=field, top=top, left=left,
+                                   bottom=bottom, right=right, boost=boost)
 
     if name == "knn":
         field, spec = _field_body(body, "knn")

@@ -719,11 +719,22 @@ _BATCHABLE_KEYS = frozenset({"query", "size", "from", "min_score", "sort",
                              "_source", "aggs", "aggregations"})
 
 
+def _contains_inner_hits(obj) -> bool:
+    if isinstance(obj, dict):
+        return "inner_hits" in obj or any(_contains_inner_hits(v)
+                                          for v in obj.values())
+    if isinstance(obj, list):
+        return any(_contains_inner_hits(v) for v in obj)
+    return False
+
+
 def _msearch_batchable(body: dict) -> bool:
     """A plain score-sorted body the envelope renders whole (a hybrid body
-    runs its own fused phase)."""
+    runs its own fused phase; inner_hits need the general path's fetch
+    phase)."""
     return set(body) <= _BATCHABLE_KEYS \
         and body.get("sort") in (None, "_score", ["_score"]) \
+        and not _contains_inner_hits(body.get("query")) \
         and not _contains_hybrid(body.get("query"))
 
 

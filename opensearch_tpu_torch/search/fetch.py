@@ -1,11 +1,15 @@
 """Fetch-phase subphases: per-hit enrichment after the device query phase
-(the port of opensearch_tpu.search.fetch, without inner hits, which wait
-for nested documents).
+(the port of opensearch_tpu.search.fetch; the parent-join inner hits are
+not ported, as the join queries are not).
 
 docvalue_fields, highlighting and explain are host work over the page's
-hits only: the device already chose them. A doc's doc values are found
-with two binary searches (the columns keep their pairs sorted by doc), not
-a scan of the column.
+hits only: the device already chose them. A nested query's inner hits
+evaluate its child plan once per (segment, nested query) on the device
+(the port's `_eval_plan`: K2 / K4 / K15 / K25 as the plan needs), then
+copy the dense scores and matches to the host in one copy, memoized
+across the page's hits; each hit then slices its root's own nested rows.
+A doc's doc values are found with two binary searches (the columns keep
+their pairs sorted by doc), not a scan of the column.
 """
 
 from __future__ import annotations
@@ -13,10 +17,14 @@ from __future__ import annotations
 import fnmatch
 import math
 import re
+import time
+from dataclasses import fields as dc_fields
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from opensearch_tpu_torch.common.errors import IllegalArgumentError
 from opensearch_tpu_torch.index.mapper import format_date_millis
 from opensearch_tpu_torch.index.segment import (Segment,
                                                 smallfloat_byte4_to_int)
@@ -340,3 +348,140 @@ def docvalue_fields(seg: Segment, ord_: int, specs: List[Any],
             if len(ords):
                 out[field] = [ocol.dictionary[o] for o in ords]
     return out
+
+
+# --------------------------------------------------------------- inner hits
+
+# the inner-hits child evaluations' device-to-host copies: their count,
+# bytes and wall ms (the copy, including the wait for the plan)
+INNER_HITS_COPIES = {"copies": 0, "bytes": 0, "ms": 0.0}
+
+
+def _eval_child_scores(plan, arrays, dev) -> Tuple[np.ndarray, np.ndarray]:
+    """A nested query's child plan over the whole segment at B=1, then one
+    copy of its dense (scores, matches) to the host."""
+    from opensearch_tpu_torch.search.executor import stage_single
+    from opensearch_tpu_torch.search.plan_eval import _eval_plan
+    inputs, _ms = stage_single(plan.flatten_inputs([]), 0.0, dev)
+    scores, matches = _eval_plan(plan, arrays, inputs, [0], 1)
+    both = torch.stack([scores[0], matches[0].to(torch.float32)])
+    t0 = time.perf_counter()
+    host = both.cpu().numpy()
+    INNER_HITS_COPIES["copies"] += 1
+    INNER_HITS_COPIES["bytes"] += host.nbytes
+    INNER_HITS_COPIES["ms"] += (time.perf_counter() - t0) * 1000.0
+    return host[0], host[1] > 0
+
+
+def collect_inner_hit_specs(node) -> List[Any]:
+    """Every nested query of the tree that carries an inner_hits spec; two
+    sections of one name are refused."""
+    out: List[Any] = []
+
+    def walk(n):
+        if isinstance(n, dsl.NestedQuery) and n.inner_hits is not None:
+            out.append(n)
+        for f in dc_fields(n):
+            sub = getattr(n, f.name, None)
+            if isinstance(sub, dsl.QueryNode):
+                walk(sub)
+            elif isinstance(sub, (list, tuple)):
+                for s in sub:
+                    if isinstance(s, dsl.QueryNode):
+                        walk(s)
+
+    if node is not None:
+        walk(node)
+    names = [(n.inner_hits or {}).get("name", n.path) for n in out]
+    for name in names:
+        if names.count(name) > 1:
+            raise IllegalArgumentError(
+                f"[inner_hits] already contains an entry for key [{name}]")
+    return out
+
+
+def build_inner_hits(ex, seg_i: int, root_ord: int, nested_nodes,
+                     cache: Dict) -> Dict[str, dict]:
+    """The inner_hits sections of one page hit. `cache` memoizes the child
+    evaluation per (segment, nested query) across the page's hits."""
+    from opensearch_tpu_torch.search.compile import Compiler
+    seg = ex.reader.segments[seg_i]
+    arrays, meta = ex.reader.device[seg_i]
+    out: Dict[str, dict] = {}
+    for node in nested_nodes:
+        spec = node.inner_hits or {}
+        name = spec.get("name", node.path)
+        # every requested section appears, empty where no row matched
+        empty = {"hits": {"total": {"value": 0, "relation": "eq"},
+                          "max_score": None, "hits": []}}
+        if node.path not in seg.nested_paths:
+            out[name] = empty
+            continue
+        pord = seg.nested_paths.index(node.path)
+        key = (seg.uid, repr(node.query))
+        got = cache.get(key)
+        if got is None:
+            compiler = Compiler(ex.reader.mapper,
+                                ex.reader.stats_snapshot()[0])
+            plan = compiler.compile(node.query, seg, meta)
+            if len(cache) > 256:
+                cache.clear()
+            got = cache[key] = _eval_child_scores(
+                plan, arrays, ex.reader.torch_device)
+        scores, matches = got
+        rows = _nested_rows(seg, root_ord)
+        rows = rows[(seg.path_ords[rows] == pord) & seg.live[rows]]
+        hit_rows = rows[matches[rows]] if len(rows) else rows
+        if not len(hit_rows):
+            out[name] = empty
+            continue
+        # offsets index the root's source array in row order
+        offset_of = {int(r): i for i, r in enumerate(rows)}
+        order = np.argsort(-scores[hit_rows], kind="stable")
+        size = int(spec.get("size", 3))
+        from_ = int(spec.get("from", 0))
+        page = [int(hit_rows[j]) for j in order][from_:from_ + size]
+        src_parent = _source_value_raw(seg.sources[root_ord], node.path)
+        hits = []
+        for r in page:
+            off = offset_of[r]
+            child_src = (src_parent[off]
+                         if isinstance(src_parent, list)
+                         and off < len(src_parent) else src_parent)
+            hits.append({
+                "_index": ex.reader.index_name,
+                "_id": seg.doc_ids[root_ord],
+                "_nested": {"field": node.path, "offset": off},
+                "_score": float(scores[r]),
+                "_source": child_src,
+            })
+        out[name] = {"hits": {
+            "total": {"value": int(len(hit_rows)), "relation": "eq"},
+            "max_score": float(scores[hit_rows].max()),
+            "hits": hits,
+        }}
+    return out
+
+
+def _nested_rows(seg: Segment, root_ord: int) -> np.ndarray:
+    """A root's nested rows in row order, through a per-segment host CSR
+    (built on first use)."""
+    csr = getattr(seg, "_host_child_csr", None)
+    if csr is None:
+        from opensearch_tpu_torch.ops.device_segment import root_child_csr
+        csr = seg._host_child_csr = root_child_csr(seg.parent_ptr,
+                                                   seg.num_docs)
+    start, rows = csr
+    return rows[start[root_ord]:start[root_ord + 1]]
+
+
+def _source_value_raw(source, path: str):
+    """A dotted path of a source, lists kept whole (inner hits index the
+    nested array by offset)."""
+    cur = source
+    for part in path.split("."):
+        if isinstance(cur, dict) and part in cur:
+            cur = cur[part]
+        else:
+            return None
+    return cur

@@ -6,7 +6,9 @@ doc-value filters `num_terms` / `range_num` / `range_ord` (through K4),
 `exists`, `knn` (through K7 or K8, then K3), `maxsim` (through K10 or
 K11, then K3), `bool`, `dis_max`, `const_score`, and the scoring kinds
 `function_score` (K18), `terms_set`, `distance_feature`, `boosting` and
-`script_score` (K19; a script's expression is torch ops), their value
+`script_score` (K19; a script's expression is torch ops), the block join
+`nested` (K22), the geo_point and rank_feature kinds `geo_distance`,
+`geo_bbox`, `distance_feature_geo` and `rank_feature` (K25), their value
 columns through K15, as elementwise torch ops on [B, Dp] tensors. Plan
 inputs arrive stacked: per-query scalars are [B], per-lane inputs
 [B, QB], rank masks [B, Up], precomputed planes [B, Dp], query vectors
@@ -28,7 +30,8 @@ from opensearch_tpu_torch.ops.knn import (exact_knn_scores, ivf_knn_scores,
 from opensearch_tpu_torch.ops.maxsim import (exact_maxsim_scores,
                                              maxsim_match_topk,
                                              pq_maxsim_scores)
-from opensearch_tpu_torch.ops import scoring
+from opensearch_tpu_torch.ops import geo, scoring
+from opensearch_tpu_torch.ops.nested import nested_join
 from opensearch_tpu_torch.script.painless import compile_score_script
 from opensearch_tpu_torch.search.compile import Plan
 
@@ -219,6 +222,32 @@ def _eval_plan(plan: Plan, seg: Dict[str, torch.Tensor],
         value, exists, _ = dense_numeric(seg, plan.static[0], d_pad)
         return scoring.distance_feature(value, exists, my["origin"],
                                         my["pivot"], my["boost"])
+
+    if kind == "nested":
+        child_s, child_m = _eval_plan(plan.children[0], seg, inputs,
+                                      cursor, bsz)
+        return nested_join(child_s.contiguous(), child_m.contiguous(), seg,
+                           my["path_ord"], my["boost"], plan.static[0])
+
+    if kind in ("geo_distance", "geo_bbox", "distance_feature_geo"):
+        field = plan.static[0]
+        lat, exists, _ = dense_numeric(seg, f"{field}.lat", d_pad)
+        lon, _, _ = dense_numeric(seg, f"{field}.lon", d_pad)
+        if kind == "geo_bbox":
+            return geo.geo_bbox(lat, lon, exists, my["top"], my["left"],
+                                my["bottom"], my["right"], my["boost"])
+        if kind == "geo_distance":
+            return geo.geo_distance(lat, lon, exists, my["lat"], my["lon"],
+                                    my["dist"], my["boost"])
+        return geo.distance_feature_geo(lat, lon, exists, my["lat"],
+                                        my["lon"], my["pivot"], my["boost"])
+
+    if kind == "rank_feature":
+        field, function = plan.static
+        value, exists, _ = dense_numeric(seg, field, d_pad)
+        return geo.rank_feature(value, exists, function, my["pivot"],
+                                my["scaling_factor"], my["exponent"],
+                                my["boost"])
 
     if kind == "boosting":
         pos_s, pos_m = _eval_plan(plan.children[0], seg, inputs, cursor,

@@ -16,6 +16,9 @@ a numeric or date doc-value column (the relevance cell's `likes` and
 boosting families). `clustered_tokens` draws
 ColBERT-shaped token matrices (unit vectors around clustered centers) and
 `rank_vectors_segment` seals them into a one-field `rank_vectors` shard.
+`qa_segment` builds StackOverflow-shaped questions with nested answers
+(the nested cell) and `geonames_segment` GeoNames-shaped places with a
+geo_point, a rank_feature and a country code (the geo cell).
 """
 
 from __future__ import annotations
@@ -572,5 +575,188 @@ def rank_vectors_segment(tokens: np.ndarray, token_count: np.ndarray,
         "post_tf": np.zeros((1, 128), np.float32),
         "norms": {}, "field_stats": {},
         "rank_vectors_dv": {field: entry},
+    }
+    return mapper, segment_from_arrays(arrays)
+
+
+# ------------------------------------------- nested documents and places
+
+QA_MAPPING = {"properties": {
+    "tag": {"type": "keyword"},
+    "creationDate": {"type": "date"},
+    "answers": {"type": "nested", "properties": {
+        "user": {"type": "long"},
+        "date": {"type": "date"},
+        "score": {"type": "integer"}}}}}
+QA_BASE_MS = 1217548800000          # 2008-08-01, StackOverflow's launch
+QA_TAGS = 1000
+QA_USERS = 200_000
+
+
+def _zipf_draw(rng, n_values: int, size: int, s: float = 1.07):
+    """size draws in [0, n_values) with P(k) proportional to 1/(k+1)^s."""
+    p = 1.0 / np.arange(1, n_values + 1) ** s
+    cdf = np.cumsum(p)
+    return np.searchsorted(cdf, rng.random(size) * cdf[-1]).astype(np.int64)
+
+
+def _numeric_dv(rows: np.ndarray, values: np.ndarray, n_rows: int) -> dict:
+    """segment_from_arrays' numeric column for one value on each of
+    `rows` (ascending)."""
+    exists = np.zeros(n_rows, dtype=bool)
+    exists[rows] = True
+    unique, ranks = np.unique(values.astype(np.float64), return_inverse=True)
+    return {"doc_ids": rows.astype(np.int32),
+            "values": values.astype(np.float64), "exists": exists,
+            "counts": exists.astype(np.int32),
+            "value_ords": ranks.astype(np.int32).reshape(-1),
+            "unique": unique}
+
+
+def qa_columns(n_questions: int, seed: int = 42):
+    """The Q&A corpus as columns, after rally-tracks' `nested` track
+    (StackOverflow questions with their answers as nested objects):
+    per question a zipf tag of QA_TAGS and a creationDate over five years;
+    0-8 answers each (a truncated geometric, mean about 2.5), each a zipf
+    user of QA_USERS (a long id), a date after the question and an integer
+    score. Returns (n_answers int64 [Q], tag, created, and per answer in
+    question order user, date, score)."""
+    rng = np.random.default_rng(seed)
+    n_ans = np.minimum(rng.geometric(0.28, n_questions) - 1, 8)
+    tag = _zipf_draw(rng, QA_TAGS, n_questions)
+    created = QA_BASE_MS + rng.integers(0, 5 * 365 * 86400_000,
+                                        n_questions)
+    total = int(n_ans.sum())
+    user = _zipf_draw(rng, QA_USERS, total)
+    date = np.repeat(created, n_ans) + rng.integers(60_000, 90 * 86400_000,
+                                                    total)
+    score = np.round(rng.standard_normal(total) * 4 + 2).astype(np.int64)
+    return n_ans, tag, created, user, date, score
+
+
+def qa_segment(n_questions: int, seed: int = 42, seg_id: str = "qa0"
+               ) -> Tuple[MapperService, Segment]:
+    """One sealed segment of qa_columns: each question a doc block, its
+    answers' rows (path `answers`) before its own row, built from numpy
+    columns through segment_from_arrays (no text fields)."""
+    mapper = MapperService(QA_MAPPING)
+    n_ans, tag, created, user, date, score = qa_columns(n_questions, seed)
+    block = n_ans + 1
+    start = np.concatenate([[0], np.cumsum(block)[:-1]])
+    root = start + n_ans
+    n_rows = int(block.sum())
+    parent = np.full(n_rows, -1, dtype=np.int32)
+    child = np.ones(n_rows, dtype=bool)
+    child[root] = False
+    child_rows = np.nonzero(child)[0]
+    parent[child_rows] = np.repeat(root, n_ans).astype(np.int32)
+    path_ords = np.where(child, 0, -1).astype(np.int32)
+    doc_ids = [None] * n_rows
+    for i, r in enumerate(root.tolist()):
+        doc_ids[r] = f"q{i}"
+    dictionary = sorted(f"t{i:04d}" for i in range(QA_TAGS))
+    ord_of = {t: k for k, t in enumerate(dictionary)}
+    tag_ords = np.array([ord_of[f"t{i:04d}"] for i in range(QA_TAGS)],
+                        np.int32)[tag]
+    root_exists = ~child
+    arrays = {
+        "seg_id": seg_id, "num_docs": n_rows, "doc_ids": doc_ids,
+        "sources": [None] * n_rows, "term_dict": {},
+        "post_docs": np.full((1, 128), -1, np.int32),
+        "post_tf": np.zeros((1, 128), np.float32),
+        "norms": {}, "field_stats": {},
+        "parent_ptr": parent, "path_ords": path_ords,
+        "nested_paths": ["answers"],
+        "numeric_dv": {
+            "creationDate": _numeric_dv(root, created, n_rows),
+            "answers.user": _numeric_dv(child_rows, user, n_rows),
+            "answers.date": _numeric_dv(child_rows, date, n_rows),
+            "answers.score": _numeric_dv(child_rows, score, n_rows)},
+        "ordinal_dv": {"tag": {
+            "doc_ids": root.astype(np.int32), "ords": tag_ords,
+            "exists": root_exists, "dictionary": dictionary,
+            "ord_hashes": np.array([_hash64(t) for t in dictionary],
+                                   np.uint64)}},
+    }
+    return mapper, segment_from_arrays(arrays)
+
+
+GEONAMES_MAPPING = {"properties": {
+    "location": {"type": "geo_point"},
+    "population": {"type": "rank_feature"},
+    "country_code": {"type": "keyword"}}}
+GEONAMES_CENTRES = 5000
+GEONAMES_COUNTRIES = 250
+
+
+def geonames_columns(n_places: int, seed: int = 42):
+    """Places after rally-tracks' `geonames` track: around GEONAMES_CENTRES
+    seeded city centres (a zipf share of the places each, 0.3 degrees of
+    spread, longitudes wrapped), each centre in one of GEONAMES_COUNTRIES
+    country codes; a lognormal population (missing for a tenth). Returns
+    (centres f64 [C, 2], lat, lon f64 [N], country int64 [N], population
+    f64 [N] with NaN where missing)."""
+    rng = np.random.default_rng(seed)
+    c_lat = np.degrees(np.arcsin(rng.uniform(-0.9, 0.97, GEONAMES_CENTRES)))
+    c_lon = rng.uniform(-180.0, 180.0, GEONAMES_CENTRES)
+    c_country = _zipf_draw(rng, GEONAMES_COUNTRIES, GEONAMES_CENTRES, 0.9)
+    which = _zipf_draw(rng, GEONAMES_CENTRES, n_places, 0.8)
+    lat = np.clip(c_lat[which] + rng.normal(0, 0.3, n_places), -89.9, 89.9)
+    lon = (c_lon[which] + rng.normal(0, 0.3, n_places) + 180.0) % 360.0 \
+        - 180.0
+    pop = np.round(rng.lognormal(7, 2, n_places), 1)
+    pop[rng.random(n_places) < 0.1] = np.nan
+    return (np.stack([c_lat, c_lon], 1), np.round(lat, 6), np.round(lon, 6),
+            c_country[which], pop)
+
+
+def geonames_segment(n_places: int, seed: int = 42, seg_id: str = "geo0"
+                     ) -> Tuple[MapperService, Segment]:
+    """One sealed segment of geonames_columns: `location` (its hidden
+    .lat / .lon columns, and the field's own lats), `population` and
+    `country_code` (doc values and postings), through
+    segment_from_arrays."""
+    mapper = MapperService(GEONAMES_MAPPING)
+    _c, lat, lon, country, pop = geonames_columns(n_places, seed)
+    rows = np.arange(n_places)
+    has_pop = ~np.isnan(pop)
+    dictionary = sorted(f"c{i:03d}" for i in range(GEONAMES_COUNTRIES))
+    # country_code's postings (term filters): each code's docs in order,
+    # padded to whole blocks of 128
+    order = np.argsort(country, kind="stable").astype(np.int32)
+    df = np.bincount(country, minlength=GEONAMES_COUNTRIES)
+    blocks = -(-df // 128)
+    post_docs = np.full((max(int(blocks.sum()), 1), 128), -1, np.int32)
+    term_dict, at, blk = {}, 0, 0
+    for c in range(GEONAMES_COUNTRIES):
+        if df[c]:
+            flat = post_docs[blk:blk + blocks[c]].reshape(-1)
+            flat[:df[c]] = order[at:at + df[c]]
+            term_dict[("country_code", dictionary[c])] = (
+                int(df[c]), int(df[c]), blk, int(blocks[c]))
+        at += int(df[c])
+        blk += int(blocks[c])
+    arrays = {
+        "seg_id": seg_id, "num_docs": n_places,
+        "doc_ids": [f"g{i}" for i in range(n_places)],
+        "sources": [None] * n_places, "term_dict": term_dict,
+        "post_docs": post_docs,
+        "post_tf": (post_docs >= 0).astype(np.float32),
+        "norms": {},
+        "field_stats": {"country_code": (n_places, n_places, n_places)},
+        "numeric_dv": {
+            "location": _numeric_dv(rows, lat, n_places),
+            "location.lat": _numeric_dv(rows, lat, n_places),
+            "location.lon": _numeric_dv(rows, lon, n_places),
+            "population": _numeric_dv(rows[has_pop], pop[has_pop],
+                                      n_places)},
+        "ordinal_dv": {"country_code": {
+            "doc_ids": rows.astype(np.int32),
+            # f"c{i:03d}" sorts as i
+            "ords": country.astype(np.int32),
+            "exists": np.ones(n_places, dtype=bool),
+            "dictionary": dictionary,
+            "ord_hashes": np.array([_hash64(t) for t in dictionary],
+                                   np.uint64)}},
     }
     return mapper, segment_from_arrays(arrays)

@@ -424,6 +424,8 @@ def segment_arrays(seg) -> dict:
                         for f, st in seg.field_stats.items()},
         "live": seg.live.copy(),
         "parent_ptr": seg.parent_ptr.copy(),
+        "path_ords": seg.path_ords.copy(),
+        "nested_paths": list(seg.nested_paths),
         "numeric_dv": {f: {"doc_ids": c.doc_ids, "values": c.values,
                            "exists": c.exists, "counts": c.counts,
                            "value_ords": c.value_ords, "unique": c.unique}
@@ -1350,3 +1352,317 @@ SHARD_BODIES: Dict[str, dict] = {
     "dfs": {"query": {"match": {"body": "w00011 w00004"}},
             "search_type": "dfs_query_then_fetch", "size": 10},
 }
+
+
+# ----------------------------------------- nested documents (Q&A corpus)
+
+# after rally-tracks' `nested` track: questions with their answers as
+# nested objects
+QA_MAPPING = {"mappings": {"properties": {
+    "title": {"type": "text"},
+    "tag": {"type": "keyword"},
+    "creationDate": {"type": "date"},
+    "votes": {"type": "integer"},
+    "answers": {"type": "nested", "properties": {
+        "user": {"type": "long"},
+        "date": {"type": "date"},
+        "score": {"type": "integer"},
+        "text": {"type": "text"}}}}}}
+QA_N = 360
+QA_BASE = 1262304000000          # 2010-01-01
+QA_WORDS = [f"q{i}" for i in range(30)]
+QA_TAGS = [f"tag{i}" for i in range(12)]
+
+
+def qa_corpus(n: int = QA_N, seed: int = 9) -> List[dict]:
+    """Seeded questions: a title, a zipf `tag`, a `creationDate` over two
+    years, `votes`, and 0-8 answers (mean about 2.5), each a zipf `user`
+    of 60, a `date` after the question, an integer `score` and a text."""
+    rng = np.random.default_rng(seed)
+    tag_p = 1.0 / np.arange(1, len(QA_TAGS) + 1)
+    tag_p /= tag_p.sum()
+    user_p = 1.0 / np.arange(1, 61) ** 1.1
+    user_p /= user_p.sum()
+    out = []
+    for i in range(n):
+        created = QA_BASE + int(rng.integers(0, 730)) * 86400_000 \
+            + int(rng.integers(0, 86400)) * 1000
+        q = {"title": " ".join(rng.choice(QA_WORDS, 4)),
+             "tag": str(rng.choice(QA_TAGS, p=tag_p)),
+             "creationDate": created, "votes": int(rng.integers(0, 50))}
+        n_ans = int(min(rng.geometric(0.3) - 1, 8))
+        if n_ans:
+            q["answers"] = [{
+                "user": int(rng.choice(60, p=user_p)),
+                "date": created + int(rng.integers(1, 400)) * 3600_000,
+                "score": int(rng.integers(-2, 30)),
+                "text": " ".join(rng.choice(QA_WORDS, 5))}
+                for _ in range(n_ans)]
+        out.append(q)
+    return out
+
+
+def load_qa_index(node, index: str = "qa", n: int = QA_N,
+                  shards: int = 1, two_refreshes: bool = True) -> None:
+    """The Q&A corpus over two refreshes: the second re-indexes a few
+    questions (their blocks replaced) and deletes others (their blocks
+    killed, in a sealed segment and in the buffer). With one refresh each
+    shard holds one segment."""
+    docs = qa_corpus(n)
+    create_index(node, index, QA_MAPPING, shards)
+    if not two_refreshes:
+        bulk_refresh(node, index, {f"q{i}": d for i, d in enumerate(docs)})
+        return
+    half = n // 2
+    bulk_refresh(node, index, {f"q{i}": docs[i] for i in range(half)})
+    second = {f"q{i}": docs[i] for i in range(half, n)}
+    second.update({f"q{i}": docs[(i * 7) % n] for i in range(3, half, 41)})
+    deletes = [f"q{i}" for i in range(5, n, 37)]
+    bulk_refresh(node, index, second, deletes)
+
+
+def qa_match_body(user: int, day: int, mode: str, inner=None,
+                  size: int = 10) -> dict:
+    """The nested cell's query family: answers by a user after a date,
+    scored by the answer text, in one score mode."""
+    nested = {"path": "answers", "score_mode": mode, "query": {"bool": {
+        "must": [{"match": {"answers.text": "q1 q3 q7"}}],
+        "filter": [{"term": {"answers.user": user}},
+                   {"range": {"answers.date": {
+                       "gte": QA_BASE + day * 86400_000}}}]}}}
+    if inner is not None:
+        nested["inner_hits"] = inner
+    return {"query": {"nested": nested}, "size": size}
+
+
+NESTED_MODES = ("avg", "sum", "max", "min", "none")
+
+# aggregations under `nested` and `reverse_nested`: every kind the port
+# evaluates under a static parent, on the dynamic context
+NESTED_AGG_BODIES: Dict[str, dict] = {
+    "terms_user": {"nested": {"path": "answers"}, "aggs": {
+        "u": {"terms": {"field": "answers.user", "size": 10}}}},
+    "tree": {"nested": {"path": "answers"}, "aggs": {
+        "m": {"date_histogram": {"field": "answers.date",
+                                 "calendar_interval": "month"},
+              "aggs": {"back": {"reverse_nested": {}, "aggs": {
+                  "t": {"terms": {"field": "tag"}}}}}}}},
+    "metrics": {"nested": {"path": "answers"}, "aggs": {
+        "st": {"stats": {"field": "answers.score"}},
+        "ex": {"extended_stats": {"field": "answers.score"}},
+        "mn": {"min": {"field": "answers.score"}},
+        "mx": {"max": {"field": "answers.date"}},
+        "vc": {"value_count": {"field": "answers.user"}},
+        "card": {"cardinality": {"field": "answers.user"}},
+        "pc": {"percentiles": {"field": "answers.score",
+                               "percents": [10, 50, 90]}},
+        "miss": {"avg": {"field": "answers.score", "missing": 3}},
+        "wa": {"weighted_avg": {"value": {"field": "answers.score"},
+                                "weight": {"field": "answers.user"}}}}},
+    "buckets": {"nested": {"path": "answers"}, "aggs": {
+        "h": {"histogram": {"field": "answers.score", "interval": 5},
+              "aggs": {"s": {"sum": {"field": "answers.score"}}}},
+        "r": {"range": {"field": "answers.score", "ranges": [
+            {"to": 0}, {"from": 0, "to": 10}, {"from": 10}]}},
+        "f": {"filter": {"range": {"answers.score": {"gte": 10}}},
+              "aggs": {"u": {"terms": {"field": "answers.user",
+                                       "size": 5}}}},
+        "fs": {"filters": {"filters": {
+            "hi": {"range": {"answers.score": {"gte": 20}}},
+            "txt": {"match": {"answers.text": "q2"}}}}},
+        "ms": {"missing": {"field": "answers.text"}},
+        "g": {"global": {}, "aggs": {"c": {"value_count": {
+            "field": "votes"}}}}}},
+    "dense": {"nested": {"path": "answers"}, "aggs": {
+        "cp": {"composite": {"size": 20, "sources": [
+            {"u": {"terms": {"field": "answers.user"}}},
+            {"s": {"histogram": {"field": "answers.score",
+                                 "interval": 10}}}]}},
+        "mt": {"multi_terms": {"terms": [{"field": "answers.user"},
+                                         {"field": "answers.score"}],
+                               "size": 5}},
+        "adj": {"adjacency_matrix": {"filters": {
+            "a": {"range": {"answers.score": {"gte": 10}}},
+            "b": {"range": {"answers.user": {"lt": 5}}}}}},
+        "mst": {"matrix_stats": {"fields": ["answers.score",
+                                            "answers.user"]}}}},
+    "under_terms": {"terms": {"field": "tag", "size": 4}, "aggs": {
+        "a": {"nested": {"path": "answers"}, "aggs": {
+            "top": {"max": {"field": "answers.score"}},
+            "back": {"reverse_nested": {}, "aggs": {
+                "v": {"sum": {"field": "votes"}}}}}}}},
+}
+
+
+# -------------------------------------------- geo_point and rank_feature
+
+# after rally-tracks' `geonames` track: places with a location, a
+# population (a rank_feature here) and a country code
+GEO_MAPPING = {"mappings": {"properties": {
+    "name": {"type": "text"},
+    "location": {"type": "geo_point"},
+    "population": {"type": "rank_feature"},
+    "country_code": {"type": "keyword"},
+    "elev": {"type": "integer"}}}}
+GEO_N = 600
+# seeded city centres (lat, lon), two of them by the dateline
+GEO_CENTRES = [(52.52, 13.405), (48.86, 2.35), (40.71, -74.0),
+               (35.68, 139.69), (-33.87, 151.21), (-17.7, 178.4),
+               (64.2, -179.3), (19.43, -99.13), (-23.55, -46.63),
+               (1.35, 103.82)]
+
+
+# geo_distance bodies: (centre, radius) on `location`
+GEO_DISTANCE = {"berlin_150km": ((52.52, 13.405), "150km"),
+                "paris_1200km": ((48.86, 2.35), "1200km"),
+                "fiji_300km": ((-17.7, 178.4), "300km"),
+                "tokyo_95km": ((35.68, 139.69), 95000)}
+
+
+def geo_points(n: int = GEO_N, seed: int = 5):
+    """Each place's points (lat, lon), seeded around GEO_CENTRES: one
+    point mostly, two for every 37th place, none for every 53rd."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        if i % 53 == 52:
+            out.append([])
+            continue
+        pts = []
+        for _ in range(2 if i % 37 == 36 else 1):
+            c = GEO_CENTRES[int(rng.integers(0, len(GEO_CENTRES)))]
+            lat = float(np.clip(c[0] + rng.normal(0, 1.5), -89.9, 89.9))
+            lon = float(c[1] + rng.normal(0, 2.0))
+            lon = (lon + 180.0) % 360.0 - 180.0
+            pts.append((round(lat, 6), round(lon, 6)))
+        out.append(pts)
+    return out
+
+
+def geo_corpus(n: int = GEO_N, seed: int = 5) -> List[dict]:
+    """Places whose locations rotate through the geo_point wire shapes:
+    {"lat", "lon"}, "lat,lon" and [lon, lat] (a list of those for two
+    points); a lognormal `population` (missing for every 29th)."""
+    rng = np.random.default_rng(seed + 1)
+    docs = []
+    for i, pts in enumerate(geo_points(n, seed)):
+        d = {"name": f"place {i % 17}", "elev": int(rng.integers(0, 3000)),
+             "country_code": f"c{i % 10}"}
+        if i % 29 != 0:
+            d["population"] = float(round(rng.lognormal(8, 1.5), 2))
+        shape = i % 3
+        enc = [({"lat": la, "lon": lo} if shape == 0 else
+                f"{la},{lo}" if shape == 1 else [lo, la]) for la, lo in pts]
+        if len(enc) == 1:
+            d["location"] = enc[0]
+        elif len(enc) > 1:
+            d["location"] = enc
+        docs.append(d)
+    # one place on each GEO_DISTANCE circle, due north of its centre
+    for (lat, lon), dist in GEO_DISTANCE.values():
+        metres = float(str(dist).rstrip("km")) * (
+            1000.0 if str(dist).endswith("km") else 1.0)
+        docs.append({"name": "edge", "country_code": "c0", "elev": 0,
+                     "location": {"lat": lat + math.degrees(
+                         metres / 6371008.7714), "lon": lon}})
+    return docs
+
+
+def load_geo_index(node, index: str = "geo", n: int = GEO_N) -> None:
+    """The places over two refreshes (two segments), a few deleted."""
+    docs = geo_corpus(n)
+    create_index(node, index, GEO_MAPPING, 1)
+    half = n // 2
+    bulk_refresh(node, index, {f"p{i}": docs[i] for i in range(half)})
+    bulk_refresh(node, index, {f"p{i}": docs[i]
+                               for i in range(half, len(docs))},
+                 [f"p{i}" for i in range(4, n, 61)])
+
+
+GEO_QUERY_BODIES: Dict[str, dict] = {
+    "bbox": {"query": {"bool": {"filter": [{"geo_bounding_box": {
+        "location": {"top_left": {"lat": 55.0, "lon": 0.0},
+                     "bottom_right": {"lat": 45.0, "lon": 15.0}}}}]}},
+        "size": 100},
+    "bbox_dateline": {"query": {"geo_bounding_box": {"location": {
+        "top": 70.0, "left": 170.0, "bottom": -30.0, "right": -170.0}}},
+        "size": 100},
+    "distance_feature": {"query": {"bool": {
+        "must": [{"match_all": {}}],
+        "should": [{"distance_feature": {
+            "field": "location", "origin": "48.86,2.35",
+            "pivot": "50km"}}]}}, "size": 30},
+    "distance_feature_array": {"query": {"distance_feature": {
+        "field": "location", "origin": [151.21, -33.87], "pivot": "300km",
+        "boost": 2.0}}, "size": 30},
+    "saturation": {"query": {"rank_feature": {
+        "field": "population", "saturation": {"pivot": 3000}}}, "size": 30},
+    "saturation_default": {"query": {"rank_feature": {
+        "field": "population"}}, "size": 30},
+    "log": {"query": {"rank_feature": {
+        "field": "population", "log": {"scaling_factor": 2}}}, "size": 30},
+    "sigmoid": {"query": {"rank_feature": {
+        "field": "population", "sigmoid": {"pivot": 2000,
+                                           "exponent": 0.6}}}, "size": 30},
+    "linear": {"query": {"rank_feature": {
+        "field": "population", "linear": {}, "boost": 0.5}}, "size": 30},
+    "rank_in_radius": {"query": {"bool": {
+        "filter": [{"geo_distance": {"distance": "200km",
+                                     "location": [2.35, 48.86]}}],
+        "should": [{"rank_feature": {"field": "population",
+                                     "saturation": {"pivot": 3000}}}]}},
+        "size": 30},
+}
+
+
+
+def geo_distance_body(name: str) -> dict:
+    (lat, lon), dist = GEO_DISTANCE[name]
+    return {"query": {"bool": {"filter": [{"geo_distance": {
+        "distance": dist, "location": {"lat": lat, "lon": lon}}}]}},
+        "size": 1000}
+
+
+GEO_AGG_BODIES: Dict[str, dict] = {
+    "bounds_centroid": {"gb": {"geo_bounds": {"field": "location"}},
+                        "gc": {"geo_centroid": {"field": "location"}}},
+    "by_country": {"cc": {"terms": {"field": "country_code", "size": 20},
+                          "aggs": {"gb": {"geo_bounds": {
+                              "field": "location"}},
+                              "gc": {"geo_centroid": {
+                                  "field": "location"}}}}},
+    "geohash": {"gh": {"geohash_grid": {"field": "location",
+                                        "precision": 3}}},
+    "geotile": {"gt": {"geotile_grid": {"field": "location",
+                                        "precision": 6}}},
+    "grid_under_terms": {"cc": {"terms": {"field": "country_code"},
+                                "aggs": {"cells": {"geohash_grid": {
+                                    "field": "location",
+                                    "precision": 1}}}}},
+    "grid_sub": {"gt": {"geotile_grid": {"field": "location",
+                                         "precision": 3},
+                        "aggs": {"e": {"max": {"field": "elev"}}}}},
+    "filtered_centroid": {"f": {"filter": {"range": {"elev": {
+        "gte": 1000}}}, "aggs": {"gc": {"geo_centroid": {
+            "field": "location"}}}}},
+}
+
+
+def centroid_tol(resp: dict, path: str = "", out=None) -> Dict[str, float]:
+    """geo_centroid's bound per coordinate path: each side's f32 sum of
+    `count` coordinates lies within count * 2^-24 * sum|v| of the exact
+    sum (|v| <= 180), so two sides' means lie within twice that over the
+    count."""
+    out = {} if out is None else out
+    if isinstance(resp, dict):
+        if "location" in resp and "count" in resp:
+            cnt = resp["count"]
+            for axis in ("lat", "lon"):
+                out[f"{path}.location.{axis}"] = \
+                    2 * f32_sum_bound(cnt, 180.0 * cnt) / cnt
+        for k, v in resp.items():
+            centroid_tol(v, f"{path}.{k}", out)
+    elif isinstance(resp, list):
+        for i, v in enumerate(resp):
+            centroid_tol(v, f"{path}[{i}]", out)
+    return out

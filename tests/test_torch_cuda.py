@@ -18,7 +18,11 @@ kernel's two levels) and the same bits from run to run. K18
 (function_score) and K19's four entries (terms_set, distance_feature,
 boosting, script_score's wrap) bit for bit, logf / log1pf / expf
 included, NaN at the same places (torch's CUDA ops call the same
-libdevice functions as the kernels)."""
+libdevice functions as the kernels). K22 (nested_join) bit for bit in
+every score mode; K23 (nested_aggs) exactly; K24 (binned_scatter) counts,
+min and max exactly and its sums bit for bit (one sorted two-level order)
+and within the sum bound; K25's four geo / rank_feature entries bit for
+bit."""
 
 import numpy as np
 import pytest
@@ -946,3 +950,149 @@ def test_row_value_key_kernel_equals_plain(gpu, order):
     want = kspmd.row_value_key_plain({k: v.cpu() for k, v in col.items()},
                                      order)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------- K22 nested_join, K23 nested_aggs, K24, K25
+
+def _blocks(gen, d_pad, n_roots):
+    """A doc-block layout on the card: roots at random rows, each with 0-6
+    nested rows placed anywhere before it, on one of two paths."""
+    parent = torch.full((d_pad,), -1, dtype=torch.int32)
+    paths = torch.full((d_pad,), -1, dtype=torch.int32)
+    perm = torch.randperm(d_pad, generator=gen)
+    roots = perm[:n_roots].sort()[0]
+    free = perm[n_roots:].tolist()
+    for r in roots.tolist():
+        for _ in range(int(torch.randint(0, 7, (1,), generator=gen))):
+            if not free:
+                break
+            c = free.pop()
+            parent[c] = r
+            paths[c] = int(torch.randint(0, 2, (1,), generator=gen))
+    from opensearch_tpu_torch.ops.device_segment import root_child_csr
+    start, rows = root_child_csr(parent.numpy(), d_pad)
+    live = torch.rand(d_pad, generator=gen) < 0.9
+    return {"parent_ptr": parent.cuda(), "nested_path": paths.cuda(),
+            "child_start": torch.from_numpy(start).cuda(),
+            "child_rows": torch.from_numpy(rows).cuda(), "live": live.cuda()}
+
+
+@pytest.mark.parametrize("mode", ["avg", "sum", "max", "min", "none"])
+def test_nested_join_kernel_equals_plain(gpu, mode):
+    """K22 bit for bit: a root's selected rows folded in row order."""
+    from opensearch_tpu_torch.ops import nested
+    gen = torch.Generator().manual_seed(22)
+    bsz, d_pad = 6, 9000
+    seg = _blocks(gen, d_pad, 2000)
+    child_s = (torch.rand(bsz, d_pad, generator=gen) * 9).cuda()
+    child_m = (torch.rand(bsz, d_pad, generator=gen) < 0.6).cuda()
+    path_ord = torch.tensor([0, 1, -1, 0, 1, 0], dtype=torch.int32).cuda()
+    boost = (torch.rand(bsz, generator=gen) + 0.5).cuda()
+    before = _build.LAUNCHES["nested_join"]
+    got = nested.nested_join(child_s, child_m, seg, path_ord, boost, mode)
+    want = nested.nested_join_plain(
+        child_s, child_m, seg["live"], seg["nested_path"], seg["parent_ptr"],
+        seg["child_start"], seg["child_rows"], path_ord, boost, mode)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nested_join"] == before + 1
+    assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_nested_aggs_kernels_equal_plain(gpu):
+    """K23 nested and reverse_nested: own rows, buckets and counts
+    exactly."""
+    from opensearch_tpu_torch.ops import nested
+    gen = torch.Generator().manual_seed(23)
+    bsz, d_pad, card = 5, 20000, 37
+    seg = _blocks(gen, d_pad, 5000)
+    mask = (torch.rand(bsz, d_pad, generator=gen) < 0.7).cuda()
+    peff = torch.randint(-1, card, (bsz, d_pad), generator=gen,
+                         dtype=torch.int32).cuda()
+    path_ord = torch.tensor([0, 1, 0, -1, 1], dtype=torch.int32).cuda()
+    got = nested.nested_agg(mask, peff, seg, path_ord, card)
+    want = nested.nested_agg_plain(mask, peff, seg["live"],
+                                   seg["nested_path"], seg["parent_ptr"],
+                                   path_ord, card)
+    got_r = nested.reverse_nested_agg(mask, peff, seg, card)
+    want_r = nested.reverse_nested_agg_plain(mask, peff, seg["parent_ptr"],
+                                             card)
+    torch.cuda.synchronize()
+    for g, w in zip(got + got_r, want + want_r):
+        assert torch.equal(g, w)
+    assert int(got_r[2].sum()) > 0
+
+
+@pytest.mark.parametrize("per_query,total,n", [(False, 16, 70000),
+                                               (True, 3, 5000),
+                                               (False, 40000, 100000)])
+def test_binned_scatter_kernel_equals_plain(gpu, per_query, total, n):
+    """K24: counts, min and max exactly; sums and sums of squares bit for
+    bit (one sorted two-level order on both sides) and within
+    n * 2^-24 * sum|v| of the f64 sums."""
+    gen = torch.Generator().manual_seed(24)
+    bsz = 4
+    lanes = torch.randint(-2, total + 2, (bsz, n), generator=gen,
+                          dtype=torch.int32).cuda()
+    shape = (bsz, n) if per_query else (n,)
+    values = (torch.randn(shape, generator=gen) * 100).cuda()
+    needs = ("cnt", "sum", "sumsq", "min", "max")
+    before = _build.LAUNCHES["binned_scatter"]
+    got = binned.binned_scatter(lanes, total, values, needs)
+    want = binned.binned_scatter_plain(lanes, total, values, needs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["binned_scatter"] == before + 1
+    for k in needs:
+        assert _same(got[k], want[k]), k
+    ok = (lanes >= 0) & (lanes < total)
+    idx = torch.where(ok, lanes, total).long()
+    v = values.expand(bsz, -1).double()
+    exact = torch.zeros(bsz, total + 1, dtype=torch.float64,
+                        device="cuda").scatter_add_(1, idx, v)[:, :total]
+    mag = torch.zeros(bsz, total + 1, dtype=torch.float64,
+                      device="cuda").scatter_add_(1, idx, v.abs())[:, :total]
+    cnt = got["cnt"].double()
+    assert bool(((got["sum"].double() - exact).abs()
+                 <= cnt * 2.0 ** -24 * mag + 1e-30).all())
+
+
+def test_geo_scores_kernels_equal_plain(gpu):
+    """K25's four entries against their plain versions on the card: the
+    same sinf / cosf / asinf / powf / logf, one rounding per operation."""
+    from opensearch_tpu_torch.ops import geo
+    gen = torch.Generator().manual_seed(25)
+    bsz, d_pad = 6, 30000
+    lat = (torch.rand(d_pad, generator=gen) * 180 - 90).cuda()
+    lon = (torch.rand(d_pad, generator=gen) * 360 - 180).cuda()
+    exists = (torch.rand(d_pad, generator=gen) < 0.9).cuda()
+    qlat = (torch.rand(bsz, generator=gen) * 180 - 90).cuda()
+    qlon = (torch.rand(bsz, generator=gen) * 360 - 180).cuda()
+    dist = (torch.rand(bsz, generator=gen) * 5e6).cuda()
+    boost = (torch.rand(bsz, generator=gen) + 0.5).cuda()
+    top = qlat.clamp(-80, 80) + 10
+    bottom = top - 30
+    left = qlon
+    right = torch.where(torch.arange(bsz, device="cuda") % 2 == 0,
+                        qlon + 40, qlon - 40)     # odd rows cross the line
+    feat = (torch.rand(d_pad, generator=gen) * 100 - 5).cuda()
+    pivot = (torch.rand(bsz, generator=gen) * 20 + 1).cuda()
+    scale = (torch.rand(bsz, generator=gen) + 1).cuda()
+    expo = (torch.rand(bsz, generator=gen) * 2 + 0.2).cuda()
+    checks = [
+        (geo.geo_distance(lat, lon, exists, qlat, qlon, dist, boost),
+         geo.geo_distance_plain(lat, lon, exists, qlat, qlon, dist, boost)),
+        (geo.geo_bbox(lat, lon, exists, top, left, bottom, right, boost),
+         geo.geo_bbox_plain(lat, lon, exists, top, left, bottom, right,
+                            boost)),
+        (geo.distance_feature_geo(lat, lon, exists, qlat, qlon, dist, boost),
+         geo.distance_feature_geo_plain(lat, lon, exists, qlat, qlon, dist,
+                                        boost))]
+    for fn in geo.RANK_FUNCTIONS:
+        checks.append((geo.rank_feature(feat, exists, fn, pivot, scale, expo,
+                                        boost),
+                       geo.rank_feature_plain(feat, exists, fn, pivot, scale,
+                                              expo, boost)))
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(checks):
+        assert _same(got[0], want[0]) and torch.equal(got[1], want[1]), i
+    for name in geo.ENTRIES:
+        assert _build.LAUNCHES[name] > 0

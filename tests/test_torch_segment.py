@@ -17,7 +17,8 @@ from opensearch_tpu_torch.index.mapper import MapperService as TMapper
 from opensearch_tpu_torch.index.segment import SegmentBuilder as TBuilder
 from opensearch_tpu_torch.index.segment import (block_score_bounds,
                                                 segment_from_arrays)
-from opensearch_tpu_torch.ops.device_segment import upload_segment
+from opensearch_tpu_torch.ops.device_segment import (root_child_csr,
+                                                    upload_segment)
 from opensearch_tpu_torch.utils import demo as tdemo
 from opensearch_tpu.utils import demo as jdemo
 
@@ -88,10 +89,16 @@ def test_device_images_are_equal(pair, source):
     jimg, jmeta = j_upload(jseg)
     timg, tmeta = upload_segment(tseg, torch.device("cpu"))
     # the flat leaves, plus the doc-value, vector and token-matrix
-    # subtrees (keyword columns here, no vectors)
+    # subtrees (keyword columns here, no vectors), and the port's own
+    # per-root child CSR of K22 (nested_join), built from parent_ptr
     assert set(IMAGE_KEYS) <= set(jimg) \
         and set(timg) == set(IMAGE_KEYS) | {"numeric", "ordinal", "vector",
-                                            "rank_vectors"}
+                                            "rank_vectors", "child_start",
+                                            "child_rows"}
+    start, rows = root_child_csr(np.asarray(jimg["parent_ptr"]),
+                                 tmeta.d_pad)
+    np.testing.assert_array_equal(timg["child_start"].numpy(), start)
+    np.testing.assert_array_equal(timg["child_rows"].numpy(), rows)
     for key in IMAGE_KEYS:
         want = np.asarray(jimg[key])
         got = timg[key].numpy()
