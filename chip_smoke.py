@@ -195,6 +195,32 @@ shards (block-max on the envelope and on the program).
     against numpy; the grid keys' numpy form against the scalar functions
     on a seeded 100,000-place sample; a 200,000-place cut against
     Node(device="cpu").
+16. ingest cell: rally-tracks' http_logs lines (`@timestamp`, `clientip`
+    as a keyword, `request`, `status`, `size`; utils/demo.http_logs_docs)
+    written through Node().request: 200,000 through `_bulk` in requests of
+    5,000 with a refresh after every fourth (ten segments of 20,000 docs,
+    Dp 32,768) on an `indices.publish.delta: true` node and on a gate-off
+    twin, then 2,000 `_update` partial docs on random ids guarded by
+    `if_seq_no` (200 stale: each a 409), 2,000 deletes and a refresh, 32
+    single-doc writes with ?refresh=true (one-doc segments, the ones whose
+    leaves the delta publish compacts and expand_pad expands) and
+    `_forcemerge` to one segment. Every published image equals
+    upload_segment's leaf by leaf; `_count`, a range `_count`, a terms agg
+    on status and GET of 200 ids (realtime before a refresh, and after)
+    equal a host model of the live docs. Prints `_bulk` docs/s and p50,
+    refresh p50 / p99 split into seal and publish, the publish's bytes and
+    ms gate on and off on one segment (20,000 docs and one doc), live-mask
+    bytes a refresh in both states, B=1 `_search` p50 / p99 over ten
+    segments and over one, the first search after a refresh, the
+    force-merge wall, GET and `_update` p50; expand_pad's launches on this
+    path go into the kernels line.
+
+Phase 2 also holds row 16's expand_pad against its plain version bit for
+bit on every leaf a 40-doc ingest segment compacts (ragged and bucketed
+prefixes), on phase 5's 10M-doc image (Dp 2^24: live, views' min_rank /
+exists / values, tag's doc ids), phase 6's vectors (1M x 128 into
+[2^20, 128]) and phase 8's PQ codes (u8 [100,000, 128, 32] into
+[131,072, 128, 32]), timed beside its bound and F.pad.
 
 Phase 2 also holds K22 nested_join (sum, avg, max), K23 nested_aggs
 (nested under the root, reverse_nested under a monthly date_histogram)
@@ -787,7 +813,10 @@ def phase_serving(torch, np, device=None):
         seg = node.indices.get("vecs").shards[0].engine.segments[0]
         if seg.vector_dv["v_ivf"].ivf is None:
             raise AssertionError("the vecs index sealed no IVF index")
-    missing = [k for k, v in launches.items() if v == 0]
+    # expand_pad runs on the delta publish: the ingest cell (phase 16)
+    # holds its launches
+    missing = [k for k, v in launches.items() if v == 0
+               and k != "expand_pad"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -4672,6 +4701,491 @@ def phase_geo_cell(torch, np, geo_seg, card: str, out_dir=None,
     return out
 
 
+INGEST_DOCS = 200_000       # rally http_logs: ~247M log lines, cut
+INGEST_BULK = 5_000         # docs a _bulk request
+INGEST_REFRESH_EVERY = 4    # _bulk requests a refresh: 20,000-doc segments
+INGEST_UPDATES = 2_000
+INGEST_STALE = 200          # of them with a stale if_seq_no: each a 409
+INGEST_DELETES = 2_000
+INGEST_GETS = 200
+INGEST_TAIL = 32            # single-doc writes with ?refresh=true
+INGEST_BODIES = 64
+INGEST_SMALL_DOCS = 40      # phase 2's small segment of the cell
+
+
+def _expand_leaves(seg, raw: bool):
+    """(path, host leaf, compact extents, fill) of every leaf of a
+    segment's image that the delta publish compacts: the publish's
+    power-of-two bucketed extents, or with `raw` the populated extents
+    themselves (a ragged prefix, to hold the kernel on any shape)."""
+    from opensearch_tpu_torch.index.segment import pad_bucket
+    from opensearch_tpu_torch.ops.device_segment import (compact_spec,
+                                                         segment_image)
+    host, _meta = segment_image(seg)
+    out = []
+    for path, (ext, fill) in compact_spec(seg).items():
+        leaf = host
+        for key in path:
+            leaf = leaf[key]
+        c = tuple(f if e is None else min(
+            max(int(e), 1) if raw else pad_bucket(max(int(e), 1), 8), f)
+            for e, f in zip(ext, leaf.shape))
+        out.append((path, leaf, c, fill))
+    return out
+
+
+def phase_expand_kernels(torch, np, agg_seg, sift_vectors, dev):
+    """Row 16 expand_pad against its plain version (torch.full and a slice
+    assignment) on the card, bit for bit, on every leaf kind: every leaf
+    of a 40-doc segment of the ingest cell that the delta publish compacts
+    (post_docs cut on both axes to its populated [NB, docs] prefix, the
+    [F, Dp] norms, bool live, the `status` column's seven leaves, ...),
+    phase 5's 10M-doc image (Dp 2^24: live, views' values / min_rank /
+    exists, tag's doc ids), phase 6's vectors (1M x 128 into [2^20, 128])
+    and phase 8's PQ codes (uniform random u8 [100,000, 128, 32] into
+    [131,072, 128, 32]). Each big leaf timed as a graph replay, a call,
+    the plain version and F.pad (the library call computing the same
+    function); bound = (compact bytes + padded bytes) / 3.35 TB/s."""
+    import torch.nn.functional as F
+    from opensearch_tpu_torch.index.mapper import MapperService
+    from opensearch_tpu_torch.index.segment import SegmentBuilder, pad_bucket
+    from opensearch_tpu_torch.ops.device_segment import (expand_pad,
+                                                         expand_pad_plain,
+                                                         upload_segment)
+    from opensearch_tpu_torch.utils.demo import (HTTP_LOGS_MAPPING,
+                                                 http_logs_docs)
+    results = {}
+
+    def hold(name, x, full, fill, timed):
+        got, again = expand_pad(x, full, fill), expand_pad(x, full, fill)
+        want = expand_pad_plain(x, full, fill)
+        torch.cuda.synchronize()
+        if not (_same_bits(torch, got, want) and _same_bits(torch, got,
+                                                            again)):
+            raise AssertionError(f"expand_pad {name}: kernel and plain "
+                                 f"version differ")
+        if got.dtype != x.dtype or tuple(got.shape) != tuple(full):
+            raise AssertionError(f"expand_pad {name}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not timed:
+            return
+        pads = []
+        for c, f in zip(reversed(x.shape), reversed(full)):
+            pads += [0, f - c]
+        width = x.element_size()
+        bound = _bound((x.numel() + got.numel()) * width, 0.0)
+        rec = {"shape": f"{name} {tuple(x.shape)} -> {tuple(full)} "
+                        f"{str(x.dtype).replace('torch.', '')}",
+               "max_abs_err": 0.0,
+               "ms": graph_ms(torch, lambda: expand_pad(x, full, fill)),
+               "call_ms": cuda_ms(torch, lambda: expand_pad(x, full, fill)),
+               "plain_ms": cuda_ms(torch, lambda: expand_pad_plain(
+                   x, full, fill), reps=5, warmup=1),
+               "library_ms": cuda_ms(torch, lambda: F.pad(
+                   x, pads, value=fill), reps=5, warmup=1),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        results.setdefault("expand_pad", []).append(rec)
+        log("expand_pad", json.dumps(rec))
+
+    # a small segment of the ingest cell: every compacted leaf, ragged
+    mapper = MapperService(HTTP_LOGS_MAPPING)
+    builder = SegmentBuilder(mapper, "small")
+    for i, doc in enumerate(http_logs_docs(INGEST_SMALL_DOCS)):
+        builder.add(mapper.parse_document(str(i), doc))
+    small = builder.seal(device=dev)
+    small.live[::7] = False
+    held = 0
+    for raw in (True, False):
+        for path, leaf, c, fill in _expand_leaves(small, raw):
+            x = torch.from_numpy(np.ascontiguousarray(
+                leaf[tuple(slice(0, e) for e in c)])).to(dev)
+            hold("/".join(path), x, leaf.shape, fill, timed=False)
+            held += 1
+    log(f"expand_pad: {held} leaves of a {INGEST_SMALL_DOCS}-doc ingest "
+        f"segment (populated and bucketed prefixes) bit for bit")
+    # phase 5's 10M-doc image
+    arrays, meta = upload_segment(agg_seg, dev)
+    nd = agg_seg.num_docs
+    nv_views = len(agg_seg.numeric_dv["views"].doc_ids)
+    nv_tag = len(agg_seg.ordinal_dv["tag"].doc_ids)
+    for name, leaf, n, fill in (
+            ("live", arrays["live"], nd, False),
+            ("views/min_rank", arrays["numeric"]["views"]["min_rank"], nd,
+             int(2 ** 31 - 1)),
+            ("views/exists", arrays["numeric"]["views"]["exists"], nd,
+             False),
+            ("views/values_f32", arrays["numeric"]["views"]["values_f32"],
+             nv_views, 0.0),
+            ("tag/doc_ids", arrays["ordinal"]["tag"]["doc_ids"], nv_tag,
+             -1)):
+        hold(name, leaf[:n].contiguous(), tuple(leaf.shape), fill,
+             timed=True)
+    del arrays
+    # phase 6's vectors and phase 8's PQ codes
+    vecs = torch.from_numpy(sift_vectors).to(dev)
+    hold("vectors", vecs, (pad_bucket(vecs.shape[0]), vecs.shape[1]), 0.0,
+         timed=True)
+    del vecs
+    n_mx, t_mx, _dims = MAXSIM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(16)
+    codes = torch.randint(0, 256, (n_mx, t_mx, PQ_M), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    hold("codes", codes, (pad_bucket(n_mx), t_mx, PQ_M), 0, timed=True)
+    del codes
+    torch.cuda.empty_cache()
+    return results
+
+
+def ingest_bodies(np, n: int, n_docs: int, seed: int = 91) -> list:
+    """B=1 bodies of the ingest cell: a match on two request words, a
+    one-hour range on @timestamp inside the loaded span, a terms agg on
+    status."""
+    from opensearch_tpu_torch.utils.demo import HTTP_LOGS_BASE_S
+    rng = np.random.default_rng(seed)
+    words = ("images", "english", "news", "gif", "html", "jpg", "scripts",
+             "french", "js", "teams")
+    span = n_docs // 3
+    out = []
+    for _ in range(n):
+        a, b = rng.choice(len(words), 2, replace=False)
+        lo = HTTP_LOGS_BASE_S + int(rng.integers(0, max(span - 3600, 1)))
+        out.append({"query": {"bool": {
+            "must": [{"match": {"request": f"{words[a]} {words[b]}"}}],
+            "filter": [{"range": {"@timestamp": {"gte": lo,
+                                                 "lt": lo + 3600}}}]}},
+            "aggs": {"status": {"terms": {"field": "status"}}},
+            "size": 10})
+    return out
+
+
+def _ingest_oracle(np, node, model, what: str) -> None:
+    """_count, _count over a range of @timestamp and a terms agg on status
+    against the host model of the live documents, exactly."""
+    from collections import Counter
+    from opensearch_tpu_torch.utils.demo import HTTP_LOGS_BASE_S
+    r = node.request("POST", "/logs/_count")
+    if r.get("count") != len(model):
+        raise AssertionError(f"{what}: _count {r} != {len(model)}")
+    lo, hi = HTTP_LOGS_BASE_S + 5000, HTTP_LOGS_BASE_S + 40000
+    r = node.request("POST", "/logs/_count", {"query": {"range": {
+        "@timestamp": {"gte": lo, "lt": hi}}}})
+    want = sum(1 for d in model.values() if lo <= d["@timestamp"] < hi)
+    if r.get("count") != want:
+        raise AssertionError(f"{what}: range _count {r} != {want}")
+    r = node.request("POST", "/logs/_search", {"size": 0, "aggs": {
+        "s": {"terms": {"field": "status", "size": 20}}}})
+    got = {b["key"]: b["doc_count"]
+           for b in r["aggregations"]["s"]["buckets"]}
+    want = Counter(d["status"] for d in model.values())
+    if got != dict(want):
+        raise AssertionError(f"{what}: status terms {got} != {dict(want)}")
+
+
+def _check_images(torch, shard, checked: set, dev) -> int:
+    """Every segment of the reader not yet checked: its published image
+    against upload_segment of the same segment, leaf by leaf (shape,
+    dtype, torch.equal)."""
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, tree
+    n = 0
+    for seg, (arrays, _meta) in zip(shard.reader.segments,
+                                    shard.reader.device):
+        key = (seg.seg_id, seg.live_doc_count)
+        if key in checked:
+            continue
+        ref, _ = upload_segment(seg, dev)
+        got, want = dict(leaves(arrays)), dict(leaves(ref))
+        if got.keys() != want.keys():
+            raise AssertionError(f"{seg.seg_id}: leaves differ")
+        for path, t in got.items():
+            w = want[path]
+            if t.shape != w.shape or t.dtype != w.dtype \
+                    or not torch.equal(t, w):
+                raise AssertionError(f"{seg.seg_id}: the published "
+                                     f"{'/'.join(path)} differs from "
+                                     f"upload_segment's")
+        checked.add(key)
+        n += 1
+    return n
+
+
+def phase_ingest_cell(torch, np, card: str, out_dir=None,
+                      n_docs: int = INGEST_DOCS, bulk: int = INGEST_BULK,
+                      updates: int = INGEST_UPDATES,
+                      stale: int = INGEST_STALE,
+                      deletes: int = INGEST_DELETES,
+                      gets: int = INGEST_GETS, tail: int = INGEST_TAIL,
+                      n_bodies: int = INGEST_BODIES):
+    """The ingest cell through Node().request, after rally-tracks'
+    http_logs: log lines (`@timestamp`, `clientip` as a keyword, `request`,
+    `status`, `size`) through `_bulk` in requests of 5,000 with a refresh
+    after every fourth (ten segments of 20,000 docs, Dp 32,768) on a node
+    with `indices.publish.delta: true`, and the same writes on a gate-off
+    twin; then 2,000 `_update` partial docs on random earlier ids (200
+    with a stale if_seq_no, each a 409), 2,000 deletes and a refresh, 32
+    single-doc writes with ?refresh=true (the near-real-time tail:
+    one-doc segments, whose leaves the delta publish compacts and
+    expand_pad expands), and `_forcemerge` to one segment. Every
+    published image equals upload_segment's leaf by leaf; `_count`, a
+    range `_count` on @timestamp, a terms agg on status and GET of 200
+    random ids (realtime before a refresh, and after one) equal a host
+    model of the live documents. Returns the measurements and the
+    launch counts of the path."""
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.ops.device_segment import publish_segment
+    from opensearch_tpu_torch.utils.demo import (HTTP_LOGS_MAPPING,
+                                                 http_logs_docs)
+    t_phase = time.perf_counter()
+    docs = http_logs_docs(n_docs + tail)
+    on = Node(settings={"indices.publish.delta": True})
+    off = Node()
+    for node in (on, off):
+        if node.request("PUT", "/logs", {"mappings": HTTP_LOGS_MAPPING})[
+                "_status"] != 200:
+            raise AssertionError("ingest: index creation failed")
+    s_on = on.indices.get("logs").shards[0]
+    s_off = off.indices.get("logs").shards[0]
+    dev = s_on.reader.torch_device
+    # refresh walls split into the seal (engine) and the publish (reader,
+    # to the card's completion)
+    seal_ms, publish_ms = [], []
+    real_seal, real_sync = s_on.engine.refresh, s_on._sync_reader
+
+    def timed_seal():
+        t = time.perf_counter()
+        out = real_seal()
+        seal_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_sync():
+        t = time.perf_counter()
+        real_sync()
+        torch.cuda.synchronize()
+        publish_ms.append((time.perf_counter() - t) * 1e3)
+    s_on.engine.refresh, s_on._sync_reader = timed_seal, timed_sync
+    bodies = ingest_bodies(np, n_bodies, n_docs)
+    checked = set()
+    live_on, live_off = [], []
+
+    def refresh_both(path="/logs/_refresh"):
+        b_on, b_off = s_on.reader.live_mask_bytes, \
+            s_off.reader.live_mask_bytes
+        t = time.perf_counter()
+        if on.request("POST", path)["_status"] != 200:
+            raise AssertionError("ingest: refresh failed")
+        wall = (time.perf_counter() - t) * 1e3
+        off.request("POST", path)
+        live_on.append(s_on.reader.live_mask_bytes - b_on)
+        live_off.append(s_off.reader.live_mask_bytes - b_off)
+        return wall
+
+    _build.reset_launches()
+    # ---- bulk load
+    model = {}
+    bulk_ms, refresh_ms, first_ms = [], [], []
+    t_load = time.perf_counter()
+    for r in range(n_docs // bulk):
+        lines = []
+        for i in range(r * bulk, (r + 1) * bulk):
+            lines += [{"index": {"_index": "logs", "_id": str(i)}}, docs[i]]
+            model[str(i)] = docs[i]
+        t = time.perf_counter()
+        res = on.request("POST", "/_bulk", lines)
+        bulk_ms.append((time.perf_counter() - t) * 1e3)
+        if res["_status"] != 200 or res["errors"]:
+            raise AssertionError(f"ingest: _bulk failed: {res['items'][:1]}")
+        off.request("POST", "/_bulk", lines)
+        if (r + 1) % INGEST_REFRESH_EVERY == 0:
+            refresh_ms.append(refresh_both())
+            _check_images(torch, s_on, checked, dev)
+            t = time.perf_counter()
+            on.request("POST", "/logs/_search", bodies[r % len(bodies)])
+            torch.cuda.synchronize()
+            first_ms.append((time.perf_counter() - t) * 1e3)
+    load_s = time.perf_counter() - t_load
+    n_segs = len(s_on.reader.segments)
+    d_pad = s_on.reader.device[0][1].d_pad
+    log(f"ingest: {n_docs} docs in {n_docs // bulk} _bulk requests of "
+        f"{bulk} in {load_s:.3f} s ({n_docs / sum(bulk_ms) * 1e3:.1f} "
+        f"docs/s in _bulk, p50 {_pct(np, bulk_ms, 50):.3f} ms a request), "
+        f"{n_segs} segments of Dp {d_pad}; refresh p50 "
+        f"{_pct(np, refresh_ms, 50):.3f} ms (seal p50 "
+        f"{_pct(np, seal_ms, 50):.3f}, publish p50 "
+        f"{_pct(np, publish_ms, 50):.3f}); gate-on live-mask bytes a "
+        f"refresh {live_on}, gate off {live_off}")
+    _ingest_oracle(np, on, model, "ingest load")
+
+    def walls(name):
+        ms = []
+        for b in bodies:
+            t = time.perf_counter()
+            r = on.request("POST", "/logs/_search", b)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if r["_status"] != 200:
+                raise AssertionError(f"ingest search: {r}")
+        return {f"search_{name}_p50_ms": _pct(np, ms, 50),
+                f"search_{name}_p99_ms": _pct(np, ms, 99)}
+    out = {"docs": n_docs, "segments": n_segs, "d_pad": d_pad,
+           "bulk_docs_per_s": n_docs / sum(bulk_ms) * 1e3,
+           "bulk_p50_ms": _pct(np, bulk_ms, 50),
+           "refresh_p50_ms": _pct(np, refresh_ms, 50),
+           "refresh_p99_ms": _pct(np, refresh_ms, 99),
+           "seal_p50_ms": _pct(np, seal_ms, 50),
+           "seal_p99_ms": _pct(np, seal_ms, 99),
+           "publish_p50_ms": _pct(np, publish_ms, 50),
+           "publish_p99_ms": _pct(np, publish_ms, 99),
+           "first_search_after_refresh_p50_ms": _pct(np, first_ms, 50),
+           "live_mask_bytes_per_load_refresh_on": live_on[:],
+           "live_mask_bytes_per_load_refresh_off": live_off[:]}
+    out.update(walls(f"{n_segs}seg"))
+    # a 20,000-doc segment for the gate-on/off publish cost, measured after
+    # the launch counts are read
+    seg20k = s_on.engine.segments[0]
+    # ---- updates with CAS, realtime GETs
+    rng = np.random.default_rng(23)
+    ids = rng.integers(0, n_docs, updates)
+    stale_at = set(rng.choice(updates, stale, replace=False).tolist())
+    get_ms, update_ms, conflicts = [], [], 0
+    for k, i in enumerate(ids):
+        did = str(int(i))
+        t = time.perf_counter()
+        cur = on.request("GET", f"/logs/_doc/{did}")
+        get_ms.append((time.perf_counter() - t) * 1e3)
+        if cur.get("_source") != model[did]:
+            raise AssertionError(f"ingest: GET {did} {cur} != {model[did]}")
+        patch = {"status": int(rng.choice([200, 404, 500])),
+                 "size": int(rng.integers(0, 50000))}
+        seq = cur["_seq_no"]
+        cas = {"if_seq_no": seq - 1 if seq > 0 else seq + 1} \
+            if k in stale_at else {"if_seq_no": seq}
+        cas["if_primary_term"] = cur["_primary_term"]
+        t = time.perf_counter()
+        res = on.request("POST", f"/logs/_update/{did}", {"doc": patch},
+                         **cas)
+        update_ms.append((time.perf_counter() - t) * 1e3)
+        twin = off.request("POST", f"/logs/_update/{did}", {"doc": patch},
+                           **cas)
+        if k in stale_at:
+            if res["_status"] != 409 or twin["_status"] != 409:
+                raise AssertionError(f"ingest: stale update {res}")
+            conflicts += 1
+        elif res["_status"] != 200 or twin["_status"] != 200:
+            raise AssertionError(f"ingest: update {res}")
+        else:
+            model[did] = {**model[did], **patch}
+    probe = [str(int(i)) for i in rng.choice(ids, gets)]
+    for when in ("before", "after"):
+        for did in probe:
+            r = on.request("GET", f"/logs/_doc/{did}")
+            if not r.get("found") or r["_source"] != model[did]:
+                raise AssertionError(f"ingest: realtime GET {did} {when} "
+                                     f"the refresh: {r}")
+        if when == "before":
+            refresh_both()
+            _check_images(torch, s_on, checked, dev)
+    # ---- deletes and a refresh
+    live_ids = sorted(model, key=int)
+    gone = [live_ids[int(j)] for j in rng.choice(len(live_ids), deletes,
+                                                 replace=False)]
+    lines = [{"delete": {"_index": "logs", "_id": did}} for did in gone]
+    for node in (on, off):
+        res = node.request("POST", "/_bulk", lines)
+        if res["errors"]:
+            raise AssertionError(f"ingest: deletes {res['items'][:1]}")
+    for did in gone:
+        del model[did]
+    out["delete_refresh_ms"] = refresh_both()
+    out["live_mask_bytes_delete_refresh_on"] = live_on[-1]
+    out["live_mask_bytes_delete_refresh_off"] = live_off[-1]
+    _check_images(torch, s_on, checked, dev)
+    _ingest_oracle(np, on, model, "ingest after updates and deletes")
+    # ---- the near-real-time tail: one-doc segments
+    tail_ms = []
+    b_on, b_off = s_on.reader.live_mask_bytes, s_off.reader.live_mask_bytes
+    pads_before_tail = _build.LAUNCHES["expand_pad"]
+    for i in range(n_docs, n_docs + tail):
+        for node in (on, off):
+            t = time.perf_counter()
+            r = node.request("PUT", f"/logs/_doc/{i}", docs[i],
+                             refresh="true")
+            if node is on:
+                tail_ms.append((time.perf_counter() - t) * 1e3)
+            if r["_status"] != 201:
+                raise AssertionError(f"ingest: tail write {r}")
+        model[str(i)] = docs[i]
+    out["live_mask_bytes_tail_on"] = s_on.reader.live_mask_bytes - b_on
+    out["live_mask_bytes_tail_off"] = s_off.reader.live_mask_bytes - b_off
+    out["expand_pad_launches_tail"] = \
+        _build.LAUNCHES["expand_pad"] - pads_before_tail
+    if out["expand_pad_launches_tail"] == 0:
+        raise AssertionError("ingest: the ?refresh=true writes launched no "
+                             "expand_pad")
+    _check_images(torch, s_on, checked, dev)
+    one = next(s for s in s_on.engine.segments if s.num_docs == 1)
+    out["tail_write_refresh_p50_ms"] = _pct(np, tail_ms, 50)
+    # ---- force-merge to one segment (the twin does not merge)
+    out["upload_bytes_on"] = s_on.reader.upload_bytes
+    out["upload_bytes_off"] = s_off.reader.upload_bytes
+    t = time.perf_counter()
+    if on.request("POST", "/logs/_forcemerge")["_status"] != 200:
+        raise AssertionError("ingest: _forcemerge failed")
+    torch.cuda.synchronize()
+    out["forcemerge_s"] = time.perf_counter() - t
+    if len(s_on.reader.segments) != 1:
+        raise AssertionError(f"ingest: {len(s_on.reader.segments)} "
+                             f"segments after _forcemerge")
+    _check_images(torch, s_on, checked, dev)
+    _ingest_oracle(np, on, model, "ingest after the merge")
+    for did in probe[:50]:
+        r = on.request("GET", f"/logs/_doc/{did}", realtime="false")
+        if r.get("found") != (did in model) or (
+                did in model and r["_source"] != model[did]):
+            raise AssertionError(f"ingest: GET {did} after the merge: {r}")
+    out.update(walls("1seg"))
+    launches = dict(_build.LAUNCHES)
+    s_on.engine.refresh, s_on._sync_reader = real_seal, real_sync
+
+    # ---- publish bytes and time, gate on and off, on the same segment:
+    # direct publish_segment calls, outside the counted window
+    def publish_cost(seg, delta):
+        ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            _a, _m, sent = publish_segment(seg, dev, delta)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return sent, statistics.median(ms)
+    for tag, seg in (("", seg20k), ("1doc_", one)):
+        for delta in (True, False):
+            sent, ms = publish_cost(seg, delta)
+            out[f"publish_{tag}{'on' if delta else 'off'}_bytes"] = sent
+            out[f"publish_{tag}{'on' if delta else 'off'}_ms"] = ms
+    out.update({"get_p50_ms": _pct(np, get_ms, 50),
+                "update_p50_ms": _pct(np, update_ms, 50),
+                "update_conflicts": conflicts,
+                "images_checked": len(checked),
+                "upload_bytes_merge_on": s_on.reader.upload_bytes
+                - out["upload_bytes_on"],
+                "expand_pad_launches": launches["expand_pad"],
+                "phase_s": time.perf_counter() - t_phase})
+    if conflicts != stale:
+        raise AssertionError(f"ingest: {conflicts} conflicts, not {stale}")
+    if launches["expand_pad"] == 0:
+        raise AssertionError("kernels not launched on the ingest path: "
+                             "['expand_pad']")
+    log(f"ingest: {json.dumps(out)}; card: {card}")
+    del on, off
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -4718,7 +5232,8 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
     return {f"{name}_device_busy": device_ms / wall_ms}
 
 
-CELLS = ("scale", "sorted", "aggkinds", "relevance", "nested", "geo")
+CELLS = ("scale", "sorted", "aggkinds", "relevance", "nested", "geo",
+         "ingest")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -4746,6 +5261,9 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
                 else geonames_segment(GEO_PLACES)
             res = (phase_nested_cell if cell == "nested" else
                    phase_geo_cell)(torch, np, seg, card, out_dir)
+        elif cell == "ingest":
+            mapper = seg = None
+            res, _launches = phase_ingest_cell(torch, np, card, out_dir)
         elif cell == "sorted":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_sorted_cell(torch, np, mapper, seg,
@@ -4771,7 +5289,7 @@ def main(argv) -> int:
     parser.add_argument("--cells", default=None,
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
-                             "4, 10, 11, 12, 14 and 15): one JSON line "
+                             "4, 10, 11, 12, 14, 15 and 16): one JSON line "
                              "each, to compare two checkouts on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
@@ -4868,6 +5386,8 @@ def main(argv) -> int:
     results.update(phase_spmd_kernels(torch, np, mapper, seg, sorted(
         t for _, t in seg.term_dict), agg_seg, dev))
     results.update(phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev))
+    results.update(phase_expand_kernels(torch, np, agg_seg,
+                                        corpora["sift"][0], dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
     # phase 4: BM25 scale
@@ -4920,6 +5440,9 @@ def main(argv) -> int:
     res = phase_geo_cell(torch, np, geo_seg, card, out_dir)
     log("geo: " + json.dumps(res))
     del geo_seg
+    # phase 16: the ingest cell (the write path and the delta publish)
+    res, ingest_launches = phase_ingest_cell(torch, np, card, out_dir)
+    launches["expand_pad"] = ingest_launches["expand_pad"]
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
@@ -4939,7 +5462,8 @@ def main(argv) -> int:
             "row_value_key": 0, "nested_join": 0, "nested_agg": 0,
             "reverse_nested_agg": 0, "binned_scatter": 0,
             "geo_distance_scores": 0, "geo_bbox_scores": 0,
-            "distance_feature_geo_scores": 0, "rank_feature_scores": 0}
+            "distance_feature_geo_scores": 0, "rank_feature_scores": 0,
+            "expand_pad": 5}
     meta_of = {
         "bm25_candidate": ("opensearch_tpu_torch/ops/csrc/bm25_candidate.cu",
                            "opensearch_tpu/search/executor.py:1325"),
@@ -5033,6 +5557,8 @@ def main(argv) -> int:
             "opensearch_tpu/search/plan_eval.py:420"),
         "rank_feature_scores": ("opensearch_tpu_torch/ops/csrc/geo_scores.cu",
                                 "opensearch_tpu/search/plan_eval.py:428"),
+        "expand_pad": ("opensearch_tpu_torch/ops/csrc/expand_pad.cu",
+                       "opensearch_tpu/ops/device_segment.py:314"),
     }
     kernels = []
     for name in _build.LAUNCHES:

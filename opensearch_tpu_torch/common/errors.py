@@ -40,6 +40,11 @@ class ResourceAlreadyExistsError(OpenSearchTpuError):
     error_type = "resource_already_exists_exception"
 
 
+class DocumentMissingError(OpenSearchTpuError):
+    status = 404
+    error_type = "document_missing_exception"
+
+
 class VersionConflictError(OpenSearchTpuError):
     status = 409
     error_type = "version_conflict_engine_exception"

@@ -781,3 +781,25 @@ class SegmentBuilder:
                        ordinal_dv=ordinal_dv, vector_dv=vector_dv,
                        rank_vectors_dv=rank_vectors_dv,
                        positions=dict(self._positions))
+
+
+def merge_segments(mapper: MapperService, segments: List[Segment],
+                   seg_id: str, device=None) -> Segment:
+    """One segment of the live documents of `segments`, in their order:
+    each live root's `_source` is parsed again into one SegmentBuilder, so
+    its nested rows are rebuilt from it, and its (version, seq_no, term)
+    carries across. Deleted documents leave the term and field
+    statistics. `device` seals as `SegmentBuilder.seal` does."""
+    builder = SegmentBuilder(mapper, seg_id=seg_id)
+    doc_meta = {}
+    for seg in segments:
+        for ord_ in range(seg.num_docs):
+            did = seg.doc_ids[ord_]
+            if not seg.live[ord_] or did is None:
+                continue
+            builder.add(mapper.parse_document(did, seg.sources[ord_] or {}))
+            if did in seg.doc_meta:
+                doc_meta[did] = seg.doc_meta[did]
+    merged = builder.seal(device=device)
+    merged.doc_meta = doc_meta
+    return merged

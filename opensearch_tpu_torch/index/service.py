@@ -4,20 +4,27 @@ port needs). A document goes to the shard murmur3 routing picks
 (cluster/routing.py: its id, or its `routing` value, with
 `number_of_routing_shards` and `routing_partition_size`); a search runs
 over every shard. The index setting `index.search.default_pipeline` names
-the search pipeline of its searches."""
+the search pipeline of its searches. The document API: index, delete and
+realtime get with optimistic concurrency (`if_seq_no` / `if_primary_term`,
+external versions), partial updates (`doc`, `upsert`, `doc_as_upsert`,
+`detect_noop`), `_mget`, `_bulk` with update items, `_count`, and refresh /
+flush / force-merge over every shard."""
 
 from __future__ import annotations
 
+import difflib
 import secrets
 import time
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import torch
 
 from opensearch_tpu_torch.analysis.registry import AnalysisRegistry
 from opensearch_tpu_torch.cluster.routing import generate_shard_id
-from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                OpenSearchTpuError)
+from opensearch_tpu_torch.common.errors import (DocumentMissingError,
+                                                IllegalArgumentError,
+                                                OpenSearchTpuError,
+                                                VersionConflictError)
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.shard import IndexShard
 
@@ -27,11 +34,29 @@ def _auto_id() -> str:
     return secrets.token_urlsafe(15)
 
 
+def deep_merge(base: dict, patch: dict) -> dict:
+    """The recursive map merge of a partial-document update."""
+    out = dict(base)
+    for k, v in patch.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+# the keys an update body may hold (UpdateRequest's fields)
+_UPDATE_KEYS = {"doc", "doc_as_upsert", "script", "upsert",
+                "scripted_upsert", "detect_noop", "_source", "lang",
+                "if_seq_no", "if_primary_term", "fields"}
+
+
 class IndexService:
     def __init__(self, index_name: str, device: torch.device,
                  mapping: Optional[dict] = None,
                  settings: Optional[dict] = None,
-                 result_page: bool = False, blockmax: bool = False):
+                 result_page: bool = False, blockmax: bool = False,
+                 delta: bool = False):
         settings = dict(settings or {})
         self.index_name = index_name
         self.settings = settings
@@ -73,7 +98,8 @@ class IndexService:
             if analysis_cfg else None)
         self.shards: List[IndexShard] = [
             IndexShard(i, self.mapper, device, index_name=index_name,
-                       result_page=result_page, blockmax=blockmax)
+                       result_page=result_page, blockmax=blockmax,
+                       delta=delta)
             for i in range(self.num_shards)]
         window = int(settings.get("max_result_window", 10000))
         for shard in self.shards:
@@ -100,39 +126,128 @@ class IndexService:
         }
 
     def index_doc(self, doc_id: Optional[str], source: dict,
-                  op_type: str = "index",
-                  routing: Optional[str] = None) -> dict:
+                  op_type: str = "index", routing: Optional[str] = None,
+                  **kw) -> dict:
+        """`kw`: if_seq_no / if_primary_term / external_version."""
         if doc_id is None:
             doc_id = _auto_id()
             op_type = "create"
-        res = self.shard_for(doc_id, routing).index_doc(doc_id, source,
-                                                        op_type=op_type)
+        res = self.shard_for(doc_id, routing).index_doc(
+            doc_id, source, op_type=op_type, **kw)
         return self._write_response(res,
                                     "created" if res.created else "updated")
 
-    def delete_doc(self, doc_id: str, routing: Optional[str] = None) -> dict:
-        res = self.shard_for(doc_id, routing).delete_doc(doc_id)
+    def get_doc(self, doc_id: str, routing: Optional[str] = None,
+                realtime: bool = True) -> dict:
+        res = self.shard_for(doc_id, routing).get_doc(doc_id,
+                                                      realtime=realtime)
+        if res is None:
+            return {"_index": self.index_name, "_id": doc_id, "found": False}
+        return {"_index": self.index_name, "_id": doc_id, "found": True,
+                "_version": res.version, "_seq_no": res.seq_no,
+                "_primary_term": res.primary_term, "_source": res.source}
+
+    def delete_doc(self, doc_id: str, routing: Optional[str] = None,
+                   **kw) -> dict:
+        res = self.shard_for(doc_id, routing).delete_doc(doc_id, **kw)
         return self._write_response(res,
                                     "deleted" if res.found else "not_found")
 
+    def update_doc(self, doc_id: str, body: dict,
+                   routing: Optional[str] = None,
+                   if_seq_no: Optional[int] = None,
+                   if_primary_term: Optional[int] = None,
+                   external_version: Optional[int] = None) -> dict:
+        """Partial update: realtime get, merge, index again with a CAS on
+        the doc it read (detect_noop on by default, upsert,
+        doc_as_upsert). A CAS of the caller's (URL or body) is checked
+        against the current doc first. A `script` answers 400: scripted
+        updates are not ported."""
+        if external_version is not None:
+            raise IllegalArgumentError(
+                "internal versioning can not be used for optimistic "
+                "concurrency control. Please use `if_seq_no` and "
+                "`if_primary_term` instead")
+        for key in body:
+            if key not in _UPDATE_KEYS:
+                guess = difflib.get_close_matches(key, sorted(_UPDATE_KEYS),
+                                                  n=1)
+                hint = f" did you mean [{guess[0]}]?" if guess else ""
+                raise IllegalArgumentError(
+                    f"[UpdateRequest] unknown field [{key}]{hint}")
+        if if_seq_no is None and body.get("if_seq_no") is not None:
+            if_seq_no = int(body["if_seq_no"])
+        if if_primary_term is None and body.get("if_primary_term") is not None:
+            if_primary_term = int(body["if_primary_term"])
+        shard = self.shard_for(doc_id, routing)
+        cur = shard.get_doc(doc_id)
+        if if_seq_no is not None or if_primary_term is not None:
+            if cur is None:
+                raise DocumentMissingError(f"[{doc_id}]: document missing")
+            if ((if_seq_no is not None and cur.seq_no != if_seq_no)
+                    or (if_primary_term is not None
+                        and cur.primary_term != if_primary_term)):
+                raise VersionConflictError(
+                    f"[{doc_id}]: version conflict, required seqNo "
+                    f"[{if_seq_no}], primary term [{if_primary_term}]. "
+                    f"current document has seqNo [{cur.seq_no}] and primary "
+                    f"term [{cur.primary_term}]")
+        if "script" in body:
+            raise IllegalArgumentError(
+                "[script] is not supported by opensearch_tpu_torch yet")
+        doc_patch = body.get("doc")
+        if cur is None:
+            if body.get("doc_as_upsert") and doc_patch is not None:
+                new_source = doc_patch
+            elif "upsert" in body:
+                new_source = body["upsert"]
+            else:
+                raise DocumentMissingError(f"[{doc_id}]: document missing")
+            res = shard.index_doc(doc_id, new_source, op_type="create")
+            return self._write_response(res, "created")
+        if doc_patch is None:
+            raise IllegalArgumentError("update requires [doc] or [upsert]")
+        merged = deep_merge(cur.source, doc_patch)
+        if body.get("detect_noop", True) and merged == cur.source:
+            return {"_index": self.index_name, "_id": doc_id,
+                    "_version": cur.version, "result": "noop",
+                    "_seq_no": cur.seq_no, "_primary_term": cur.primary_term,
+                    "_shards": {"total": 0, "successful": 0, "failed": 0}}
+        res = shard.index_doc(doc_id, merged, if_seq_no=cur.seq_no,
+                              if_primary_term=cur.primary_term)
+        return self._write_response(res, "updated")
+
+    def mget(self, ids: List[Any]) -> dict:
+        return {"docs": [
+            self.get_doc(item["_id"], routing=item.get("routing"))
+            if isinstance(item, dict) else self.get_doc(item)
+            for item in ids]}
+
     def bulk(self, operations: List[dict]) -> dict:
-        """Execute parsed bulk items [{action, id, source, routing}] in
-        order, each on its routed shard."""
+        """Execute parsed bulk items [{action, id, source, routing,
+        if_seq_no, if_primary_term}] in order, each on its routed
+        shard."""
         start = time.monotonic()
         items = []
         errors = False
         for op in operations:
             action = op["action"]
+            cas = {k: op[k] for k in ("if_seq_no", "if_primary_term")
+                   if op.get(k) is not None}
             try:
                 if action in ("index", "create"):
                     resp = self.index_doc(op.get("id"), op["source"],
                                           op_type=action,
-                                          routing=op.get("routing"))
+                                          routing=op.get("routing"), **cas)
                     status = 201 if resp["result"] == "created" else 200
                 elif action == "delete":
                     resp = self.delete_doc(op["id"],
-                                           routing=op.get("routing"))
+                                           routing=op.get("routing"), **cas)
                     status = 200 if resp["result"] == "deleted" else 404
+                elif action == "update":
+                    resp = self.update_doc(op["id"], op["source"],
+                                           routing=op.get("routing"), **cas)
+                    status = 200
                 else:
                     raise IllegalArgumentError(
                         f"unknown bulk action [{action}]")
@@ -171,6 +286,20 @@ class IndexService:
         return {"took": int((time.monotonic() - start) * 1000),
                 "responses": responses}
 
+    def count(self, body: Optional[dict] = None) -> int:
+        body = dict(body or {})
+        body["size"] = 0
+        body.pop("from", None)
+        return self.search(body)["hits"]["total"]["value"]
+
     def refresh(self):
         for s in self.shards:
             s.refresh()
+
+    def flush(self):
+        for s in self.shards:
+            s.flush()
+
+    def force_merge(self):
+        for s in self.shards:
+            s.force_merge()

@@ -1,5 +1,6 @@
-"""IndicesService: create, get and delete indices (the subset of
-opensearch_tpu.indices.service the BM25 slice needs)."""
+"""IndicesService: create, get and delete indices, and resolve index
+expressions (the subset of opensearch_tpu.indices.service the port
+needs)."""
 
 from __future__ import annotations
 
@@ -53,12 +54,13 @@ def _normalize_settings(settings: Optional[dict]) -> dict:
 
 class IndicesService:
     def __init__(self, device: torch.device, result_page: bool = False,
-                 blockmax: bool = False):
+                 blockmax: bool = False, delta: bool = False):
         self.device = device
-        # the node's search.result_page.enabled and search.blockmax.enabled,
-        # handed to every shard
+        # the node's search.result_page.enabled, search.blockmax.enabled
+        # and indices.publish.delta, handed to every shard
         self.result_page = result_page
         self.blockmax = blockmax
+        self.delta = delta
         self.indices: Dict[str, IndexService] = {}
 
     def create_index(self, name: str, body: Optional[dict] = None
@@ -72,7 +74,7 @@ class IndicesService:
                            mapping=body.get("mappings") or None,
                            settings=_normalize_settings(body.get("settings")),
                            result_page=self.result_page,
-                           blockmax=self.blockmax)
+                           blockmax=self.blockmax, delta=self.delta)
         self.indices[name] = svc
         return svc
 

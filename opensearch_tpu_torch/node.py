@@ -38,7 +38,12 @@ class Node:
         the device (K14) for every index of this node;
         `search.blockmax.enabled` (static, default false) prunes posting
         blocks that cannot reach a text query's top k (K20) on the
-        envelope's candidate kernel and the multi-shard program."""
+        envelope's candidate kernel and the multi-shard program;
+        `indices.publish.delta` (static, default false) publishes a
+        refreshed or merged segment as its compact prefixes, expanded on
+        the device (row 16, `expand_pad`), and sends a live mask only when
+        it changed; `action.auto_create_index` (default true) creates a
+        missing index on a document write."""
         self.node_name = node_name
         self.settings = dict(settings or {})
         self.device = resolve_device(device)
@@ -48,9 +53,13 @@ class Node:
         raw_bm = self.settings.get("search.blockmax.enabled")
         self.blockmax = False if raw_bm is None else _parse_bool(
             raw_bm, "search.blockmax.enabled")
+        raw_delta = self.settings.get("indices.publish.delta")
+        self.delta = False if raw_delta is None else _parse_bool(
+            raw_delta, "indices.publish.delta")
         self.indices = IndicesService(self.device,
                                       result_page=self.result_page,
-                                      blockmax=self.blockmax)
+                                      blockmax=self.blockmax,
+                                      delta=self.delta)
         self.search_pipelines = SearchPipelineService()
         self.controller = RestController()
         register_actions(self, self.controller)

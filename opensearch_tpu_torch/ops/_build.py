@@ -28,7 +28,7 @@ KERNELS = ("bm25_candidate", "score_text_clause", "masked_topk",
            "hybrid_window", "sort_key", "page_merge", "dense_numeric",
            "matrix_moments", "adjacency_counts", "function_score",
            "score_kinds", "blockmax_keep", "row_merge", "nested_join",
-           "nested_aggs", "binned_scatter", "geo_scores")
+           "nested_aggs", "binned_scatter", "geo_scores", "expand_pad")
 # libraries whose C entries are not only the one of their own name (every
 # entry listed): score_kinds.cu and geo_scores.cu have one per kernel and
 # none of their name; row_merge.cu holds K21's merge and its key entry;

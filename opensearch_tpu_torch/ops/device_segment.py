@@ -28,11 +28,19 @@ values:
   segment; T is the segment's token bucket).
 
 The image is built host-side in numpy and uploaded once to the chosen
-device.
+device. `publish_segment` is the refresh's and the merge's upload: with the
+delta gate on (the node setting `indices.publish.delta`, off by default) it
+sends only the populated prefix of every leaf whose padded tail is a
+constant fill (`compact_spec`), and the device expands each prefix to its
+padded shape (row 16, `expand_pad`: a CUDA kernel for a tensor on the card,
+its plain version on the CPU). The image is the same either way; only the
+bytes that cross from the host differ.
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -42,6 +50,7 @@ import torch
 from opensearch_tpu_torch.index.segment import (LENGTH_TABLE, Segment,
                                                 block_score_bounds,
                                                 pad_bucket)
+from opensearch_tpu_torch.ops import _build
 from opensearch_tpu_torch.ops.knn import pack_ivf_lists
 
 INT32_MAX = np.int32(2 ** 31 - 1)
@@ -251,6 +260,164 @@ def live_mask(seg: Segment, d_pad: int) -> np.ndarray:
     live = np.zeros(d_pad, dtype=bool)
     live[:seg.num_docs] = seg.live
     return live
+
+
+def refresh_live(arrays: Dict, seg: Segment) -> Dict:
+    """A copy of a device image whose `live` leaf is uploaded again from
+    the segment's bitmap (the other leaves are shared)."""
+    live = arrays["live"]
+    out = dict(arrays)
+    out["live"] = torch.from_numpy(
+        live_mask(seg, live.shape[0])).to(live.device)
+    return out
+
+
+def compact_spec(seg: Segment) -> Dict[tuple, tuple]:
+    """Tree path -> (compact extents, None = the whole axis; pad fill) for
+    every leaf whose padded tail is a constant fill (the reference's
+    _compact_spec). Leaves absent from it cross in full: length_table, the
+    IVF packings, the PQ codebook and K22's `child_start` (whose tail is a
+    running total) and `child_rows`."""
+    nd = seg.num_docs
+    nb = seg.post_docs.shape[0]
+    # a term's doc list never exceeds num_docs: on a small segment the
+    # postings' width axis is mostly fill
+    spec: Dict[tuple, tuple] = {
+        ("post_docs",): ((nb, nd), -1),
+        ("post_tf",): ((nb, nd), 0.0),
+        ("post_bound",): ((nb,), 0.0),
+        ("norms",): ((None, nd), 0),
+        ("live",): ((nd,), False),
+        ("root",): ((nd,), False),
+        ("parent_ptr",): ((nd,), -1),
+        ("nested_path",): ((nd,), -1),
+    }
+    for fname, col in seg.numeric_dv.items():
+        nv = len(col.doc_ids)
+        spec[("numeric", fname, "doc_ids")] = ((nv,), -1)
+        spec[("numeric", fname, "val_ords")] = ((nv,), 0)
+        spec[("numeric", fname, "values_f32")] = ((nv,), 0.0)
+        spec[("numeric", fname, "exists")] = ((nd,), False)
+        # minimum.at / maximum.at touch only rows < num_docs: the tail
+        # keeps the initial fill
+        spec[("numeric", fname, "min_rank")] = ((nd,), int(INT32_MAX))
+        spec[("numeric", fname, "max_rank")] = ((nd,), -1)
+        spec[("numeric", fname, "unique_f32")] = ((len(col.unique),), 0.0)
+    for fname, col in seg.ordinal_dv.items():
+        nv = len(col.doc_ids)
+        spec[("ordinal", fname, "doc_ids")] = ((nv,), -1)
+        spec[("ordinal", fname, "ords")] = ((nv,), 0)
+        spec[("ordinal", fname, "exists")] = ((nd,), False)
+    for fname in seg.vector_dv:
+        spec[("vector", fname, "vectors")] = ((nd, None), 0.0)
+        spec[("vector", fname, "exists")] = ((nd,), False)
+    for fname, col in seg.rank_vectors_dv.items():
+        spec[("rank_vectors", fname, "token_count")] = ((nd,), 0)
+        spec[("rank_vectors", fname, "exists")] = ((nd,), False)
+        if col.codes is not None:
+            spec[("rank_vectors", fname, "codes")] = ((nd, None, None), 0)
+        else:
+            spec[("rank_vectors", fname, "tokens")] = ((nd, None, None), 0.0)
+    return spec
+
+
+# the leaf dtypes expand_pad takes, by element width
+_EXPAND_DTYPES = {torch.int32: 4, torch.float32: 4, torch.bool: 1,
+                  torch.uint8: 1}
+
+
+def expand_pad_plain(x: torch.Tensor, full_shape, fill) -> torch.Tensor:
+    """Plain version of row 16 (the reference's _expand_fn): a tensor of
+    `full_shape` filled with `fill`, with `x` in its leading corner."""
+    out = torch.full(tuple(full_shape), fill, dtype=x.dtype, device=x.device)
+    out[tuple(slice(0, s) for s in x.shape)] = x
+    return out
+
+
+def _fill_bits(dtype: torch.dtype, fill) -> int:
+    """The fill's raw bits in the leaf's element width."""
+    if dtype == torch.float32:
+        return struct.unpack("<I", struct.pack("<f", float(fill)))[0]
+    if dtype == torch.int32:
+        return int(fill) & 0xFFFFFFFF
+    return int(fill) & 0xFF
+
+
+def expand_pad(x: torch.Tensor, full_shape, fill) -> torch.Tensor:
+    """Row 16: fill-pad a compact prefix out to its padded shape on the
+    device. Replaces opensearch_tpu/ops/device_segment.py:_expand_fn.
+
+    x: a contiguous int32 / float32 / bool / uint8 tensor of 1-3 dims, each
+    extent at most full_shape's. Returns a new tensor of `full_shape`:
+    `fill` everywhere, `x` in the leading corner."""
+    full_shape = tuple(int(f) for f in full_shape)
+    if not x.is_cuda:
+        return expand_pad_plain(x, full_shape, fill)
+    width = _EXPAND_DTYPES.get(x.dtype)
+    if width is None:
+        raise ValueError(f"expand_pad takes int32, float32, bool or uint8, "
+                         f"got {x.dtype}")
+    if not 1 <= x.dim() <= 3 or len(full_shape) != x.dim():
+        raise ValueError(f"expand_pad takes 1-3 dims of the same count, got "
+                         f"{tuple(x.shape)} into {full_shape}")
+    if any(c > f for c, f in zip(x.shape, full_shape)) or x.numel() == 0:
+        raise ValueError(f"expand_pad: {tuple(x.shape)} does not fit in "
+                         f"{full_shape}")
+    if not x.is_contiguous():
+        raise ValueError("expand_pad takes a contiguous tensor")
+    c = (1,) * (3 - x.dim()) + tuple(x.shape)
+    f = (1,) * (3 - x.dim()) + full_shape
+    out = torch.empty(full_shape, dtype=x.dtype, device=x.device)
+    fn = _build.entry("expand_pad", [ctypes.c_void_p, ctypes.c_void_p]
+                      + [ctypes.c_int] + [ctypes.c_longlong] * 6
+                      + [ctypes.c_uint, ctypes.c_void_p])
+    code = fn(_build.ptr(x), _build.ptr(out), width, *c, *f,
+              _fill_bits(x.dtype, fill), _build.stream_of(x.device))
+    _build.LAUNCHES["expand_pad"] += 1
+    _build.check("expand_pad", code)
+    return out
+
+
+def _delta_tree(host, spec: Dict[tuple, tuple], device, sent: list,
+                path: tuple = ()):
+    """The device image of a host tree: each specced leaf sent as its
+    compact prefix and expanded on the device, every other leaf in full.
+    `sent[0]` adds up the bytes that crossed from the host."""
+    if isinstance(host, dict):
+        return {k: _delta_tree(v, spec, device, sent, path + (k,))
+                for k, v in host.items()}
+    full = tuple(int(s) for s in host.shape)
+    entry = spec.get(path)
+    if entry is not None:
+        raw, fill = entry
+        # compact extents are power-of-two bucketed, as the reference's
+        cshape = tuple(
+            f if c is None else min(pad_bucket(max(int(c), 1), minimum=8), f)
+            for c, f in zip(raw, full))
+        if cshape != full:
+            compact = np.ascontiguousarray(
+                host[tuple(slice(0, s) for s in cshape)])
+            sent[0] += int(compact.nbytes)
+            return expand_pad(torch.from_numpy(compact).to(device), full,
+                              fill)
+    sent[0] += int(host.nbytes)
+    return torch.from_numpy(host).to(device)
+
+
+def publish_segment(seg: Segment, device: torch.device, delta: bool = False
+                    ) -> Tuple[Dict[str, torch.Tensor], DeviceSegmentMeta,
+                               int]:
+    """upload_segment with its transfer counted: (arrays, meta, bytes sent
+    from the host). With `delta` off this is upload_segment and the bytes
+    are the image's; with it on only the compact prefixes cross and the
+    device expands them, to the same image."""
+    host, meta = segment_image(seg)
+    if not delta:
+        arrays = _tree_to(host, device)
+        return arrays, meta, tree_nbytes(arrays)
+    sent = [0]
+    arrays = _delta_tree(host, compact_spec(seg), device, sent)
+    return arrays, meta, sent[0]
 
 
 def tree_nbytes(tree) -> int:

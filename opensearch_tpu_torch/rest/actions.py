@@ -1,8 +1,14 @@
 """REST handlers (the subset of opensearch_tpu.rest.actions the port
-serves): index create / delete, document index / delete and `_bulk` (with
-`routing`), `_refresh`, `_search` and `_msearch` over index expressions
-(every shard of every resolved index; `search_type`; search-pipeline
-resolution), and search-pipeline CRUD (`/_search/pipeline/{id}`)."""
+serves): index create / delete; the document API (index with `op_type`,
+`_create`, get / `_source` with `realtime`, delete, `_update`, `_mget` and
+`_bulk`, with `routing`, `if_seq_no` / `if_primary_term` and external
+versions; a write to a missing index creates it unless
+`action.auto_create_index` is false); `_refresh`, `_flush` and
+`_forcemerge` over index expressions; `_count`, `_search` and `_msearch`
+over index expressions (every shard of every resolved index;
+`search_type`; search-pipeline resolution), and search-pipeline CRUD
+(`/_search/pipeline/{id}`). Ingest pipelines are not ported: a write that
+would run one answers 400."""
 
 from __future__ import annotations
 
@@ -11,7 +17,9 @@ import json
 from typing import Any, Dict, List, Optional
 
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                OpenSearchTpuError)
+                                                IndexNotFoundError,
+                                                OpenSearchTpuError,
+                                                ResourceAlreadyExistsError)
 from opensearch_tpu_torch.rest.controller import RestController, RestRequest
 
 
@@ -33,6 +41,34 @@ def _validate_doc_id(doc_id: Optional[str]) -> None:
         raise IllegalArgumentError(
             f"id [{doc_id[:64]}...] is too long, must be no longer than "
             f"512 bytes but was: {len(doc_id.encode('utf-8'))}")
+
+
+def _write_index(node, name: str) -> str:
+    """The index a document write goes to, created when it is missing
+    (action.auto_create_index, default true). Data streams and aliases are
+    not ported."""
+    if name in node.indices.indices:
+        return name
+    if str(node.settings.get("action.auto_create_index",
+                             True)).lower() == "false":
+        raise IndexNotFoundError(name)
+    try:
+        node.indices.create_index(name, {})
+    except ResourceAlreadyExistsError:
+        pass        # a concurrent writer created it first
+    return name
+
+
+def _check_no_pipeline(svc, pipeline_param) -> None:
+    """A write that would run an ingest pipeline (the request's
+    `pipeline`, the index's `default_pipeline` or `final_pipeline`)
+    answers 400: ingest pipelines are not ported, and a pipeline skipped
+    would index another document."""
+    for name in (pipeline_param or svc.settings.get("default_pipeline"),
+                 svc.settings.get("final_pipeline")):
+        if name and name != "_none":
+            raise IllegalArgumentError(
+                "[pipeline] is not supported by opensearch_tpu_torch yet")
 
 
 def _search_targets(node, expression):
@@ -92,26 +128,93 @@ def register_actions(node, c: RestController) -> None:
         node.indices.delete_index(req.param("index"))
         return {"acknowledged": True}
 
+    def write_params(req) -> dict:
+        kw = {}
+        if req.param("if_seq_no") is not None:
+            kw["if_seq_no"] = req.int_param("if_seq_no")
+        if req.param("if_primary_term") is not None:
+            kw["if_primary_term"] = req.int_param("if_primary_term")
+        if req.param("version") is not None and \
+                req.param("version_type") == "external":
+            kw["external_version"] = req.int_param("version")
+        return kw
+
     def maybe_refresh(req, svc) -> None:
         if req.param("refresh") in ("true", "", "wait_for"):
             svc.refresh()
 
     def do_index(req):
-        svc = node.indices.get(req.param("index"))
+        # validation precedes the auto-create: a rejected request leaves
+        # no empty index behind
+        doc_id = req.param("id")
+        _validate_doc_id(doc_id)
         source = req.body
         if not isinstance(source, dict):
             raise IllegalArgumentError("request body is required")
-        _validate_doc_id(req.param("id"))
-        res = svc.index_doc(req.param("id"), source,
-                            routing=req.param("routing"))
+        svc = node.indices.get(_write_index(node, req.param("index")))
+        _check_no_pipeline(svc, req.param("pipeline"))
+        res = svc.index_doc(doc_id, source, routing=req.param("routing"),
+                            op_type=req.param("op_type", "index"),
+                            **write_params(req))
         maybe_refresh(req, svc)
         return (201 if res["result"] == "created" else 200), res
 
+    def do_create(req):
+        req.params["op_type"] = "create"
+        return do_index(req)
+
+    def do_get(req):
+        svc = node.indices.get(req.param("index"))
+        res = svc.get_doc(req.param("id"), routing=req.param("routing"),
+                          realtime=req.bool_param("realtime", True))
+        return (200 if res.get("found") else 404), res
+
+    def do_get_source(req):
+        svc = node.indices.get(req.param("index"))
+        res = svc.get_doc(req.param("id"), routing=req.param("routing"))
+        if not res.get("found"):
+            return 404, {"error": f"document [{req.param('id')}] missing"}
+        return 200, res.get("_source")
+
     def do_delete(req):
         svc = node.indices.get(req.param("index"))
-        res = svc.delete_doc(req.param("id"), routing=req.param("routing"))
+        res = svc.delete_doc(req.param("id"), routing=req.param("routing"),
+                             **write_params(req))
         maybe_refresh(req, svc)
         return (200 if res["result"] == "deleted" else 404), res
+
+    def do_update(req):
+        _validate_doc_id(req.param("id"))
+        svc = node.indices.get(_write_index(node, req.param("index")))
+        res = svc.update_doc(req.param("id"), req.body or {},
+                             routing=req.param("routing"),
+                             **write_params(req))
+        maybe_refresh(req, svc)
+        return res
+
+    def do_mget(req):
+        body = req.body or {}
+        default_index = req.param("index")
+        docs_spec = body.get("docs")
+        if docs_spec is None and "ids" in body:
+            docs_spec = [{"_id": i} for i in body["ids"]]
+        if docs_spec is None:
+            raise IllegalArgumentError(
+                "unexpected content, expected [docs] or [ids]")
+        docs = []
+        for spec in docs_spec:
+            idx = spec.get("_index", default_index)
+            if idx is None:
+                raise IllegalArgumentError("index is missing for doc")
+            try:
+                svc = node.indices.get(idx)
+                docs.append(svc.get_doc(str(spec["_id"]),
+                                        routing=spec.get("routing")))
+            except IndexNotFoundError:
+                docs.append({"_index": idx, "_id": spec.get("_id"),
+                             "error": {"type": "index_not_found_exception",
+                                       "reason": f"no such index [{idx}]"}})
+        return {"docs": docs}
 
     def do_bulk(req):
         lines = _ndjson_lines(req)
@@ -125,15 +228,18 @@ def register_actions(node, c: RestController) -> None:
                 raise IllegalArgumentError(
                     "Malformed action/metadata line, expected one action")
             op, meta = next(iter(action_line.items()))
-            if op not in ("index", "create", "delete"):
+            if op not in ("index", "create", "update", "delete"):
                 raise IllegalArgumentError(
                     f"Unknown action [{op}], expected one of "
-                    f"[create, delete, index]")
+                    f"[create, delete, index, update]")
             routing = meta.get("routing", meta.get("_routing"))
             entry = {"action": op, "index": meta.get("_index", default_index),
                      "id": None if meta.get("_id") is None
                      else str(meta["_id"]),
                      "routing": None if routing is None else str(routing)}
+            for key in ("if_seq_no", "if_primary_term"):
+                if meta.get(key) is not None:
+                    entry[key] = meta[key]
             if entry["index"] is None:
                 raise IllegalArgumentError("bulk item missing _index")
             if op != "delete":
@@ -145,12 +251,16 @@ def register_actions(node, c: RestController) -> None:
             items.append(entry)
         by_index: Dict[str, List[int]] = {}
         for pos, item in enumerate(items):
+            item["index"] = _write_index(node, item["index"])
             by_index.setdefault(item["index"], []).append(pos)
         responses: List[Optional[dict]] = [None] * len(items)
         errors = False
         took = 0
         for name, positions in by_index.items():
             svc = node.indices.get(name)
+            if any(items[p]["action"] in ("index", "create")
+                   for p in positions):
+                _check_no_pipeline(svc, req.param("pipeline"))
             res = svc.bulk([items[p] for p in positions])
             took = max(took, res["took"])
             errors = errors or res["errors"]
@@ -165,10 +275,28 @@ def register_actions(node, c: RestController) -> None:
                     body["forced_refresh"] = True
         return {"took": took, "errors": errors, "items": responses}
 
-    def do_refresh(req):
-        name = req.param("index")
-        node.indices.get(name).refresh()
-        return {"_shards": _shards_header(node, [name])}
+    def over_indices(method):
+        """A handler that runs `method` on every index the expression
+        resolves to (all of them without one)."""
+        def handler(req):
+            names = node.indices.resolve(req.param("index"))
+            for n in names:
+                getattr(node.indices.get(n), method)()
+            return {"_shards": _shards_header(node, names)}
+        return handler
+
+    def do_count(req):
+        body = dict(req.body or {})
+        if req.param("q") is not None:
+            body["query"] = {"query_string": {"query": req.param("q")}}
+        body["size"] = 0
+        body.pop("from", None)
+        body.pop("aggs", None)
+        body.pop("aggregations", None)
+        res = _run_search(node, req.param("index"), body,
+                          search_pipeline="_none")
+        return {"count": res["hits"]["total"]["value"],
+                "_shards": res["_shards"]}
 
     def do_search(req):
         body = dict(req.body) if isinstance(req.body, dict) else {}
@@ -266,10 +394,31 @@ def register_actions(node, c: RestController) -> None:
     c.register("PUT", "/{index}/_doc/{id}", do_index)
     c.register("POST", "/{index}/_doc/{id}", do_index)
     c.register("POST", "/{index}/_doc", do_index)
+    c.register("PUT", "/{index}/_create/{id}", do_create)
+    c.register("POST", "/{index}/_create/{id}", do_create)
+    c.register("GET", "/{index}/_doc/{id}", do_get)
+    c.register("GET", "/{index}/_source/{id}", do_get_source)
     c.register("DELETE", "/{index}/_doc/{id}", do_delete)
+    c.register("POST", "/{index}/_update/{id}", do_update)
+    c.register("GET", "/_mget", do_mget)
+    c.register("POST", "/_mget", do_mget)
+    c.register("GET", "/{index}/_mget", do_mget)
+    c.register("POST", "/{index}/_mget", do_mget)
     c.register("POST", "/_bulk", do_bulk)
+    c.register("PUT", "/_bulk", do_bulk)
     c.register("POST", "/{index}/_bulk", do_bulk)
-    c.register("POST", "/{index}/_refresh", do_refresh)
+    c.register("PUT", "/{index}/_bulk", do_bulk)
+    c.register("POST", "/_refresh", over_indices("refresh"))
+    c.register("GET", "/_refresh", over_indices("refresh"))
+    c.register("POST", "/{index}/_refresh", over_indices("refresh"))
+    c.register("POST", "/_flush", over_indices("flush"))
+    c.register("POST", "/{index}/_flush", over_indices("flush"))
+    c.register("POST", "/_forcemerge", over_indices("force_merge"))
+    c.register("POST", "/{index}/_forcemerge", over_indices("force_merge"))
+    c.register("GET", "/_count", do_count)
+    c.register("POST", "/_count", do_count)
+    c.register("GET", "/{index}/_count", do_count)
+    c.register("POST", "/{index}/_count", do_count)
     c.register("GET", "/_search", do_search)
     c.register("POST", "/_search", do_search)
     c.register("GET", "/{index}/_search", do_search)

@@ -23,6 +23,17 @@ class RestRequest:
     def param(self, name: str, default=None):
         return self.params.get(name, default)
 
+    def bool_param(self, name: str, default: bool = False) -> bool:
+        """A flag present but blank means true."""
+        v = self.params.get(name)
+        if v is None:
+            return default
+        return str(v).lower() not in ("false", "0", "no")
+
+    def int_param(self, name: str, default: int = 0) -> int:
+        v = self.params.get(name)
+        return default if v is None else int(v)
+
 
 @dataclass
 class RestResponse:

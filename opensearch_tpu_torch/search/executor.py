@@ -58,8 +58,9 @@ from opensearch_tpu_torch.ops.bm25 import (BLOCKMAX_MIN_BLOCKS,
                                            blockmax_keep_mask,
                                            bm25_candidate)
 from opensearch_tpu_torch.ops.device_segment import (DeviceSegmentMeta,
-                                                     live_mask, tree_nbytes,
-                                                     upload_segment)
+                                                     publish_segment,
+                                                     refresh_live,
+                                                     tree_nbytes)
 from opensearch_tpu_torch.ops.hybrid import hybrid_window
 from opensearch_tpu_torch.ops.page import page_merge
 from opensearch_tpu_torch.ops.sort_key import build_sort_key
@@ -84,22 +85,38 @@ from opensearch_tpu_torch.search.compile import (Compiler, Plan, ShardStats,
 from opensearch_tpu_torch.search.plan_eval import _eval_plan
 
 
+def _live_sig(seg: Segment) -> bytes:
+    """The packed live bitmap: a refresh sends a segment's live mask again
+    only when this changed."""
+    return np.packbits(np.asarray(seg.live, dtype=bool)).tobytes()
+
+
 class ShardReader:
     """A shard's sealed segments and their device images. `segments` and
     `device` are published together as one tuple, so a search holding a
     `stats_snapshot()` never pairs a segment with another segment's
-    image."""
+    image.
+
+    `delta` is the node's `indices.publish.delta`: a new segment crosses as
+    its compact prefixes (ops/device_segment.publish_segment). Either way a
+    refresh sends no live mask that did not change. `upload_bytes` counts
+    every byte sent from the host to publish (images and live masks),
+    `live_mask_bytes` the live masks' share."""
 
     def __init__(self, mapper: MapperService, device: torch.device,
-                 index_name: str = "_index"):
+                 index_name: str = "_index", delta: bool = False):
         self.mapper = mapper
         self.torch_device = torch.device(device)
         self.index_name = index_name
+        self.delta = delta
         self._published: Tuple[List[Segment],
                                List[Tuple[Dict, DeviceSegmentMeta]]] = \
             ([], [])
         self._stats: Optional[ShardStats] = None
         self._lock = threading.Lock()
+        self._live_sigs: Dict[str, bytes] = {}
+        self.upload_bytes = 0
+        self.live_mask_bytes = 0
 
     @property
     def segments(self) -> List[Segment]:
@@ -119,25 +136,69 @@ class ShardReader:
     def device_bytes(self) -> int:
         return sum(tree_nbytes(arrays) for arrays, _ in self.device)
 
-    def add_segment(self, seg: Segment) -> None:
-        arrays, meta = upload_segment(seg, self.torch_device)
-        with self._lock:
-            segs, dev = self._published
-            self._published = (segs + [seg], dev + [(arrays, meta)])
-
-    def update_live(self, seg: Segment) -> None:
-        """Re-upload one segment's live mask after deletes."""
+    def _replace(self, seg: Segment, image) -> bool:
+        """Publish `image` in place of the segment with `seg`'s id."""
         with self._lock:
             segs, dev = self._published
             for i, s in enumerate(segs):
-                if s is seg:
-                    arrays, meta = dev[i]
-                    arrays = dict(arrays)
-                    arrays["live"] = torch.from_numpy(
-                        live_mask(seg, meta.d_pad)).to(self.torch_device)
-                    self._published = (list(segs), dev[:i]
-                                       + [(arrays, meta)] + dev[i + 1:])
+                if s.seg_id == seg.seg_id:
+                    self._published = (segs[:i] + [seg] + segs[i + 1:],
+                                       dev[:i] + [image] + dev[i + 1:])
+                    return True
+        return False
+
+    def _publish(self, seg: Segment) -> Tuple[Dict, DeviceSegmentMeta]:
+        """A segment's whole image on the device, its bytes counted."""
+        arrays, meta, sent = publish_segment(seg, self.torch_device,
+                                             self.delta)
+        self._live_sigs[seg.seg_id] = _live_sig(seg)
+        self.upload_bytes += sent
+        return arrays, meta
+
+    def add_segment(self, seg: Segment) -> None:
+        image = self._publish(seg)
+        with self._lock:
+            segs, dev = self._published
+            self._published = (segs + [seg], dev + [image])
+
+    def remove_segment(self, seg_id: str) -> None:
+        with self._lock:
+            segs, dev = self._published
+            for i, seg in enumerate(segs):
+                if seg.seg_id == seg_id:
+                    self._published = (segs[:i] + segs[i + 1:],
+                                       dev[:i] + dev[i + 1:])
+                    self._live_sigs.pop(seg_id, None)
                     return
+
+    def notify_deletes(self, seg: Segment) -> None:
+        """Re-upload the live mask of the segment with `seg`'s id after
+        deletes, and adopt `seg` (the same columns) under that id."""
+        for s, (arrays, meta) in zip(*self._published):
+            if s.seg_id == seg.seg_id:
+                if self._replace(seg, (refresh_live(arrays, seg), meta)):
+                    nbytes = int(arrays["live"].numel())
+                    self._live_sigs[seg.seg_id] = _live_sig(seg)
+                    self.upload_bytes += nbytes
+                    self.live_mask_bytes += nbytes
+                return
+
+    def update_segment(self, seg: Segment) -> None:
+        """Adopt the engine's segment of a published id: the same object
+        re-uploads its live mask only when the mask changed, one sharing
+        its columns re-uploads the mask, another segment its whole image;
+        an unknown id is added."""
+        for s, _image in zip(*self._published):
+            if s.seg_id != seg.seg_id:
+                continue
+            if s is seg and self._live_sigs.get(seg.seg_id) == _live_sig(seg):
+                return
+            if s is seg or s.post_docs is seg.post_docs:
+                self.notify_deletes(seg)
+            else:
+                self._replace(seg, self._publish(seg))
+            return
+        self.add_segment(seg)
 
 
 # ---------------------------------------------------- packed input envelope

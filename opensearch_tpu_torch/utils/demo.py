@@ -19,6 +19,8 @@ ColBERT-shaped token matrices (unit vectors around clustered centers) and
 `qa_segment` builds StackOverflow-shaped questions with nested answers
 (the nested cell) and `geonames_segment` GeoNames-shaped places with a
 geo_point, a rank_feature and a country code (the geo cell).
+`http_logs_docs` draws web-server log lines after rally-tracks'
+`http_logs` (the ingest cell's documents, written through `_bulk`).
 """
 
 from __future__ import annotations
@@ -760,3 +762,53 @@ def geonames_segment(n_places: int, seed: int = 42, seg_id: str = "geo0"
                                    np.uint64)}},
     }
     return mapper, segment_from_arrays(arrays)
+
+
+# rally-tracks' http_logs, cut: `clientip` is a keyword (the `ip` type is
+# not ported) and the track's `message` / `geoip` fields are left out
+HTTP_LOGS_MAPPING = {"properties": {
+    "@timestamp": {"type": "date",
+                   "format": "strict_date_optional_time||epoch_second"},
+    "clientip": {"type": "keyword"},
+    "request": {"type": "text"},
+    "status": {"type": "integer"},
+    "size": {"type": "integer"}}}
+HTTP_LOGS_BASE_S = 893964617        # the track's first instant, 1998-04-30
+HTTP_LOGS_STATUS = (200, 304, 404, 206, 500, 302, 400, 403, 401, 503)
+_HTTP_STATUS_P = (0.82, 0.1, 0.04, 0.015, 0.008, 0.008, 0.004, 0.003,
+                  0.001, 0.001)
+_HTTP_DIRS = ("images", "english", "french", "spanish", "german", "news",
+              "scripts", "teams", "history", "tickets", "venues",
+              "playing", "competition", "member", "cgi-bin")
+_HTTP_EXTS = ("gif", "html", "jpg", "htm", "js", "css", "pdf", "txt")
+
+
+def http_logs_docs(n_docs: int, seed: int = 42) -> List[dict]:
+    """`n_docs` lines of a seeded web-server log: `@timestamp` epoch
+    seconds, three lines a second; a zipf-skewed `clientip` of 50,000
+    clients; a GET `request` over a zipf-skewed file vocabulary; `status`
+    from HTTP_LOGS_STATUS (mostly 200); a lognormal `size`, absent from a
+    304 and from a tenth of the 200s."""
+    rng = np.random.default_rng(seed)
+    client = _zipf_draw(rng, 50_000, n_docs, 1.1)
+    dirs = _zipf_draw(rng, len(_HTTP_DIRS), n_docs, 1.2)
+    files = _zipf_draw(rng, 2000, n_docs, 1.05)
+    exts = rng.integers(0, len(_HTTP_EXTS), n_docs)
+    status = np.asarray(HTTP_LOGS_STATUS)[
+        rng.choice(len(HTTP_LOGS_STATUS), n_docs, p=_HTTP_STATUS_P)]
+    size = rng.lognormal(8.5, 1.5, n_docs).astype(np.int64)
+    no_size = (status == 304) | ((status == 200)
+                                 & (rng.random(n_docs) < 0.1))
+    out = []
+    for i in range(n_docs):
+        c = int(client[i])
+        doc = {"@timestamp": HTTP_LOGS_BASE_S + i // 3,
+               "clientip": f"{c >> 8 & 255}.{c & 255}.{(c * 7) & 255}."
+                           f"{c % 251}",
+               "request": f"GET /{_HTTP_DIRS[dirs[i]]}/f{files[i]}."
+                          f"{_HTTP_EXTS[exts[i]]} HTTP/1.0",
+               "status": int(status[i])}
+        if not no_size[i]:
+            doc["size"] = int(size[i])
+        out.append(doc)
+    return out

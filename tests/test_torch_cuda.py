@@ -22,7 +22,9 @@ libdevice functions as the kernels). K22 (nested_join) bit for bit in
 every score mode; K23 (nested_aggs) exactly; K24 (binned_scatter) counts,
 min and max exactly and its sums bit for bit (one sorted two-level order)
 and within the sum bound; K25's four geo / rank_feature entries bit for
-bit."""
+bit. Row 16 (expand_pad) bit for bit on the four leaf dtypes, 1-3 dims,
+axes cut and left whole, a publish's image equal to upload_segment's, and
+a CPU fallback refused for a CUDA tensor of another dtype."""
 
 import numpy as np
 import pytest
@@ -1096,3 +1098,98 @@ def test_geo_scores_kernels_equal_plain(gpu):
         assert _same(got[0], want[0]) and torch.equal(got[1], want[1]), i
     for name in geo.ENTRIES:
         assert _build.LAUNCHES[name] > 0
+
+
+# ------------------------------------------------------ row 16, expand_pad
+
+EXPAND_CASES = [
+    ((5,), (128,), torch.int32, -1),
+    ((1000,), (1024,), torch.float32, 0.0),
+    ((37,), (64,), torch.bool, False),
+    ((7, 100), (8, 128), torch.int32, 2 ** 31 - 1),
+    ((3, 5), (3, 64), torch.uint8, 0),
+    ((130, 8), (256, 8), torch.float32, 0.0),
+    ((9, 4, 6), (16, 4, 6), torch.uint8, 0),
+    ((3, 5, 7), (4, 8, 8), torch.float32, 0.0),
+    ((50, 2, 3), (64, 2, 3), torch.bool, False),
+]
+
+
+@pytest.mark.parametrize("compact,full,dtype,fill", EXPAND_CASES)
+def test_expand_pad_kernel_equals_plain(gpu, compact, full, dtype, fill):
+    from opensearch_tpu_torch.ops.device_segment import (expand_pad,
+                                                         expand_pad_plain)
+    gen = torch.Generator(device="cuda").manual_seed(len(compact))
+    if dtype == torch.float32:
+        x = torch.randn(compact, generator=gen, device="cuda")
+    elif dtype == torch.bool:
+        x = torch.rand(compact, generator=gen, device="cuda") < 0.5
+    else:
+        x = torch.randint(0, 120, compact, generator=gen, device="cuda",
+                          dtype=dtype)
+    before = _build.LAUNCHES["expand_pad"]
+    got = expand_pad(x, full, fill)
+    want = expand_pad_plain(x, full, fill)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["expand_pad"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == full
+    if dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("total", [
+    2 ** 32 - 2112 * 256 - 1000,    # 32-bit indices: total + stride fits
+    2 ** 32 - 1000])                # within one grid stride of 2^32
+def test_expand_pad_near_the_32_bit_index_limit(gpu, total):
+    """A uint8 leaf of about 2^32 elements: the grid-stride loop ends, the
+    prefix and the fill land where they should."""
+    from opensearch_tpu_torch.ops.device_segment import (expand_pad,
+                                                         expand_pad_plain)
+    x = torch.arange(1000, device="cuda").to(torch.uint8)
+    got = expand_pad(x, (total,), 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:1000], x)
+    assert int((got[1000:] != 7).sum()) == 0
+    del got
+    torch.cuda.empty_cache()
+    assert torch.equal(expand_pad(x, (total,), 7)[-5000:],
+                       expand_pad_plain(x, (total,), 7)[-5000:])
+
+
+def test_expand_pad_refuses_other_dtypes(gpu):
+    from opensearch_tpu_torch.ops.device_segment import expand_pad
+    with pytest.raises(ValueError):
+        expand_pad(torch.zeros(4, dtype=torch.int64, device="cuda"), (8,), 0)
+    with pytest.raises(ValueError):
+        expand_pad(torch.zeros(4, 2, device="cuda").t(), (4, 4), 0.0)
+
+
+def test_delta_publish_image_equals_upload(gpu):
+    from opensearch_tpu_torch.index.mapper import MapperService
+    from opensearch_tpu_torch.index.segment import SegmentBuilder
+    from opensearch_tpu_torch.ops.device_segment import publish_segment
+    from opensearch_tpu_torch.utils.demo import (HTTP_LOGS_MAPPING,
+                                                 http_logs_docs)
+    mapper = MapperService(HTTP_LOGS_MAPPING)
+    builder = SegmentBuilder(mapper, "s")
+    for i, doc in enumerate(http_logs_docs(40)):
+        builder.add(mapper.parse_document(str(i), doc))
+    seg = builder.seal()
+    seg.live[::5] = False
+    before = _build.LAUNCHES["expand_pad"]
+    got, meta, sent = publish_segment(seg, gpu, delta=True)
+    want, want_meta = upload_segment(seg, gpu)
+    torch.cuda.synchronize()
+    assert meta == want_meta and _build.LAUNCHES["expand_pad"] > before
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, tree
+    g, w = dict(leaves(got)), dict(leaves(want))
+    assert g.keys() == w.keys()
+    for k in g:
+        assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), k
