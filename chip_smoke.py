@@ -220,7 +220,15 @@ bit on every leaf a 40-doc ingest segment compacts (ragged and bucketed
 prefixes), on phase 5's 10M-doc image (Dp 2^24: live, views' min_rank /
 exists / values, tag's doc ids), phase 6's vectors (1M x 128 into
 [2^20, 128]) and phase 8's PQ codes (u8 [100,000, 128, 32] into
-[131,072, 128, 32]), timed beside its bound and F.pad.
+[131,072, 128, 32]), timed beside its bound and F.pad. Those leaves take
+its 16-byte vector path (the codes and the vectors fold to one axis) or,
+for the ragged small leaves, its element path.
+
+Every phase from 3 on ends by requiring that every response was answered
+by every shard: no shard's query or fetch failed (`_shards.failed` 0, the
+controller's SHARD_FAILURES) and the multi-shard program never raised and
+fell back to the per-shard host loop (spmd.HOST_FALLBACKS); else the
+phase fails.
 
 Phase 2 also holds K22 nested_join (sum, avg, max), K23 nested_aggs
 (nested under the root, reverse_nested under a monthly date_histogram)
@@ -5186,6 +5194,25 @@ def phase_ingest_cell(torch, np, card: str, out_dir=None,
     return out, launches
 
 
+def require_clean_shards(what: str) -> None:
+    """Every response so far was answered by every shard: no shard's query
+    or fetch failed (search/controller.py SHARD_FAILURES, a `_shards.failed`
+    entry) and the multi-shard program never raised and fell back to the
+    per-shard host loop (search/spmd.py HOST_FALLBACKS)."""
+    from opensearch_tpu_torch.search import controller, spmd
+    failed, fell_back = controller.SHARD_FAILURES[0], spmd.HOST_FALLBACKS[0]
+    if failed or fell_back:
+        raise AssertionError(
+            f"{what}: {failed} shard failures and {fell_back} fall-backs of "
+            f"the multi-shard program to the host loop")
+
+
+def phase_done(what: str, res) -> None:
+    """A phase's end: require clean shards, then log its result."""
+    require_clean_shards(what)
+    log(f"{what}: " + json.dumps(res))
+
+
 def _require_launched(launches, names, what: str) -> None:
     missing = [k for k in names if launches.get(k, 0) == 0]
     if missing:
@@ -5272,6 +5299,7 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         else:
             mapper, seg = taxi_segment(np, AGG_SCALE_DOCS)
             res = phase_aggkind_cell(torch, np, mapper, seg, card, out_dir)
+        require_clean_shards(cell)
         print(json.dumps({"run": cell, "card": card, **res}), flush=True)
         del mapper, seg
         torch.cuda.empty_cache()
@@ -5390,58 +5418,60 @@ def main(argv) -> int:
                                         corpora["sift"][0], dev))
     # phase 3: the main path, serving on the card
     launches = phase_serving(torch, np)
+    require_clean_shards("serving")
     # phase 4: BM25 scale
     scale = phase_scale(torch, np, mapper, seg, dev, out_dir)
-    log("scale: " + json.dumps(scale))
+    phase_done("scale", scale)
     # phase 5: aggregation scale
     agg_scale = phase_agg_scale(torch, np, agg_mapper, agg_seg, dev,
                                 out_dir)
-    log("agg scale: " + json.dumps(agg_scale))
+    phase_done("agg scale", agg_scale)
     # phases 6 and 7: the k-NN cells
     for cell in ("exact", "ivf"):
         res = phase_knn_cell(torch, np, cell, corpora, dev, card, out_dir)
-        log(f"knn {cell}: " + json.dumps(res))
+        phase_done(f"knn {cell}", res)
     del corpora
     # phase 8: the MaxSim cell
     res = phase_maxsim_cell(torch, np, mc, dev, card, out_dir)
-    log("maxsim: " + json.dumps(res))
+    phase_done("maxsim", res)
     del mc
     # phase 9: the hybrid cell, over phase 4's passages
     res = phase_hybrid_cell(torch, np, mapper, seg, sorted(
         t for _, t in seg.term_dict), dev, card, out_dir)
-    log("hybrid: " + json.dumps(res))
+    phase_done("hybrid", res)
     # phase 10: the sorted cell, over phase 5's docs
     log(f"sorted: the deep search_after body at {SORTED_DEEP_SINGLES} B=1 "
         f"requests an index (cut from 20 to keep the run in its time "
         f"limit)")
     res = phase_sorted_cell(torch, np, agg_mapper, agg_seg, four, card,
                             out_dir)
-    log("sorted: " + json.dumps(res))
+    phase_done("sorted", res)
     # phase 11: the agg-kinds cell
     res = phase_aggkind_cell(torch, np, taxi_mapper, taxi_seg, card,
                              out_dir)
-    log("agg kinds: " + json.dumps(res))
+    phase_done("agg kinds", res)
     del taxi_seg
     # phase 12: the relevance cell, over phase 4's passages
     res = phase_relevance_cell(torch, np, mapper, seg, terms, card, out_dir)
-    log("relevance: " + json.dumps(res))
+    phase_done("relevance", res)
     # phase 13: the sharded cell (5 shards, block-max, logs-*)
     log(f"sharded: the logs-* bodies at {LOGS_SINGLES} B=1 requests a route "
         f"(cut from 50 to keep the run in its time limit)")
     res = phase_sharded_cell(torch, np, mapper, seg, sorted(
         t for _, t in seg.term_dict), agg_seg, four, dev, card, out_dir)
-    log("sharded: " + json.dumps(res))
+    phase_done("sharded", res)
     del agg_seg, four
     # phase 14: the nested cell
     res = phase_nested_cell(torch, np, qa_seg, card, out_dir)
-    log("nested: " + json.dumps(res))
+    phase_done("nested", res)
     del qa_seg
     # phase 15: the geo cell
     res = phase_geo_cell(torch, np, geo_seg, card, out_dir)
-    log("geo: " + json.dumps(res))
+    phase_done("geo", res)
     del geo_seg
     # phase 16: the ingest cell (the write path and the delta publish)
     res, ingest_launches = phase_ingest_cell(torch, np, card, out_dir)
+    require_clean_shards("ingest")
     launches["expand_pad"] = ingest_launches["expand_pad"]
 
     # one representative shape per kernel for the kernels line: the B=32

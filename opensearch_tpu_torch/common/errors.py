@@ -73,3 +73,24 @@ class SettingsError(OpenSearchTpuError):
 class QueryShardError(OpenSearchTpuError):
     status = 400
     error_type = "query_shard_exception"
+
+
+class SearchPhaseExecutionError(OpenSearchTpuError):
+    """A search phase that failed as a whole: every shard that ran failed,
+    some failed with partial results disallowed, or the reduce failed.
+    Its metadata (`phase`, `grouped`, `failed_shards`) renders in the
+    error body."""
+    status = 503
+    error_type = "search_phase_execution_exception"
+
+
+def shard_failure_entry(shard_i: int, index_name: str,
+                        exc: BaseException, node_id: str = "_local") -> dict:
+    """One `_shards.failures[]` entry in the reference's shape: shard,
+    index, node and the nested reason."""
+    if isinstance(exc, OpenSearchTpuError):
+        reason = exc.to_xcontent()
+    else:
+        reason = {"type": type(exc).__name__, "reason": str(exc)}
+    return {"shard": shard_i, "index": index_name, "node": node_id,
+            "reason": reason}

@@ -5,7 +5,7 @@ plain C interface, loaded through ctypes. The build runs at first use, from
 the sources alone, into `opensearch_tpu_torch/build/`; all sources compile
 in parallel (one nvcc process each). A library's file name carries a digest
 of its source and flags, so an edited source rebuilds. A failed build
-raises: nothing falls back to another implementation.
+raises `KernelError`: nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -70,6 +70,26 @@ _ENTRIES: Dict[str, object] = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch: a fault of the card or
+    of the port's own code, never of one request or one shard."""
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether an exception is the card's or a kernel's: a KernelError, an
+    out-of-memory, or an error of the CUDA runtime. Such a fault is the
+    node's, not a shard's or a request's: callers that isolate a shard's
+    failure let it raise, so that no host path takes a kernel's work and
+    no partial page hides it."""
+    if isinstance(exc, KernelError):
+        return True
+    import torch
+    if isinstance(exc, (torch.cuda.OutOfMemoryError,
+                        getattr(torch, "AcceleratorError", KernelError))):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA" in str(exc)
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -82,7 +102,7 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels of "
+        raise KernelError("nvcc not found: the CUDA kernels of "
                            "opensearch_tpu_torch build only where the CUDA "
                            "toolkit is installed")
     return found
@@ -123,7 +143,7 @@ def build_all() -> Dict[str, float]:
             continue
         os.replace(tmp, _lib_path(name))
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failures))
     return took
 
 
@@ -136,7 +156,11 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as e:
+                raise KernelError(f"CUDA kernel library {name} did not "
+                                  f"load: {e}") from e
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
@@ -161,7 +185,7 @@ def check(name: str, code: int, lib: str = None) -> None:
     if code != 0:
         lib = lib or name
         msg = getattr(library(lib), f"{lib}_error_string")(code)
-        raise RuntimeError(f"CUDA kernel {name} failed: "
+        raise KernelError(f"CUDA kernel {name} failed: "
                            f"{msg.decode(errors='replace')} (error {code})")
 
 

@@ -16,12 +16,19 @@
 // Replaces opensearch_tpu/ops/maxsim.py:pq_lut and pq_maxsim_scores (the
 // `compression: pq` branch of the `maxsim` plan).
 //
-// What bounds it on an H100: the table lookups. Each doc token costs
+// What bounds pq_lut on an H100: its table's bytes, B * Tq * M * 1 KiB
+// stored once. What bounds maxsim_pq: the table lookups. Each doc token costs
 // Tq * M gathers from a query's table and as many adds for its M bytes of
 // codes; the codes' bytes alone bound it only at small B * Tq.
 //
 // Design (simple first).
-// - pq_lut: one thread per table entry (b, t, m, c), dsub multiply-adds.
+// - pq_lut: grid (tiles of 32 query rows (b, t), M), one thread per code c
+//   with its codebook row in registers (templated on dsub 1, 2, 4, 8, 16;
+//   a loop for any other dsub); the tile's query sub-vectors are staged in
+//   shared memory and read as broadcasts; a row's 256 entries
+//   are one contiguous 1 KiB store. No divide but the staging's by the
+//   constant dsub. (Its first version, one thread an entry with 64-bit
+//   divides and modulos by the runtime M, took twice torch.einsum's time.)
 // - maxsim_pq: one warp per doc, DOCS = 32 docs per CTA, grid (doc tiles,
 //   B). A query's table is Tq * M * 1 KiB (1 MiB at Tq 32, M 32), more
 //   than an SM's shared memory, so the CTA walks the query tokens in tiles
@@ -47,21 +54,72 @@ constexpr int DOCS = 32;                 // docs per CTA, one warp each
 constexpr int THREADS = DOCS * 32;
 constexpr int MAX_TT = 8;
 constexpr int SMEM_LIMIT = 232448;
+constexpr int LUT_ROWS = 32;             // query rows (b, t) per pq_lut CTA
 
-__global__ void pq_lut_kernel(const float* __restrict__ codebook,
-                              const float* __restrict__ query, int BT, int M,
-                              int dsub, float* __restrict__ lut) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)BT * M * PQ_CODES) return;
-  const int c = (int)(i % PQ_CODES);
-  const size_t r = i / PQ_CODES;
-  const int m = (int)(r % M);
-  const size_t bt = r / M;
-  const float* cb = codebook + ((size_t)m * PQ_CODES + c) * dsub;
-  const float* q = query + (bt * M + m) * dsub;
-  float acc = 0.0f;
-  for (int j = 0; j < dsub; ++j) acc = __fadd_rn(acc, __fmul_rn(cb[j], q[j]));
-  lut[i] = acc;
+// pq_lut: grid (row tiles of BT, M), one thread per code c. With DSUB > 0
+// the thread keeps codebook[m, c, :] in registers and the CTA stages its
+// LUT_ROWS query sub-vectors q[bt, m * dsub : (m + 1) * dsub] in shared
+// memory; DSUB == 0 is the loop for any other dsub, reading both rows from
+// global memory (the query's as a broadcast: every thread of the CTA reads
+// the same address). Each thread writes its column of every row, so the
+// 256 threads of a row store 1 KiB contiguously. I is 32-bit while every
+// index stays below 2^31.
+template <int DSUB, typename I>
+__global__ void __launch_bounds__(PQ_CODES)
+pq_lut_kernel(const float* __restrict__ codebook,
+              const float* __restrict__ query, int BT, int M, int dsub,
+              float* __restrict__ lut) {
+  constexpr int D = DSUB > 0 ? DSUB : 1;
+  __shared__ float qs[LUT_ROWS * D];
+  const int c = threadIdx.x;
+  const int m = blockIdx.y;
+  const int bt0 = blockIdx.x * LUT_ROWS;
+  const int rows = min(LUT_ROWS, BT - bt0);
+  const int d = DSUB > 0 ? DSUB : dsub;
+  const float* cbrow = codebook + ((I)m * PQ_CODES + c) * d;
+  float cb[D];
+  if constexpr (DSUB > 0) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) cb[j] = cbrow[j];
+    for (int i = threadIdx.x; i < rows * D; i += PQ_CODES) {
+      const int r = i / D;
+      qs[i] = query[((I)(bt0 + r) * M + m) * D + (i - r * D)];
+    }
+    __syncthreads();
+  }
+  float* dst = lut + ((I)bt0 * M + m) * PQ_CODES + c;
+  const I row_stride = (I)M * PQ_CODES;
+  for (int r = 0; r < rows; ++r) {
+    // the plain version's order: 0, then + cb[j] * q[j] in ascending j,
+    // each product and sum rounded once
+    float acc = 0.0f;
+    if constexpr (DSUB > 0) {
+      const float* q = qs + r * D;
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(cb[j], q[j]));
+    } else {
+      const float* q = query + ((I)(bt0 + r) * M + m) * d;
+      for (int j = 0; j < d; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(cbrow[j], q[j]));
+    }
+    dst[(I)r * row_stride] = acc;
+  }
+}
+
+template <int DSUB>
+cudaError_t launch_lut(const float* codebook, const float* query, int BT,
+                       int M, int dsub, float* lut, cudaStream_t stream) {
+  const dim3 grid((BT + LUT_ROWS - 1) / LUT_ROWS, M);
+  // the table's entries, the query's and the codebook's floats all index
+  // below BT * M * max(256, dsub)
+  if ((long long)BT * M * (dsub > PQ_CODES ? dsub : PQ_CODES) < (1ll << 31))
+    pq_lut_kernel<DSUB, int><<<grid, PQ_CODES, 0, stream>>>(
+        codebook, query, BT, M, dsub, lut);
+  else
+    pq_lut_kernel<DSUB, long long><<<grid, PQ_CODES, 0, stream>>>(
+        codebook, query, BT, M, dsub, lut);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -170,11 +228,18 @@ pq_score_kernel(const uint8_t* __restrict__ codes,
 extern "C" int pq_lut(const float* codebook, const float* query, int BT,
                       int M, int dsub, float* lut, void* stream) {
   if (BT <= 0) return 0;
-  if (M <= 0 || dsub <= 0) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)BT * M * PQ_CODES;
-  pq_lut_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                  (cudaStream_t)stream>>>(codebook, query, BT, M, dsub, lut);
-  return (int)cudaGetLastError();
+  if (M <= 0 || M > 65535 || dsub <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dsub) {
+    case 1: return (int)launch_lut<1>(codebook, query, BT, M, dsub, lut, s);
+    case 2: return (int)launch_lut<2>(codebook, query, BT, M, dsub, lut, s);
+    case 4: return (int)launch_lut<4>(codebook, query, BT, M, dsub, lut, s);
+    case 8: return (int)launch_lut<8>(codebook, query, BT, M, dsub, lut, s);
+    case 16:
+      return (int)launch_lut<16>(codebook, query, BT, M, dsub, lut, s);
+    default:
+      return (int)launch_lut<0>(codebook, query, BT, M, dsub, lut, s);
+  }
 }
 
 // codes: u8 [Dp, T, M]; lut: f32 [B, Tq, M, 256]; token_count: i32 [Dp];

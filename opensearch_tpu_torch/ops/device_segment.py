@@ -40,7 +40,6 @@ bytes that cross from the host differ.
 from __future__ import annotations
 
 import ctypes
-import struct
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -337,10 +336,31 @@ def expand_pad_plain(x: torch.Tensor, full_shape, fill) -> torch.Tensor:
 def _fill_bits(dtype: torch.dtype, fill) -> int:
     """The fill's raw bits in the leaf's element width."""
     if dtype == torch.float32:
-        return struct.unpack("<I", struct.pack("<f", float(fill)))[0]
+        # the C cast from double, as the plain version's torch.full makes
+        # it (a NaN keeps the payload bits the cast keeps)
+        return int(np.array(fill, dtype=np.float32).view(np.uint32))
     if dtype == torch.int32:
         return int(fill) & 0xFFFFFFFF
     return int(fill) & 0xFF
+
+
+def fold_axes(compact, full) -> Tuple[tuple, tuple]:
+    """The (compact, padded) extents of an expand_pad with every inner
+    axis whose compact extent equals its padded one merged into the axis
+    outside it, and leading axes of extent 1 dropped: [100,000, 128, 32]
+    into [131,072, 128, 32] becomes [409,600,000] into [536,870,912]. An
+    axis whose compact extent is smaller than its padded one is never
+    merged into, so the prefix is the same elements in either form."""
+    out_c, out_f = [int(compact[-1])], [int(full[-1])]
+    for c, f in zip(reversed(compact[:-1]), reversed(full[:-1])):
+        c, f = int(c), int(f)
+        if out_c[0] == out_f[0]:
+            out_c[0] *= c
+            out_f[0] *= f
+        elif c != 1 or f != 1:
+            out_c.insert(0, c)
+            out_f.insert(0, f)
+    return tuple(out_c), tuple(out_f)
 
 
 def expand_pad(x: torch.Tensor, full_shape, fill) -> torch.Tensor:
@@ -349,7 +369,8 @@ def expand_pad(x: torch.Tensor, full_shape, fill) -> torch.Tensor:
 
     x: a contiguous int32 / float32 / bool / uint8 tensor of 1-3 dims, each
     extent at most full_shape's. Returns a new tensor of `full_shape`:
-    `fill` everywhere, `x` in the leading corner."""
+    `fill` everywhere, `x` in the leading corner. The kernel sees the
+    extents after `fold_axes`."""
     full_shape = tuple(int(f) for f in full_shape)
     if not x.is_cuda:
         return expand_pad_plain(x, full_shape, fill)
@@ -365,8 +386,9 @@ def expand_pad(x: torch.Tensor, full_shape, fill) -> torch.Tensor:
                          f"{full_shape}")
     if not x.is_contiguous():
         raise ValueError("expand_pad takes a contiguous tensor")
-    c = (1,) * (3 - x.dim()) + tuple(x.shape)
-    f = (1,) * (3 - x.dim()) + full_shape
+    c, f = fold_axes(tuple(x.shape), full_shape)
+    c = (1,) * (3 - len(c)) + c
+    f = (1,) * (3 - len(f)) + f
     out = torch.empty(full_shape, dtype=x.dtype, device=x.device)
     fn = _build.entry("expand_pad", [ctypes.c_void_p, ctypes.c_void_p]
                       + [ctypes.c_int] + [ctypes.c_longlong] * 6

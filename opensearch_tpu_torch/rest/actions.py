@@ -117,6 +117,18 @@ def _run_search(node, expression, body: Optional[dict],
     return res
 
 
+def _total_as_int(resp):
+    """rest_total_hits_as_int=true renders hits.total as the bare number
+    (the pre-7.x shape)."""
+    if isinstance(resp, dict):
+        hits = resp.get("hits")
+        if isinstance(hits, dict) and isinstance(hits.get("total"), dict):
+            hits["total"] = hits["total"].get("value", 0)
+        for sub in resp.get("responses", []):
+            _total_as_int(sub)
+    return resp
+
+
 def register_actions(node, c: RestController) -> None:
     def do_create_index(req):
         name = req.param("index")
@@ -125,7 +137,12 @@ def register_actions(node, c: RestController) -> None:
                 "index": name}
 
     def do_delete_index(req):
-        node.indices.delete_index(req.param("index"))
+        # the reference also refuses an alias here; the port has none
+        names = node.indices.resolve(
+            req.param("index"),
+            ignore_unavailable=req.param("ignore_unavailable") == "true")
+        for n in dict.fromkeys(names):
+            node.indices.delete_index(n)
         return {"acknowledged": True}
 
     def write_params(req) -> dict:
@@ -148,12 +165,13 @@ def register_actions(node, c: RestController) -> None:
         # no empty index behind
         doc_id = req.param("id")
         _validate_doc_id(doc_id)
-        source = req.body
-        if not isinstance(source, dict):
-            raise IllegalArgumentError("request body is required")
         svc = node.indices.get(_write_index(node, req.param("index")))
         _check_no_pipeline(svc, req.param("pipeline"))
-        res = svc.index_doc(doc_id, source, routing=req.param("routing"),
+        # a missing or unparsable body indexes `{}`; any other non-object
+        # reaches the mapper, which refuses it after the engine has taken
+        # its sequence number, as the reference's does
+        res = svc.index_doc(doc_id, req.body or {},
+                            routing=req.param("routing"),
                             op_type=req.param("op_type", "index"),
                             **write_params(req))
         maybe_refresh(req, svc)
@@ -300,8 +318,20 @@ def register_actions(node, c: RestController) -> None:
 
     def do_search(req):
         body = dict(req.body) if isinstance(req.body, dict) else {}
+        # URI-search parameters override or add to the body, as the
+        # reference's REST layer folds them (`timeout` and `scroll` then
+        # answer the controller's 400 for an unported key)
+        if req.param("q") is not None:
+            body["query"] = {"query_string": {"query": req.param("q")}}
         if req.param("search_type"):
             body["search_type"] = req.param("search_type")
+        if req.param("timeout") is not None:
+            body["timeout"] = req.param("timeout")
+        if req.param("allow_partial_search_results") is not None:
+            body["allow_partial_search_results"] = req.bool_param(
+                "allow_partial_search_results", True)
+        if req.param("scroll"):
+            body["scroll"] = req.param("scroll")
         for key in ("size", "from"):
             if req.param(key) is not None:
                 body[key] = req.param(key)
@@ -322,8 +352,11 @@ def register_actions(node, c: RestController) -> None:
             body["_source"] = {
                 **({"includes": includes.split(",")} if includes else {}),
                 **({"excludes": excludes.split(",")} if excludes else {})}
-        return _run_search(node, req.param("index"), body,
-                           req.param("search_pipeline"))
+        out = _run_search(node, req.param("index"), body,
+                          req.param("search_pipeline"))
+        if req.param("rest_total_hits_as_int") == "true":
+            _total_as_int(out)
+        return out
 
     def do_msearch(req):
         lines = _ndjson_lines(req)

@@ -28,19 +28,37 @@ body takes the general path, `_execute_search_impl`:
   relation `gte` when block-max pruned lanes; `max_score` only when a
   score is wanted) and the `_shards` block.
 
+Shard failures are isolated as the reference's are: a typed error of
+status < 500 raises (every shard would fail alike); any other exception
+in a shard's query or fetch records a `_shards.failures[]` entry and drops
+that shard's candidates and hits. Every shard that ran failed: 503 "all
+shards failed"; some failed and `allow_partial_search_results` is false:
+503 "Partial shards failure"; otherwise a partial page. An untyped error
+in the agg reduce or the pipelines is a 503 of phase `reduce`. When the
+multi-shard program raises, the request takes the per-shard host loop
+(logged, and counted in `spmd.HOST_FALLBACKS`). A fault of the card or a
+kernel (`_build.is_device_fault`: a kernel that did not build or launch,
+a CUDA runtime error) is none of these: it raises out of the request,
+so no kernel's work moves to the host and no partial page hides it.
+
 Body keys the reference acts on that the port does not serve yet answer
 400 naming the key (`UNPORTED_BODY_KEYS`); keys the reference accepts and
-ignores are ignored here too. A shard's error raises (the reference's
-partial results, `timeout` and fault hooks are not ported).
+ignores are ignored here too (the reference's `timeout` and fault hooks
+are not ported).
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                ParsingError)
+                                                OpenSearchTpuError,
+                                                ParsingError,
+                                                SearchPhaseExecutionError,
+                                                shard_failure_entry)
+from opensearch_tpu_torch.ops._build import is_device_fault
 from opensearch_tpu_torch.search import dsl, spmd
 from opensearch_tpu_torch.search.aggs.parse import parse_aggs
 from opensearch_tpu_torch.search.aggs.pipeline import apply_pipelines
@@ -115,14 +133,39 @@ SEARCH_BODY_KEYS = frozenset({
 # body keys the reference acts on that the port does not serve yet (each
 # a 400 naming it while set)
 UNPORTED_BODY_KEYS = ("rescore", "collapse", "suggest", "profile",
-                      "script_fields", "slice", "pit", "scroll", "timeout",
-                      "allow_partial_search_results")
+                      "script_fields", "slice", "pit", "scroll", "timeout")
+
+_LOG = logging.getLogger(__name__)
+
+# shards whose query or fetch failed, process-wide (chip_smoke reads it)
+SHARD_FAILURES = [0]
 
 
 def _validate_search_body_keys(body: dict) -> None:
     for key in body:
         if key not in SEARCH_BODY_KEYS:
             raise ParsingError(f"unknown key [{key}] in the search body")
+
+
+def _resolve_allow_partial(body: dict) -> bool:
+    """allow_partial_search_results: the body's (or the URL's) value,
+    else true, the reference's default."""
+    raw = body.get("allow_partial_search_results")
+    if raw is None:
+        return True
+    if isinstance(raw, str):
+        return raw.strip().lower() != "false"
+    return bool(raw)
+
+
+def _shard_fault(exc: BaseException) -> bool:
+    """Whether one shard absorbs an exception as a `failures[]` entry: not
+    a request defect (a typed error of status < 500, which every shard
+    would raise alike) and not a fault of the card or a kernel (the
+    node's, which raises)."""
+    if isinstance(exc, OpenSearchTpuError) and exc.status < 500:
+        return False
+    return not is_device_fault(exc)
 
 
 def _refuse_unported(body: dict) -> None:
@@ -181,8 +224,16 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
         raise IllegalArgumentError(
             "`from` parameter must be set to 0 when `search_after` is used")
     track_total = body.get("track_total_hits", True)
+    allow_partial = _resolve_allow_partial(body)
     k = max(from_ + size, 10)
     max_k = 1 << 16
+    failures: Dict[int, dict] = {}      # shard -> its failures[] entry
+
+    def record_failure(shard_i: int, exc: BaseException) -> None:
+        if shard_i not in failures:
+            SHARD_FAILURES[0] += 1
+            failures[shard_i] = shard_failure_entry(
+                shard_i, executors[shard_i].reader.index_name, exc)
 
     # DFS query-then-fetch: every shard's statistics for the query terms,
     # merged, pinned on every shard's compile (scores compare across
@@ -215,9 +266,21 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
     def run_query_phase(k_eff):
         candidates, decoded_partials, total = [], [], 0
         pruned_box[0] = 0
+        failures.clear()                # a k-growth retry runs it again
         rows = spmd.spmd_rows(executors)
         if spmd.eligible(executors, body, rows, sort_specs):
-            out = spmd.spmd_query_phase(executors, body, k_eff, rows)
+            try:
+                out = spmd.spmd_query_phase(executors, body, k_eff, rows)
+            except Exception as e:  # the program fails as a unit
+                if is_device_fault(e):
+                    raise       # a kernel's work never moves to the host
+                # the per-shard host loop below isolates the failure; it
+                # runs the same kernels shard by shard
+                spmd.HOST_FALLBACKS[0] += 1
+                _LOG.warning("multi-shard program raised %s: %s; the "
+                             "request takes the per-shard host loop",
+                             type(e).__name__, e)
+                out = None
             if out is not None:
                 candidates, decoded_partials, total, pruned_box[0] = out
                 sort_candidates(candidates, sort_specs)
@@ -227,9 +290,15 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
         for shard_i, ex in enumerate(executors):
             if not flags[shard_i]:
                 continue                # provably empty: a skipped shard
-            cands, decoded, shard_total = ex.execute_query_phase(
-                body, k_eff, stats_override=dfs_overrides[shard_i]
-                if dfs_overrides else None)
+            try:
+                cands, decoded, shard_total = ex.execute_query_phase(
+                    body, k_eff, stats_override=dfs_overrides[shard_i]
+                    if dfs_overrides else None)
+            except Exception as e:  # one shard's fault costs its slice
+                if not _shard_fault(e):
+                    raise
+                record_failure(shard_i, e)
+                continue
             for c in cands:
                 c.shard_i = shard_i
             candidates.extend(cands)
@@ -262,10 +331,18 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
     query_node = dsl.parse_query(body.get("query"))
     from opensearch_tpu_torch.search import fetch as fetch_phase
     inner = (fetch_phase.collect_inner_hit_specs(query_node), {})
-    hits = [_build_hit(executors[c.shard_i], c, body,
-                       c.score if wants_score else None, query_node,
-                       score_sorted, inner)
-            for c in page]
+    built = []
+    for c in page:
+        try:
+            built.append((c.shard_i, _build_hit(
+                executors[c.shard_i], c, body,
+                c.score if wants_score else None, query_node, score_sorted,
+                inner)))
+        except Exception as e:  # a fetch fault drops the shard's hits
+            if not _shard_fault(e):
+                raise
+            record_failure(c.shard_i, e)
+    hits = [h for shard_i, h in built if shard_i not in failures]
 
     n_shards = len(executors)
     hits_block: dict = {"max_score": max_score, "hits": hits}
@@ -282,16 +359,38 @@ def _execute_search_impl(executors: List, body: dict) -> dict:
         else:
             hits_block = {"total": {"value": total, "relation": exact_rel},
                           **hits_block}
+    attempted = sum(flags_box[0]) if flags_box[0] is not None \
+        else n_shards
+    entries = list(failures.values())
+    if failures and len(failures) >= max(attempted, 1):
+        raise SearchPhaseExecutionError(
+            "all shards failed", phase="query", grouped=True,
+            failed_shards=entries)
+    if failures and not allow_partial:
+        raise SearchPhaseExecutionError(
+            "Partial shards failure", phase="query", grouped=True,
+            failed_shards=entries)
+    shards_block = {"total": n_shards,
+                    "successful": n_shards - len(failures),
+                    "skipped": skipped_box[0], "failed": len(failures)}
+    if failures:
+        shards_block["failures"] = entries
     resp = {
         "took": 0,
         "timed_out": False,
-        "_shards": {"total": n_shards, "successful": n_shards,
-                    "skipped": skipped_box[0], "failed": 0},
+        "_shards": shards_block,
         "hits": hits_block,
     }
     if agg_nodes:
-        aggregations = reduce_aggs(decoded_partials)
-        apply_pipelines(agg_nodes, aggregations)
+        try:
+            aggregations = reduce_aggs(decoded_partials)
+            apply_pipelines(agg_nodes, aggregations)
+        except Exception as e:  # no shard's slice to degrade to
+            if isinstance(e, OpenSearchTpuError) or is_device_fault(e):
+                raise
+            raise SearchPhaseExecutionError(
+                f"failed to reduce aggregations: {type(e).__name__}: {e}",
+                phase="reduce")
         resp["aggregations"] = aggregations
     resp["took"] = int((time.monotonic() - start) * 1000)
     if page:

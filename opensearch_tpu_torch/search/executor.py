@@ -51,6 +51,7 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 QueryShardError)
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.segment import Segment, pad_bucket
+from opensearch_tpu_torch.ops._build import is_device_fault
 from opensearch_tpu_torch.ops.bm25 import (BLOCKMAX_MIN_BLOCKS,
                                            BLOCKMAX_SLICE_BLOCKS,
                                            CANDIDATE_MAX_LANES,
@@ -1062,6 +1063,18 @@ class SearchExecutor:
                 if raise_item_errors:
                     raise
                 responses[i] = _item_error(e)
+                continue
+            except Exception as e:  # a body the batch cannot compile
+                if is_device_fault(e):
+                    raise
+                # the general path answers it, with its shard failure
+                # isolated, as the reference's envelope falls back
+                try:
+                    responses[i] = self.search(body, _direct=True)
+                except OpenSearchTpuError as e:
+                    if raise_item_errors:
+                        raise
+                    responses[i] = _item_error(e)
                 continue
             # no tie overfetch: per-segment top-k (score desc, doc asc)
             # merges to the exact global page

@@ -44,6 +44,10 @@ SPMD_MAX_PACK = 8
 # requests answered by the multi-shard program (tests read it)
 SPMD_QUERIES = [0]
 
+# requests whose multi-shard program raised and that took the per-shard
+# host loop instead (search/controller.py; chip_smoke requires 0)
+HOST_FALLBACKS = [0]
+
 
 def spmd_rows(executors: List) -> List[Tuple[int, int]]:
     """(executor index, segment index) pairs with documents."""

@@ -22,9 +22,13 @@ libdevice functions as the kernels). K22 (nested_join) bit for bit in
 every score mode; K23 (nested_aggs) exactly; K24 (binned_scatter) counts,
 min and max exactly and its sums bit for bit (one sorted two-level order)
 and within the sum bound; K25's four geo / rank_feature entries bit for
-bit. Row 16 (expand_pad) bit for bit on the four leaf dtypes, 1-3 dims,
-axes cut and left whole, a publish's image equal to upload_segment's, and
-a CPU fallback refused for a CUDA tensor of another dtype."""
+bit. K11's table (pq_lut) bit for bit on every dsub it templates and the
+loop's. Row 16 (expand_pad) bit for bit on the four leaf dtypes, 1-3 dims,
+axes cut and left whole, its 16-byte vector path and its element path
+(rows of 15, 16 and 17 bytes, views that are not 16-byte aligned, fills
+-0.0, NaN, INT32_MAX, -1 and true), a publish's image equal to
+upload_segment's, and a CPU fallback refused for a CUDA tensor of another
+dtype."""
 
 import numpy as np
 import pytest
@@ -1193,3 +1197,94 @@ def test_delta_publish_image_equals_upload(gpu):
     assert g.keys() == w.keys()
     for k in g:
         assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), k
+
+
+# the vector path (16-byte chunks: rows of whole 16-byte multiples, both
+# pointers aligned) and the element path (everything else)
+PAYLOAD_NAN = float(np.frombuffer(np.uint32(0x7FA00001).tobytes(),
+                                  np.float32)[0])
+EXPAND_VECTOR_CASES = [
+    # row lengths of 15, 16 and 17 bytes into 32-byte rows
+    ((4, 15), (8, 32), torch.uint8, 0),
+    ((4, 16), (8, 32), torch.uint8, 0),
+    ((4, 17), (8, 32), torch.uint8, 0),
+    ((4, 16), (8, 17), torch.uint8, 0),
+    # the PQ codes' shape at small scale: folds to one axis
+    ((100, 8, 32), (128, 8, 32), torch.uint8, 0),
+    ((100, 128), (128, 128), torch.float32, -0.0),
+    ((1000,), (1024,), torch.float32, float("nan")),
+    ((1000,), (1024,), torch.float32, PAYLOAD_NAN),
+    ((1000,), (1024,), torch.int32, 2 ** 31 - 1),
+    ((96, 20), (128, 64), torch.int32, -1),
+    ((992,), (4096,), torch.bool, True),
+    ((3, 16), (5, 48), torch.bool, False),
+]
+
+
+def _expand_input(compact, dtype, gen):
+    if dtype == torch.float32:
+        return torch.randn(compact, generator=gen, device="cuda")
+    if dtype == torch.bool:
+        return torch.rand(compact, generator=gen, device="cuda") < 0.5
+    return torch.randint(0, 120, compact, generator=gen, device="cuda",
+                         dtype=dtype)
+
+
+def _hold_expand(x, full, fill):
+    from opensearch_tpu_torch.ops.device_segment import (expand_pad,
+                                                         expand_pad_plain)
+    before = _build.LAUNCHES["expand_pad"]
+    got = expand_pad(x, full, fill)
+    want = expand_pad_plain(x, full, fill)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["expand_pad"] == before + 1
+    assert got.dtype == x.dtype and tuple(got.shape) == tuple(full)
+    if x.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("compact,full,dtype,fill", EXPAND_VECTOR_CASES)
+def test_expand_pad_vector_and_element_paths(gpu, compact, full, dtype,
+                                             fill):
+    gen = torch.Generator(device="cuda").manual_seed(sum(compact))
+    _hold_expand(_expand_input(compact, dtype, gen), full, fill)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.uint8, 1),
+                                          (torch.uint8, 16),
+                                          (torch.float32, 1),
+                                          (torch.int32, 4)])
+def test_expand_pad_unaligned_view(gpu, dtype, offset):
+    """A contiguous view whose data_ptr is not 16-byte aligned (an offset
+    of 1 element of a fresh tensor) takes the element path; an offset of
+    16 bytes keeps the vector path."""
+    gen = torch.Generator(device="cuda").manual_seed(offset)
+    base = _expand_input((offset + 1024,), dtype, gen)
+    x = base[offset:]
+    assert x.is_contiguous()
+    _hold_expand(x, (2048,), 0 if dtype != torch.float32 else 0.0)
+    _hold_expand(x.view(64, 16), (64, 32), 0 if dtype != torch.float32
+                 else -0.0)
+
+
+PQ_LUT_CASES = [(dsub, m) for dsub in (1, 2, 4, 8, 16, 3) for m in (8, 3)]
+
+
+@pytest.mark.parametrize("dsub,m", PQ_LUT_CASES)
+def test_pq_lut_kernel_equals_plain(gpu, dsub, m):
+    """K11's table bit for bit on every templated dsub and the loop's (3),
+    with B * Tq = 3 * 11 = 33 rows: one full 32-row tile and one of a
+    single row."""
+    from opensearch_tpu_torch.ops import maxsim
+    gen = torch.Generator(device="cuda").manual_seed(dsub * 100 + m)
+    codebook = torch.randn(m, 256, dsub, generator=gen, device="cuda")
+    query = torch.randn(3, 11, m * dsub, generator=gen, device="cuda")
+    query[0, 0, :dsub] = -0.0       # an entry of -0.0 products
+    before = _build.LAUNCHES["pq_lut"]
+    got = maxsim.pq_lut(codebook, query)
+    want = maxsim.pq_lut_plain(codebook, query)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pq_lut"] == before + 1
+    assert tuple(got.shape) == (3, 11, m, 256)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -414,3 +414,60 @@ def test_update_segment_adopts_another_segment_of_the_id(delta):
     new.seg_id = "fresh"
     shard.reader.update_segment(new)
     assert [s.seg_id for s in shard.reader.segments] == [old.seg_id, "fresh"]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("kind", sorted(KIND_MAPPINGS))
+def test_fold_axes_keeps_every_compacted_leaf(kind, raw):
+    """Row 16's axis fold, which the CUDA wrapper applies before its
+    launch: for every leaf compact_spec compacts (at the publish's bucketed
+    extents, or with `raw` at the populated ones), the plain version on
+    the folded extents, reshaped back, equals it on the original ones."""
+    from opensearch_tpu_torch.index.segment import pad_bucket
+    seg = _segment(kind)
+    host, _meta = tdevseg.segment_image(seg)
+    for path, (ext, fill) in tdevseg.compact_spec(seg).items():
+        leaf = host
+        for key in path:
+            leaf = leaf[key]
+        full = tuple(int(s) for s in leaf.shape)
+        compact = tuple(
+            f if e is None else min(max(int(e), 1) if raw else pad_bucket(
+                max(int(e), 1), minimum=8), f) for e, f in zip(ext, full))
+        x = torch.from_numpy(np.ascontiguousarray(
+            leaf[tuple(slice(0, e) for e in compact)]))
+        c, f = tdevseg.fold_axes(compact, full)
+        assert 1 <= len(c) == len(f) <= len(full), path
+        assert int(np.prod(c)) == x.numel() and \
+            int(np.prod(f)) == int(np.prod(full)), path
+        # only a whole inner axis merges outward: every folded axis but the
+        # first is ragged
+        assert all(ci < fi for ci, fi in zip(c[1:], f[1:])), path
+        got = tdevseg.expand_pad_plain(x.reshape(c), f, fill).reshape(full)
+        want = tdevseg.expand_pad_plain(x, full, fill)
+        assert torch.equal(_bits(got), _bits(want)), path
+
+
+@pytest.mark.parametrize("compact,full,folded", [
+    # the MaxSim cell's PQ codes and the k-NN cell's vectors: one axis
+    ((100000, 128, 32), (131072, 128, 32), ((409600000,), (536870912,))),
+    ((1000000, 128), (1048576, 128), ((128000000,), (134217728,))),
+    # postings: both axes ragged, nothing merges
+    ((7, 40), (8, 128), ((7, 40), (8, 128))),
+    # a whole middle axis merges with the outer one, never into a ragged
+    # inner one
+    ((3, 4, 5), (8, 4, 8), ((12, 5), (32, 8))),
+    ((3, 4, 8), (8, 4, 8), ((96,), (256,))),
+    ((3, 2, 8), (8, 4, 8), ((3, 16), (8, 32))),
+    # leading extents of 1 drop; a whole leaf folds to one axis
+    ((1, 5), (1, 8), ((5,), (8,))),
+    ((1, 5), (4, 8), ((1, 5), (4, 8))),
+    ((4, 6), (4, 6), ((24,), (24,))),
+    ((9,), (16,), ((9,), (16,))),
+])
+def test_fold_axes_shapes(compact, full, folded):
+    assert tdevseg.fold_axes(compact, full) == folded

@@ -248,9 +248,10 @@ def test_errors_match_reference(nodes, body, reason):
 def test_unported_keys_answer_400(nodes, key, value):
     jn, tn, _tp = nodes
     body = {"sort": [{"views": "asc"}], key: value}
-    if key == "search_type":
-        # dfs_query_then_fetch is served since the multi-shard slice
-        # (it answered 400 before): the reference's response
+    if key in ("search_type", "allow_partial_search_results"):
+        # dfs_query_then_fetch is served since the multi-shard slice and
+        # allow_partial_search_results since the shard failure isolation
+        # (each answered 400 before): the reference's response
         assert_same_response(_search(tn, body), _search(jn, body))
         return
     res = _search(tn, body)

@@ -8,10 +8,14 @@ K21) of opensearch_tpu_torch held against opensearch_tpu:
   then rank), and its key entry against the reference's value_merge_key;
 - a 9-row index takes the port's host loop (its cap is 8 rows on one
   card), which equals the reference's host loop;
-- a row kernel that fails raises out of the request: nothing falls back
-  to the host loop.
+- a row kernel that fails, or any other fault of the card, raises out of
+  the request: nothing falls back to the host loop;
+- any other error of the multi-shard program sends the request to the
+  per-shard host loop, as the reference's does (logged and counted in
+  `spmd.HOST_FALLBACKS`).
 """
 
+import contextlib
 import json
 
 import numpy as np
@@ -24,8 +28,10 @@ from opensearch_tpu.search import spmd as jspmd
 from opensearch_tpu.search.aggs.reduce import reduce_aggs as j_reduce
 
 from opensearch_tpu_torch.node import Node as TNode
+from opensearch_tpu_torch.ops import _build
 from opensearch_tpu_torch.ops import spmd as kspmd
 from opensearch_tpu_torch.parallel import distributed as tdist
+from opensearch_tpu_torch.search import controller as tcontroller
 from opensearch_tpu_torch.search import spmd as tspmd
 from opensearch_tpu_torch.search.aggs.reduce import reduce_aggs as t_reduce
 from opensearch_tpu_torch.search.controller import execute_search
@@ -158,7 +164,8 @@ def test_nine_rows_take_the_host_loop(nodes):
 
 def test_row_failure_raises(nodes, monkeypatch):
     """A row kernel that fails raises out of the request: no catch drops
-    the request to the host loop."""
+    the request to the host loop (a kernel's failure is the node's, so
+    the port does not take the reference's fall-back for it)."""
     _jn, tn = nodes
     tex = _executors(tn, "idx3")
     calls = []
@@ -169,11 +176,79 @@ def test_row_failure_raises(nodes, monkeypatch):
                             or _r(*a, **kw))
 
     def broken(*a, **kw):
-        raise RuntimeError("CUDA kernel masked_topk_keyed failed")
+        raise _build.KernelError("CUDA kernel masked_topk_keyed failed")
     monkeypatch.setattr(tdist, "masked_topk_keyed", broken)
+    fell_back = tspmd.HOST_FALLBACKS[0]
     with pytest.raises(RuntimeError, match="masked_topk_keyed failed"):
         execute_search(tex, BODIES["match"])
     assert calls == []
+    assert tspmd.HOST_FALLBACKS[0] == fell_back
+
+
+DEVICE_FAULTS = {
+    "out_of_memory": lambda: torch.cuda.OutOfMemoryError(
+        "CUDA out of memory. Tried to allocate 2.00 GiB"),
+    "runtime": lambda: RuntimeError(
+        "CUDA error: an illegal memory access was encountered"),
+    "build": lambda: _build.KernelError("CUDA kernel build failed"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(DEVICE_FAULTS))
+@pytest.mark.parametrize("where", ["program", "shard_query", "fetch"])
+def test_device_fault_raises(nodes, monkeypatch, kind, where):
+    """A fault of the card or a kernel, in the multi-shard program, in one
+    shard's query on the host loop or in its fetch, raises out of the
+    request: it is neither a fall-back nor a shard's failures[] entry."""
+    _jn, tn = nodes
+    tex = _executors(tn, "idx3")
+    exc = DEVICE_FAULTS[kind]()
+
+    def broken(*a, **kw):
+        raise exc
+    if where == "program":
+        monkeypatch.setattr(tspmd, "spmd_query_phase", broken)
+    else:
+        monkeypatch.setattr(tex[1], "execute_query_phase"
+                            if where == "shard_query" else "_hit_dict",
+                            broken)
+    fell_back, failed = tspmd.HOST_FALLBACKS[0], tcontroller.SHARD_FAILURES[0]
+    with tspmd.force_host_loop() if where == "shard_query" \
+            else contextlib.nullcontext():
+        with pytest.raises(type(exc)) as got:
+            execute_search(tex, BODIES["match"])
+    assert got.value is exc
+    assert tspmd.HOST_FALLBACKS[0] == fell_back
+    assert tcontroller.SHARD_FAILURES[0] == failed
+
+
+def test_program_fault_takes_the_host_loop(nodes, monkeypatch, caplog):
+    """An untyped error of the multi-shard program that is no fault of
+    the card (here a row's compile) sends the request to the per-shard
+    host loop, as the reference's (`opensearch_tpu/search/controller.py:
+    604-630`): logged and counted in `spmd.HOST_FALLBACKS`, and the page
+    is the host loop's."""
+    _jn, tn = nodes
+    tex = _executors(tn, "idx3")
+    with tspmd.force_host_loop():
+        want = execute_search(tex, BODIES["match"])
+    calls = []
+    for ex in tex:
+        real = ex.execute_query_phase
+        monkeypatch.setattr(ex, "execute_query_phase",
+                            lambda *a, _r=real, **kw: calls.append(1)
+                            or _r(*a, **kw))
+
+    def broken(*a, **kw):
+        raise ValueError("a row's plan did not compile")
+    monkeypatch.setattr(tspmd, "spmd_query_phase", broken)
+    fell_back = tspmd.HOST_FALLBACKS[0]
+    got = execute_search(tex, BODIES["match"])
+    assert len(calls) == len(tex)
+    assert tspmd.HOST_FALLBACKS[0] == fell_back + 1
+    assert "a row's plan did not compile" in caplog.text
+    assert got["_shards"]["failed"] == 0
+    assert_same_response(got, want)
 
 
 def test_layout_mismatch_takes_the_host_loop():
