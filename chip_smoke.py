@@ -125,8 +125,11 @@ date_histogram, a 33-filter adjacency_matrix (past one K17 launch), and
 every pipeline type, through `_search` and a B=32 `_msearch`.
 
 Phase 2 also holds K7 knn_exact (and its top-k mark) at B=32 x 2^20 x 128
-in the three spaces, and K8 ivf_probe (with its block ranking launch) and
-K9 kmeans_step at phase 7's shapes, on the whole GloVe-shaped corpus,
+in the three spaces, at B=1 and 8 in l2 and at B=32 x 2^20 x 768 (random
+rows) in l2, with each shape's contract floor (2 B Dp dims FP32
+instructions at the card's top SM clock) beside its bound, and K8
+ivf_probe (with its block ranking launch) and K9 kmeans_step at phase 7's
+shapes, on the whole GloVe-shaped corpus,
 against their plain versions bit for bit (K7 and K8 at B=32; K9 in each
 of the seal's 10 steps, whose means also lie within n * 2^-24 * sum|x|
 of the f64 means), and phase 7 seals those very centroids again. Phase 3 adds a
@@ -154,9 +157,10 @@ docvalue_fields, version) on a gate-off node and on a result-page node.
 
 Phase 2 also holds K20 blockmax_keep with K1's and K2's keep entries at
 B=32 on phase 4's 2-4-term queries and on one-term queries over the same
-passages, where lanes are pruned (k 10), K21's row_merge at R = 5 and
-8 rows (k 10, 1,000, 65,536) and its row_value_key over the 10M-doc
-`views` column, each bit for bit against its plain version. Phase 3 adds
+passages, where lanes are pruned (k 10), K21's row_merge at R = 5, 8 and
+4 rows (k 10, 1,000, 40,960, 65,536; and uneven rows with +-0.0 keys)
+and its row_value_key over the 10M-doc `views` column, each bit for bit
+against its plain version. Phase 3 adds
 a 3-shard index and four daily indices behind `logs-*` (the multi-shard
 program, the host loop with can-match, DFS, `_msearch`) and, on a
 `search.blockmax.enabled` node pair, the zipf corpus on one and two
@@ -242,6 +246,11 @@ re-indexed and deleted blocks) with every score mode, inner hits and the
 aggregations under nested / reverse_nested, and the places index (`geo`)
 with the geo and rank_feature queries and the geo aggregations.
 
+`--cells a,b` runs only the named cells after the build (scale, knn,
+maxsim, hybrid, sorted, aggkinds, relevance, sharded, nested, geo,
+ingest: phases 4, 6's exact cell, 8, 9, 10, 11, 12, 13, 14, 15, 16), one
+JSON line each, so that one card compares two checkouts cell by cell.
+
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
 per-kernel tables, a copy of the log) under DIR. The card's name and power limit are printed in
 phase 1 and again on the third line from the end; the line before the last
@@ -286,8 +295,8 @@ HYBRID_DIMS = 768                   # msmarco-distilbert-base-tas-b
 HYBRID_QUERIES = 320
 SORTED_SEGMENTS = 4                 # the sorted cell's multi-segment index
 SORTED_SINGLES = 100                # B=1 requests per body and index
-SORTED_DEEP_SINGLES = 4             # of the deep search_after body (cut
-                                    # from 20 to fit phases 14-15)
+SORTED_DEEP_SINGLES = 2             # of the deep search_after body (cut
+                                    # from 20 to fit phases 14-16)
 TIMING_BUDGET_MS = 1000.0           # of one timed measurement's reps
 SORTED_CURSOR_HIT = 20000           # search_after's depth, in hits
 AGGKIND_BODIES_PER_FAMILY = 64      # the agg-kinds cell's bodies a family
@@ -320,6 +329,19 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_mhz():
+    """The card's top SM clock (nvidia-smi clocks.max.sm), MHz, or None
+    where nvidia-smi does not answer."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout.split()
+        return float(out[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
 
 
 def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3,
@@ -1506,10 +1528,11 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
     """K20 blockmax_keep with K1's and K2's keep entries at B=32 on phase
     4's 2-4-term queries and on one-term queries, which prune lanes
     (compiled with block-max's inputs, at least 16 lanes each; k 10),
-    K21's row_merge at R = 5 and 8 rows of k_r = k
-    lanes (k 10, 1,000, 65,536; keys from 40 values, so ties cross rows)
-    and K21's row_value_key over the 10M-doc `views` column, each bit for
-    bit against its plain version."""
+    K21's row_merge at R = 5, 8 and 4 rows of k_r = k
+    lanes (k 10, 1,000, 40,960, 65,536; keys from 40 values, so ties cross
+    rows) and on uneven rows with +-0.0 keys, and K21's row_value_key over
+    the 10M-doc `views` column, each bit for bit against its plain
+    version."""
     from opensearch_tpu_torch.ops import bm25, spmd as kspmd
     from opensearch_tpu_torch.ops.device_segment import upload_segment
     from opensearch_tpu_torch.search import dsl
@@ -1616,40 +1639,55 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
     del arrays
     torch.cuda.empty_cache()
 
-    # K21's merge: R rows of K3's keyed layout
+    # K21's merge: R rows of K3's keyed layout, each sorted in the total
+    # order of its bits (K21's precondition): R of 5, 8 and 4 rows of k_r =
+    # k lanes (keys from 40 values, so ties cross rows), k up to the sorted
+    # cell's cursor (40,960) and the k-growth cap; then uneven rows with
+    # +-0.0 keys (a row's zeros all -0.0 or all +0.0), an empty row and one
+    # past k
     gen = torch.Generator(device=dev).manual_seed(21)
-    for n_rows in (5, 8):
-        for k in (10, 1000, 65536):
-            ks = [k] * n_rows
-            buf = torch.zeros(n_rows, 3 * k + 1, device=dev)
-            for r in range(n_rows):
-                keys = torch.randint(0, 40, (k,), generator=gen,
-                                     device=dev).float()
-                keys[torch.rand(k, generator=gen, device=dev) < 0.05] = \
-                    float("-inf")
-                buf[r, :k] = torch.sort(keys, descending=True).values
-                buf[r, k:2 * k] = torch.rand(k, generator=gen, device=dev)
-                buf[r, 2 * k:3 * k] = torch.randint(
-                    0, 1 << 20, (k,), generator=gen, device=dev,
-                    dtype=torch.int32).view(torch.float32)
-                buf[r, 3 * k] = torch.tensor(
-                    [k], dtype=torch.int32, device=dev).view(torch.float32)
-            pruned = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    shapes = [([k] * n_rows, k, False) for n_rows in (5, 8, 4)
+              for k in (10, 1000, 40960, 65536)]
+    shapes += [([k, k // 2, 0, k, 3], k, True) for k in (1000, 40960)]
+    shapes += [([65536, 40960, 1, 0, 40960, 7, 65536, 20000], 40960, True)]
+    for ks, k, signed in shapes:
+        n_rows = len(ks)
+        buf = torch.zeros(n_rows, 3 * max(ks) + 1, device=dev)
+        for r, kr in enumerate(ks):
+            keys = (torch.randint(-20, 20, (kr,), generator=gen, device=dev)
+                    if signed else torch.randint(0, 40, (kr,), generator=gen,
+                                                 device=dev)).float()
+            keys[torch.rand(kr, generator=gen, device=dev) < 0.05] = \
+                float("-inf")
+            if signed:
+                keys[keys == 0] = -0.0 if r % 2 else 0.0
+            buf[r, :kr] = torch.sort(keys, descending=True).values
+            buf[r, kr:2 * kr] = torch.rand(kr, generator=gen, device=dev)
+            buf[r, 2 * kr:3 * kr] = torch.randint(
+                0, 1 << 20, (kr,), generator=gen, device=dev,
+                dtype=torch.int32).view(torch.float32)
+            buf[r, 3 * kr] = torch.tensor(
+                [kr], dtype=torch.int32, device=dev).view(torch.float32)
+        pruned = torch.zeros(n_rows, dtype=torch.int32, device=dev)
 
-            def k21(buf=buf, ks=ks, pruned=pruned, k=k):
-                return kspmd.row_merge(buf, ks, pruned, k)
+        def k21(buf=buf, ks=ks, pruned=pruned, k=k):
+            return kspmd.row_merge(buf, ks, pruned, k)
 
-            def k21_plain(buf=buf, ks=ks, pruned=pruned, k=k):
-                return kspmd.row_merge_plain(buf, ks, pruned, k)
-            cat = buf[:, :k].reshape(-1).contiguous()
+        def k21_plain(buf=buf, ks=ks, pruned=pruned, k=k):
+            return kspmd.row_merge_plain(buf, ks, pruned, k)
+        cat = torch.cat([buf[r, :kr] for r, kr in enumerate(ks)])
+        take = min(k, cat.shape[0])
 
-            def library(cat=cat, k=k):
-                return torch.topk(cat, k)
-            # each row's keys, scores and ords read; the packed page written
-            record("row_merge", f"R={n_rows} k={k}", k21, k21_plain,
-                   library, n_rows * (3 * k + 1) * 4
-                   + kspmd.merged_width(k, n_rows) * 4, 0.0,
-                   "torch.topk of the concatenated row keys")
+        def library(cat=cat, take=take):
+            return torch.topk(cat, take)
+        label = f"R={n_rows} k={k}" if len(set(ks)) == 1 \
+            else f"R={n_rows} ks={ks} k={k} +-0.0"
+        # each row's keys, scores and ords read; the packed page written
+        record("row_merge", label, k21, k21_plain, library,
+               sum(3 * kr + 1 for kr in ks) * 4
+               + kspmd.merged_width(k, n_rows) * 4, 0.0,
+               "torch.topk of the concatenated row keys")
+        del buf, cat
 
     # K21's key entry over the 10M-doc views column
     col = agg_seg.numeric_dv["views"]
@@ -1682,13 +1720,14 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
     return results
 
 
-def knn_corpora(np):
+def knn_corpora(np, names=("sift", "glove")):
     """The k-NN cells' corpora (set-up): the SIFT-shaped 1M x 128 and the
     GloVe-shaped 1,183,514 x 100 clustered corpora, each with its
     queries from the same stream."""
     from opensearch_tpu_torch.utils.demo import clustered_vectors
     out = {}
-    for name, (n, dims) in (("sift", SIFT_SHAPE), ("glove", GLOVE_SHAPE)):
+    for name in names:
+        n, dims = {"sift": SIFT_SHAPE, "glove": GLOVE_SHAPE}[name]
         t0 = time.perf_counter()
         out[name] = clustered_vectors(n, dims, n_queries=KNN_QUERIES)
         log(f"{name} corpus: {n} x {dims} clustered vectors and "
@@ -1698,11 +1737,11 @@ def knn_corpora(np):
 
 def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
     """K7-K9 against their plain versions: K7 on B queries x the SIFT-shaped
-    corpus padded to Dp = 2^20 in the three spaces (and B=1 in l2), its
-    top-k mark after K3; K9's 10 seal steps, K8's block ranking and K8 at
-    B queries on the whole GloVe-shaped corpus (cosine, nlist 256,
-    nprobes 32), as the IVF cell runs them. Leaves the sealed IVFIndex in
-    corpora["glove_ivf"]."""
+    corpus padded to Dp = 2^20 in the three spaces (and B=1 and 8 in l2;
+    B at 768 random dims in l2), its top-k mark after K3; K9's 10 seal
+    steps, K8's block ranking and K8 at B queries on the whole
+    GloVe-shaped corpus (cosine, nlist 256, nprobes 32), as the IVF cell
+    runs them. Leaves the sealed IVFIndex in corpora["glove_ivf"]."""
     from opensearch_tpu_torch.index.segment import pad_bucket
     from opensearch_tpu_torch.ops import knn, topk
     results = {}
@@ -1739,17 +1778,37 @@ def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
     q32 = torch.from_numpy(queries[:bsz]).to(dev)
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    sm_mhz = max_sm_clock_mhz()
+
+    def k7(column, q, space):
+        b, width = q.shape[0], column.shape[1]
+        rec = record(
+            "knn_exact", f"B={b} Dp={d_pad} dims={width} {space}",
+            lambda: (knn.exact_knn_scores(column, q, space),),
+            lambda: (knn.exact_knn_scores_plain(column, q, space),),
+            lambda: torch.matmul(q, column.t()),
+            4 * d_pad * width + 4 * b * width + 4 * b * d_pad,
+            2 * b * d_pad * width + 2 * d_pad * width, same_bits)
+        # the bit-equality contract's floor: every multiply and add its own
+        # FP32 instruction, 132 SMs x 128 lanes at the card's top SM clock
+        # (beside the table's bound, which counts f32 operations at 67
+        # TFLOP/s)
+        rec["contract_floor_ms"] = None if sm_mhz is None else \
+            2 * b * d_pad * width / (132 * 128 * sm_mhz * 1e6) * 1e3
+        log(f"knn_exact B={b} dims={width} {space}: contract floor "
+            f"{rec['contract_floor_ms']} ms (2 B Dp dims FP32 instructions "
+            f"at {sm_mhz} MHz), bound {rec['bound_ms']:.4f} ms, kernel "
+            f"{rec['ms']:.4f} ms")
     for space, q in (("l2", q32), ("cosinesimil", q32),
-                     ("innerproduct", q32), ("l2", q32[:1].contiguous())):
-        b = q.shape[0]
-        record("knn_exact", f"B={b} Dp={d_pad} dims={dims} {space}",
-               lambda q=q, space=space: (knn.exact_knn_scores(vectors, q,
-                                                              space),),
-               lambda q=q, space=space: (knn.exact_knn_scores_plain(
-                   vectors, q, space),),
-               lambda q=q: torch.matmul(q, vectors.t()),
-               4 * d_pad * dims + 4 * b * dims + 4 * b * d_pad,
-               2 * b * d_pad * dims + 2 * d_pad * dims, same_bits)
+                     ("innerproduct", q32), ("l2", q32[:1].contiguous()),
+                     ("l2", q32[:8].contiguous())):
+        k7(vectors, q, space)
+    # B=32 at the hybrid cell's 768 dims over Dp = 2^20 random rows
+    gen = torch.Generator(device=dev).manual_seed(7)
+    wide = torch.randn(d_pad, HYBRID_DIMS, generator=gen, device=dev)
+    k7(wide, torch.randn(bsz, HYBRID_DIMS, generator=gen, device=dev), "l2")
+    del wide
+    torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
     # knn_topk_mark on K7's l2 scores after K3 (k = 10, eligible: the docs)
@@ -2803,10 +2862,13 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
     (and on a result-page node). B=1 `_search` of each body on both
     indices (p50 / p99), the views body on the result-page node, then
     B=32 `_msearch` of sorted bodies; busy share, the host split (query
-    phase, reduce, fetch), pages against the f64 oracle and the
-    single-segment pages against the four-segment ones."""
+    phase, reduce, fetch), per body and index the multi-shard program's
+    requests and K21's launches and (rows, k) shapes, pages against the
+    f64 oracle and the single-segment pages against the four-segment
+    ones."""
     from opensearch_tpu_torch.node import Node
     from opensearch_tpu_torch.ops import _build
+    from opensearch_tpu_torch.parallel import distributed
     from opensearch_tpu_torch.search import controller, spmd
     from opensearch_tpu_torch.utils.demo import STRUCTURED_MAPPING
     parity = _parity()
@@ -2869,10 +2931,20 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
     def search(n, index, body):
         return n.request("POST", f"/{index}/_search", body)
 
+    # K21's shapes: (rows, k) of every row_merge call of the multi-shard
+    # program (a request's k-growth steps each call it)
+    merges = []
+    real_row_merge = distributed.row_merge
+
+    def counted_row_merge(buf, ks, pruned, k):
+        merges.append((len(ks), k))
+        return real_row_merge(buf, ks, pruned, k)
+    distributed.row_merge = counted_row_merge
+
     try:
         for name, body in bodies.items():      # warm; the filter cache fills
             for index in ("logs_one", "logs_four"):
-                for _ in range(2):
+                for _ in range(1 if "search_after" in body else 2):
                     search(node, index, body)
         torch.cuda.synchronize()
         _build.reset_launches()
@@ -2882,6 +2954,9 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
             for index in ("logs_one", "logs_four"):
                 walls = []
                 split["query"] = split["fetch"] = 0.0
+                n_spmd, n_k21 = spmd.SPMD_QUERIES[0], _build.LAUNCHES[
+                    "row_merge"]
+                del merges[:]
                 for _ in range(reps):
                     t = time.perf_counter()
                     resp = search(node, index, body)
@@ -2896,7 +2971,12 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
                        "query_phase_ms": split["query"] / reps,
                        "fetch_ms": split["fetch"] / reps,
                        "reduce_ms": (total_ms - split["query"]
-                                     - split["fetch"]) / reps}
+                                     - split["fetch"]) / reps,
+                       "spmd_queries": spmd.SPMD_QUERIES[0] - n_spmd,
+                       "row_merge_launches":
+                           _build.LAUNCHES["row_merge"] - n_k21,
+                       "row_merge_shapes": [f"R={r} k={k}" for r, k in
+                                            sorted(set(merges))]}
                 cell[f"{name}/{index}"] = rec
                 log(f"sorted {name} on {index}: " + json.dumps(rec))
         # the views body on the four segments takes the multi-shard
@@ -2929,6 +3009,7 @@ def phase_sorted_cell(torch, np, mapper, seg, four, card: str,
     finally:
         controller._build_hit = real_build_hit
         spmd.spmd_query_phase = real_spmd
+        distributed.row_merge = real_row_merge
     from opensearch_tpu_torch.indices.query_cache import QUERY_CACHE
     log(f"sorted: launches {json.dumps(launches)}; filter cache "
         f"{json.dumps(QUERY_CACHE.stats())}")
@@ -5259,8 +5340,8 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
     return {f"{name}_device_busy": device_ms / wall_ms}
 
 
-CELLS = ("scale", "sorted", "aggkinds", "relevance", "nested", "geo",
-         "ingest")
+CELLS = ("scale", "knn", "maxsim", "hybrid", "sorted", "aggkinds",
+         "relevance", "sharded", "nested", "geo", "ingest")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -5274,13 +5355,34 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         return 2
     dev = torch.device("cuda")
     for cell in cells:
-        if cell in ("scale", "relevance"):
+        if cell in ("scale", "relevance", "hybrid", "sharded"):
             mapper, (seg,), terms = build_shards_fast(
                 SCALE_DOCS, 1, vocab_size=20000, avg_len=60, seed=42,
                 materialize_terms=SCALE_MATERIALIZE_TERMS)
-            res = phase_scale(torch, np, mapper, seg, dev, out_dir) \
-                if cell == "scale" else phase_relevance_cell(
-                    torch, np, mapper, seg, terms, card, out_dir)
+            if cell == "scale":
+                res = phase_scale(torch, np, mapper, seg, dev, out_dir)
+            elif cell == "relevance":
+                res = phase_relevance_cell(torch, np, mapper, seg, terms,
+                                           card, out_dir)
+            elif cell == "hybrid":
+                res = phase_hybrid_cell(torch, np, mapper, seg, sorted(
+                    t for _, t in seg.term_dict), dev, card, out_dir)
+            else:
+                _am, agg_seg = agg_segment(np, AGG_SCALE_DOCS)
+                res = phase_sharded_cell(
+                    torch, np, mapper, seg, sorted(
+                        t for _, t in seg.term_dict), agg_seg,
+                    sorted_segments(np, AGG_SCALE_DOCS), dev, card, out_dir)
+                del agg_seg
+        elif cell == "knn":
+            mapper = seg = None
+            res = phase_knn_cell(torch, np, "exact",
+                                 knn_corpora(np, names=("sift",)), dev, card,
+                                 out_dir)
+        elif cell == "maxsim":
+            mapper = seg = None
+            res = phase_maxsim_cell(torch, np, maxsim_corpus(torch, np, dev),
+                                    dev, card, out_dir)
         elif cell in ("nested", "geo"):
             from opensearch_tpu_torch.utils.demo import (geonames_segment,
                                                          qa_segment)
@@ -5317,8 +5419,9 @@ def main(argv) -> int:
     parser.add_argument("--cells", default=None,
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
-                             "4, 10, 11, 12, 14, 15 and 16): one JSON line "
-                             "each, to compare two checkouts on one card")
+                             "4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16; knn "
+                             "is phase 6's exact cell): one JSON line each, "
+                             "to compare two checkouts on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
     try:

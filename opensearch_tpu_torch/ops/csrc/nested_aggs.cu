@@ -24,7 +24,7 @@
 // of the warp's maximum per root. reverse_nested dedups the (bucket, root) pairs as
 // the reference does, by sorting: one key a lane, (bucket + 1) << 32 |
 // root for a selected row and 0 otherwise, sorted descending per query by
-// key_sort.cuh (the sort of K3-keyed and K21); a run's first key counts
+// key_sort.cuh (the sort of K3-keyed and K14); a run's first key counts
 // one root for its bucket.
 
 #include <cuda_runtime.h>

@@ -15,43 +15,59 @@
 // into the k best, out f32 [4k + 1 + R]: keys | scores | rows | ords (the
 // last two as int32 bits) | the total | the R pruned counts. The order is
 // lax.top_k's over the row-major concatenation: key descending (-0.0 below
-// +0.0), then the lowest position, i.e. row ascending, then rank in row.
+// +0.0, a total order on the bits), then the lowest position, i.e. row
+// ascending, then rank in row.
+//
+// Precondition: every row arrives sorted, its k_r keys non-increasing in
+// ord_key (below) with equal keys in lane order. K3-keyed writes its rows
+// so (masked_topk.cu keyed_out_kernel: the keys of its sorted 64-bit lane
+// words, whatever the bits: -inf padding, +-0.0, NaN of either sign), and
+// parallel/distributed.py's run_rows, the only caller, hands them over as
+// they are.
 //
 // What bounds it on an H100: latency. At k = 10 the rows hold 50-80 lanes;
-// at k = 65,536 and 8 rows 524,288 lanes (4 MB of 64-bit words) are sorted
-// in global memory. Three short launches plus key_sort.cuh's passes.
+// at k = 65,536 and 8 rows 524,288 lanes (4 MB of keys, scores and ords)
+// of which k are written.
 //
-// Design (as K14 page_merge): launch 1 writes one unique 64-bit word per
-// lane, (order-preserving u32 of the key) << 32 | ~position; key_sort.cuh
-// sorts them descending; launch 3 gathers the first k winners' lanes and
-// writes the packed output, and block 0 adds the row totals in row order
+// Design: one launch, no scratch, no sort. Lane j of row r with u =
+// ord_key(key) has the merged rank
+//   j + sum over r' < r of #{lanes of r' with ord_key >= u}
+//     + sum over r' > r of #{lanes of r' with ord_key >  u},
+// each count a binary search in the sorted row r'. A lane whose rank is
+// below k writes its four words into slot `rank`; the ranks are a
+// permutation, so no two lanes meet. Only a row's first min(k_r, k) lanes
+// can place, and only they are searched and searched in. A CTA takes 256
+// consecutive lanes of one row: two searches per partner row (its first
+// and its last key) bound the window all its lanes land in; a CTA whose
+// every lane ranks at or past k stops there, windows of at most WIN keys
+// are staged in shared memory, and each lane searches only its window.
+// CTAs past the lane tiles write the padding slots (-inf, 0, 0, 0) past
+// the rows' lanes; block 0 also adds the row totals in row order
 // (integers: exact) and copies the pruned counts.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math.h>
 
-#include "key_sort.cuh"
-
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_ROWS = 8;
+constexpr int WIN = 512;  // keys of a partner's window staged in shared memory
 constexpr float MISSING_VALUE_KEY = -1e30f;
 
-// each row's k_r and its first position in the concatenation
+// per row: k_r (the width of its layout), n_r = min(k_r, k) (the lanes
+// that can place), and the first CTA of its lane tiles; tile[R] is the
+// first padding CTA
 struct RowTable {
   int k[MAX_ROWS];
-  int off[MAX_ROWS + 1];
+  int n[MAX_ROWS];
+  int tile[MAX_ROWS + 1];
 };
 
 __device__ __forceinline__ unsigned ord_key(float f) {
   const unsigned u = __float_as_uint(f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float ord_val(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -68,54 +84,96 @@ value_key_kernel(const float* __restrict__ uniq, const int* __restrict__ rank,
   }
 }
 
-// grid (chunks, R): lane j of row r
-__global__ void __launch_bounds__(THREADS)
-rekey_kernel(const float* __restrict__ buf, int W, RowTable tab,
-             unsigned long long* __restrict__ words) {
-  const int r = blockIdx.y;
-  const int kr = tab.k[r];
-  const float* row = buf + (size_t)r * W;
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < kr;
-       j += gridDim.x * blockDim.x) {
-    const int pos = tab.off[r] + j;
-    words[pos] = ((unsigned long long)ord_key(row[j]) << 32) |
-                 (0xffffffffu - (unsigned)pos);
-  }
-}
-
-// grid (chunks): output slot j
-__global__ void __launch_bounds__(THREADS)
-gather_kernel(const float* __restrict__ buf, int W, int R, RowTable tab,
-              int L, const unsigned long long* __restrict__ sorted, int k,
-              const int* __restrict__ pruned, int* __restrict__ out) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < k;
-       j += gridDim.x * blockDim.x) {
-    if (j < L) {
-      const unsigned long long word = sorted[j];
-      const int pos = (int)(0xffffffffu - (unsigned)word);
-      int r = 0;
-      while (r + 1 < R && tab.off[r + 1] <= pos) ++r;
-      const int kr = tab.k[r];
-      const int lane = pos - tab.off[r];
-      const float* row = buf + (size_t)r * W;
-      out[j] = __float_as_int(ord_val((unsigned)(word >> 32)));
-      out[k + j] = __float_as_int(row[kr + lane]);
-      out[2 * k + j] = r;
-      out[3 * k + j] = __float_as_int(row[2 * kr + lane]);
+// lanes of a[0, n) (sorted by ord_key, non-increasing) that come before
+// a key u from another row: ord_key >= u for an earlier row (ge), > u for
+// a later one
+__device__ __forceinline__ int count_ahead(const float* a, int n, unsigned u,
+                                           bool ge) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const unsigned v = ord_key(a[mid]);
+    if (ge ? v >= u : v > u) {
+      lo = mid + 1;
     } else {
-      out[j] = __float_as_int(-INFINITY);
-      out[k + j] = 0;
-      out[2 * k + j] = 0;
-      out[3 * k + j] = 0;
+      hi = mid;
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  return lo;
+}
+
+// grid: tab.tile[R] lane tiles (THREADS lanes of one row each), then the
+// padding CTAs
+__global__ void __launch_bounds__(THREADS)
+merge_kernel(const float* __restrict__ buf, int W, int R, RowTable tab,
+             int k, int L, const int* __restrict__ pruned,
+             int* __restrict__ out) {
+  __shared__ int lo_s[MAX_ROWS], hi_s[MAX_ROWS];
+  __shared__ float win[MAX_ROWS][WIN];
+  const int b = blockIdx.x, t = threadIdx.x;
+  if (b == 0 && t == 0) {
     int total = 0;
     for (int r = 0; r < R; ++r)
       total += __float_as_int(buf[(size_t)r * W + 3 * tab.k[r]]);
     out[4 * k] = total;
     for (int r = 0; r < R; ++r) out[4 * k + 1 + r] = pruned[r];
   }
+  if (b >= tab.tile[R]) {
+    // slots past the rows' lanes
+    const int pad_ctas = gridDim.x - tab.tile[R];
+    for (int s = (L < k ? L : k) + (b - tab.tile[R]) * THREADS + t; s < k;
+         s += pad_ctas * THREADS) {
+      out[s] = __float_as_int(-INFINITY);
+      out[k + s] = 0;
+      out[2 * k + s] = 0;
+      out[3 * k + s] = 0;
+    }
+    return;
+  }
+  int r = 0;
+  while (b >= tab.tile[r + 1]) ++r;
+  const int j0 = (b - tab.tile[r]) * THREADS;
+  const int j1 = min(j0 + THREADS, tab.n[r]);
+  const float* row = buf + (size_t)r * W;
+  // the window of each partner row: thread p counts ahead of the tile's
+  // first key, thread MAX_ROWS + p ahead of its last
+  if (t < 2 * MAX_ROWS) {
+    const int p = t % MAX_ROWS;
+    int c = 0;
+    if (p < R && p != r)
+      c = count_ahead(buf + (size_t)p * W, tab.n[p],
+                      ord_key(row[t < MAX_ROWS ? j0 : j1 - 1]), p < r);
+    (t < MAX_ROWS ? lo_s : hi_s)[p] = c;
+  }
+  __syncthreads();
+  int first = j0;
+  for (int p = 0; p < R; ++p) first += lo_s[p];
+  if (first >= k) return;  // every lane of the tile ranks at or past k
+  for (int p = 0; p < R; ++p) {
+    const int w = hi_s[p] - lo_s[p];
+    if (w <= WIN) {
+      const float* src = buf + (size_t)p * W + lo_s[p];
+      for (int i = t; i < w; i += THREADS) win[p][i] = src[i];
+    }
+  }
+  __syncthreads();
+  const int j = j0 + t;
+  if (j >= j1) return;
+  const float key = row[j];
+  const unsigned u = ord_key(key);
+  int rank = j;
+  for (int p = 0; p < R; ++p) {
+    if (p == r) continue;
+    const int lo = lo_s[p], w = hi_s[p] - lo;
+    const float* a = w <= WIN ? win[p] : buf + (size_t)p * W + lo;
+    rank += lo + count_ahead(a, w, u, p < r);
+  }
+  if (rank >= k) return;
+  const int kr = tab.k[r];
+  out[rank] = __float_as_int(key);
+  out[k + rank] = __float_as_int(row[kr + j]);
+  out[2 * k + rank] = r;
+  out[3 * k + rank] = __float_as_int(row[2 * kr + j]);
 }
 
 int chunks_for(int n) {
@@ -139,46 +197,30 @@ extern "C" int row_value_key(const float* uniq, const int* rank,
   return (int)cudaGetLastError();
 }
 
-// buf f32 [R, W] on the card; ks: R host ints (3 k_r + 1 <= W); pruned
-// i32 [R] on the card; 0 < k; out int32 [4k + 1 + R]; scratch int64
-// [2 * p2], p2 the power of two >= max(sum k_r, 1).
+// buf f32 [R, W] on the card, each row sorted (the precondition above);
+// ks: R host ints (3 k_r + 1 <= W); pruned i32 [R] on the card; 0 < k;
+// out int32 [4k + 1 + R].
 extern "C" int row_merge(const float* buf, int R, int W, const int* ks,
-                         const int* pruned, int k, int* out,
-                         long long* scratch, void* stream) {
+                         const int* pruned, int k, int* out, void* stream) {
   if (R <= 0 || R > MAX_ROWS || k <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   RowTable tab;
-  int L = 0;
-  for (int r = 0; r < R; ++r) {
-    if (ks[r] < 0 || 3 * ks[r] + 1 > W) return (int)cudaErrorInvalidValue;
-    tab.k[r] = ks[r];
-    tab.off[r] = L;
-    L += ks[r];
+  int L = 0, tiles = 0;
+  for (int r = 0; r < MAX_ROWS; ++r) {
+    const int kr = r < R ? ks[r] : 0;
+    if (kr < 0 || 3 * kr + 1 > W) return (int)cudaErrorInvalidValue;
+    tab.k[r] = kr;
+    tab.n[r] = kr < k ? kr : k;
+    tab.tile[r] = tiles;
+    tiles += (tab.n[r] + THREADS - 1) / THREADS;
+    L += kr;
   }
-  tab.off[R] = L;
-  for (int r = R + 1; r <= MAX_ROWS; ++r) tab.off[r] = L;
-  for (int r = R; r < MAX_ROWS; ++r) tab.k[r] = 0;
-  int p2 = 1;
-  while (p2 < (L > 0 ? L : 1)) p2 <<= 1;
-  unsigned long long* words = reinterpret_cast<unsigned long long*>(scratch);
-  unsigned long long* tmp = words + p2;
-  // padding past L sorts last: every lane word is > 0
-  cudaError_t e = cudaMemsetAsync(
-      words, 0, (size_t)p2 * sizeof(unsigned long long), st);
-  if (e != cudaSuccess) return (int)e;
-  unsigned long long* sorted = words;
-  if (L > 0) {
-    int maxk = 0;
-    for (int r = 0; r < R; ++r) maxk = ks[r] > maxk ? ks[r] : maxk;
-    rekey_kernel<<<dim3(chunks_for(maxk), R), THREADS, 0, st>>>(buf, W, tab,
-                                                               words);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const int code = keysort::sort_rows(words, tmp, 1, p2, &sorted, st);
-    if (code != 0) return code;
-  }
-  gather_kernel<<<chunks_for(k), THREADS, 0, st>>>(buf, W, R, tab, L, sorted,
-                                                   k, pruned, out);
+  tab.tile[MAX_ROWS] = tiles;
+  const int pad = k - (L < k ? L : k);
+  int pad_ctas = (pad + THREADS - 1) / THREADS;
+  if (pad_ctas > 64) pad_ctas = 64;
+  const int grid = tiles + pad_ctas;  // k > 0: L >= k or pad > 0
+  merge_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      buf, W, R, tab, k, L, pruned, out);
   return (int)cudaGetLastError();
 }
 

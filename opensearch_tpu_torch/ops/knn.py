@@ -131,7 +131,9 @@ def exact_knn_scores(vectors: torch.Tensor, queries: torch.Tensor,
                      space: str) -> torch.Tensor:
     """K7: every doc row's score against each query, f32 [B, Dp].
     Replaces opensearch_tpu/ops/knn.py:exact_knn_scores (with
-    raw_similarity and space_score)."""
+    raw_similarity and space_score). Any dims and Dp; `vectors` may be a
+    contiguous view at any offset (16-byte copies where dims % 4 == 0 and
+    its data is 16-byte aligned, 4-byte copies otherwise)."""
     _check_space(space)
     if not vectors.is_cuda:
         return exact_knn_scores_plain(vectors, queries, space)
@@ -141,11 +143,14 @@ def exact_knn_scores(vectors: torch.Tensor, queries: torch.Tensor,
     _check(((vectors, torch.float32, (d_pad, dims), "vectors"),
             (queries, torch.float32, (bsz, dims), "queries")), dev)
     out = torch.empty(bsz, d_pad, dtype=torch.float32, device=dev)
-    qn = torch.empty(max(bsz, 1), dtype=torch.float32, device=dev)
+    # the queries staged [dim][query] per tile of up to 32, then |q|^2
+    dims4 = -(-dims // 4) * 4
+    scratch = torch.empty((bsz + 32) * dims4 + bsz, dtype=torch.float32,
+                          device=dev)
     fn = _build.entry("knn_exact", [ctypes.c_void_p] * 2
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     code = fn(_build.ptr(vectors), _build.ptr(queries), bsz, d_pad, dims,
-              _SPACE_CODE[space], _build.ptr(qn), _build.ptr(out),
+              _SPACE_CODE[space], _build.ptr(scratch), _build.ptr(out),
               _build.stream_of(dev))
     _build.LAUNCHES["knn_exact"] += 1
     _build.check("knn_exact", code)

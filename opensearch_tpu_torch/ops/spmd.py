@@ -121,7 +121,14 @@ def row_merge(buf: torch.Tensor, ks: Sequence[int], pruned: torch.Tensor,
     best. buf f32 [R, W] holds row r's K3 output (3 k_r + 1 words) at the
     start of row r; ks the k_r (host ints, 0 <= k_r, 3 k_r + 1 <= W);
     pruned i32 [R] the rows' pruned-lane counts; 0 < k <= 65,536.
-    Returns f32 [4k + 1 + R] (merged_width)."""
+    Returns f32 [4k + 1 + R] (merged_width).
+
+    Precondition: each row's keys arrive sorted, non-increasing in the
+    total order of their bits (`total_order_topk`'s: -0.0 below +0.0),
+    as K3-keyed (`masked_topk_keyed`) writes them. The kernel merges the
+    sorted rows by rank (no sort); the plain version sorts, so it does
+    not depend on the precondition. parallel/distributed.py's `run_rows`
+    is the only caller."""
     if not buf.is_cuda:
         return row_merge_plain(buf, ks, pruned, k)
     dev = buf.device
@@ -139,19 +146,14 @@ def row_merge(buf: torch.Tensor, ks: Sequence[int], pruned: torch.Tensor,
             or pruned.device != dev or not pruned.is_contiguous():
         raise ValueError(f"[pruned] must be a contiguous int32 tensor of "
                          f"shape ({n_rows},) on {dev}")
-    lanes = max(sum(ks), 1)
-    p2 = 1
-    while p2 < lanes:
-        p2 <<= 1
     out = torch.empty(merged_width(k, n_rows), dtype=torch.float32,
                       device=dev)
-    scratch = torch.empty(2 * p2, dtype=torch.int64, device=dev)
     ks_host = (ctypes.c_int * n_rows)(*[int(kr) for kr in ks])
     fn = _build.entry("row_merge", [ctypes.c_void_p] + [ctypes.c_int] * 2
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                      + [ctypes.c_void_p] * 3)
+                      + [ctypes.c_void_p] * 2)
     code = fn(_build.ptr(buf), n_rows, width, ks_host, _build.ptr(pruned), k,
-              _build.ptr(out), _build.ptr(scratch), _build.stream_of(dev))
+              _build.ptr(out), _build.stream_of(dev))
     _build.LAUNCHES["row_merge"] += 1
     _build.check("row_merge", code)
     return out

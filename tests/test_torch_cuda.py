@@ -219,22 +219,36 @@ def _knn_data(n, dims, seed):
 
 
 @pytest.mark.parametrize("space", ["l2", "cosinesimil", "innerproduct"])
-@pytest.mark.parametrize("bsz,dims", [(1, 128), (5, 100), (40, 37)])
+@pytest.mark.parametrize("bsz,dims", [(b, d) for b in (1, 3, 5, 8, 32, 33, 40)
+                                      for d in (1, 3, 37, 100, 128, 129,
+                                                768)])
 def test_knn_exact_kernel_equals_plain(gpu, space, bsz, dims):
-    """K7 bit for bit (B=1, 8 and 32-query chunks, dims off the chunk
-    width), and knn_topk_mark against its plain version after K3."""
+    """K7 bit for bit: B=1 and 8- and 32-query tiles (B=33 and 40 run a
+    whole 32-query tile and then the rest), dims off the 16-dim chunk and
+    off 4 (4-byte copies), on three layouts of the column: 4,096 rows,
+    3,001 rows (a ragged last tile) and those 3,001 rows as a contiguous
+    view 4 bytes past a 16-byte boundary; then knn_topk_mark against its
+    plain version after K3."""
     from opensearch_tpu_torch.ops import knn
     vecs, qs = _knn_data(3000, dims, 7)
-    d_pad = 4096
-    padded = torch.zeros(d_pad, dims, device="cuda")
-    padded[:3000] = vecs
     q = qs[:bsz].contiguous()
-    before = _build.LAUNCHES["knn_exact"]
+    ragged = 3001
+    flat = torch.zeros(ragged * dims + 1, device="cuda")
+    unaligned = flat[1:].view(ragged, dims)
+    unaligned[:3000] = vecs
+    assert unaligned.data_ptr() % 16 != 0 and unaligned.is_contiguous()
+    padded = torch.zeros(4096, dims, device="cuda")
+    padded[:3000] = vecs
+    for column in (padded, unaligned.clone(), unaligned):
+        before = _build.LAUNCHES["knn_exact"]
+        got = knn.exact_knn_scores(column, q, space)
+        assert _build.LAUNCHES["knn_exact"] == before + 1
+        want = knn.exact_knn_scores_plain(column, q, space)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (column.shape, column.data_ptr() % 16)
+    d_pad = 4096
     got = knn.exact_knn_scores(padded, q, space)
-    assert _build.LAUNCHES["knn_exact"] == before + 1
-    want = knn.exact_knn_scores_plain(padded, q, space)
-    torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     eligible = (torch.rand(bsz, d_pad, device="cuda") < 0.5)
     eligible[:, 3000:] = False
     live = torch.ones(d_pad, dtype=torch.bool, device="cuda")
@@ -909,10 +923,18 @@ def _check_keep_entries(card, plans, blk, ms, want_pruned=False):
 
 @pytest.mark.parametrize("ks,k", [([10] * 5, 10), ([1000] * 8, 1000),
                                   ([7, 0, 300, 65, 1, 300], 100),
-                                  ([65536] * 8, 65536)])
+                                  ([65536] * 8, 65536),
+                                  ([0, 0, 0], 10), ([0] * 8, 65536),
+                                  ([3, 0, 5], 20), ([12, 30], 42),
+                                  ([40960] * 4, 40960),
+                                  ([65536, 100, 0, 40960, 7], 40960),
+                                  ([700, 5000, 1, 0, 300, 2, 9000, 64], 1000),
+                                  ([1], 1), ([300], 10)])
 def test_row_merge_kernel_equals_plain(gpu, ks, k):
     """K21's merge bit for bit: keys drawn from 50 values (ties across and
-    within rows), -inf slots, -0.0 and +0.0 keys."""
+    within rows), -inf slots, -0.0 and +0.0 keys; uneven k_r, empty rows
+    and every row empty, k below, at and above the rows' lanes; rows wider
+    than k (only their first k lanes can place)."""
     from opensearch_tpu_torch.ops import spmd as kspmd
     gen = torch.Generator(device="cuda").manual_seed(len(ks) + k)
     width = 3 * max(ks) + 1
@@ -930,6 +952,41 @@ def test_row_merge_kernel_equals_plain(gpu, ks, k):
         buf[r, 3 * kr] = torch.tensor([kr * 3], dtype=torch.int32,
                                       device="cuda").view(torch.float32)
     pruned = torch.arange(len(ks), dtype=torch.int32, device="cuda")
+    before = _build.LAUNCHES["row_merge"]
+    got = kspmd.row_merge(buf, ks, pruned, k)
+    assert _build.LAUNCHES["row_merge"] == before + 1
+    want = kspmd.row_merge_plain(buf.cpu(), ks, pruned.cpu(), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_rows,k", [(4, 40960), (5, 1000), (8, 10),
+                                      (3, 65536)])
+def test_row_merge_kernel_on_keyed_rows(gpu, n_rows, k):
+    """K21 on rows as the multi-shard program makes them: each row written
+    by K3-keyed (`masked_topk_keyed` into a row of the merge buffer) over a
+    sort key with ties, +-0.0, NaN of both signs and ineligible (-inf)
+    lanes, Dp rows of uneven sizes; the merge bit for bit against its
+    plain version."""
+    from opensearch_tpu_torch.ops import spmd as kspmd
+    gen = torch.Generator(device="cuda").manual_seed(n_rows * 7 + k)
+    d_pads = [1 << 16, 1 << 17, 1 << 12, 1 << 16, 1 << 15, 1 << 16,
+              1 << 14, 1 << 16][:n_rows]
+    ks = [min(k, d) for d in d_pads]
+    buf = torch.zeros(n_rows, 3 * max(ks) + 1, device="cuda")
+    for r, (d_pad, k_r) in enumerate(zip(d_pads, ks)):
+        key = torch.randint(-20, 20, (d_pad,), generator=gen,
+                            device="cuda").float()
+        key[key == 0] = -0.0 if r % 2 else 0.0
+        key[key == 7] = float("nan")
+        key[key == -7] = -float("nan")
+        scores = torch.rand(1, d_pad, generator=gen, device="cuda")
+        matches = torch.rand(1, d_pad, generator=gen, device="cuda") < 0.7
+        live = torch.ones(d_pad, dtype=torch.bool, device="cuda")
+        ms = torch.full((1,), -np.inf, device="cuda")
+        topk.masked_topk_keyed(scores, matches, live, live, d_pad - 3, ms,
+                               key, k_r, out=buf[r:r + 1, :3 * k_r + 1])
+    pruned = torch.arange(n_rows, dtype=torch.int32, device="cuda")
     before = _build.LAUNCHES["row_merge"]
     got = kspmd.row_merge(buf, ks, pruned, k)
     assert _build.LAUNCHES["row_merge"] == before + 1

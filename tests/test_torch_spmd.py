@@ -327,6 +327,141 @@ def test_row_merge_plain_equals_numpy(ks, k):
     assert np.array_equal(got_pruned, pruned)
 
 
+# ------------------------------------ K21's rank formula (the kernel's)
+
+def _ordered(keys: torch.Tensor) -> torch.Tensor:
+    """The total order of f32 bits that lax.top_k and K21 use (-0.0 below
+    +0.0, NaN by its bits: +NaN above +inf, -NaN below -inf), as int64."""
+    bits = keys.contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7fffffff, bits).long()
+
+
+def _rank_merge_mirror(buf, ks, pruned, k):
+    """row_merge.cu's merge, written with torch.searchsorted: lane j of
+    row r (j < min(k_r, k)) lands in slot j + #{lanes of earlier rows
+    ordered >= its key} + #{lanes of later rows ordered > its key},
+    counted over each row's first min(k_r, k) lanes; slots past the rows'
+    lanes are padding. Holds only for rows sorted in that order."""
+    n = [min(kr, k) for kr in ks]
+    neg = [-_ordered(buf[r, :n[r]]) for r in range(len(ks))]  # ascending
+    out = torch.zeros(4 * k, dtype=torch.int32)
+    out[:k] = torch.tensor([-np.inf], dtype=torch.float32).view(torch.int32)
+    for r, kr in enumerate(ks):
+        if n[r] == 0:
+            continue
+        rank = torch.arange(n[r])
+        for p in range(len(ks)):
+            if p != r:
+                rank = rank + torch.searchsorted(neg[p], neg[r],
+                                                 right=p < r)
+        won = rank < k
+        slot, lane = rank[won], torch.arange(n[r])[won]
+        row = buf[r].view(torch.int32)
+        out[slot] = row[lane]
+        out[k + slot] = row[kr + lane]
+        out[2 * k + slot] = r
+        out[3 * k + slot] = row[2 * kr + lane]
+    total = sum(int(buf[r, 3 * kr:3 * kr + 1].view(torch.int32)[0])
+                for r, kr in enumerate(ks))
+    return torch.cat([out, torch.tensor([total], dtype=torch.int32),
+                      pruned.to(torch.int32)]).view(torch.float32)
+
+
+SPECIAL_KEYS = np.array([np.inf, 3.0, 1.0, 0.0, -0.0, -1.0, -np.inf, np.nan,
+                         -np.nan], np.float32)
+
+
+def _sorted_rows(rng, ks, special: bool):
+    """R rows in K3-keyed's layout, each sorted in the total order (ties
+    in lane order): keys from 6 values (ties within and across rows), or
+    from +-inf, +-0.0, +-NaN and a few values; -inf padding at the tail
+    of some rows."""
+    width = 3 * max(max(ks), 1) + 1
+    buf = np.zeros((len(ks), width), np.float32)
+    for r, kr in enumerate(ks):
+        keys = (rng.choice(SPECIAL_KEYS, kr) if special
+                else rng.integers(-3, 3, kr).astype(np.float32))
+        if r % 3 == 1:
+            keys[kr - kr // 4:] = -np.inf
+        order = np.argsort(-_ordered(torch.from_numpy(keys)).numpy(),
+                           kind="stable")
+        buf[r, :kr] = keys[order]
+        buf[r, kr:2 * kr] = rng.random(kr, dtype=np.float32)
+        buf[r, 2 * kr:3 * kr] = rng.integers(0, 10 ** 6, kr).astype(
+            np.int32).view(np.float32)
+        buf[r, 3 * kr] = np.int32(rng.integers(0, 10 ** 5)).view(np.float32)
+    return torch.from_numpy(buf)
+
+
+def _merge_cases():
+    cases = []
+    for n_rows in range(1, 9):
+        ks = [(37 * (r + n_rows)) % 90 + 1 for r in range(n_rows)]
+        lanes = sum(ks)
+        for k in (max(lanes // 3, 1), lanes, lanes + 17):
+            cases.append((ks, k))
+    cases += [([0, 0, 0], 5), ([0] * 8, 64), ([0, 40, 0, 9], 30),
+              ([64, 0, 64], 128), ([200, 3, 0, 150], 100), ([1], 1),
+              ([5, 5], 1)]
+    return cases
+
+
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("ks,k", _merge_cases())
+def test_row_merge_rank_formula_equals_plain(ks, k, special):
+    """The kernel's design, held on the CPU: on sorted rows (ties within
+    and across rows; +-0.0, +-inf and NaN of both signs, which sort by
+    their bits), the rank formula places every lane where row_merge_plain's
+    total-order top-k puts it, bit for bit: uneven k_r, empty rows, every
+    row empty, k below, at and above the rows' lanes, R = 1 .. 8."""
+    rng = np.random.default_rng(len(ks) * 1000 + k + special)
+    buf = _sorted_rows(rng, ks, special)
+    pruned = torch.from_numpy(rng.integers(0, 50, len(ks)).astype(np.int32))
+    want = kspmd.row_merge_plain(buf, ks, pruned, k)
+    got = _rank_merge_mirror(buf, ks, pruned, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("key_kind", ["sort key", "scores"])
+def test_keyed_rows_arrive_sorted(key_kind):
+    """K21's precondition: K3-keyed's rows are non-increasing in the total
+    order, on keys with ties, +-0.0, +-inf, NaN of both signs and
+    ineligible lanes (-inf); in score mode (no key) on such scores. Only a
+    sort key carries a NaN into a row: a NaN score fails `score >=
+    min_score`, so its lane is ineligible and keyed -inf."""
+    from opensearch_tpu_torch.ops.topk import masked_topk_keyed_plain
+    rng = np.random.default_rng(5)
+    bsz, d_pad, k = 4, 3000, 700
+    vals = torch.from_numpy(rng.choice(SPECIAL_KEYS, (bsz, d_pad)))
+    scores = vals if key_kind == "scores" \
+        else torch.from_numpy(rng.random((bsz, d_pad), dtype=np.float32))
+    key = None if key_kind == "scores" else vals[0].contiguous()
+    matches = torch.from_numpy(rng.random((bsz, d_pad)) < 0.6)
+    live = torch.ones(d_pad, dtype=torch.bool)
+    rows = masked_topk_keyed_plain(scores, matches, live, live, d_pad - 5,
+                                   torch.full((bsz,), -np.inf), key, k)
+    ordered = _ordered(rows[:, :k])
+    assert bool((ordered[:, 1:] <= ordered[:, :-1]).all())
+    assert bool(torch.isnan(rows[:, :k]).any()) == (key_kind == "sort key")
+
+
+def test_row_merge_has_one_caller():
+    """K21's precondition is K3-keyed's output as run_rows lays it out:
+    parallel/distributed.py is the only module of the port that calls
+    row_merge."""
+    import pathlib
+    import re
+    import opensearch_tpu_torch
+    root = pathlib.Path(opensearch_tpu_torch.__file__).parent
+    callers = set()
+    for path in root.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            if re.search(r"\brow_merge\s*\(", line) \
+                    and not line.lstrip().startswith("def "):
+                callers.add(path.relative_to(root).as_posix())
+    assert callers == {"parallel/distributed.py"}
+
+
 @pytest.mark.parametrize("order", ["asc", "desc"])
 def test_row_value_key_plain_equals_reference(nodes, order):
     """K21's key entry against the reference's value_merge_key on the
