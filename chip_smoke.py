@@ -13,9 +13,10 @@ Phases, each printing what it finds; any failure exits nonzero:
  2. run every kernel on the card at its main path's shapes and hold it
     against its plain PyTorch version on the same inputs (the k-NN kernels
     as below): K1
-    bm25_candidate, K2 score_text_clause, K3 masked_topk at Dp = 2^20 (ids,
-    hits and totals exactly, scores within SCORE_ATOL: both sides round
-    every BM25 operation once, the kernels build with --fmad=false); K4
+    bm25_candidate, K2 score_text_clause (ids, hits and totals exactly,
+    scores within SCORE_ATOL: both sides round every BM25 operation once,
+    the kernels build with --fmad=false), K3 masked_topk at Dp = 2^20 and
+    B = 1 and 32 (bit for bit, k 10, 100 and 1,000); K4
     pairs_match, K5 binned_popcount, K6 binned_reduce at B=32 and
     NVp = Dp = 2^24 (masks, counts, min and max exactly, f32 sums within
     n * 2^-24 * sum|v| of the f64 sums, and the same bits on two runs);
@@ -248,8 +249,15 @@ with the geo and rank_feature queries and the geo aggregations.
 
 `--cells a,b` runs only the named cells after the build (scale, knn,
 maxsim, hybrid, sorted, aggkinds, relevance, sharded, nested, geo,
-ingest: phases 4, 6's exact cell, 8, 9, 10, 11, 12, 13, 14, 15, 16), one
-JSON line each, so that one card compares two checkouts cell by cell.
+ingest: phases 4, 6's exact cell, 8, 9, 10, 11, 12, 13, 14, 15, 16; and
+topk: phase 2's records of K3, its threshold and its keyed entry on their
+own, each with the device ms of each launch of a call), one JSON line
+each, so that one card compares two checkouts cell by cell.
+
+Each record of K3's three entries also prints `full_reads`: per row, the
+passes of their radix select that read the whole input (2, unless a bin
+held more keys than the candidate buffer), read from the scratch of one
+more call after the timed replays.
 
 `--out DIR` writes the long outputs (nvcc's ptxas report, the profiler's
 per-kernel tables, a copy of the log) under DIR. The card's name and power limit are printed in
@@ -378,6 +386,17 @@ def cuda_ms(torch, fn, reps: int = 15, warmup: int = 3,
     return statistics.median(times)
 
 
+def plain_ms(torch, fn) -> float:
+    """Median milliseconds of up to 3 calls of a plain version, timed as
+    cuda_ms times them, right after its check ran it (that call is the
+    warm-up): as cuda_ms(fn, reps=3, warmup=1), a call slower than
+    TIMING_BUDGET_MS / 3 is timed fewer times."""
+    times = [cuda_ms(torch, fn, reps=1, warmup=0)]
+    reps = max(1, min(3, int(TIMING_BUDGET_MS / max(times[0], 1e-3))))
+    times += [cuda_ms(torch, fn, reps=1, warmup=0) for _ in range(reps - 1)]
+    return statistics.median(times)
+
+
 def graph_ms(torch, fn, reps: int = 15) -> float:
     """Median device milliseconds of the kernels fn() launches: fn is
     captured once into a CUDA graph and the graph is replayed between CUDA
@@ -441,7 +460,7 @@ def pick_terms(seg, n_terms: int, rows: int, max_blocks: int = 128):
 
 def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
     """K1-K3 against their plain versions at the main path's shapes."""
-    from opensearch_tpu_torch.ops import bm25, topk
+    from opensearch_tpu_torch.ops import bm25
     from opensearch_tpu_torch.search import dsl
     from opensearch_tpu_torch.search.compile import Compiler, ShardStats
     from opensearch_tpu_torch.search.plan_eval import _eval_plan
@@ -495,7 +514,7 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
                         f"terms={n_terms} k={k}",
                "max_abs_err": err, "ms": graph_ms(torch, kern),
                "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None,
                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                flops / F32_FLOPS) * 1e3,
@@ -506,11 +525,7 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
 
     # K2 and K3 at Dp = 2^20 on dense-path queries (20 terms)
     for bsz in (1, 32):
-        texts = fast_query_terms(bsz, sorted(t for _, t in seg.term_dict),
-                                 seed=90 + bsz, terms_per_query=20)
-        plans = plans_for(texts)
-        nodes, ms = stacked_inputs(torch, plans, [-np.inf] * bsz, dev)
-        blk = nodes[0]
+        plans, blk, ms = dense_batch(torch, np, seg, mapper, meta, bsz, dev)
 
         def kern2():
             return bm25.score_text_clause(arrays, blk)
@@ -530,7 +545,7 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
         rec = {"shape": f"B={bsz} QB={qb} Dp={d_pad} blocks={blocks}",
                "max_abs_err": err, "ms": graph_ms(torch, kern2),
                "call_ms": cuda_ms(torch, kern2),
-               "plain_ms": cuda_ms(torch, plain2, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain2),
                "library_ms": None,
                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                flops / F32_FLOPS) * 1e3,
@@ -539,32 +554,182 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
         log("K2", json.dumps(rec))
 
         scores, matches = _eval_plan(plans[0], arrays, [blk], [0], bsz)
-        for k in (10, 100, 1000):
-            def kern3():
-                return topk.masked_topk(scores, matches, arrays["live"],
-                                        arrays["root"], meta.num_docs, ms, k)
-
-            def plain3():
-                return topk.masked_topk_plain(scores, matches, arrays["live"],
-                                              arrays["root"], meta.num_docs,
-                                              ms, k)
-            err = check_rows(np, kern3().cpu().numpy(),
-                             plain3().cpu().numpy(), k, f"K3 B={bsz} k={k}")
-            masked = torch.where(matches, scores, float("-inf"))
-
-            def library():
-                return torch.topk(masked, k, dim=1)
-            nbytes = bsz * d_pad * 5 + d_pad * 2 + bsz * (2 * k + 1) * 4
-            rec = {"shape": f"B={bsz} Dp={d_pad} k={k}",
-                   "max_abs_err": err, "ms": graph_ms(torch, kern3),
-                   "call_ms": cuda_ms(torch, kern3),
-                   "plain_ms": cuda_ms(torch, plain3, reps=3, warmup=1),
-                   "library_ms": graph_ms(torch, library),
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                   "bound_by": "bytes"}
-            results.setdefault("masked_topk", []).append(rec)
-            log("K3", json.dumps(rec))
+        k3_records(torch, np, scores, matches, arrays, meta, ms, results)
     return results
+
+
+def dense_batch(torch, np, seg, mapper, meta, bsz: int, dev):
+    """Phase 2's dense-path batch of B 20-term match queries on the scale
+    corpus: (plans, the staged input block, min_score)."""
+    from opensearch_tpu_torch.search import dsl
+    from opensearch_tpu_torch.search.compile import Compiler, ShardStats
+    from opensearch_tpu_torch.utils.demo import fast_query_terms
+    compiler = Compiler(mapper, ShardStats([seg]))
+    texts = fast_query_terms(bsz, sorted(t for _, t in seg.term_dict),
+                             seed=90 + bsz, terms_per_query=20)
+    plans = [compiler.compile(dsl.parse_query({"match": {"body": t}}), seg,
+                              meta) for t in texts]
+    nodes, ms = stacked_inputs(torch, plans, [-np.inf] * bsz, dev)
+    return plans, nodes[0], ms
+
+
+def select_reads(torch, entry: str, args, bsz: int, d_pad: int, k: int):
+    """Per row, the passes of the masked top-k family's select that read
+    the whole input: `entry` called once more on args with a scratch of
+    its own, read back after the timed replays. None on a tree whose
+    select keeps no such count (a parent checkout in an A/B)."""
+    from opensearch_tpu_torch.ops import topk
+    if not hasattr(topk, "select_full_reads"):
+        return None
+    scratch = topk.select_scratch(entry, bsz, d_pad, k, "cuda")
+    getattr(topk, entry)(*args, scratch=scratch)
+    return topk.select_full_reads(scratch, bsz)
+
+
+def select_record(torch, results, name, shape, kern, plain, library,
+                  nbytes, reads, passes: bool = False):
+    """One record of the masked top-k family (K3, its threshold and keyed
+    entries): two runs of kern and its plain version, bit for bit; device
+    ms (graph replay), a call's ms, the plain version's and torch.topk's;
+    the byte bound; then each row's full reads (`reads()`) and, with
+    `passes`, the device ms of each of a call's launches."""
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    if not _same_bits(torch, got, again):
+        raise AssertionError(f"{name} {shape}: two runs differ")
+    if not _same_bits(torch, got, want):
+        raise AssertionError(f"{name} {shape}: kernel and plain version "
+                             f"differ")
+    rec = {"shape": shape, "max_abs_err": 0.0, "ms": graph_ms(torch, kern),
+           "call_ms": cuda_ms(torch, kern),
+           "plain_ms": plain_ms(torch, plain),
+           "library_ms": graph_ms(torch, library),
+           "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes",
+           "library": "torch.topk", "full_reads": reads()}
+    if passes:
+        rec["passes"] = launch_ms(torch, kern)
+    results.setdefault(name, []).append(rec)
+    log(name, json.dumps(rec))
+
+
+def k3_records(torch, np, scores, matches, arrays, meta, ms, results,
+               passes: bool = False):
+    """K3 at k 10, 100 and 1,000 on one dense batch (scores and matches
+    [B, Dp]) against its plain version; torch.topk of the masked scores
+    is the library yardstick."""
+    from opensearch_tpu_torch.ops import topk
+    bsz, d_pad = scores.shape
+    masked = torch.where(matches, scores, float("-inf"))
+    for k in (10, 100, 1000):
+        args = (scores, matches, arrays["live"], arrays["root"],
+                meta.num_docs, ms, k)
+        # scores and match flags a query, live and root once, the rows out
+        nbytes = bsz * d_pad * 5 + d_pad * 2 + bsz * (2 * k + 1) * 4
+        select_record(torch, results, "masked_topk",
+                      f"B={bsz} Dp={d_pad} k={k}",
+                      lambda args=args: topk.masked_topk(*args),
+                      lambda args=args: topk.masked_topk_plain(*args),
+                      lambda k=k: torch.topk(masked, k, dim=1), nbytes,
+                      lambda args=args, k=k: select_reads(
+                          torch, "masked_topk", args, bsz, d_pad, k), passes)
+
+
+def keyed_records(torch, np, seg, arrays, meta, dev, results,
+                  passes: bool = False):
+    """K3-keyed at B=1 on the 10M-doc structured segment keyed by ts desc
+    (K13's value ranks): over the sorted cell's nyc_taxis-shaped filter
+    (views >= 2,000) at k 10, 10,128 and 41,088 (past one CTA's sort), and
+    over every doc (the rally `desc_sort_timestamp` body, match_all) at k
+    10 and 41,088, where the k-th key's first-digit bin holds more ranks
+    than the candidate buffer (the overflow rule: three full reads).
+    torch.topk of the masked key is the library yardstick."""
+    from opensearch_tpu_torch.ops import sort_key, topk
+    d_pad = meta.d_pad
+    views = arrays["numeric"]["views"]
+    lo = int(np.searchsorted(seg.numeric_dv["views"].unique, 2000))
+    scores = torch.ones(1, d_pad, device=dev)
+    ms = torch.full((1,), float("-inf"), device=dev)
+    key = sort_key.build_sort_key(arrays, ("ts", "desc"))
+    filters = (("views>=2000", (views["min_rank"] >= lo)[None, :]
+                .contiguous(), (10, 10128, 41088)),
+               ("match_all", torch.ones(1, d_pad, dtype=torch.bool,
+                                        device=dev), (10, 41088)))
+    for label, matches, ks in filters:
+        masked = torch.where(matches[0] & arrays["live"], key,
+                             float("-inf"))
+        for k in ks:
+            args = (scores, matches, arrays["live"], arrays["root"],
+                    meta.num_docs, ms, key, k)
+            # score, match, live, root and key a lane; the rows out
+            nbytes = d_pad * (4 + 1 + 1 + 1 + 4) + 12 * k + 4
+            select_record(torch, results, "masked_topk_keyed",
+                          f"B=1 Dp={d_pad} k={k} {label}",
+                          lambda args=args: topk.masked_topk_keyed(*args),
+                          lambda args=args: topk.masked_topk_keyed_plain(
+                              *args),
+                          lambda k=k, masked=masked: torch.topk(masked, k),
+                          nbytes,
+                          lambda args=args, k=k: select_reads(
+                              torch, "masked_topk_keyed", args, 1, d_pad,
+                              k), passes)
+
+
+def threshold_record(torch, results, bsz: int, dev, gen,
+                     passes: bool = False):
+    """K3's threshold entry at the knn node's shape past MAX_K: B rows of
+    Dp 2^20 uniform scores, half the lanes matching, k 20,000;
+    torch.topk of the masked scores is the library yardstick."""
+    from opensearch_tpu_torch.ops import topk
+    d, kt = 1 << 20, 20000
+    live = torch.ones(d, dtype=torch.bool, device=dev)
+    ms = torch.full((bsz,), float("-inf"), device=dev)
+    scores = torch.rand(bsz, d, generator=gen, device=dev)
+    matches = torch.rand(bsz, d, generator=gen, device=dev) < 0.5
+    masked = torch.where(matches, scores, float("-inf"))
+    args = (scores, matches, live, live, d, ms, kt)
+    # scores and match flags a query, live and root once, the mark out
+    select_record(torch, results, "masked_topk_threshold",
+                  f"B={bsz} Dp={d} k={kt}",
+                  lambda: topk.masked_topk_threshold(*args),
+                  lambda: topk.masked_topk_threshold_plain(*args),
+                  lambda: torch.topk(masked, kt, dim=1),
+                  bsz * d * 6 + 2 * d,
+                  lambda: select_reads(torch, "masked_topk_threshold", args,
+                                       bsz, d, kt), passes)
+
+
+def phase_topk_cell(torch, np, dev) -> dict:
+    """The masked top-k family alone, at phase 2's shapes and on its
+    corpora (K3 on the scale corpus' dense batches at B=1 and B=32, K3's
+    threshold entry at B=32, K3-keyed on the 10M-doc structured segment),
+    each record with the device ms of each launch of a call (`passes`):
+    one script's records on two checkouts compare their kernels on one
+    card."""
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.search.plan_eval import _eval_plan
+    from opensearch_tpu_torch.utils.demo import build_shards_fast
+    results = {}
+    mapper, (seg,), _terms = build_shards_fast(
+        SCALE_DOCS, 1, vocab_size=20000, avg_len=60, seed=42,
+        materialize_terms=SCALE_MATERIALIZE_TERMS)
+    arrays, meta = upload_segment(seg, dev)
+    for bsz in (1, 32):
+        plans, blk, ms = dense_batch(torch, np, seg, mapper, meta, bsz, dev)
+        scores, matches = _eval_plan(plans[0], arrays, [blk], [0], bsz)
+        k3_records(torch, np, scores, matches, arrays, meta, ms, results,
+                   passes=True)
+    del arrays, seg
+    threshold_record(torch, results, 32, dev,
+                     torch.Generator(device=dev).manual_seed(31), passes=True)
+    _m, agg = agg_segment(np, AGG_SCALE_DOCS)
+    arrays, meta = upload_segment(agg, dev)
+    keyed_records(torch, np, agg, arrays, meta, dev, results, passes=True)
+    del arrays, agg
+    torch.cuda.empty_cache()
+    return {name: [{key: r[key] for key in ("shape", "ms", "library_ms",
+                                              "bound_ms", "full_reads",
+                                              "passes")}
+                   for r in recs] for name, recs in results.items()}
 
 
 def phase_serving(torch, np, device=None):
@@ -948,7 +1113,7 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
         err = check(got, want)
         rec = {"shape": shape, "max_abs_err": err,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
@@ -1166,7 +1331,7 @@ def phase_aggkind_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
         err = check(got, want)
         rec = {"shape": shape, "max_abs_err": err,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None if library is None
                # a library call that syncs (bincount) is timed per call
                else (cuda_ms(torch, library) if library_note
@@ -1389,7 +1554,7 @@ def phase_sort_kernels(torch, np, seg, four, dev):
         rec = {"shape": shape, "max_abs_err": 0.0,
                "ms": graph_ms(torch, kern),
                "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
@@ -1433,31 +1598,7 @@ def phase_sort_kernels(torch, np, seg, four, dev):
             record("sort_key", f"{field} {order} Dp={d_pad}", kern, plain,
                    library, nbytes, lib_note)
 
-    # K3-keyed at B=1 over the nyc_taxis-shaped filter, keyed by ts desc
-    views = arrays["numeric"]["views"]
-    lo = int(np.searchsorted(seg.numeric_dv["views"].unique, 2000))
-    matches = (views["min_rank"] >= lo)[None, :].contiguous()
-    scores = torch.ones(1, d_pad, device=dev)
-    ms = torch.full((1,), float("-inf"), device=dev)
-    key = sort_key.build_sort_key(arrays, ("ts", "desc"))
-    for k in (10, 10128, 41088):
-        def kern(k=k):
-            return topk.masked_topk_keyed(scores, matches, arrays["live"],
-                                          arrays["root"], meta.num_docs, ms,
-                                          key, k)
-
-        def plain(k=k):
-            return topk.masked_topk_keyed_plain(
-                scores, matches, arrays["live"], arrays["root"],
-                meta.num_docs, ms, key, k)
-        masked = torch.where(matches[0] & arrays["live"], key,
-                             float("-inf"))
-
-        def library(k=k, masked=masked):
-            return torch.topk(masked, k)
-        nbytes = d_pad * (4 + 1 + 1 + 1 + 4) + 12 * k + 4
-        record("masked_topk_keyed", f"B=1 Dp={d_pad} k={k}", kern, plain,
-               library, nbytes, "torch.topk of the masked key")
+    keyed_records(torch, np, seg, arrays, meta, dev, results)
     # the filter cache's mask program (no kernel of its own): the views
     # range's plan through _eval_plan (K4 on the card), then the bool
     # [Dp] mask's one copy to the host
@@ -1480,7 +1621,7 @@ def phase_sort_kernels(torch, np, seg, four, dev):
            "mask_bytes": int(mask.nbytes)}
     results["filter_mask"] = [rec]
     log("filter_mask", json.dumps(rec))
-    del arrays, matches, scores, key
+    del arrays
     torch.cuda.empty_cache()
 
     # K14: four segments' keyed rows (views desc, k 138 each) into one page
@@ -1554,7 +1695,7 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
         bound_ms, bound_by = _bound(nbytes, ops)
         rec = {"shape": shape, "max_abs_err": 0.0,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1755,7 +1896,7 @@ def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
         bound, by = _bound(nbytes, ops)
         rec = {"shape": shape, "max_abs_err": err,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": bound, "bound_by": by}
@@ -2390,7 +2531,7 @@ def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32):
                "ms": graph_ms(torch, kern, reps=reps),
                "call_ms": cuda_ms(torch, kern, reps=reps),
                "plain_ms": None if plain is None
-               else cuda_ms(torch, plain, reps=3, warmup=1),
+               else plain_ms(torch, plain),
                "library_ms": None if library is None
                else graph_ms(torch, library, reps=reps),
                "bound_ms": bound, "bound_by": by}
@@ -2505,17 +2646,8 @@ def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32):
            lambda: (hybrid.hybrid_window_plain(rows, elig, k),), None,
            2 * bsz * d + 4 * rows.numel() + 4 * bsz * (2 * (2 * k + 4) + 1),
            2 * bsz * (3 * k + d))
-    kt = 20000
-    matches = torch.rand(bsz, d, generator=gen, device=dev) < 0.5
-    masked = torch.where(matches, scores, float("-inf"))
-    record("masked_topk_threshold", f"B={bsz} Dp={d} k={kt}",
-           lambda: (topk.masked_topk_threshold(scores, matches, live, live,
-                                               d, ms, kt),),
-           lambda: (topk.masked_topk_threshold_plain(
-               scores, matches, live, live, d, ms, kt),),
-           lambda: torch.topk(masked, kt, dim=1),
-           bsz * d * 6 + 2 * d, 0)
-    del scores, elig, rows, matches, masked
+    del scores, elig, rows
+    threshold_record(torch, results, bsz, dev, gen)
     torch.cuda.empty_cache()
     return results
 
@@ -3623,7 +3755,7 @@ def phase_scoring_kernels(torch, np, mapper, seg, terms, dev,
         bound = _bound(nbytes, 0)
         rec = {"shape": shape, "max_abs_err": err, "ulps": ulps,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None, "bound_ms": bound[0],
                "bound_by": bound[1]}
         results.setdefault(name, []).append(rec)
@@ -4347,7 +4479,7 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
         bound = _bound(nbytes, ops)
         rec = {"shape": shape, "max_abs_err": err,
                "ms": graph_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
-               "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+               "plain_ms": plain_ms(torch, plain),
                "library_ms": None if library is None
                else cuda_ms(torch, library, reps=5, warmup=1),
                "bound_ms": bound[0],
@@ -5301,6 +5433,38 @@ def _require_launched(launches, names, what: str) -> None:
                              f"{missing}")
 
 
+def launch_ms(torch, fn, calls: int = 3) -> list:
+    """[[kernel, median device ms], ...] of one call of fn, in launch
+    order, from a torch.profiler (CUPTI) trace of `calls` calls after a
+    warm one. Memsets are left out (the trace may drop one, which would
+    shift every later launch); [] when the calls' kernels differ or the
+    trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # the trace lists device events by their host op: order them by start
+    events = sorted((e for e in prof.events()
+                     if e.device_type.name == "CUDA"
+                     and not e.name.startswith(("Memset", "Memcpy"))),
+                    key=lambda e: e.time_range.start)
+
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return name.split("(")[0].split("<")[0].replace("void ", "").strip()
+    per = len(events) // calls
+    names = [[short(e.name) for e in events[c * per:(c + 1) * per]]
+             for c in range(calls)]
+    if per == 0 or len(events) % calls or any(n != names[0] for n in names):
+        return []
+    return [[names[0][i], statistics.median(
+        events[i + c * per].device_time_total / 1e3 for c in range(calls))]
+        for i in range(per)]
+
+
 def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
     """Device busy share of B=32 _msearch waves: kernel time summed from a
     torch.profiler (CUPTI) trace over the wall time of the traced waves.
@@ -5341,7 +5505,7 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
 
 
 CELLS = ("scale", "knn", "maxsim", "hybrid", "sorted", "aggkinds",
-         "relevance", "sharded", "nested", "geo", "ingest")
+         "relevance", "sharded", "nested", "geo", "ingest", "topk")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -5393,6 +5557,9 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         elif cell == "ingest":
             mapper = seg = None
             res, _launches = phase_ingest_cell(torch, np, card, out_dir)
+        elif cell == "topk":
+            mapper = seg = None
+            res = phase_topk_cell(torch, np, dev)
         elif cell == "sorted":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_sorted_cell(torch, np, mapper, seg,

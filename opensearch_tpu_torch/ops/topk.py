@@ -35,6 +35,88 @@ NEG_INF = float("-inf")
 # global memory
 MAX_K = 1 << 14
 
+# The radix select's scratch (ops/csrc/masked_topk.cu), in int64 slots per
+# row: a RowState (STATE_SLOTS), two u32 histograms of 2,048 bins
+# (HIST_SLOTS) and two candidate buffers of select_cap(Dp) keys; then the
+# entry's own (masked_topk: its k winners a row; masked_topk_keyed: its
+# winners and its sort's second buffer, p2 a row each).
+STATE_SLOTS = 8
+HIST_SLOTS = 2048
+# RowState.full_reads as an int32 index into a row's state: the passes of
+# the select that read the whole input (2 unless the overflow rule fired)
+FULL_READS_WORD = 12
+
+
+def select_cap(d_pad: int) -> int:
+    """Keys a row's candidate buffer holds: a bin with more keys than this
+    is not buffered, and the select reads the input again (the overflow
+    rule)."""
+    return max(d_pad // 8, min(d_pad, 4096))
+
+
+def select_buffer_room(d_pad: int, bsz: int) -> int:
+    """Keys a bin may hold to be buffered: select_cap less the slots each
+    warp of the select's grid may leave unused in its last append chunk
+    (masked_topk.cu's select_grid, append_chunk and buffer_room)."""
+    # select_grid: CTAs of at least 4 tiles of 1,024 lanes, 2,048 / B CTAs
+    # a row (8 to 1,024); 8 warps a CTA
+    ctas = max(1, min((-(-d_pad // 1024) + 3) // 4,
+                      min(max(2048 // bsz, 8), 1024)))
+    cap, warps = select_cap(d_pad), ctas * 8
+    chunk = max(1, min(64, cap // (4 * warps)))
+    return cap - warps * (chunk - 1)
+
+
+def select_scratch_slots(bsz: int, d_pad: int) -> int:
+    """int64 slots of the select's own scratch for a [B, Dp] call."""
+    return bsz * (STATE_SLOTS + HIST_SLOTS + 2 * select_cap(d_pad))
+
+
+def _pow2_at_least(k: int) -> int:
+    p2 = 1
+    while p2 < k:
+        p2 <<= 1
+    return p2
+
+
+def _scratch_slots(entry: str, bsz: int, d_pad: int, k: int) -> int:
+    tail = {"masked_topk": bsz * k, "masked_topk_threshold": 0,
+            "masked_topk_keyed": 2 * bsz * _pow2_at_least(k)}[entry]
+    return max(select_scratch_slots(bsz, d_pad) + tail, 1)
+
+
+def select_scratch(entry: str, bsz: int, d_pad: int, k: int,
+                   device) -> torch.Tensor:
+    """A scratch tensor for one call of `entry` (masked_topk,
+    masked_topk_threshold or masked_topk_keyed) at [B, Dp] and k. Pass it
+    as the call's `scratch` to read the select's state afterwards
+    (select_full_reads)."""
+    return torch.empty(_scratch_slots(entry, bsz, d_pad, k),
+                       dtype=torch.int64, device=device)
+
+
+def select_full_reads(scratch: torch.Tensor, bsz: int) -> list:
+    """Per row, how many passes of the select read the whole input, from
+    the scratch of a finished call with k > 0 (a copy to the host: call it
+    outside any timed window)."""
+    state = scratch[:bsz * STATE_SLOTS].view(torch.int32)
+    return state.view(bsz, 2 * STATE_SLOTS)[:, FULL_READS_WORD].tolist()
+
+
+def _scratch_for(entry: str, scratch, bsz: int, d_pad: int, k: int, dev):
+    """The caller's scratch after checking it, or a new one."""
+    if scratch is None:
+        return select_scratch(entry, bsz, d_pad, k, dev)
+    need = _scratch_slots(entry, bsz, d_pad, k)
+    if scratch.dtype != torch.int64 or scratch.device != dev \
+            or not scratch.is_contiguous() or scratch.numel() < need:
+        raise ValueError(f"[scratch] must be a contiguous int64 tensor of at "
+                         f"least {need} elements on {dev}, got "
+                         f"{scratch.dtype} {tuple(scratch.shape)} on "
+                         f"{scratch.device}")
+    return scratch
+
+
 # Missing-field sentinel for VALUE-keyed merges: below every admissible
 # value key (f32_sortable admits |v| < 1e29 only) but above the NEG_INF
 # ineligibility mask, so a doc missing the sort field stays a candidate
@@ -121,14 +203,15 @@ def masked_topk_plain(scores, matches, live, root, num_docs: int,
                       min_score, k: int) -> torch.Tensor:
     """Plain version of K3: eligible = matches & live & root & (index <
     num_docs) & (score >= min_score); total = sum(eligible); top-k of the
-    eligible scores with -inf elsewhere. Returns f32 [B, 2k+1]."""
+    eligible scores with -inf elsewhere, in lax.top_k's total order (-0.0
+    below +0.0, NaN by its bits). Returns f32 [B, 2k+1]."""
     d_pad = scores.shape[1]
     in_seg = torch.arange(d_pad, device=scores.device) < num_docs
     eligible = matches & live & root & in_seg \
         & (scores >= min_score[:, None])
     total = eligible.sum(dim=1, dtype=torch.int32)
     masked = torch.where(eligible, scores, NEG_INF)
-    top, idx = stable_topk(masked, k)
+    top, idx = total_order_topk(masked, k)
     return pack_rows(top, idx, total)
 
 
@@ -149,13 +232,14 @@ def _check_rows(scores, matches, live, root, min_score) -> None:
 
 
 def masked_topk(scores, matches, live, root, num_docs: int, min_score,
-                k: int) -> torch.Tensor:
+                k: int, scratch=None) -> torch.Tensor:
     """K3: the dense query phase's eligibility, total and masked top-k.
     Replaces opensearch_tpu/search/executor.py:build_batched_query_phase
     (`one`, with `_topk_or_empty` and `_pack_row`).
 
     scores f32 [B, Dp], matches bool [B, Dp], live / root bool [Dp],
-    min_score f32 [B], 0 <= k <= Dp. Returns f32 [B, 2k+1]."""
+    min_score f32 [B], 0 <= k <= Dp. Returns f32 [B, 2k+1]. `scratch`
+    (select_scratch) keeps the select's state readable after the call."""
     if not scores.is_cuda:
         return masked_topk_plain(scores, matches, live, root, num_docs,
                                  min_score, k)
@@ -166,9 +250,8 @@ def masked_topk(scores, matches, live, root, num_docs: int, min_score,
                          f"got k={k} with Dp={d_pad}")
     _check_rows(scores, matches, live, root, min_score)
     out = torch.empty(bsz, 2 * k + 1, dtype=torch.float32, device=dev)
-    # scratch: per row the radix prefix (u64), remaining rank, candidate
-    # count and total, a 256-bin histogram, then k candidate keys
-    scratch = torch.empty(bsz * (4 + 256 + k), dtype=torch.int64, device=dev)
+    # scratch: the select's (select_scratch_slots), then k winners a row
+    scratch = _scratch_for("masked_topk", scratch, bsz, d_pad, k, dev)
     fn = _build.entry("masked_topk", [ctypes.c_void_p] * 5
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     code = fn(_build.ptr(scores), _build.ptr(matches), _build.ptr(live),
@@ -202,11 +285,12 @@ def masked_topk_threshold_plain(scores, matches, live, root, num_docs: int,
 
 
 def masked_topk_threshold(scores, matches, live, root, num_docs: int,
-                          min_score, k: int) -> torch.Tensor:
+                          min_score, k: int, scratch=None) -> torch.Tensor:
     """K3's second entry: the SET of each row's k winners (K3's
     eligibility and key order), as bool [B, Dp] marked at the winners
     with a finite score, for any 0 <= k <= Dp. Serves the selections past
-    MAX_K: a `knn` node's k and an IVF probe's block budget."""
+    MAX_K: a `knn` node's k and an IVF probe's block budget. `scratch` as
+    masked_topk's."""
     if not scores.is_cuda:
         return masked_topk_threshold_plain(scores, matches, live, root,
                                            num_docs, min_score, k)
@@ -217,9 +301,9 @@ def masked_topk_threshold(scores, matches, live, root, num_docs: int,
                          f"k={k} with Dp={d_pad}")
     _check_rows(scores, matches, live, root, min_score)
     mark = torch.empty(bsz, d_pad, dtype=torch.bool, device=dev)
-    # scratch: per row the radix prefix, remaining rank, count, total and
-    # a 256-bin histogram (masked_topk's layout, no candidate keys)
-    scratch = torch.empty(max(bsz * 260, 1), dtype=torch.int64, device=dev)
+    # scratch: the select's alone (winners are marked where found)
+    scratch = _scratch_for("masked_topk_threshold", scratch, bsz, d_pad, k,
+                           dev)
     fn = _build.entry("masked_topk_threshold", [ctypes.c_void_p] * 5
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
                       lib="masked_topk")
@@ -260,7 +344,8 @@ def unpack_keyed_rows(packed, k: int):
 
 
 def masked_topk_keyed(scores, matches, live, root, num_docs: int,
-                      min_score, key, k: int, out=None) -> torch.Tensor:
+                      min_score, key, k: int, out=None,
+                      scratch=None) -> torch.Tensor:
     """K3's keyed entry: the general path's query phase
     (opensearch_tpu/search/executor.py:build_query_phase in "field" mode,
     and in "score" mode with `key` None). Eligibility and total as K3; the
@@ -270,7 +355,7 @@ def masked_topk_keyed(scores, matches, live, root, num_docs: int,
     min_score f32 [B], key f32 [Dp] (shared by the batch) or None.
     Returns f32 [B, 3k+1]: keys | scores | indices | total, written into
     `out` when given (a contiguous f32 [B, 3k+1] view, e.g. a row of the
-    multi-shard merge buffer)."""
+    multi-shard merge buffer). `scratch` as masked_topk's."""
     bsz, d_pad = scores.shape
     dev = scores.device
     if out is not None and (out.dtype != torch.float32
@@ -296,15 +381,11 @@ def masked_topk_keyed(scores, matches, live, root, num_docs: int,
         raise ValueError(f"[key] must be a contiguous float32 tensor of "
                          f"shape ({d_pad},) on {dev}, got {key.dtype} "
                          f"{tuple(key.shape)} on {key.device}")
-    p2 = 1
-    while p2 < k:
-        p2 <<= 1
     if out is None:
         out = torch.empty(bsz, 3 * k + 1, dtype=torch.float32, device=dev)
-    # scratch: K3's select state, then the collected keys and the merge
-    # buffer (p2 each per row)
-    scratch = torch.empty(bsz * (260 + 2 * p2), dtype=torch.int64,
-                          device=dev)
+    # scratch: the select's, then the winners and the sort's second buffer
+    # (p2 >= k each a row)
+    scratch = _scratch_for("masked_topk_keyed", scratch, bsz, d_pad, k, dev)
     fn = _build.entry("masked_topk_keyed", [ctypes.c_void_p] * 6
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
                       lib="masked_topk")

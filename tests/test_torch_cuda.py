@@ -22,7 +22,12 @@ libdevice functions as the kernels). K22 (nested_join) bit for bit in
 every score mode; K23 (nested_aggs) exactly; K24 (binned_scatter) counts,
 min and max exactly and its sums bit for bit (one sorted two-level order)
 and within the sum bound; K25's four geo / rank_feature entries bit for
-bit. K11's table (pq_lut) bit for bit on every dsub it templates and the
+bit. K3's three entries (masked_topk, its threshold and keyed entries)
+bit for bit on the inputs that stress their radix select (keys sharing
+their high bits, all keys equal, no or few eligible lanes, NaN / +-0.0 /
+-1e30, Dp off a tile or off 4, views off 16-byte alignment, 2^24 lanes),
+each row's full-read count as tests/topk_select_mirror.py plans it.
+K11's table (pq_lut) bit for bit on every dsub it templates and the
 loop's. Row 16 (expand_pad) bit for bit on the four leaf dtypes, 1-3 dims,
 axes cut and left whole, its 16-byte vector path and its element path
 (rows of 15, 16 and 17 bytes, views that are not 16-byte aligned, fills
@@ -517,6 +522,223 @@ def test_masked_topk_keyed_kernel_equals_plain(gpu, k, keyed):
                                         ms, key, k)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------------------- the masked top-k family's select
+#
+# The three entries of masked_topk.cu share one radix select (two full
+# reads, then a candidate buffer; the overflow rule re-reads the input
+# where a bin holds more than select_cap(Dp) keys). Each case runs every
+# entry bit for bit against its plain version, one launch a call, and
+# holds each row's full-read count to the pass plan of
+# tests/topk_select_mirror.py.
+
+SELECT_KINDS = ("random", "ranks_2_23", "epoch_ms", "all_equal",
+                "none_eligible", "few_eligible", "specials")
+# (B, Dp, num_docs, offset): one row of 2^16 lanes; 3 rows of 5,000 lanes
+# (a multiple of 4, not of a 1,024-lane tile) and num_docs < Dp; 32 rows
+# of 3,001 (lane-at-a-time loads); 3 rows whose score / key views sit 4
+# bytes past a 16-byte boundary (lane-at-a-time loads at Dp % 4 == 0)
+SELECT_SHAPES = ((1, 1 << 16, 1 << 16, 0), (3, 5000, 4500, 0),
+                 (32, 3001, 2900, 0), (3, 4096, 4000, 1))
+
+
+def _offset_view(a: np.ndarray, offset: int) -> torch.Tensor:
+    """a on the card, `offset` elements into a larger buffer."""
+    flat = torch.zeros(a.size + offset, dtype=torch.float32, device="cuda")
+    flat[offset:] = torch.from_numpy(a.reshape(-1)).cuda()
+    return flat[offset:].view(a.shape)
+
+
+def _select_inputs(kind, bsz, d_pad, num_docs, offset, seed):
+    """scores, matches, live, root, min_score and the keyed entry's key
+    (row 0's values), with each row's masked values for the mirror."""
+    rng = np.random.default_rng(seed)
+    shape = (bsz, d_pad)
+    share = 0.9
+    if kind == "random":
+        vals = rng.integers(0, 7, shape).astype(np.float32)
+        share = 0.3
+    elif kind == "ranks_2_23":      # K13's ranks: the top 20+ bits shared
+        vals = (2.0 ** 23 + rng.integers(0, 4096, shape)).astype(np.float32)
+    elif kind == "epoch_ms":        # 2^17 ms steps: long runs of ties
+        vals = (1.7e12 + rng.integers(0, 90 * 86400_000, shape)).astype(
+            np.float32)
+    elif kind == "all_equal":
+        vals = np.full(shape, 3.5, np.float32)
+        share = 1.0
+    elif kind == "none_eligible":
+        vals = rng.random(shape).astype(np.float32)
+        share = 0.0
+    elif kind == "few_eligible":    # fewer eligible lanes than k
+        vals = rng.random(shape).astype(np.float32)
+        share = 0.01
+    else:
+        pool = np.array([np.nan, -np.nan, 0.0, -0.0, -1e30, 1e30, np.inf,
+                         -np.inf, 1.5, -1.5], np.float32)
+        vals = rng.choice(pool, shape)
+    matches = rng.random(shape) < share
+    live = rng.random(d_pad) < 0.95
+    root = np.ones(d_pad, bool)
+    root[::97] = False
+    ms = np.full(bsz, -np.inf, np.float32)
+    if bsz > 1:
+        ms[1] = np.float32(np.nanmedian(vals[1])) if kind != "specials" \
+            else np.float32(-1.0)
+    dev = "cuda"
+    t = {"scores": _offset_view(vals, offset),
+         "matches": torch.from_numpy(matches).to(dev),
+         "live": torch.from_numpy(live).to(dev),
+         "root": torch.from_numpy(root).to(dev),
+         "ms": torch.from_numpy(ms).to(dev),
+         "key": _offset_view(vals[0], offset)}
+    in_seg = np.arange(d_pad) < num_docs
+    elig = matches & live & root & in_seg & (vals >= ms[:, None])
+    return t, vals, elig
+
+
+def _mirror_reads(values, elig, k, threshold=False):
+    from topk_select_mirror import lane_keys, select
+    room = topk.select_buffer_room(values.shape[1], values.shape[0])
+    return [select(lane_keys(v, e), k, room, threshold)[1]
+            for v, e in zip(values, elig)]
+
+
+@pytest.mark.parametrize("k", [0, 1, 100, topk.MAX_K])
+@pytest.mark.parametrize("shape", SELECT_SHAPES)
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+def test_masked_topk_select_cases(gpu, kind, shape, k):
+    bsz, d_pad, num_docs, offset = shape
+    k = min(k, d_pad)
+    t, vals, elig = _select_inputs(kind, bsz, d_pad, num_docs, offset, k)
+    args = (t["scores"], t["matches"], t["live"], t["root"], num_docs,
+            t["ms"], k)
+    scratch = topk.select_scratch("masked_topk", bsz, d_pad, k, "cuda")
+    before = _build.LAUNCHES["masked_topk"]
+    got = topk.masked_topk(*args, scratch=scratch)
+    assert _build.LAUNCHES["masked_topk"] == before + 1
+    want = topk.masked_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if k:
+        assert topk.select_full_reads(scratch, bsz) == \
+            _mirror_reads(vals, elig, k)
+
+
+@pytest.mark.parametrize("k", [0, 1, 100, 20000, "Dp"])
+@pytest.mark.parametrize("shape", SELECT_SHAPES)
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+def test_masked_topk_threshold_select_cases(gpu, kind, shape, k):
+    bsz, d_pad, num_docs, offset = shape
+    k = d_pad if k == "Dp" else min(k, d_pad)
+    t, vals, elig = _select_inputs(kind, bsz, d_pad, num_docs, offset,
+                                   k + 7)
+    args = (t["scores"], t["matches"], t["live"], t["root"], num_docs,
+            t["ms"], k)
+    scratch = topk.select_scratch("masked_topk_threshold", bsz, d_pad, k,
+                                  "cuda")
+    before = _build.LAUNCHES["masked_topk_threshold"]
+    got = topk.masked_topk_threshold(*args, scratch=scratch)
+    assert _build.LAUNCHES["masked_topk_threshold"] == before + 1
+    want = topk.masked_topk_threshold_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if k:
+        assert topk.select_full_reads(scratch, bsz) == \
+            _mirror_reads(vals, elig, k, threshold=True)
+
+
+@pytest.mark.parametrize("k", [0, 1, 100, 40000, "Dp"])
+@pytest.mark.parametrize("keyed", [True, False])
+@pytest.mark.parametrize("shape", SELECT_SHAPES)
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+def test_masked_topk_keyed_select_cases(gpu, kind, shape, keyed, k):
+    """The keyed entry selects by the shared key (row 0's values; every
+    row's lanes keyed alike) or, without one, by the scores."""
+    bsz, d_pad, num_docs, offset = shape
+    k = d_pad if k == "Dp" else min(k, d_pad)
+    t, vals, elig = _select_inputs(kind, bsz, d_pad, num_docs, offset,
+                                   k + 11)
+    key = t["key"] if keyed else None
+    args = (t["scores"], t["matches"], t["live"], t["root"], num_docs,
+            t["ms"], key, k)
+    scratch = topk.select_scratch("masked_topk_keyed", bsz, d_pad, k,
+                                  "cuda")
+    before = _build.LAUNCHES["masked_topk_keyed"]
+    got = topk.masked_topk_keyed(*args, scratch=scratch)
+    assert _build.LAUNCHES["masked_topk_keyed"] == before + 1
+    want = topk.masked_topk_keyed_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if k:
+        by = np.broadcast_to(vals[0], vals.shape) if keyed else vals
+        assert topk.select_full_reads(scratch, bsz) == \
+            _mirror_reads(by, elig, k)
+
+
+def _byte_view(a: torch.Tensor, offset: int) -> torch.Tensor:
+    """bool a on the card, `offset` bytes into a larger buffer."""
+    flat = torch.zeros(a.numel() + offset, dtype=torch.bool, device="cuda")
+    flat[offset:] = a.reshape(-1)
+    return flat[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("flag", ["matches", "live", "root"])
+@pytest.mark.parametrize("entry", ["masked_topk", "masked_topk_threshold",
+                                   "masked_topk_keyed"])
+def test_masked_topk_select_flag_view_off_16_bytes(gpu, entry, flag):
+    """A match / live / root view 4 bytes past a 16-byte boundary at Dp %
+    16 == 0: the 4-byte flag loads stay, the bulk L2 prefetch (16-byte
+    aligned addresses only) is off."""
+    bsz, d_pad, k = 3, 1 << 16, 100
+    t, vals, elig = _select_inputs("random", bsz, d_pad, d_pad, 0, 5)
+    t[flag] = _byte_view(t[flag], 4)
+    assert t[flag].data_ptr() % 16 == 4
+    args = [t["scores"], t["matches"], t["live"], t["root"], d_pad, t["ms"]]
+    if entry == "masked_topk_keyed":
+        args.append(t["key"])
+    scratch = topk.select_scratch(entry, bsz, d_pad, k, "cuda")
+    before = _build.LAUNCHES[entry]
+    got = getattr(topk, entry)(*args, k, scratch=scratch)
+    assert _build.LAUNCHES[entry] == before + 1
+    want = getattr(topk, entry + "_plain")(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    by = np.broadcast_to(vals[0], vals.shape) \
+        if entry == "masked_topk_keyed" else vals
+    assert topk.select_full_reads(scratch, bsz) == _mirror_reads(
+        by, elig, k, threshold=entry == "masked_topk_threshold")
+
+
+@pytest.mark.parametrize("entry", ["masked_topk", "masked_topk_threshold",
+                                   "masked_topk_keyed"])
+def test_masked_topk_select_2_24_lanes(gpu, entry):
+    """One row of 2^24 lanes keyed by value ranks past 2^23 (the sorted
+    cell's shape), 80% eligible: the bin of the k-th key fits the buffer,
+    so the select reads the input twice."""
+    d_pad = 1 << 24
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    ranks = torch.randperm(10_000_000, generator=gen, device="cuda")
+    vals = torch.full((1, d_pad), -1e30, device="cuda")
+    vals[0, :10_000_000] = ranks.float()
+    matches = torch.rand(1, d_pad, generator=gen, device="cuda") < 0.8
+    live = torch.ones(d_pad, dtype=torch.bool, device="cuda")
+    ms = torch.full((1,), -np.inf, device="cuda")
+    k = {"masked_topk": 1000, "masked_topk_threshold": 20000,
+         "masked_topk_keyed": 41088}[entry]
+    scores = torch.rand(1, d_pad, generator=gen, device="cuda") \
+        if entry == "masked_topk_keyed" else vals
+    args = [scores, matches, live, live, 10_000_000, ms]
+    if entry == "masked_topk_keyed":
+        args.append(vals[0])
+    scratch = topk.select_scratch(entry, 1, d_pad, k, "cuda")
+    before = _build.LAUNCHES[entry]
+    got = getattr(topk, entry)(*args, k, scratch=scratch)
+    assert _build.LAUNCHES[entry] == before + 1
+    want = getattr(topk, entry + "_plain")(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert topk.select_full_reads(scratch, 1) == [2]
 
 
 @pytest.mark.parametrize("order", [None, "asc", "desc"])

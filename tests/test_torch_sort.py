@@ -7,7 +7,9 @@ third without a `views` column) through both Nodes' `_search` and
 to rtol 1e-6. Plus the general path's plain versions against the JAX
 functions they replace: K13 (`_build_sort_key`) bit for bit, K3's keyed
 entry against `build_query_phase(..., "field")`, and K14 against the int32
-page of the reference's `_page_merger`."""
+page of the reference's `_page_merger`. The keyed entry also on sort keys
+that stress the kernels' radix select (shared high bits, runs of equal
+keys, signed zeros and NaNs)."""
 
 import jax
 import jax.numpy as jnp
@@ -404,6 +406,51 @@ def test_keyed_topk_plain_equals_build_query_phase(images, k, sort):
     else:
         assert np.array_equal(gk[0].view(np.int32),
                               np.asarray(wk).view(np.int32))
+
+
+def _select_key(kind: str, d_pad: int) -> np.ndarray:
+    """A [Dp] sort key of a kind that stresses the kernels' radix select."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "ranks_2_23":        # K13's ranks: top 20+ bits shared
+        return (2.0 ** 23 + rng.integers(0, 64, d_pad)).astype(np.float32)
+    if kind == "epoch_ms":          # 2^17 ms steps: long runs of ties
+        return (1.7e12 + rng.integers(0, 86400_000, d_pad)).astype(
+            np.float32)
+    if kind == "equal":
+        return np.full(d_pad, 7.0, np.float32)
+    pool = np.array([np.nan, -np.nan, 0.0, -0.0, -1e30, 1e30, np.inf,
+                     -np.inf, 2.0, -2.0], np.float32)
+    return rng.choice(pool, d_pad)
+
+
+@pytest.mark.parametrize("k", [10, 700])
+@pytest.mark.parametrize("kind", ["ranks_2_23", "epoch_ms", "equal",
+                                  "signed_zero_nan"])
+def test_keyed_topk_plain_equals_build_query_phase_on_select_keys(
+        images, kind, k):
+    """The keyed plain version against build_query_phase(..., "field")
+    with the same sort key handed to both: keys that share their high
+    bits, runs of equal keys, NaNs of both signs, +-0.0, -1e30 and +-inf
+    (the total order of the keys' bits), with min_score cutting matches
+    and, at k 700, the -inf tail in index order."""
+    _m, _s, jarrays, jmeta, _ts, tarrays, tmeta = images
+    jplan, tplan = _both_plans(images, {"match": {"body": "w00003 w00011"}})
+    key = _select_key(kind, tmeta.d_pad)
+    fn = jax.jit(jex.build_query_phase(jplan, jmeta, k, "field"))
+    flat = jax.tree_util.tree_map(jnp.asarray, jplan.flatten_inputs([]))
+    wk, ws, wi, wt, _ = fn(jarrays, flat, jnp.asarray(key), jnp.float32(0.5))
+    inputs, ms = stage_single(tplan.flatten_inputs([]), 0.5,
+                              torch.device("cpu"))
+    scores, matches = _eval_plan(tplan, tarrays, inputs, [0], 1)
+    row = topk.masked_topk_keyed_plain(
+        scores.contiguous(), matches.contiguous(), tarrays["live"],
+        tarrays["root"], tmeta.num_docs, ms, torch.from_numpy(key),
+        min(k, tmeta.d_pad))
+    gk, gs, gi, gt = topk.unpack_keyed_rows(row.numpy(), k)
+    assert int(gt[0]) == int(wt)
+    assert np.array_equal(gi[0], np.asarray(wi))
+    assert np.array_equal(gk[0].view(np.int32), np.asarray(wk).view(np.int32))
+    np.testing.assert_allclose(gs[0], np.asarray(ws), rtol=1e-6)
 
 
 @pytest.mark.parametrize("mode", [("score",), ("field", "views", "asc"),
