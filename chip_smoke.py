@@ -249,9 +249,10 @@ with the geo and rank_feature queries and the geo aggregations.
 
 `--cells a,b` runs only the named cells after the build (scale, knn,
 maxsim, hybrid, sorted, aggkinds, relevance, sharded, nested, geo,
-ingest: phases 4, 6's exact cell, 8, 9, 10, 11, 12, 13, 14, 15, 16; and
-topk: phase 2's records of K3, its threshold and its keyed entry on their
-own, each with the device ms of each launch of a call), one JSON line
+ingest: phases 4, 6's exact cell, 8, 9, 10, 11, 12, 13, 14, 15, 16;
+aggs: phase 5; topk: phase 2's records of K3, its threshold and its keyed
+entry on their own, each with the device ms of each launch of a call;
+binned: phase 2's records of K6 and K24 on their own), one JSON line
 each, so that one card compares two checkouts cell by cell.
 
 Each record of K3's three entries also prints `full_reads`: per row, the
@@ -303,8 +304,8 @@ HYBRID_DIMS = 768                   # msmarco-distilbert-base-tas-b
 HYBRID_QUERIES = 320
 SORTED_SEGMENTS = 4                 # the sorted cell's multi-segment index
 SORTED_SINGLES = 100                # B=1 requests per body and index
-SORTED_DEEP_SINGLES = 2             # of the deep search_after body (cut
-                                    # from 20 to fit phases 14-16)
+SORTED_DEEP_SINGLES = 1             # of the deep search_after body (cut
+                                    # from 20, then 2, to fit phases 14-16)
 TIMING_BUDGET_MS = 1000.0           # of one timed measurement's reps
 SORTED_CURSOR_HIT = 20000           # search_after's depth, in hits
 AGGKIND_BODIES_PER_FAMILY = 64      # the agg-kinds cell's bodies a family
@@ -732,6 +733,33 @@ def phase_topk_cell(torch, np, dev) -> dict:
                    for r in recs] for name, recs in results.items()}
 
 
+def phase_binned_cell(torch, np, dev) -> dict:
+    """K6's and K24's records alone, at phase 2's shapes and on its
+    corpora (K6 on the 10M-doc structured segment: the avg sums under
+    terms, the date_histogram counts, the static child-bin max; K24 on the
+    nested cell's image, the dynamic child-bin max, and on the geo cell's:
+    cnt + sum, cnt + min + max, and cnt + sum past SCATTER_MAX_BINS bins),
+    each record with each kernel's device ms a call (`passes`):
+    one script's records on two checkouts compare their kernels on one
+    card."""
+    from opensearch_tpu_torch.utils.demo import geonames_segment, qa_segment
+    results = {}
+    mapper, agg = agg_segment(np, AGG_SCALE_DOCS)
+    results.update(phase_agg_kernels(torch, np, mapper, agg, dev,
+                                     parts=("k6",), passes=True))
+    del agg
+    _qm, qa_seg = qa_segment(NESTED_QUESTIONS)
+    _gm, geo_seg = geonames_segment(GEO_PLACES)
+    results.update(phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
+                                            parts=("k24",), passes=True))
+    del qa_seg, geo_seg
+    torch.cuda.empty_cache()
+    keys = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err", "peak_scratch_bytes", "passes")
+    return {name: [{k: r[k] for k in keys if k in r} for r in recs]
+            for name, recs in results.items()}
+
+
 def phase_serving(torch, np, device=None):
     """Node() on the card against Node(device='cpu') on the same data: the
     BM25 parity bodies on `passages` and the aggregation bodies on `docs`,
@@ -1074,10 +1102,12 @@ def _same_bits(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
-def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
-    """K4-K6 against their plain versions at the aggregation scale cell's
-    shapes: B queries of bench.py's two families over the structured
-    shard (NVp = Dp)."""
+def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH,
+                      parts=("k4", "k5", "k6"), passes: bool = False):
+    """K4-K6 (those in `parts`) against their plain versions at the
+    aggregation scale cell's shapes: B queries of bench.py's two families
+    over the structured shard (NVp = Dp); with `passes`, K6's records carry
+    each kernel's device ms a call."""
     from opensearch_tpu_torch.ops import binned, bm25
     from opensearch_tpu_torch.ops.device_segment import upload_segment
     from opensearch_tpu_torch.search import dsl
@@ -1117,6 +1147,8 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
+        if passes and name == "binned_reduce":
+            rec["passes"] = launch_ms(torch, kern, by_name=True)
         results.setdefault(name, []).append(rec)
         log(name, json.dumps(rec))
 
@@ -1136,7 +1168,7 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
     up = arrays["numeric"]["views"]["unique_f32"].shape[0]
     ord_mask = torch.from_numpy(
         np.random.default_rng(1).random((bsz, up)) < 0.01).to(dev)
-    for ident in (True, False):
+    for ident in ((True, False) if "k4" in parts else ()):
         record("pairs_match", f"B={bsz} NVp={n} Dp={d_pad} range "
                f"{'identity' if ident else 'pairs'}",
                lambda ident=ident: (bm25.pairs_match(
@@ -1146,13 +1178,14 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
                    views["doc_ids"], views["val_ords"], d_pad, ident,
                    lo=lo, hi=hi),),
                None, 8 * n + bsz * d_pad + 8 * bsz, exact)
-    record("pairs_match", f"B={bsz} NVp={n} Dp={d_pad} rank mask Up={up}",
-           lambda: (bm25.pairs_match(views["doc_ids"], views["val_ords"],
-                                     d_pad, True, ord_mask=ord_mask),),
-           lambda: (bm25.pairs_match_plain(views["doc_ids"],
-                                           views["val_ords"], d_pad, True,
-                                           ord_mask=ord_mask),),
-           None, 8 * n + bsz * d_pad + bsz * up, exact)
+    if "k4" in parts:
+        record("pairs_match", f"B={bsz} NVp={n} Dp={d_pad} rank mask Up={up}",
+               lambda: (bm25.pairs_match(views["doc_ids"], views["val_ords"],
+                                         d_pad, True, ord_mask=ord_mask),),
+               lambda: (bm25.pairs_match_plain(views["doc_ids"],
+                                               views["val_ords"], d_pad,
+                                               True, ord_mask=ord_mask),),
+               None, 8 * n + bsz * d_pad + bsz * up, exact)
 
     # K5: the fused presence_bits of the date_hist family's cardinality,
     # and the popcount route of the agg_terms family's bucket counts
@@ -1172,9 +1205,9 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
     tag_bins = engine._Bins(torch.where(tag["doc_ids"] >= 0, tag["ords"],
                                         card), card)
     lanes = tag_bins.lanes.long()
-    for label, mask, bbits in (("presence_bits", elig["date_hist"], bits),
-                               ("popcount route", elig["agg_terms"],
-                                tag_bins.bits())):
+    for label, mask, bbits in ((("presence_bits", elig["date_hist"], bits),
+                                ("popcount route", elig["agg_terms"],
+                                 tag_bins.bits())) if "k5" in parts else ()):
         ok = mask[:, :n].to(torch.int32)
         record("binned_popcount", f"B={bsz} n={n} bins={card} {label}",
                lambda mask=mask, bbits=bbits: (binned.binned_popcount(
@@ -1186,6 +1219,10 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
                    1, lanes.expand(bsz, -1), ok),
                bsz * d_pad + card * n // 8 + 4 * bsz * card, exact)
 
+    if "k6" not in parts:
+        del arrays, elig
+        torch.cuda.empty_cache()
+        return results
     # K6: the avg views sums under terms tag (16 bins), the date_histogram
     # counts (scatter route), the static child-bin max (one bin per doc)
     route = {"sum": engine.binned_route(n, card, "sum"),
@@ -1224,6 +1261,47 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
            lambda: torch.zeros(bsz, card + 1, device=dev).index_add_(
                1, lanes, contrib),
            4 * n + 4 * n + bsz * d_pad + 4 * bsz * card, within_bound)
+    # the same sums over a sparse pairs field: one doc in 64 holds a value
+    # (uniform f32 in [0, 1000), 16 uniform bins); K6 then packs nothing
+    # and reads each lane's mask byte (binned.k6_packs)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    sp_docs = torch.randperm(d_pad, generator=gen, device=dev)[
+        :d_pad // 64].sort()[0].to(torch.int32)
+    n_sp = sp_docs.shape[0]
+    sp_bins = torch.randint(0, card, (n_sp,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    sp_vals = torch.rand(n_sp, generator=gen, device=dev) * 1000
+    sp_csr = binned.bin_csr(sp_bins, card)
+    packs = getattr(binned, "k6_packs", None)   # (older trees: none)
+    if packs is not None and packs(n_sp, d_pad):
+        raise AssertionError(f"K6 packs the mask at {n_sp} lanes, Dp "
+                             f"{d_pad}")
+    sp_ok = elig["agg_terms"][:, sp_docs.long()]
+    sp_contrib = torch.where(sp_ok, sp_vals, 0.0)
+    sp_exact = torch.zeros(bsz, card, dtype=torch.float64,
+                           device=dev).index_add_(
+        1, sp_bins.long(), sp_contrib.double())
+    sp_bound = torch.zeros_like(sp_exact).index_add_(
+        1, sp_bins.long(), sp_ok.double()) * F32_SUM_EPS * sp_exact
+
+    def sparse_within(got, want):
+        for side in (got[0], want[0]):
+            if not bool(((side.double() - sp_exact).abs()
+                         <= sp_bound).all()):
+                raise AssertionError("f32 sums outside n * 2^-24 * sum|v|")
+        return float((got[0] - want[0]).abs().max().item())
+    record("binned_reduce", f"B={bsz} n={n_sp} Dp={d_pad} bins={card} sum "
+           f"(sparse pairs field, one doc in 64)",
+           lambda: (binned.binned_reduce(sp_csr, elig["agg_terms"], None,
+                                         sp_docs, sp_vals, 0.0, ("sum",),
+                                         bsz)["sum"],),
+           lambda: (binned.binned_reduce_plain(
+               sp_csr, elig["agg_terms"], None, sp_docs, sp_vals, 0.0,
+               ("sum",), bsz)["sum"],),
+           lambda: torch.zeros(bsz, card, device=dev).index_add_(
+               1, sp_bins.long(), sp_contrib),
+           # each lane's doc id and value, and its mask byte a query
+           8 * n_sp + bsz * n_sp + 4 * bsz * card, sparse_within)
     # the bucket_num table of the date_histogram (the unfused compile)
     hist_plan = engine.compile_aggs(hist_aggs, mapper, seg, meta, comp,
                                     allow_fused=False)[0]
@@ -1262,6 +1340,12 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH):
                               device=dev).scatter_reduce_(
                1, pidx, fl[None, :], "amax"),
            4 * n + 4 * n + 4 * d_pad, exact)
+    # the lanes' values kept in CSR order beside each CSR (K6's static
+    # copies; the identity layouts need no doc ids)
+    ordered = {name: getattr(c, "ordered_bytes", lambda: None)()
+               for name, c in (("terms tag", csr), ("date_histogram", hcsr),
+                               ("child bins", pcsr))}
+    log(f"binned_reduce: CSR-order copies' device bytes {json.dumps(ordered)}")
     del arrays, elig
     torch.cuda.empty_cache()
     return results
@@ -2218,6 +2302,20 @@ def agg_oracle(np, n_docs: int):
     return check
 
 
+def csr_order_bytes(seg):
+    """Device bytes of the per-lane columns K6 keeps in CSR order beside
+    the static sides cached on a segment (None where the CSRs keep no such
+    copies)."""
+    total, seen = None, False
+    for st in getattr(seg, "_agg_statics", {}).values():
+        for node in st.nodes:
+            csr = getattr(node.get("bins"), "_csr", None)
+            if csr is not None and hasattr(csr, "ordered_bytes"):
+                seen = True
+                total = (total or 0) + csr.ordered_bytes()
+    return total if seen else None
+
+
 def phase_agg_scale(torch, np, mapper, seg, dev, out_dir=None,
                     per_family: int = AGG_BODIES_PER_FAMILY,
                     bsz: int = AGG_BATCH):
@@ -2245,7 +2343,10 @@ def phase_agg_scale(torch, np, mapper, seg, dev, out_dir=None,
         ex.multi_search(bodies[:bsz])
     torch.cuda.synchronize()
     _build.reset_launches()
-    out = {"image_bytes": reader.device_bytes()}
+    out = {"image_bytes": reader.device_bytes(),
+           "csr_order_bytes": csr_order_bytes(seg)}
+    log(f"agg scale: K6's CSR-order copies beside the image: "
+        f"{out['csr_order_bytes']} bytes")
     answers = {}
     for m, bodies in fams.items():
         single = []
@@ -4441,15 +4542,20 @@ def geo_cell_bodies(np, family: str, n: int, seed: int, centres) -> list:
 
 
 def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
-                             bsz: int = 32):
-    """K22-K25 against their plain versions at the cells' shapes: K22
+                             bsz: int = 32,
+                             parts=("k22", "k23", "k24", "k25"),
+                             passes: bool = False):
+    """K22-K25 (those in `parts`) against their plain versions at the
+    cells' shapes: K22
     nested_join and K23 nested_aggs on the nested cell's image (2M
     questions, Dp 2^23, B=32: the child plan of bool{term answers.user,
     range answers.date}; nested under the root and reverse_nested under a
     monthly date_histogram of the answers), K24 binned_scatter and K25's
     four entries on the geo cell's image (10M places, Dp 2^24, B=32:
     geo_centroid's sums and geo_bounds' extrema under terms
-    country_code; geo_distance, geo_bbox, distance_feature and
+    country_code, and past SCATTER_MAX_BINS bins under country_code x 64
+    latitude bands; the one-bin-per-doc max of the dynamic child bins at
+    the nested cell's shape; geo_distance, geo_bbox, distance_feature and
     rank_feature saturation). K22, K24's sums and K25 bit for bit (the
     float outputs' ulps measured: 0), K23 and K24's counts and extrema
     exactly, K24's sums also within n * 2^-24 * sum|v| of the f64 sums.
@@ -4465,7 +4571,8 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
     from opensearch_tpu_torch.search.plan_eval import (_eval_plan,
                                                        dense_numeric)
     from opensearch_tpu_torch.index.mapper import MapperService
-    from opensearch_tpu_torch.utils.demo import QA_BASE_MS, QA_MAPPING
+    from opensearch_tpu_torch.utils.demo import (GEONAMES_COUNTRIES,
+                                                 QA_BASE_MS, QA_MAPPING)
     results = {}
 
     def record(name, shape, kern, plain, library, nbytes, check,
@@ -4484,6 +4591,18 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
                else cuda_ms(torch, library, reps=5, warmup=1),
                "bound_ms": bound[0],
                "bound_by": bound[1]}
+        if name == "binned_scatter":
+            # the device memory one call takes beyond what it returns
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            outs = kern()
+            torch.cuda.synchronize()
+            rec["peak_scratch_bytes"] = torch.cuda.max_memory_allocated() \
+                - before - sum(o.numel() * o.element_size() for o in outs)
+            del outs
+            if passes:
+                rec["passes"] = launch_ms(torch, kern, by_name=True)
         results.setdefault(name, []).append(rec)
         log(name, json.dumps(rec))
 
@@ -4525,7 +4644,7 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
     pidx = torch.where(pptr >= 0, pptr, d_pad).long()
     sel = child_m & arrays["live"][None, :] & (arrays["nested_path"] == 0)
     csel = torch.where(sel, child_s, 0.0)
-    for mode in ("sum", "avg", "max"):
+    for mode in (("sum", "avg", "max") if "k22" in parts else ()):
         record("nested_join", f"B={bsz} Dp={d_pad} {mode}",
                lambda mode=mode: nested.nested_join(
                    child_s, child_m, arrays, path_ord, boost, mode),
@@ -4541,26 +4660,58 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
     mask = roots[None, :].expand(bsz, d_pad).contiguous()
     peff = torch.where(mask, 0, -1).to(torch.int32)
     own, child_eff, _c = nested.nested_agg(mask, peff, arrays, path_ord, 1)
-    record("nested_agg", f"B={bsz} Dp={d_pad} root context",
-           lambda: nested.nested_agg(mask, peff, arrays, path_ord, 1),
-           lambda: nested.nested_agg_plain(
-               mask, peff, arrays["live"], arrays["nested_path"], pptr,
-               path_ord, 1),
-           lambda: torch.bincount(torch.where(
-               own, child_eff + torch.arange(bsz, device=dev)[:, None], bsz
-           ).reshape(-1), minlength=bsz + 1),
-           (1 + 4 + 1 + 4) * elems + 9 * d_pad, exact)
-    # reverse_nested under a monthly date_histogram of the answers
     date, _e, _n = dense_numeric(arrays, "answers.date", d_pad)
     month = ((date.double() - QA_BASE_MS) // (30 * DAY_MS)).to(torch.int32)
     months = int(month.max()) + 1
+    if "k24" in parts:
+        # the dynamic child-bin max (_dyn_child_bins): one bin per doc
+        # (total = Dp), each query's kept answers.user pairs, each lane's
+        # value its bin: the doc's month x the users' card + the user
+        users = arrays["numeric"]["answers.user"]
+        udoc = users["doc_ids"]
+        u_card = int(users["unique_f32"].shape[0])
+        safe = torch.where(udoc >= 0, udoc, 0).long()
+        keep = (torch.rand(bsz, udoc.shape[0], device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(74)) < 0.5) \
+            & (udoc >= 0)[None, :] & own[:, safe]
+        ulanes = torch.where(keep, udoc[None, :], d_pad).to(torch.int32) \
+            .contiguous()
+        uvals = (month[safe] * u_card + users["val_ords"])[None, :] \
+            .expand(bsz, -1).to(torch.float32).contiguous()
+        uidx = ulanes.long()
+        n_pairs = udoc.shape[0]
+        record("binned_scatter", f"B={bsz} n={n_pairs} bins={d_pad} max "
+               f"(dynamic child bins: one bin per doc)",
+               lambda: tuple(binned.binned_scatter(ulanes, d_pad, uvals,
+                                                   ("max",)).values()),
+               lambda: tuple(binned.binned_scatter_plain(
+                   ulanes, d_pad, uvals, ("max",)).values()),
+               lambda: torch.full((bsz, d_pad + 1), float("-inf"),
+                                  device=dev).scatter_reduce_(
+                   1, uidx, uvals, "amax"),
+               8 * bsz * n_pairs + 4 * bsz * d_pad, exact)
+        del ulanes, uvals, uidx, keep
+    if "k23" in parts:
+        record("nested_agg", f"B={bsz} Dp={d_pad} root context",
+               lambda: nested.nested_agg(mask, peff, arrays, path_ord, 1),
+               lambda: nested.nested_agg_plain(
+                   mask, peff, arrays["live"], arrays["nested_path"], pptr,
+                   path_ord, 1),
+               lambda: torch.bincount(torch.where(
+                   own, child_eff + torch.arange(bsz, device=dev)[:, None],
+                   bsz).reshape(-1), minlength=bsz + 1),
+               (1 + 4 + 1 + 4) * elems + 9 * d_pad, exact)
+    # reverse_nested under a monthly date_histogram of the answers
     rev_eff = torch.where(own, month[None, :], -1).to(torch.int32)
-    record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
-           f"buckets",
-           lambda: nested.reverse_nested_agg(own, rev_eff, arrays, months),
-           lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr,
-                                                   months),
-           None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
+    if "k23" in parts:
+        record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
+               f"buckets",
+               lambda: nested.reverse_nested_agg(own, rev_eff, arrays,
+                                                 months),
+               lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr,
+                                                       months),
+               None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
     del arrays, nodes, child_s, child_m, sel, csel, mask, peff, own
     del child_eff, rev_eff, pidx
     torch.cuda.empty_cache()
@@ -4586,42 +4737,75 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
         .contiguous()
     idx = lanes.long()
 
-    def sums_check(got, want):
-        exact(got, want)
-        for k, vals in (("sum", lat),):
-            ok = (idx < card)
-            v64 = torch.where(ok, vals[None, :], 0.0).double()
-            truth = torch.zeros(bsz, card + 1, dtype=torch.float64,
+    def sums_check(idx, total):
+        def check(got, want):
+            exact(got, want)
+            ok = idx < total
+            v64 = torch.where(ok, lat[None, :], 0.0).double()
+            truth = torch.zeros(bsz, total + 1, dtype=torch.float64,
                                 device=dev).scatter_add_(1, idx, v64)
-            mag = torch.zeros(bsz, card + 1, dtype=torch.float64,
+            mag = torch.zeros(bsz, total + 1, dtype=torch.float64,
                               device=dev).scatter_add_(1, idx, v64.abs())
             cnt = got[0].double()
             for side in (got, want):
-                e = (side[1].double() - truth[:, :card]).abs()
-                if not bool((e <= cnt * F32_SUM_EPS * mag[:, :card]).all()):
+                e = (side[1].double() - truth[:, :total]).abs()
+                if not bool((e <= cnt * F32_SUM_EPS
+                             * mag[:, :total]).all()):
                     raise AssertionError("K24 sums outside n * 2^-24 * "
                                          "sum|v|")
-        return float((got[1] - want[1]).abs().max())
-    record("binned_scatter", f"B={bsz} n={d_pad} bins={card} cnt + sum "
-           f"(geo_centroid lat under terms country_code)",
-           lambda: tuple(binned.binned_scatter(lanes, card, lat,
-                                               ("cnt", "sum")).values()),
-           lambda: tuple(binned.binned_scatter_plain(
-               lanes, card, lat, ("cnt", "sum")).values()),
-           lambda: torch.zeros(bsz, card + 1, device=dev).scatter_reduce_(
-               1, idx, lat[None, :].expand(bsz, -1), "sum"),
-           4 * elems + 4 * d_pad + 8 * bsz * card, sums_check,
-           ops=float(elems))
-    record("binned_scatter", f"B={bsz} n={d_pad} bins={card} cnt + min + "
-           f"max (geo_bounds lat)",
-           lambda: tuple(binned.binned_scatter(
-               lanes, card, lat, ("cnt", "min", "max")).values()),
-           lambda: tuple(binned.binned_scatter_plain(
-               lanes, card, lat, ("cnt", "min", "max")).values()),
-           lambda: torch.full((bsz, card + 1), float("inf"),
-                              device=dev).scatter_reduce_(
-               1, idx, lat[None, :].expand(bsz, -1), "amin"),
-           4 * elems + 4 * d_pad + 12 * bsz * card, exact)
+            return float((got[1] - want[1]).abs().max())
+        return check
+    if "k24" in parts:
+        record("binned_scatter", f"B={bsz} n={d_pad} bins={card} cnt + sum "
+               f"(geo_centroid lat under terms country_code)",
+               lambda: tuple(binned.binned_scatter(lanes, card, lat,
+                                                   ("cnt", "sum")).values()),
+               lambda: tuple(binned.binned_scatter_plain(
+                   lanes, card, lat, ("cnt", "sum")).values()),
+               lambda: torch.zeros(bsz, card + 1, device=dev)
+               .scatter_reduce_(1, idx, lat[None, :].expand(bsz, -1),
+                                "sum"),
+               4 * elems + 4 * d_pad + 8 * bsz * card, sums_check(idx, card),
+               ops=float(elems))
+        record("binned_scatter", f"B={bsz} n={d_pad} bins={card} cnt + min "
+               f"+ max (geo_bounds lat)",
+               lambda: tuple(binned.binned_scatter(
+                   lanes, card, lat, ("cnt", "min", "max")).values()),
+               lambda: tuple(binned.binned_scatter_plain(
+                   lanes, card, lat, ("cnt", "min", "max")).values()),
+               lambda: torch.full((bsz, card + 1), float("inf"),
+                                  device=dev).scatter_reduce_(
+                   1, idx, lat[None, :].expand(bsz, -1), "amin"),
+               4 * elems + 4 * d_pad + 12 * bsz * card, exact)
+        # past SCATTER_MAX_BINS bins: geo_centroid under terms country_code
+        # -> 64 latitude bands, each lane's bin its parent bin x the card
+        # + its band (as _dyn_pairs builds a bucket's lanes)
+        bands = 64
+        wide = GEONAMES_COUNTRIES * bands
+        band = ((lat.double() + 90.0) * (bands / 180.0)).floor().clamp(
+            0, bands - 1).to(torch.int32)
+        cc = country[None, :d_pad]
+        wlanes = torch.where(elig & (cc >= 0) & (cc < GEONAMES_COUNTRIES),
+                             cc * bands + band[None, :], wide) \
+            .to(torch.int32).contiguous()
+        widx = wlanes.long()
+        record("binned_scatter", f"B={bsz} n={d_pad} bins={wide} cnt + sum "
+               f"(geo_centroid lat under terms country_code -> {bands} "
+               f"latitude bands)",
+               lambda: tuple(binned.binned_scatter(wlanes, wide, lat,
+                                                   ("cnt", "sum")).values()),
+               lambda: tuple(binned.binned_scatter_plain(
+                   wlanes, wide, lat, ("cnt", "sum")).values()),
+               lambda: torch.zeros(bsz, wide + 1, device=dev)
+               .scatter_reduce_(1, widx, lat[None, :].expand(bsz, -1),
+                                "sum"),
+               4 * elems + 4 * d_pad + 8 * bsz * wide,
+               sums_check(widx, wide), ops=float(elems))
+        del wlanes, widx, band, cc
+    if "k25" not in parts:
+        del arrays, lanes, idx, elig
+        torch.cuda.empty_cache()
+        return results
     q = torch.rand(bsz, 2, device=dev, generator=gen)
     qlat = (q[:, 0] * 120 - 60).contiguous()
     qlon = (q[:, 1] * 360 - 180).contiguous()
@@ -5433,12 +5617,14 @@ def _require_launched(launches, names, what: str) -> None:
                              f"{missing}")
 
 
-def launch_ms(torch, fn, calls: int = 3) -> list:
+def launch_ms(torch, fn, calls: int = 3, by_name: bool = False):
     """[[kernel, median device ms], ...] of one call of fn, in launch
     order, from a torch.profiler (CUPTI) trace of `calls` calls after a
-    warm one. Memsets are left out (the trace may drop one, which would
-    shift every later launch); [] when the calls' kernels differ or the
-    trace holds none."""
+    warm one; with `by_name`, {kernel: device ms a call}, each kernel's
+    launches in the trace summed and divided by `calls`. Memsets are left
+    out (the trace may drop one, which would shift every later launch);
+    the list is empty when the calls' kernels differ or the trace holds
+    none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -5455,6 +5641,12 @@ def launch_ms(torch, fn, calls: int = 3) -> list:
     def short(name):
         name = name.replace("(anonymous namespace)::", "")
         return name.split("(")[0].split("<")[0].replace("void ", "").strip()
+    if by_name:
+        out = {}
+        for e in events:
+            name = short(e.name)
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / calls
+        return out
     per = len(events) // calls
     names = [[short(e.name) for e in events[c * per:(c + 1) * per]]
              for c in range(calls)]
@@ -5505,7 +5697,8 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
 
 
 CELLS = ("scale", "knn", "maxsim", "hybrid", "sorted", "aggkinds",
-         "relevance", "sharded", "nested", "geo", "ingest", "topk")
+         "relevance", "sharded", "nested", "geo", "ingest", "topk",
+         "binned", "aggs")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -5560,6 +5753,12 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         elif cell == "topk":
             mapper = seg = None
             res = phase_topk_cell(torch, np, dev)
+        elif cell == "binned":
+            mapper = seg = None
+            res = phase_binned_cell(torch, np, dev)
+        elif cell == "aggs":
+            mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
+            res = phase_agg_scale(torch, np, mapper, seg, dev, out_dir)
         elif cell == "sorted":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_sorted_cell(torch, np, mapper, seg,
@@ -5587,8 +5786,10 @@ def main(argv) -> int:
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
                              "4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16; knn "
-                             "is phase 6's exact cell): one JSON line each, "
-                             "to compare two checkouts on one card")
+                             "is phase 6's exact cell; topk and binned phase "
+                             "2's records of K3 and of K6 / K24; aggs phase "
+                             "5): one JSON line each, to compare two "
+                             "checkouts on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
     try:
@@ -5746,7 +5947,8 @@ def main(argv) -> int:
 
     # one representative shape per kernel for the kernels line: the B=32
     # main-path batch (K1 at 4 terms / 16,384 lanes, K3 at k=100; K4 the
-    # identity range, K5 the fused cardinality, K6 the avg sums)
+    # identity range, K5 the fused cardinality, K6 the avg sums, K24 the
+    # geo_centroid cnt + sum)
     pick = {"bm25_candidate": 4, "score_text_clause": 1, "masked_topk": 4,
             "pairs_match": 0, "binned_popcount": 0, "binned_reduce": 0,
             "knn_exact": 0, "knn_topk_mark": 0, "ivf_probe": 0,
@@ -5760,7 +5962,7 @@ def main(argv) -> int:
             "blockmax_keep": 1, "bm25_candidate_keep": 1,
             "score_text_clause_keep": 1, "row_merge": 0,
             "row_value_key": 0, "nested_join": 0, "nested_agg": 0,
-            "reverse_nested_agg": 0, "binned_scatter": 0,
+            "reverse_nested_agg": 0, "binned_scatter": 1,
             "geo_distance_scores": 0, "geo_bbox_scores": 0,
             "distance_feature_geo_scores": 0, "rank_feature_scores": 0,
             "expand_pad": 5}

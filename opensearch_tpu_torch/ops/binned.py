@@ -24,14 +24,16 @@ tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Dict, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from opensearch_tpu_torch.ops import _build
 
 CSR_CHUNK = 256          # lanes per K6 chunk (one warp's share)
+ORDERED_COLUMNS = 4      # K6's per-lane columns kept in CSR order a CSR
+PACK_DOCS_PER_LANE = 32  # K6 packs the mask where Dp <= 32 x the CSR's lanes
 POPCOUNT_MAX_CARD = 12288  # K5's shared bin counters: 48 KB
 NEEDS_BITS = {"cnt": 1, "sum": 2, "sumsq": 4, "min": 8, "max": 16}
 POS_INF = float("inf")
@@ -66,10 +68,46 @@ class BinCSR:
     chunk_start: torch.Tensor   # int32 [nch + 1] offsets into lane_order
     bin_chunk: torch.Tensor     # int32 [total + 1] first chunk of each bin
     max_bin_chunks: int         # the chunks of the bin that has the most
+    # per-lane columns gathered into CSR order, by the source's identity,
+    # and the chunks' order (K6's copies, kept beside the CSR)
+    _ordered: Dict[int, tuple] = field(default_factory=dict, repr=False,
+                                       compare=False)
+    _chunk_order: Optional[torch.Tensor] = field(default=None, repr=False,
+                                                 compare=False)
 
     @property
     def n_chunks(self) -> int:
         return self.chunk_start.shape[0] - 1
+
+    def in_order(self, column: torch.Tensor) -> torch.Tensor:
+        """column[lane_order] (a per-lane column: doc ids or values),
+        gathered once per (CSR, column) and kept beside the CSR, so that
+        K6's folds read it coalesced. The entry holds its source, so an id
+        is never reused while its copy lives."""
+        hit = self._ordered.get(id(column))
+        if hit is not None and hit[0] is column:
+            return hit[1]
+        if len(self._ordered) >= ORDERED_COLUMNS:
+            self._ordered.clear()
+        ordered = column[self.lane_order.long()].contiguous()
+        self._ordered[id(column)] = (column, ordered)
+        return ordered
+
+    def chunk_order(self) -> torch.Tensor:
+        """The chunks by their first lane (int32 [nch]): K6 visits them so,
+        and the bins' chunks in flight then cover one window of docs."""
+        if self._chunk_order is None:
+            first = self.lane_order[self.chunk_start[:-1].long()]
+            self._chunk_order = torch.sort(first, stable=True)[1].to(
+                torch.int32).contiguous()
+        return self._chunk_order
+
+    def ordered_bytes(self) -> int:
+        """Device bytes of K6's copies kept beside the CSR."""
+        kept = [o for _c, o in self._ordered.values()]
+        if self._chunk_order is not None:
+            kept.append(self._chunk_order)
+        return sum(o.numel() * o.element_size() for o in kept)
 
 
 def bin_csr(bin_lanes: torch.Tensor, total: int,
@@ -245,6 +283,13 @@ def binned_reduce_plain(csr: BinCSR, mask, pmask, doc_ids, values,
     return out
 
 
+def k6_packs(nnz: int, d_pad: int) -> bool:
+    """Whether K6 packs the mask for a CSR of nnz lanes over Dp docs: where
+    the lanes are dense enough that a 32-byte sector a lane would read
+    the whole mask anyway; sparser fields read the lanes' mask bytes."""
+    return d_pad <= PACK_DOCS_PER_LANE * nnz
+
+
 def binned_reduce(csr: BinCSR, mask, pmask, doc_ids, values, cval: float,
                   needs: Sequence[str], bsz: int) -> Dict[str, torch.Tensor]:
     """K6: per-bin count / sum / sumsq / min / max of each query's eligible
@@ -295,9 +340,27 @@ def binned_reduce(csr: BinCSR, mask, pmask, doc_ids, values, cval: float,
     scratch = torch.empty(5 * max(bsz * nch, 1), dtype=torch.int32,
                           device=dev)
     null = ctypes.c_void_p(0)
+    # with a mask: the lanes' doc ids and values in CSR order and the
+    # chunks' order (kept beside the CSR), and the packed mask words where
+    # k6_packs (else the folds read the lanes' mask bytes)
+    n_words, vec = 0, 0
+    docs_ord = vals_ord = order = words = None
+    if mask is not None:
+        docs_ord = csr.lane_order if doc_ids is None \
+            else csr.in_order(doc_ids)
+        vals_ord = None if values is None else csr.in_order(values)
+        order = csr.chunk_order()
+        if k6_packs(csr.lane_order.shape[0], d_pad):
+            n_words = -(-d_pad // 32)
+            words = torch.empty(bsz, n_words, dtype=torch.int32, device=dev)
+        vec = int(d_pad % 16 == 0 and mask.data_ptr() % 16 == 0 and (
+            pmask is None or pmask.data_ptr() % 16 == 0))
 
     def p(name):
         return _build.ptr(out[name]) if name in out else null
+
+    def opt(t):
+        return null if t is None else _build.ptr(t)
     fn = _build.entry("binned_reduce", [ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_int,
@@ -305,16 +368,15 @@ def binned_reduce(csr: BinCSR, mask, pmask, doc_ids, values, cval: float,
                                         ctypes.c_int, ctypes.c_void_p,
                                         ctypes.c_void_p, ctypes.c_float,
                                         ctypes.c_int, ctypes.c_int]
-                      + [ctypes.c_void_p] * 7)
+                      + [ctypes.c_void_p] * 10
+                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     code = fn(_build.ptr(csr.lane_order), csr.lane_order.shape[0],
               _build.ptr(csr.chunk_start), nch,
-              _build.ptr(csr.bin_chunk), total,
-              null if mask is None else _build.ptr(mask),
-              null if pmask is None else _build.ptr(pmask), d_pad,
-              null if doc_ids is None else _build.ptr(doc_ids),
-              null if values is None else _build.ptr(values), float(cval),
+              _build.ptr(csr.bin_chunk), total, opt(mask), opt(pmask),
+              d_pad, opt(doc_ids), opt(values), float(cval),
               bits, bsz, _build.ptr(scratch), p("cnt"), p("sum"),
-              p("sumsq"), p("min"), p("max"), _build.stream_of(dev))
+              p("sumsq"), p("min"), p("max"), opt(docs_ord), opt(vals_ord),
+              opt(order), opt(words), n_words, vec, _build.stream_of(dev))
     _build.LAUNCHES["binned_reduce"] += 1
     _build.check("binned_reduce", code)
     return out
@@ -429,6 +491,102 @@ def binned_scatter_plain(lanes: torch.Tensor, total: int, values,
     return out
 
 
+SCATTER_MAX_BINS = 2048   # K24: one partition pass's buckets (11 bits)
+SCATTER_DIGIT_BITS = 11   # the radix passes' digits at most
+_SCAN_BLOCK = 2048
+
+
+@dataclass(frozen=True)
+class ScatterPlan:
+    """How K24 reduces [B, n] lanes into `total` bins (static sizes only):
+    passes 0 (counts, min and max: one sweep), 1 (sums: one stable
+    partition by bin, total <= SCATTER_MAX_BINS) or more (sums: a stable
+    LSD radix partition, `digit` bits a pass); `nb` buckets a pass, `wt`
+    lanes a warp's tile, `tiles` of them a row; buffer rows of `stride`
+    (n rounded up to 4); at most `max_chunks` CSR_CHUNK chunks a row."""
+    passes: int
+    digit: int
+    nb: int
+    wt: int
+    tiles: int
+    stride: int
+    max_chunks: int
+
+
+def _bits(total: int) -> int:
+    return max(total - 1, 0).bit_length()
+
+
+def scatter_plan(n: int, total: int, needs: Sequence[str],
+                 wt: int = None) -> ScatterPlan:
+    """K24's route from the static sizes. `wt` defaults to the kernel's
+    warp tile (at least 2,048 lanes and 16 per bucket, so the tile counts
+    stay a sixteenth of the lanes at most); any multiple of 128 gives the
+    same results."""
+    sums = bool({"sum", "sumsq"} & set(needs))
+    if not sums:
+        passes, digit, nb = 0, 0, 0
+    elif total <= SCATTER_MAX_BINS:
+        passes, digit, nb = 1, _bits(total), total
+    else:
+        bits = _bits(total)
+        passes = -(-bits // SCATTER_DIGIT_BITS)
+        digit = -(-bits // passes)
+        nb = 1 << digit
+    if wt is None:
+        wt = 8192 if passes == 0 else max(
+            2048, 16 * (1 << max(nb - 1, 0).bit_length()))
+    if wt <= 0 or wt % 128:
+        raise ValueError(f"a warp tile is a positive multiple of 128 lanes, "
+                         f"got {wt}")
+    return ScatterPlan(passes, digit, nb, wt, -(-n // wt), -(-n // 4) * 4,
+                       -(-n // CSR_CHUNK) + min(total, n))
+
+
+def _scatter_layout(plan: ScatterPlan, bsz: int, total: int,
+                    needs: Sequence[str]) -> Dict[str, int]:
+    """Bytes of each scratch slot of K24's plan (0: the slot is unused),
+    in the scratch's order; the kernel takes each slot by its name."""
+    p = plan.passes
+    rows = bsz * plan.stride
+    scan = 0
+    if p:
+        scan = max(bsz * plan.nb * -(-plan.tiles // _SCAN_BLOCK),
+                   bsz * -(-(total + 1) // _SCAN_BLOCK))
+    return {"tile": 4 * bsz * plan.nb * plan.tiles,
+            "bcnt": 4 * bsz * plan.nb, "bstart": 4 * bsz * plan.nb,
+            "rowlen": 4 * bsz if p else 0,
+            "bins_a": 4 * rows if p >= 2 else 0,
+            "bins_b": 4 * rows if p >= 2 else 0,
+            "vals_a": 4 * rows if p else 0,
+            "vals_b": 4 * rows if p >= 2 else 0,
+            "rcnt": 4 * bsz * total if p >= 2 else 0,
+            "rstart": 4 * bsz * total if p >= 2 else 0,
+            "cbase": 4 * bsz * (total + 1) if p else 0,
+            "psum": 4 * bsz * plan.max_chunks if "sum" in needs else 0,
+            "psq": 4 * bsz * plan.max_chunks if "sumsq" in needs else 0,
+            "scan": 4 * scan}
+
+
+def _scatter_offsets(plan: ScatterPlan, bsz: int, total: int,
+                     needs: Sequence[str]):
+    """Each used slot's byte offset in K24's scratch (slots 256-byte
+    aligned; None where unused) and the scratch's bytes."""
+    layout = _scatter_layout(plan, bsz, total, needs)
+    offsets, size = {}, 0
+    for name, nbytes in layout.items():
+        offsets[name] = size if nbytes else None
+        size += -(-nbytes // 256) * 256
+    return offsets, size
+
+
+def scatter_scratch_bytes(bsz: int, n: int, total: int,
+                          needs: Sequence[str]) -> int:
+    """Device scratch bytes of one K24 call."""
+    return _scatter_offsets(scatter_plan(n, total, needs), bsz, total,
+                            needs)[1]
+
+
 def binned_scatter(lanes: torch.Tensor, total: int, values,
                    needs: Sequence[str], cval: float = 0.0
                    ) -> Dict[str, torch.Tensor]:
@@ -447,9 +605,11 @@ def binned_scatter(lanes: torch.Tensor, total: int, values,
                          f"got {sorted(unknown)}")
     dev = lanes.device
     bsz, n = lanes.shape
-    if total <= 0 or n <= 0 or n >= 1 << 30:
-        raise ValueError(f"binned_scatter takes 1..2^30 lanes and a bin, "
-                         f"got n={n}, total={total}")
+    if total <= 0 or total > 1 << 24 or n <= 0 or n >= 1 << 30 \
+            or not 0 < bsz < 65536:
+        raise ValueError(f"binned_scatter takes 1..2^30 lanes, 1..2^24 bins "
+                         f"and 1..65,535 queries, got n={n}, total={total}, "
+                         f"B={bsz}")
     _require(lanes, torch.int32, (bsz, n), dev, "lanes")
     per_query = 0
     if values is not None:
@@ -463,29 +623,31 @@ def binned_scatter(lanes: torch.Tensor, total: int, values,
         out[name] = torch.empty(bsz, total, device=dev,
                                 dtype=torch.int32 if name == "cnt"
                                 else torch.float32)
-    sums = bits & (NEEDS_BITS["sum"] | NEEDS_BITS["sumsq"])
-    p2 = 1 << max(n - 1, 1).bit_length() if sums else 1
-    # the sort's keys and its second buffer, then one chunk partial per
-    # sorted position per summed statistic
-    keys = torch.empty(2 * bsz * p2 if sums else 1, dtype=torch.int64,
-                       device=dev)
-    partial = torch.empty(2 * bsz * p2 if sums else 1, dtype=torch.float32,
-                          device=dev)
-    # each bin's lane count and first sorted position
-    scratch = torch.empty(2 * bsz * total if sums else 1, dtype=torch.int32,
-                          device=dev)
+    plan = scatter_plan(n, total, needs)
+    offsets, size = _scatter_offsets(plan, bsz, total, needs)
+    scratch = torch.empty(max(size, 1), dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+
+    def at(slot):
+        return None if offsets[slot] is None else base + offsets[slot]
+    vec = int(n % 4 == 0 and lanes.data_ptr() % 16 == 0
+              and (values is None or values.data_ptr() % 16 == 0))
     null = ctypes.c_void_p(0)
 
     def p(name):
         return _build.ptr(out[name]) if name in out else null
     fn = _build.entry("binned_scatter", [ctypes.c_void_p] + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                         ctypes.c_int, ctypes.c_int]
-                      + [ctypes.c_void_p] * 9)
+                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+                      + [ctypes.c_int] * 8
+                      + [ctypes.c_void_p] * (len(offsets) + 6))
     code = fn(_build.ptr(lanes), bsz, n, total,
               null if values is None else _build.ptr(values), per_query,
-              float(cval), bits, p2, _build.ptr(keys), _build.ptr(partial),
-              _build.ptr(scratch), p("cnt"), p("sum"), p("sumsq"), p("min"),
+              float(cval), bits, plan.passes, plan.digit, plan.wt,
+              plan.tiles, plan.stride, plan.max_chunks, vec,
+              at("tile"), at("bcnt"), at("bstart"), at("rowlen"),
+              at("bins_a"), at("bins_b"), at("vals_a"), at("vals_b"),
+              at("rcnt"), at("rstart"), at("cbase"), at("psum"), at("psq"),
+              at("scan"), p("cnt"), p("sum"), p("sumsq"), p("min"),
               p("max"), _build.stream_of(dev))
     _build.LAUNCHES["binned_scatter"] += 1
     _build.check("binned_scatter", code)

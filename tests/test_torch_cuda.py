@@ -178,30 +178,96 @@ def test_binned_popcount_kernel_equals_plain(gpu, card, ident):
     assert torch.equal(got, want)
 
 
+def _fold(items, starts, ends, warp):
+    """Sums of items [B, m] over [starts, ends) ranges in K6's order: one
+    thread adding in order, or 32 threads each adding every 32nd item in
+    order, then the warp's 5-level shuffle tree (f32, one rounding an
+    addition)."""
+    bsz = items.shape[0]
+    k = starts.shape[0]
+    span = int((ends - starts).max()) if k else 0
+    step = 32 if warp else 1
+    acc = torch.zeros(bsz, k, step, dtype=torch.float32, device="cuda")
+    lanes = torch.arange(step, device="cuda")
+    for j in range(0, span, step):
+        pos = starts[:, None] + j + lanes[None, :]
+        inside = pos < ends[:, None]
+        x = items[:, pos.clamp(max=max(items.shape[1] - 1, 0))]
+        acc = torch.where(inside[None], acc + x, acc)
+    if warp:
+        for off in (16, 8, 4, 2, 1):
+            acc = acc[..., :off] + acc[..., off:2 * off]
+    return acc[..., 0]
+
+
+def _k6_fold_order(csr, contrib):
+    """K6's sums of contrib [B, nnz] (CSR order, 0 where not eligible) in
+    the kernel's order: chunks, then each bin's chunk partials, a warp or
+    a thread each as the kernel chooses from the static sizes."""
+    nch, total = csr.n_chunks, csr.total
+    cs = csr.chunk_start.long()
+    part = _fold(contrib, cs[:-1], cs[1:],
+                 warp=contrib.shape[1] > 4 * nch)
+    bc = csr.bin_chunk.long()
+    return _fold(part, bc[:-1], bc[1:], warp=nch > 4 * total)
+
+
 @pytest.mark.parametrize("total", [1, 16, 300, 4096])
-def test_binned_reduce_kernel_equals_plain(gpu, total):
-    d, _o, d_pad = _pairs(False, total)
+@pytest.mark.parametrize("layout,d_pad,with_pmask", [
+    ("pairs", 4096, False), ("pairs", 4096, True), ("pairs", 4099, True),
+    ("identity", 4096, False), ("identity", 4099, True),
+    ("identity", 1000, False), ("sparse", 65536, False),
+    ("sparse", 65539, True)])
+def test_binned_reduce_kernel_equals_plain(gpu, total, layout, d_pad,
+                                           with_pmask):
+    """K6 over packed mask bits (AND pmask), pairs and identity layouts,
+    Dp on and off a multiple of 32 (and of 16: the pack's scalar path);
+    on a sparse pairs field (about Dp / 64 lanes, some docs twice, some
+    -1) the mask is not packed and the folds read its bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(total + d_pad)
+    if layout == "pairs":
+        d, _o, _dp = _pairs(False, total)
+    elif layout == "sparse":
+        docs = torch.randperm(d_pad, generator=gen, device="cuda")[
+            :d_pad // 64]
+        d = torch.cat([docs, docs[:50], torch.full(
+            (7,), -1, device="cuda")]).sort()[0].to(torch.int32)
+    else:
+        d = torch.arange(d_pad, dtype=torch.int32, device="cuda")
     n = d.shape[0]
-    gen = torch.Generator(device="cuda").manual_seed(total)
     lanes = torch.randint(-1, total, (n,), generator=gen, device="cuda",
                           dtype=torch.int32)
     lanes = torch.where(d >= 0, lanes, -1)
     csr = binned.bin_csr(lanes, total)
+    assert binned.k6_packs(csr.lane_order.shape[0], d_pad) == (
+        layout != "sparse")
     vals = torch.randn(n, generator=gen, device="cuda") * 1000
     mask = torch.rand(3, d_pad, generator=gen, device="cuda") < 0.5
+    pmask = (torch.rand(3, d_pad, generator=gen, device="cuda") < 0.7) \
+        if with_pmask else None
+    doc_ids = None if layout == "identity" else d
     needs = ("cnt", "sum", "sumsq", "min", "max")
-    got = binned.binned_reduce(csr, mask, None, d, vals, 0.0, needs, 3)
-    again = binned.binned_reduce(csr, mask, None, d, vals, 0.0, needs, 3)
-    want = binned.binned_reduce_plain(csr, mask, None, d, vals, 0.0, needs,
-                                      3)
+    before = _build.LAUNCHES["binned_reduce"]
+    got = binned.binned_reduce(csr, mask, pmask, doc_ids, vals, 0.0, needs,
+                               3)
+    again = binned.binned_reduce(csr, mask, pmask, doc_ids, vals, 0.0,
+                                 needs, 3)
+    assert _build.LAUNCHES["binned_reduce"] == before + 2
+    want = binned.binned_reduce_plain(csr, mask, pmask, doc_ids, vals, 0.0,
+                                      needs, 3)
     torch.cuda.synchronize()
     for k in ("cnt", "min", "max"):
         assert torch.equal(got[k], want[k]), k
     for k in needs:
         assert torch.equal(got[k].view(torch.int32),
                            again[k].view(torch.int32)), k
-    ok = binned._gather_ok(mask, None, d[csr.lane_order.long()],
+    ok = binned._gather_ok(mask, pmask, d[csr.lane_order.long()],
                            csr.lane_order.shape[0])
+    v32 = vals[csr.lane_order.long()]
+    for k, contrib in (("sum", v32), ("sumsq", v32 * v32)):
+        folded = _k6_fold_order(csr, torch.where(ok, contrib, 0.0))
+        assert torch.equal(got[k].view(torch.int32),
+                           folded.view(torch.int32)), k
     v = vals[csr.lane_order.long()].double()
     for k, contrib in (("sum", v), ("sumsq", v * v)):
         exact = torch.zeros(3, total, dtype=torch.float64,
@@ -1307,13 +1373,33 @@ def test_nested_aggs_kernels_equal_plain(gpu):
     assert int(got_r[2].sum()) > 0
 
 
-@pytest.mark.parametrize("per_query,total,n", [(False, 16, 70000),
-                                               (True, 3, 5000),
-                                               (False, 40000, 100000)])
+def _check_scatter(lanes, total, values, needs):
+    """K24 against its plain version: counts, min and max exactly, sums
+    bit for bit, two calls the same bits, one launch a call."""
+    before = _build.LAUNCHES["binned_scatter"]
+    got = binned.binned_scatter(lanes, total, values, needs)
+    again = binned.binned_scatter(lanes, total, values, needs)
+    want = binned.binned_scatter_plain(lanes, total, values, needs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["binned_scatter"] == before + 2
+    for k in needs:
+        assert _same(got[k], want[k]), k
+        assert _same(got[k], again[k]), k
+    return got
+
+
+SCATTER_CAP = binned.SCATTER_MAX_BINS
+
+
+@pytest.mark.parametrize("per_query,total,n", [
+    (False, 16, 70000), (True, 3, 5000), (False, 40000, 100000),
+    (False, SCATTER_CAP - 1, 70000), (True, SCATTER_CAP, 70000),
+    (False, SCATTER_CAP + 1, 70000)])
 def test_binned_scatter_kernel_equals_plain(gpu, per_query, total, n):
     """K24: counts, min and max exactly; sums and sums of squares bit for
-    bit (one sorted two-level order on both sides) and within
-    n * 2^-24 * sum|v| of the f64 sums."""
+    bit (one two-level order over each bin's lanes in lane order on both
+    sides) and within n * 2^-24 * sum|v| of the f64 sums; on both sides
+    of SCATTER_MAX_BINS (one partition pass, then the radix passes)."""
     gen = torch.Generator().manual_seed(24)
     bsz = 4
     lanes = torch.randint(-2, total + 2, (bsz, n), generator=gen,
@@ -1321,13 +1407,7 @@ def test_binned_scatter_kernel_equals_plain(gpu, per_query, total, n):
     shape = (bsz, n) if per_query else (n,)
     values = (torch.randn(shape, generator=gen) * 100).cuda()
     needs = ("cnt", "sum", "sumsq", "min", "max")
-    before = _build.LAUNCHES["binned_scatter"]
-    got = binned.binned_scatter(lanes, total, values, needs)
-    want = binned.binned_scatter_plain(lanes, total, values, needs)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES["binned_scatter"] == before + 1
-    for k in needs:
-        assert _same(got[k], want[k]), k
+    got = _check_scatter(lanes, total, values, needs)
     ok = (lanes >= 0) & (lanes < total)
     idx = torch.where(ok, lanes, total).long()
     v = values.expand(bsz, -1).double()
@@ -1338,6 +1418,80 @@ def test_binned_scatter_kernel_equals_plain(gpu, per_query, total, n):
     cnt = got["cnt"].double()
     assert bool(((got["sum"].double() - exact).abs()
                  <= cnt * 2.0 ** -24 * mag + 1e-30).all())
+
+
+def _scatter_case(case, gen):
+    """(lanes [B, n], total, values, needs) of one edge case."""
+    bsz = 3
+    if case == "chunk_edges":
+        # bins of 255, 256, 257 and 513 lanes (a chunk's edges), spread
+        # over the rows among dropped lanes
+        sizes = [255, 256, 257, 513]
+        n = 9000
+        rows = []
+        for _b in range(bsz):
+            row = torch.full((n,), -1, dtype=torch.int32)
+            pos = torch.randperm(n, generator=gen)
+            at = 0
+            for bin_, size in enumerate(sizes):
+                row[pos[at:at + size]] = bin_
+                at += size
+            rows.append(row)
+        return torch.stack(rows).cuda(), len(sizes), None, ("cnt", "sum",
+                                                            "sumsq")
+    if case == "all_dropped":
+        n = 5000
+        lanes = torch.randint(0, 2, (bsz, n), generator=gen,
+                              dtype=torch.int32) * 21 - 1     # -1 or 20
+        return lanes.cuda(), 20, None, ("cnt", "sum", "min", "max")
+    if case == "one_bin":
+        return (torch.full((bsz, 70000), 3, dtype=torch.int32).cuda(), 20,
+                (torch.randn(70000, generator=gen) * 10).cuda(),
+                ("cnt", "sum", "sumsq", "min", "max"))
+    if case == "ragged_n":
+        n = 3 * 2048 + 77          # off the tile and off 4: scalar loads
+        return (torch.randint(-1, 21, (bsz, n), generator=gen,
+                              dtype=torch.int32).cuda(), 20,
+                (torch.randn(bsz, n, generator=gen) * 10).cuda(),
+                ("cnt", "sum", "sumsq", "min", "max"))
+    if case == "unaligned":
+        # a contiguous view 4 bytes past an aligned allocation
+        n = 8192
+        store = torch.randint(-1, 300, (bsz * n + 1,), generator=gen,
+                              dtype=torch.int32).cuda()
+        return (store[1:].view(bsz, n), 299,
+                (torch.randn(n, generator=gen) * 10).cuda(),
+                ("cnt", "sum", "min", "max"))
+    if case == "radix_skewed":
+        n = 60000
+        lanes = torch.where(torch.rand(bsz, n, generator=gen) < 0.7,
+                            12345, torch.randint(0, 40000, (bsz, n),
+                                                 generator=gen))
+        return (lanes.to(torch.int32).cuda(), 40000,
+                (torch.randn(bsz, n, generator=gen) * 10).cuda(),
+                ("cnt", "sum", "sumsq"))
+    if case == "max_one_bin_per_doc":
+        # the dynamic child-bin max: total = n, a bin per lane's doc
+        n = 50000
+        docs = torch.randint(0, n, (bsz, n), generator=gen,
+                             dtype=torch.int32)
+        docs = torch.where(torch.rand(bsz, n, generator=gen) < 0.3, n, docs)
+        vals = torch.randint(0, 1000, (bsz, n), generator=gen).float()
+        return docs.cuda(), n, vals.cuda(), ("max",)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["chunk_edges", "all_dropped", "one_bin",
+                                  "ragged_n", "unaligned", "radix_skewed",
+                                  "max_one_bin_per_doc"])
+def test_binned_scatter_edge_cases(gpu, case):
+    lanes, total, values, needs = _scatter_case(
+        case, torch.Generator().manual_seed(241))
+    got = _check_scatter(lanes, total, values, needs)
+    if case == "all_dropped":
+        assert int(got["cnt"].sum()) == 0
+    if case == "chunk_edges":
+        assert got["cnt"].tolist() == [[255, 256, 257, 513]] * 3
 
 
 def test_geo_scores_kernels_equal_plain(gpu):
