@@ -19,7 +19,9 @@ Phases, each printing what it finds; any failure exits nonzero:
     B = 1 and 32 (bit for bit, k 10, 100 and 1,000); K4
     pairs_match, K5 binned_popcount, K6 binned_reduce at B=32 and
     NVp = Dp = 2^24 (masks, counts, min and max exactly, f32 sums within
-    n * 2^-24 * sum|v| of the f64 sums, and the same bits on two runs);
+    n * 2^-24 * sum|v| of the f64 sums, and the same bits on two runs; K5
+    also at phase 3's 8,192 lanes and on the gathered layout of the tag
+    pairs with a parent mask);
     time the kernel (device time, CUDA-graph replay), one wrapper call
     (host checks and launch included), the plain version and the library
     call (CUDA events, median, L2 flushed);
@@ -236,8 +238,9 @@ fell back to the per-shard host loop (spmd.HOST_FALLBACKS); else the
 phase fails.
 
 Phase 2 also holds K22 nested_join (sum, avg, max), K23 nested_aggs
-(nested under the root, reverse_nested under a monthly date_histogram)
-at phase 14's shapes (B=32, Dp 2^23) and K24 binned_scatter
+(nested under the root, reverse_nested under a monthly date_histogram,
+also with the first 10,000 nested rows moved under one root) at phase
+14's shapes (B=32, Dp 2^23) and K24 binned_scatter
 (geo_centroid's sums and geo_bounds' extrema under terms country_code)
 and K25's four geo / rank_feature entries at phase 15's (B=32, Dp
 2^24), each against its plain version (K22, K24 and K25 bit for bit,
@@ -252,8 +255,10 @@ maxsim, hybrid, sorted, aggkinds, relevance, sharded, nested, geo,
 ingest: phases 4, 6's exact cell, 8, 9, 10, 11, 12, 13, 14, 15, 16;
 aggs: phase 5; topk: phase 2's records of K3, its threshold and its keyed
 entry on their own, each with the device ms of each launch of a call;
-binned: phase 2's records of K6 and K24 on their own), one JSON line
-each, so that one card compares two checkouts cell by cell.
+binned: phase 2's records of K5, K6, K23's reverse_nested and K24 on
+their own, each with the device ms of each kernel of a call, K23's and
+K24's with their scratch bytes), one JSON line each, so that one card
+compares two checkouts cell by cell.
 
 Each record of K3's three entries also prints `full_reads`: per row, the
 passes of their radix select that read the whole input (2, unless a bin
@@ -734,24 +739,29 @@ def phase_topk_cell(torch, np, dev) -> dict:
 
 
 def phase_binned_cell(torch, np, dev) -> dict:
-    """K6's and K24's records alone, at phase 2's shapes and on its
-    corpora (K6 on the 10M-doc structured segment: the avg sums under
-    terms, the date_histogram counts, the static child-bin max; K24 on the
-    nested cell's image, the dynamic child-bin max, and on the geo cell's:
-    cnt + sum, cnt + min + max, and cnt + sum past SCATTER_MAX_BINS bins),
-    each record with each kernel's device ms a call (`passes`):
+    """K5's, K6's, K23 reverse_nested's and K24's records alone, at phase
+    2's shapes and on its corpora (K5 and K6 on the 10M-doc structured
+    segment: K5's fused cardinality, popcount route, phase 3's lane count
+    and gathered layout with pmask; K6's avg sums under terms, the
+    date_histogram counts, the static child-bin max; K23's reverse_nested
+    under a monthly date_histogram and with a 10,000-row root, and K24's
+    dynamic child-bin max on the nested cell's image; K24 on the geo
+    cell's: cnt + sum, cnt + min + max, and cnt + sum past
+    SCATTER_MAX_BINS bins), each record with each kernel's device ms a
+    call (`passes`):
     one script's records on two checkouts compare their kernels on one
     card."""
     from opensearch_tpu_torch.utils.demo import geonames_segment, qa_segment
     results = {}
     mapper, agg = agg_segment(np, AGG_SCALE_DOCS)
     results.update(phase_agg_kernels(torch, np, mapper, agg, dev,
-                                     parts=("k6",), passes=True))
+                                     parts=("k5", "k6"), passes=True))
     del agg
     _qm, qa_seg = qa_segment(NESTED_QUESTIONS)
     _gm, geo_seg = geonames_segment(GEO_PLACES)
     results.update(phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
-                                            parts=("k24",), passes=True))
+                                            parts=("k23r", "k24"),
+                                            passes=True))
     del qa_seg, geo_seg
     torch.cuda.empty_cache()
     keys = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
@@ -1147,7 +1157,7 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH,
                "library_ms": None if library is None
                else graph_ms(torch, library),
                "bound_ms": _bytes_bound(nbytes), "bound_by": "bytes"}
-        if passes and name == "binned_reduce":
+        if passes and name in ("binned_reduce", "binned_popcount"):
             rec["passes"] = launch_ms(torch, kern, by_name=True)
         results.setdefault(name, []).append(rec)
         log(name, json.dumps(rec))
@@ -1218,6 +1228,44 @@ def phase_agg_kernels(torch, np, mapper, seg, dev, bsz: int = AGG_BATCH,
                                          device=dev).scatter_add_(
                    1, lanes.expand(bsz, -1), ok),
                bsz * d_pad + card * n // 8 + 4 * bsz * card, exact)
+    if "k5" in parts:
+        # phase 3's lane count: the first 8,192 lanes as a Dp 8,192 image
+        small = 8192
+        s_mask = elig["date_hist"][:, :small].contiguous()
+        s_bits = bits[:, :small // 32].contiguous()
+        s_ok = s_mask.to(torch.int32)
+        s_lanes = lanes[:small]
+        record("binned_popcount", f"B={bsz} n={small} Dp={small} bins={card} "
+               f"presence_bits (phase 3's lanes)",
+               lambda: (binned.binned_popcount(s_mask, None, None, small,
+                                               s_bits, card),),
+               lambda: (binned.binned_popcount_plain(s_mask, None, None,
+                                                     small, s_bits, card),),
+               lambda: torch.zeros(bsz, card + 1, dtype=torch.int32,
+                                   device=dev).scatter_add_(
+                   1, s_lanes.expand(bsz, -1), s_ok),
+               bsz * small + card * small // 8 + 4 * bsz * card, exact)
+        # the gathered layout with a parent mask: the tag pairs' doc ids,
+        # the agg_terms queries under the date_hist queries' mask
+        t_docs = tag["doc_ids"]
+        n_t = t_docs.shape[0]
+        t_safe = torch.where(t_docs >= 0, t_docs, 0).long()
+        t_ok = (elig["agg_terms"][:, t_safe] & elig["date_hist"][:, t_safe]
+                & (t_docs >= 0)[None, :]).to(torch.int32)
+        record("binned_popcount", f"B={bsz} n={n_t} Dp={d_pad} bins={card} "
+               f"gathered (tag pairs) with pmask",
+               lambda: (binned.binned_popcount(elig["agg_terms"],
+                                               elig["date_hist"], t_docs, n_t,
+                                               tag_bins.bits(), card),),
+               lambda: (binned.binned_popcount_plain(
+                   elig["agg_terms"], elig["date_hist"], t_docs, n_t,
+                   tag_bins.bits(), card),),
+               lambda: torch.zeros(bsz, card + 1, dtype=torch.int32,
+                                   device=dev).scatter_add_(
+                   1, lanes.expand(bsz, -1), t_ok),
+               4 * n_t + 2 * bsz * d_pad + card * n_t // 8
+               + 4 * bsz * card, exact)
+        del s_mask, s_ok, t_ok, t_safe
 
     if "k6" not in parts:
         del arrays, elig
@@ -4591,7 +4639,7 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
                else cuda_ms(torch, library, reps=5, warmup=1),
                "bound_ms": bound[0],
                "bound_by": bound[1]}
-        if name == "binned_scatter":
+        if name in ("binned_scatter", "reverse_nested_agg"):
             # the device memory one call takes beyond what it returns
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4704,7 +4752,7 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
                (1 + 4 + 1 + 4) * elems + 9 * d_pad, exact)
     # reverse_nested under a monthly date_histogram of the answers
     rev_eff = torch.where(own, month[None, :], -1).to(torch.int32)
-    if "k23" in parts:
+    if "k23" in parts or "k23r" in parts:
         record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
                f"buckets",
                lambda: nested.reverse_nested_agg(own, rev_eff, arrays,
@@ -4712,6 +4760,25 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
                lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr,
                                                        months),
                None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
+        # the same rows with a 10,000-row root: the first 10,000 nested
+        # rows moved under the last root (the CTA's walk of a big root)
+        from opensearch_tpu_torch.ops.device_segment import root_child_csr
+        big_root = int(torch.nonzero(roots)[-1, 0])
+        moved = torch.nonzero(pptr >= 0)[:10000, 0]
+        pptr_h = pptr.clone()
+        pptr_h[moved] = big_root
+        start_h, rows_h = root_child_csr(pptr_h.cpu().numpy(), d_pad)
+        seg_h = dict(arrays, parent_ptr=pptr_h,
+                     child_start=torch.from_numpy(start_h).to(dev),
+                     child_rows=torch.from_numpy(rows_h).to(dev))
+        record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
+               f"buckets, a 10,000-row root",
+               lambda: nested.reverse_nested_agg(own, rev_eff, seg_h,
+                                                 months),
+               lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr_h,
+                                                       months),
+               None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
+        del seg_h, pptr_h, moved
     del arrays, nodes, child_s, child_m, sel, csel, mask, peff, own
     del child_eff, rev_eff, pidx
     torch.cuda.empty_cache()
@@ -4945,6 +5012,11 @@ def phase_nested_cell(torch, np, qa_seg, card: str, out_dir=None,
         resps[f] = _cell_walls(torch, np, node, "qa", bodies[f], bsz,
                                f"nested {f}", card, out)
     launches = dict(_build.LAUNCHES)
+    tree = out["nested tree"]
+    log(f"nested cell: the reverse_nested family (nested -> monthly "
+        f"date_histogram -> reverse_nested -> terms tag): B=1 _search p50 "
+        f"{tree['search_p50_ms']:.3f} ms, B={bsz} _msearch p50 "
+        f"{tree['msearch32_p50_ms']:.3f} ms; card: {card}")
     log(f"nested cell: launches {json.dumps(launches)}")
     _require_launched(launches, ("nested_join", "nested_agg",
                                  "reverse_nested_agg", "binned_scatter",
@@ -5787,9 +5859,9 @@ def main(argv) -> int:
                              "separated: " + ", ".join(CELLS) + " (phases "
                              "4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16; knn "
                              "is phase 6's exact cell; topk and binned phase "
-                             "2's records of K3 and of K6 / K24; aggs phase "
-                             "5): one JSON line each, to compare two "
-                             "checkouts on one card")
+                             "2's records of K3 and of K5 / K6 / K23 / K24; "
+                             "aggs phase 5): one JSON line each, to compare "
+                             "two checkouts on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
     try:

@@ -11,30 +11,58 @@
 // bucket (child_eff; -1 elsewhere); counts int32 [B, card] counts them.
 //
 // reverse_nested_agg: over the selected nested rows (eligible, in a
-// bucket), the distinct roots per bucket, counts int32 [B, card], and each
-// root's bucket root_eff int32 [B, Dp] (the largest of its rows' buckets,
-// -1 for none; own = root_eff >= 0).
+// bucket: parent_eff in [0, card)), the distinct roots per bucket, counts
+// int32 [B, card], and each root's bucket root_eff int32 [B, Dp] (the
+// largest of its rows' buckets, -1 for none; own = root_eff >= 0).
 //
-// What bounds it on an H100: nested, bytes (a gather of the root's mask
-// and bucket per nested row, 14 B a (query, row) in and out);
-// reverse_nested, the sort of one 64-bit key a (query, row).
+// What bounds it on an H100: bytes. nested: a gather of the root's mask
+// and bucket per nested row, 14 B a (query, row) in and out.
+// reverse_nested: each (query, row) writes root_eff and own (5 B); each
+// nested row's mask byte is read, its bucket only where the mask is set;
+// the static CSR (child_start, child_rows: 8 B a row) is shared by the B
+// queries in L2.
 //
-// Design. Counts are integer atomics (exact, order-free), one per distinct
-// bucket of a warp (__match_any_sync), and the root bucket an atomicMax
-// of the warp's maximum per root. reverse_nested dedups the (bucket, root) pairs as
-// the reference does, by sorting: one key a lane, (bucket + 1) << 32 |
-// root for a selected row and 0 otherwise, sorted descending per query by
-// key_sort.cuh (the sort of K3-keyed and K14); a run's first key counts
-// one root for its bucket.
+// Design. Counts are integer atomics (exact, order-free). nested: one
+// thread a (query, nested row), one atomic per distinct bucket of a warp
+// (__match_any_sync). reverse_nested walks K22's static root CSR
+// (child_start [Dp + 1], child_rows: a root's nested rows in row order),
+// which groups each root's rows, so no sort is needed. A CTA takes a
+// range of rows for one query and copies the range's child_start to
+// shared memory. Then, window by window, a run of light rows (at most
+// HEAVY_ROWS nested rows each) whose CSR positions number at most CAP has
+// those positions' buckets staged in shared memory: the row ids, then
+// their mask bytes, then the buckets where the mask is set, STAGE loads of
+// each kind a thread issued together, so that a window costs three
+// dependent loads rather than three a nested row. A block scan lists the
+// window's roots; one thread a root walks its staged positions, takes the
+// largest bucket, and finds the root's distinct buckets: in a 64-bit
+// register set where card <= 64, else by testing each selected row's
+// bucket against the root's earlier ones (at most HEAVY_ROWS - 1). Each
+// distinct (bucket, root) adds 1 to the CTA's shared counter of its
+// bucket; the CTA makes one global atomic per (query, bucket). A root of
+// more rows is the whole CTA's: its rows strided over the threads, a block
+// max, and a bitmap of the card's buckets in shared memory (atomicOr: the
+// thread that sets a bit counts the bucket), in windows of BITMAP_WORDS *
+// 32 buckets; it reads its own rows once per window and costs no more.
+// Each row's root_eff and own are written directly: no keys, no scratch,
+// no fill pass. Grid: row ranges x queries, the query the fastest index
+// (the B CTAs of a range share its CSR in L2); a range is RANGE_ROWS rows,
+// fewer where B and Dp are small.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "key_sort.cuh"
-
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
+constexpr int HEAVY_ROWS = 32;      // a root with more rows: the CTA's walk
+constexpr int BITSET_CARD = 64;     // distinct buckets in a 64-bit set
+constexpr int STAGE = 8;            // positions a thread loads a batch
+constexpr int CAP = STAGE * THREADS;  // positions staged a window (2,048)
+constexpr int RANGE_ROWS = 8 * THREADS;  // rows a CTA, at most (2,048)
+constexpr int CNT_CAP = 4096;       // CTA-private bucket counters up to it
+constexpr int BITMAP_WORDS = 1024;  // a heavy root's window: 32,768 buckets
 
 __global__ void __launch_bounds__(THREADS)
 nested_kernel(const uint8_t* __restrict__ mask,
@@ -61,74 +89,241 @@ nested_kernel(const uint8_t* __restrict__ mask,
     child_eff[base + d] = ce;
   }
   // one atomic per distinct bucket of a warp (every lane takes part)
-  const unsigned peers = __match_any_sync(0xffffffffu, ce);
+  const unsigned peers = __match_any_sync(FULL, ce);
   if (ce >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
     atomicAdd(&counts[(size_t)b * card + ce], __popc(peers));
 }
 
-// keys [B, p2]: one key a row (0 past Dp and for unselected rows), and
-// the root's bucket by atomicMax (root_eff starts at -1)
-__global__ void __launch_bounds__(THREADS)
-reverse_keys_kernel(const uint8_t* __restrict__ mask,
-                    const int* __restrict__ parent_eff,
-                    const int* __restrict__ parent_ptr, int Dp, int p2,
-                    int card, unsigned long long* __restrict__ keys,
-                    int* __restrict__ root_eff) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int b = blockIdx.y;
-  int root = -1, pe = -1;
-  if (d < Dp) {
-    const size_t i = (size_t)b * Dp + d;
-    const int p = parent_ptr[d];
-    const int e = parent_eff[i];
-    if (mask[i] != 0 && p >= 0 && e >= 0 && e < card) {
-      root = p;
-      pe = e;
+// one distinct (bucket, root): 1 to the CTA's counter of its bucket (or,
+// past CNT_CAP, to the query's row of counts)
+__device__ __forceinline__ void add_fresh(int e, int* s_cnt, int* gcnt) {
+  if (s_cnt != nullptr) atomicAdd(&s_cnt[e], 1);
+  else atomicAdd(&gcnt[e], 1);
+}
+
+// the buckets of CSR positions p0 + tid + k * THREADS (k < STAGE) below
+// p1: a row's bucket where its mask is set, else -1; the row ids, then
+// their mask bytes, then the buckets, each batch's loads issued together
+__device__ __forceinline__ void gather_buckets(
+    int p0, int p1, const int* __restrict__ child_rows,
+    const uint8_t* __restrict__ mrow, const int* __restrict__ erow,
+    int (&e)[STAGE]) {
+  int r[STAGE];
+#pragma unroll
+  for (int k = 0; k < STAGE; ++k) {
+    const int p = p0 + (int)threadIdx.x + k * THREADS;
+    r[k] = p < p1 ? __ldg(child_rows + p) : -1;
+  }
+  bool m[STAGE];
+#pragma unroll
+  for (int k = 0; k < STAGE; ++k) m[k] = r[k] >= 0 && __ldg(mrow + r[k]) != 0;
+#pragma unroll
+  for (int k = 0; k < STAGE; ++k) e[k] = m[k] ? __ldg(erow + r[k]) : -1;
+}
+
+// v's minimum (max: the largest) over the CTA; s_red [THREADS / 32]
+template <bool MAX>
+__device__ __forceinline__ int block_reduce(int v, int* s_red) {
+  v = MAX ? __reduce_max_sync(FULL, v) : __reduce_min_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int out = s_red[0];
+  for (int w = 1; w < THREADS / 32; ++w)
+    out = MAX ? max(out, s_red[w]) : min(out, s_red[w]);
+  __syncthreads();
+  return out;
+}
+
+// the exclusive prefix sum of v over the CTA's threads, in thread order;
+// *total gets the sum. s_red [THREADS / 32]
+__device__ __forceinline__ int block_scan(int v, int* s_red, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += up;
+  }
+  if (lane == 31) s_red[warp] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < THREADS / 32; ++w) {
+    if (w < warp) before += s_red[w];
+    all += s_red[w];
+  }
+  __syncthreads();
+  *total = all;
+  return before + inc - v;
+}
+
+// a root of more than HEAVY_ROWS rows (positions lo .. hi of the CSR), by
+// the whole CTA: its rows strided over the threads, STAGE of them a batch
+// per thread, the distinct buckets in a shared bitmap a window of
+// BITMAP_WORDS * 32 buckets at a time (the thread that sets a bit counts
+// the bucket), the largest bucket a block max
+__device__ __forceinline__ void heavy_root(
+    int d, int lo, int hi, const int* __restrict__ child_rows,
+    const uint8_t* __restrict__ mrow, const int* __restrict__ erow, int card,
+    int* s_cnt, int* gcnt, unsigned* s_bm, int* s_red, uint8_t* orow,
+    int* rrow) {
+  int best = -1;
+  for (int w0 = 0; w0 < card; w0 += BITMAP_WORDS * 32) {
+    const int span = min(card - w0, BITMAP_WORDS * 32);
+    for (int i = threadIdx.x; i < (span + 31) / 32; i += THREADS)
+      s_bm[i] = 0u;
+    __syncthreads();
+    for (int p0 = lo; p0 < hi; p0 += THREADS * STAGE) {
+      int e[STAGE];
+      gather_buckets(p0, hi, child_rows, mrow, erow, e);
+#pragma unroll
+      for (int k = 0; k < STAGE; ++k) {
+        if (e[k] < 0) continue;
+        best = max(best, e[k]);
+        const int o = e[k] - w0;
+        if (o < 0 || o >= span) continue;
+        const unsigned bit = 1u << (o & 31);
+        if ((atomicOr(&s_bm[o >> 5], bit) & bit) == 0u)
+          add_fresh(e[k], s_cnt, gcnt);
+      }
     }
+    __syncthreads();
   }
-  if (d < p2)
-    keys[(size_t)b * p2 + d] =
-        root >= 0 ? ((unsigned long long)(pe + 1) << 32) | (unsigned)root
-                  : 0ull;
-  // one atomicMax per distinct root of a warp (every lane takes part)
-  const unsigned peers = __match_any_sync(0xffffffffu, root);
-  if (root >= 0) {
-    const int m = __reduce_max_sync(peers, pe);
-    if ((int)(threadIdx.x & 31) == __ffs(peers) - 1)
-      atomicMax(&root_eff[(size_t)b * Dp + root], m);
+  best = block_reduce<true>(best, s_red);
+  if (threadIdx.x == 0) {
+    rrow[d] = best;
+    orow[d] = best >= 0 ? 1 : 0;
   }
 }
 
-// a run's first key counts one distinct root for its bucket (one atomic
-// per distinct bucket of a warp)
-__global__ void __launch_bounds__(THREADS)
-run_count_kernel(const unsigned long long* __restrict__ sorted, int p2,
-                 int card, int* __restrict__ counts) {
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  const int b = blockIdx.y;
-  int bucket = -1;
-  if (j < p2) {
-    const unsigned long long* row = sorted + (size_t)b * p2;
-    const unsigned long long k = row[j];
-    if (k != 0ull && (j == 0 || row[j - 1] != k))
-      bucket = (int)(k >> 32) - 1;
+// block (row range, query), the query the fastest index. The range's
+// child_start goes to shared memory; then, window by window, the buckets
+// of a run of light rows' CSR positions (at most CAP of them) are staged
+// in shared memory with batched loads, and one thread a row walks its
+// positions there; a heavy row takes the CTA's walk on its own.
+__global__ void __launch_bounds__(THREADS, 8)   // 32 registers: 64 warps
+reverse_walk_kernel(const uint8_t* __restrict__ mask,
+                    const int* __restrict__ parent_eff,
+                    const int* __restrict__ child_start,
+                    const int* __restrict__ child_rows, int B, int Dp,
+                    int card, int range_rows, uint8_t* __restrict__ own,
+                    int* __restrict__ root_eff, int* __restrict__ counts) {
+  extern __shared__ int rsmem[];
+  __shared__ int s_cs[RANGE_ROWS + 1];
+  __shared__ int s_e[CAP];
+  __shared__ int s_root[RANGE_ROWS];
+  __shared__ int s_red[THREADS / 32];
+  const bool priv = card <= CNT_CAP;
+  int* s_cnt = priv ? rsmem : nullptr;
+  unsigned* s_bm = reinterpret_cast<unsigned*>(rsmem + (priv ? card : 0));
+  const int b = blockIdx.x % B;
+  const int d0 = (blockIdx.x / B) * range_rows;
+  const int nrows = min(range_rows, Dp - d0);
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)b * Dp;
+  const uint8_t* mrow = mask + base;
+  const int* erow = parent_eff + base;
+  uint8_t* orow = own + base;
+  int* rrow = root_eff + base;
+  int* gcnt = counts + (size_t)b * card;
+  if (priv)
+    for (int i = tid; i < card; i += THREADS) s_cnt[i] = 0;
+  for (int i = tid; i <= nrows; i += THREADS)
+    s_cs[i] = __ldg(child_start + d0 + i);
+  __syncthreads();
+  int a = 0;
+  while (a < nrows) {
+    // the window ends at the first row from a on that is heavy or whose
+    // positions end past CAP from a's first
+    int stop = nrows;
+    for (int i = a + tid; i < nrows; i += THREADS) {
+      if (s_cs[i + 1] - s_cs[i] > HEAVY_ROWS ||
+          s_cs[i + 1] - s_cs[a] > CAP) {
+        stop = i;
+        break;
+      }
+    }
+    stop = block_reduce<false>(stop, s_red);
+    if (stop == a) {           // row a is heavy: the CTA walks it
+      heavy_root(d0 + a, s_cs[a], s_cs[a + 1], child_rows, mrow, erow, card,
+                 s_cnt, gcnt, s_bm, s_red, orow, rrow);
+      ++a;
+      continue;
+    }
+    const int p0 = s_cs[a], p1 = s_cs[stop];
+    {
+      int e[STAGE];
+      gather_buckets(p0, p1, child_rows, mrow, erow, e);
+#pragma unroll
+      for (int k = 0; k < STAGE; ++k) {
+        const int slot = tid + k * THREADS;
+        if (p0 + slot < p1) s_e[slot] = e[k];
+      }
+    }
+    // the window's roots (rows with nested rows) listed in row order
+    const int span = stop - a;
+    const int per = (span + THREADS - 1) / THREADS;
+    const int r0 = a + tid * per;
+    unsigned has = 0u;                     // bit c: row r0 + c is a root
+    for (int c = 0; c < per && r0 + c < stop; ++c)
+      if (s_cs[r0 + c + 1] > s_cs[r0 + c]) has |= 1u << c;
+    int n_roots;
+    int at = block_scan(__popc(has), s_red, &n_roots);
+    for (; has != 0u; has &= has - 1u) s_root[at++] = r0 + __ffs(has) - 1;
+    __syncthreads();
+    // rows without nested rows: -1 and 0, coalesced
+    for (int i = a + tid; i < stop; i += THREADS) {
+      if (s_cs[i + 1] == s_cs[i]) {
+        rrow[d0 + i] = -1;
+        orow[d0 + i] = 0;
+      }
+    }
+    // one thread a root walks its staged positions
+    for (int k = tid; k < n_roots; k += THREADS) {
+      const int i = s_root[k];
+      const int lo = s_cs[i] - p0, n = s_cs[i + 1] - s_cs[i];
+      int best = -1;
+      unsigned long long seen = 0ull;
+      for (int j = 0; j < n; ++j) {
+        const int e = s_e[lo + j];
+        if (e < 0) continue;
+        best = max(best, e);
+        if (e >= card) continue;
+        if (card <= BITSET_CARD) {
+          const unsigned long long bit = 1ull << e;
+          if ((seen & bit) != 0ull) continue;
+          seen |= bit;
+        } else {
+          // against the root's earlier rows (at most HEAVY_ROWS - 1)
+          bool dup = false;
+          for (int q = 0; q < j && !dup; ++q) dup = s_e[lo + q] == e;
+          if (dup) continue;
+        }
+        add_fresh(e, s_cnt, gcnt);
+      }
+      rrow[d0 + i] = best;
+      orow[d0 + i] = best >= 0 ? 1 : 0;
+    }
+    __syncthreads();           // s_e is staged again next window
+    a = stop;
   }
-  const unsigned peers = __match_any_sync(0xffffffffu, bucket);
-  if (bucket >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&counts[(size_t)b * card + bucket], __popc(peers));
+  if (priv) {
+    __syncthreads();
+    for (int i = tid; i < card; i += THREADS)
+      if (s_cnt[i] != 0) atomicAdd(&gcnt[i], s_cnt[i]);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fill_kernel(int* __restrict__ out, size_t n, int v) {
-  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i < n) out[i] = v;
-}
-
-__global__ void __launch_bounds__(THREADS)
-own_kernel(const int* __restrict__ root_eff, size_t n,
-           uint8_t* __restrict__ own) {
-  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i < n) own[i] = root_eff[i] >= 0 ? 1 : 0;
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    sms = n;
+  }
+  return sms;
 }
 
 unsigned blocks_of(size_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -151,28 +346,33 @@ extern "C" int nested_agg(const uint8_t* mask, const int* parent_eff,
   return (int)cudaGetLastError();
 }
 
-// mask bool, parent_eff int32 [B, Dp]; parent_ptr int32 [Dp]; p2 the
-// power of two >= Dp; keys: 2 * B * p2 64-bit words of scratch; own bool,
-// root_eff int32 [B, Dp]; counts int32 [B, card], zeroed by the caller.
+// mask bool, parent_eff int32 [B, Dp] (in [-1, card)); child_start int32
+// [Dp + 1] and child_rows int32 [NCp]: K22's static root CSR of the
+// segment's parent_ptr; own bool, root_eff int32 [B, Dp]; counts int32
+// [B, card], zeroed by the caller.
 extern "C" int reverse_nested_agg(const uint8_t* mask, const int* parent_eff,
-                                  const int* parent_ptr, int B, int Dp,
-                                  int p2, int card, unsigned long long* keys,
-                                  uint8_t* own, int* root_eff, int* counts,
-                                  void* stream) {
-  if (p2 < Dp || (p2 & (p2 - 1)) != 0) return (int)cudaErrorInvalidValue;
+                                  const int* child_start,
+                                  const int* child_rows, int B, int Dp,
+                                  int card, uint8_t* own, int* root_eff,
+                                  int* counts, void* stream) {
+  if (card <= 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Dp == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t n = (size_t)B * Dp;
-  fill_kernel<<<blocks_of(n), THREADS, 0, st>>>(root_eff, n, -1);
-  reverse_keys_kernel<<<dim3(blocks_of(p2), B), THREADS, 0, st>>>(
-      mask, parent_eff, parent_ptr, Dp, p2, card, keys, root_eff);
-  unsigned long long* sorted = nullptr;
-  const int e = keysort::sort_rows(keys, keys + (size_t)B * p2, B, p2,
-                                   &sorted, st);
-  if (e != 0) return e;
-  run_count_kernel<<<dim3(blocks_of(p2), B), THREADS, 0, st>>>(sorted, p2,
-                                                               card, counts);
-  own_kernel<<<blocks_of(n), THREADS, 0, st>>>(root_eff, n, own);
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  // rows a CTA: RANGE_ROWS, halved (to one row a thread) until the grid
+  // has four CTAs per SM
+  auto ranges = [&](int rows) { return ((long long)Dp + rows - 1) / rows; };
+  int rows = RANGE_ROWS;
+  while (rows > THREADS && ranges(rows) * B < 4LL * sms) rows /= 2;
+  const long long grid = ranges(rows) * B;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int bm = (card + 31) / 32 < BITMAP_WORDS ? (card + 31) / 32
+                                                 : BITMAP_WORDS;
+  const size_t smem = ((card <= CNT_CAP ? (size_t)card : 0) + bm) * 4;
+  reverse_walk_kernel<<<(unsigned)grid, THREADS, smem,
+                        (cudaStream_t)stream>>>(mask, parent_eff, child_start,
+                                                child_rows, B, Dp, card, rows,
+                                                own, root_eff, counts);
   return (int)cudaGetLastError();
 }
 

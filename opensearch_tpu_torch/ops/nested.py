@@ -8,7 +8,12 @@ plain PyTorch version beside its wrapper:
   (the `nested` aggregation: each nested row of the path whose root is in
   a bucket takes its root's bucket; the per-bucket row counts) and
   `reverse_nested_agg` (back to the roots: the distinct (bucket, root)
-  counts and each root's bucket, the largest of its rows' buckets).
+  counts and each root's bucket, the largest of its rows' buckets; on the
+  card a walk of each root's rows in the static CSR below: a root of at
+  most REVERSE_HEAVY_ROWS rows by one thread, its distinct buckets in a
+  64-bit set up to REVERSE_BITSET_CARD buckets, else by testing each
+  selected row against the root's earlier ones; a bigger root by the
+  whole CTA, through a bitmap of REVERSE_BITMAP_BUCKETS buckets a window).
 
 The segment's doc blocks: `parent_ptr` int32 [Dp] (a nested row's root
 row, -1 for a root), `nested_path` int32 [Dp] (a nested row's path
@@ -32,6 +37,11 @@ from opensearch_tpu_torch.ops.binned import _require
 
 # K22's score modes by their code (search/compile.py NESTED_SCORE_MODES)
 SCORE_MODES = ("avg", "sum", "max", "min", "none")
+# K23 reverse_nested's walk (csrc/nested_aggs.cu HEAVY_ROWS, BITSET_CARD,
+# BITMAP_WORDS * 32)
+REVERSE_HEAVY_ROWS = 32
+REVERSE_BITSET_CARD = 64
+REVERSE_BITMAP_BUCKETS = 32768
 NEG_INF = float("-inf")
 POS_INF = float("inf")
 
@@ -212,7 +222,8 @@ def reverse_nested_agg_plain(mask: torch.Tensor, parent_eff: torch.Tensor,
     nested rows (eligible, in a bucket), (own bool [B, Dp]: the roots that
     take a bucket; root_eff int32 [B, Dp]: the largest bucket of a root's
     selected rows, -1 for none; counts int32 [B, card]: the distinct roots
-    per bucket, from the sorted (bucket, root) keys' run starts)."""
+    per bucket, from the sorted (bucket, root) keys' run starts).
+    parent_eff holds -1 (no bucket) or a bucket in [0, card)."""
     bsz, d_pad = mask.shape
     dev = mask.device
     sel = mask & (parent_eff >= 0) & (parent_ptr >= 0)[None, :]
@@ -238,25 +249,30 @@ def reverse_nested_agg(mask: torch.Tensor, parent_eff: torch.Tensor, seg,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K23 reverse_nested: (own, root_eff, counts) of
     reverse_nested_agg_plain from the eligible nested rows mask bool
-    [B, Dp], their bucket parent_eff int32 [B, Dp] and the image's
-    parent_ptr. Replaces opensearch_tpu/search/aggs/engine.py:1579-1609."""
+    [B, Dp], their bucket parent_eff int32 [B, Dp] (-1, or a bucket in
+    [0, card)) and the image's parent_ptr. On the card a walk of each
+    root's rows in the image's static CSR (`child_start`, `child_rows`,
+    a function of parent_ptr): no sort, no scratch. Replaces
+    opensearch_tpu/search/aggs/engine.py:1579-1609."""
     if not mask.is_cuda:
         return reverse_nested_agg_plain(mask, parent_eff, seg["parent_ptr"],
                                         card)
     dev = mask.device
     bsz, d_pad = mask.shape
     _check_agg_inputs(mask, parent_eff, seg, card, dev)
-    p2 = 1 << max(d_pad - 1, 1).bit_length()
-    keys = torch.empty(2 * bsz * p2, dtype=torch.int64, device=dev)
+    _require(seg["child_start"], torch.int32, (d_pad + 1,), dev,
+             "child_start")
+    rows = seg["child_rows"]
+    _require(rows, torch.int32, (rows.shape[0],), dev, "child_rows")
     own = torch.empty(bsz, d_pad, dtype=torch.bool, device=dev)
     root_eff = torch.empty(bsz, d_pad, dtype=torch.int32, device=dev)
     counts = torch.zeros(bsz, card, dtype=torch.int32, device=dev)
-    fn = _build.entry("reverse_nested_agg", [ctypes.c_void_p] * 3
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5,
+    fn = _build.entry("reverse_nested_agg", [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
                       lib="nested_aggs")
     code = fn(_build.ptr(mask), _build.ptr(parent_eff),
-              _build.ptr(seg["parent_ptr"]), bsz, d_pad, p2, card,
-              _build.ptr(keys), _build.ptr(own), _build.ptr(root_eff),
+              _build.ptr(seg["child_start"]), _build.ptr(rows), bsz, d_pad,
+              card, _build.ptr(own), _build.ptr(root_eff),
               _build.ptr(counts), _build.stream_of(dev))
     _build.LAUNCHES["reverse_nested_agg"] += 1
     _build.check("reverse_nested_agg", code, lib="nested_aggs")

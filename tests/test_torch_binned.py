@@ -16,13 +16,24 @@ of the partitioned buffer must equal `dynamic_sum_plain` bit for bit.
 K6 (ops/csrc/binned_reduce.cu) packs each query's mask AND pmask into bits
 in doc order, 16 docs a thread, two halves a word; a lane's eligibility is
 then one bit. The mirror's bits equal `_gather_ok` on pairs and identity
-layouts, and its words `pack_bits` (K5's order)."""
+layouts, and its words `pack_bits` (K5's order).
 
+K5 (ops/csrc/binned_popcount.cu) packs a query's lanes a warp step of 16
+words: on the identity layout each lane reads 16 mask bytes, a byte
+compare (__vcmpne4) and a multiply gather them into 16 bits, and a pair
+shuffle joins two lanes' halves into one word (the byte route, 16 byte
+loads, gives the same bits); on a gathered layout 16 ballots, each word
+kept by a pair of lanes. The mirror's words equal the reference's
+`_pack_bits` exactly, on lane counts that are and are not a multiple of a
+step's 512 lanes, and its counts `binned_popcount_plain`'s."""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from opensearch_tpu.search.aggs import engine as jengine
 from opensearch_tpu_torch.ops import binned
 
 
@@ -230,6 +241,105 @@ def test_k24_scratch_is_the_kept_lanes_and_tile_counts():
     assert 4 * bsz * n <= got <= 4 * bsz * n * 1.02
     assert binned.scatter_scratch_bytes(bsz, n, 20, ("cnt", "min",
                                                      "max")) == 0
+
+
+# ------------------------------------------------------------------- K5
+
+def _vcmpne4(x):
+    """__vcmpne4(x, 0): 0xff in each byte of x that is not 0, else 0."""
+    out = np.zeros_like(x)
+    for i in range(4):
+        nz = ((x >> np.uint32(8 * i)) & np.uint32(0xFF)) != 0
+        out |= np.where(nz, np.uint32(0xFF << (8 * i)), np.uint32(0))
+    return out
+
+
+def _flags16(chunks):
+    """16 bytes a lane -> 16 bits: the byte compare, then the multiply
+    that gathers each byte's low bit (nib4 in the kernel)."""
+    q = np.ascontiguousarray(chunks).view("<u4")            # [lanes, 4]
+    f = (_vcmpne4(q) & np.uint32(0x01010101)).astype(np.uint64)
+    nib = ((f * np.uint64(0x01020408)) & np.uint64(0xFFFFFFFF)) >> 24
+    h = (nib << (np.arange(4, dtype=np.uint64) * 4)).sum(1)
+    # the byte route: the same bits from 16 byte loads
+    byte_bits = ((chunks != 0).astype(np.uint64)
+                 << np.arange(16, dtype=np.uint64)).sum(1)
+    assert np.array_equal(h, byte_bits)
+    return h.astype(np.uint32)
+
+
+def k5_pack_mirror(mrow, prow, doc_ids, n):
+    """One query's words u32 [n / 32], warp step by warp step: lane L of
+    a step at word wb takes word wb + L / 2 (0 past the last word)."""
+    nw = n // 32
+    lanes = -(-nw // 16) * 32                       # whole steps
+    lane = np.arange(lanes)
+    w, half = lane // 2, lane & 1
+    ok = w < nw
+    if doc_ids is None:
+        off = (w * 32 + half * 16)[:, None] + np.arange(16)
+        chunks = np.zeros((lanes, 16), np.uint8)
+        chunks[ok] = mrow[off[ok]]
+        h = _flags16(chunks)
+        if prow is not None:
+            pchunks = np.zeros((lanes, 16), np.uint8)
+            pchunks[ok] = prow[off[ok]]
+            h &= _flags16(pchunks)
+        o = h[lane ^ 1]                             # __shfl_xor_sync(h, 1)
+        word = np.where(half == 1, o | (h << np.uint32(16)),
+                        h | (o << np.uint32(16)))
+    else:
+        docs = np.full(lanes * 16, -1, np.int64)
+        docs[:n] = doc_ids
+        valid = (docs >= 0) & (docs < len(mrow))
+        safe = np.where(valid, docs, 0)
+        hit = valid & (mrow[safe] != 0)
+        if prow is not None:
+            hit &= prow[safe] != 0
+        # ballot i of a step: bit j = lane j of word wb + i
+        ballots = (hit.reshape(-1, 32).astype(np.uint64)
+                   << np.arange(32, dtype=np.uint64)).sum(1)
+        word = ballots.astype(np.uint32)[w]         # kept by lanes 2i, 2i+1
+    assert np.array_equal(word[0::2], word[1::2])   # both lanes of a pair
+    assert not word[0::2][nw:].any()
+    return word[0::2][:nw]
+
+
+@pytest.mark.parametrize("n", [512, 1184, 8192, 8224])
+@pytest.mark.parametrize("layout", ["identity", "gathered"])
+@pytest.mark.parametrize("with_pmask", [False, True])
+def test_k5_pack_mirror_against_reference(n, layout, with_pmask):
+    """K5's 16-byte pack (byte compare, bit gather, pair shuffle) and its
+    ballots against the reference's _pack_bits, exactly, on mask bytes of
+    any value (a byte not 0 is true); then its counts against the plain
+    version's."""
+    rng = np.random.default_rng(n + 2 * with_pmask + (layout == "gathered"))
+    bsz, d_pad, card = 3, n + 48, 16
+    mask = np.where(rng.random((bsz, d_pad)) < 0.45,
+                    rng.integers(1, 256, (bsz, d_pad)), 0).astype(np.uint8)
+    pmask = (rng.random((bsz, d_pad)) < 0.7).astype(np.uint8) \
+        if with_pmask else None
+    doc_ids = None if layout == "identity" else \
+        rng.integers(-1, d_pad, n).astype(np.int32)
+    lanes = rng.integers(-1, card + 1, n).astype(np.int32)
+    bits = binned.lane_bits(torch.from_numpy(lanes), card)
+    want_counts = binned.binned_popcount_plain(
+        torch.from_numpy(mask != 0),
+        None if pmask is None else torch.from_numpy(pmask != 0),
+        None if doc_ids is None else torch.from_numpy(doc_ids), n, bits,
+        card)
+    for b in range(bsz):
+        words = k5_pack_mirror(mask[b], None if pmask is None else pmask[b],
+                               doc_ids, n)
+        docs = np.arange(n) if doc_ids is None else doc_ids
+        ok = (docs >= 0) & (mask[b][np.where(docs >= 0, docs, 0)] != 0)
+        if pmask is not None:
+            ok &= pmask[b][np.where(docs >= 0, docs, 0)] != 0
+        want = np.asarray(jengine._pack_bits(jnp.asarray(ok)))
+        np.testing.assert_array_equal(words, want)
+        inter = words[None, :] & bits.numpy().view(np.uint32)
+        got = np.unpackbits(inter.view(np.uint8)).reshape(card, -1).sum(1)
+        np.testing.assert_array_equal(got, want_counts[b].numpy())
 
 
 # ------------------------------------------------------------------- K6

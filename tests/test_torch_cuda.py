@@ -159,20 +159,65 @@ def test_pairs_match_kernel_equals_plain(gpu, ident):
     assert torch.equal(got_r, want_r) and torch.equal(got_t, want_t)
 
 
-@pytest.mark.parametrize("card", [1, 16, 256])
+# K5's shapes: (B, Dp, n, byte offset of the mask rows): phase 3's n at
+# B=1; a ragged n (not a multiple of a warp step's 512 lanes) over a Dp
+# that is not a multiple of 16 (the byte route); several ranges at B=32;
+# rows at an odd offset (the byte route on an aligned Dp)
+POPCOUNT_SHAPES = {"b1_n8192": (1, 8192, 8192, 0),
+                   "b5_ragged": (5, 4099, 3008, 0),
+                   "b32_ranges": (32, 1 << 16, 1 << 16, 0),
+                   "b5_offset": (5, 4096, 4096, 1)}
+
+
+@pytest.mark.parametrize("card", [1, 16, 64, 91, 256, 4096])
 @pytest.mark.parametrize("ident", [True, False])
-def test_binned_popcount_kernel_equals_plain(gpu, card, ident):
-    d, _o, d_pad = _pairs(ident, card)
-    n = d.shape[0]
-    gen = torch.Generator(device="cuda").manual_seed(card)
-    lanes = torch.randint(-1, card + 1, (n,), generator=gen,
-                          device="cuda", dtype=torch.int32)
-    lanes = torch.where(d >= 0, lanes, -1)
+@pytest.mark.parametrize("with_pmask", [False, True])
+@pytest.mark.parametrize("shape", sorted(POPCOUNT_SHAPES))
+def test_binned_popcount_kernel_equals_plain(gpu, card, ident, with_pmask,
+                                             shape):
+    """K5 exactly, one launch a call: bins in registers (card <= 64) and
+    the per-bin loop (91 and more), identity and gathered lanes, with and
+    without pmask, 16-byte and byte mask reads."""
+    bsz, d_pad, n, offset = POPCOUNT_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(card + 7 * bsz)
+    lanes = torch.randint(-1, card + 1, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
     bits = binned.lane_bits(lanes, card)
-    mask = torch.rand(4, d_pad, generator=gen, device="cuda") < 0.5
-    pmask = torch.rand(4, d_pad, generator=gen, device="cuda") < 0.7
-    doc_ids = None if ident else d
+
+    def rows(p):
+        flat = torch.rand(bsz * d_pad + offset, generator=gen,
+                          device="cuda") < p
+        return flat[offset:].view(bsz, d_pad)
+    mask = rows(0.5)
+    pmask = rows(0.7) if with_pmask else None
+    doc_ids = None if ident else torch.randint(
+        -1, d_pad, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    before = _build.LAUNCHES["binned_popcount"]
     got = binned.binned_popcount(mask, pmask, doc_ids, n, bits, card)
+    assert _build.LAUNCHES["binned_popcount"] == before + 1
+    want = binned.binned_popcount_plain(mask, pmask, doc_ids, n, bits, card)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("card", [16, 91])
+@pytest.mark.parametrize("ident", [True, False])
+def test_binned_popcount_query_groups(gpu, card, ident):
+    """B=40 over 2^22 lanes: two query groups a range, the second of 8
+    queries; with a pmask; exact, one launch."""
+    bsz, n = 40, 1 << 22
+    gen = torch.Generator(device="cuda").manual_seed(card + ident)
+    lanes = torch.randint(-1, card + 1, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    bits = binned.lane_bits(lanes, card)
+    mask = torch.rand(bsz, n, generator=gen, device="cuda") < 0.5
+    pmask = torch.rand(bsz, n, generator=gen, device="cuda") < 0.7
+    doc_ids = None if ident else torch.randint(
+        -1, n, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    before = _build.LAUNCHES["binned_popcount"]
+    got = binned.binned_popcount(mask, pmask, doc_ids, n, bits, card)
+    assert _build.LAUNCHES["binned_popcount"] == before + 1
     want = binned.binned_popcount_plain(mask, pmask, doc_ids, n, bits, card)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -1305,9 +1350,10 @@ def test_row_value_key_kernel_equals_plain(gpu, order):
 
 # ------------------------- K22 nested_join, K23 nested_aggs, K24, K25
 
-def _blocks(gen, d_pad, n_roots):
+def _blocks(gen, d_pad, n_roots, extra=()):
     """A doc-block layout on the card: roots at random rows, each with 0-6
-    nested rows placed anywhere before it, on one of two paths."""
+    nested rows placed anywhere before it, on one of two paths; root i
+    takes extra[i] more rows besides."""
     parent = torch.full((d_pad,), -1, dtype=torch.int32)
     paths = torch.full((d_pad,), -1, dtype=torch.int32)
     perm = torch.randperm(d_pad, generator=gen)
@@ -1320,6 +1366,9 @@ def _blocks(gen, d_pad, n_roots):
             c = free.pop()
             parent[c] = r
             paths[c] = int(torch.randint(0, 2, (1,), generator=gen))
+    for root, k in zip(roots.tolist(), extra):
+        for _ in range(k):
+            parent[free.pop()] = root
     from opensearch_tpu_torch.ops.device_segment import root_child_csr
     start, rows = root_child_csr(parent.numpy(), d_pad)
     live = torch.rand(d_pad, generator=gen) < 0.9
@@ -1349,28 +1398,48 @@ def test_nested_join_kernel_equals_plain(gpu, mode):
     assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_nested_aggs_kernels_equal_plain(gpu):
+# K23's cases: (B, Dp, roots, extra rows of the first roots, card, mask
+# share): the walk's bitset (card <= 64) and earlier-rows test (a 26-row
+# root: four batches), the CTA's path of a 10,000-row root and of 33 and
+# 43 rows (bitmap windows past 65,536 buckets), B=1, no row selected
+NESTED_AGG_CASES = {"mixed": (5, 20000, 5000, (), 37, 0.7),
+                    "heavy_root": (4, 30000, 3000, (10000, 27), 64, 0.7),
+                    "card65": (3, 30000, 3000, (40, 20), 65, 0.7),
+                    "card300_heavy": (3, 30000, 3000, (10000, 20), 300, 0.7),
+                    "many_buckets": (2, 30000, 3000, (10000,), 70000, 0.7),
+                    "b1": (1, 30000, 3000, (40, 20), 37, 0.7),
+                    "all_false": (3, 30000, 3000, (10000,), 37, 0.0)}
+
+
+@pytest.mark.parametrize("case", sorted(NESTED_AGG_CASES))
+def test_nested_aggs_kernels_equal_plain(gpu, case):
     """K23 nested and reverse_nested: own rows, buckets and counts
-    exactly."""
+    exactly, one launch of each a call."""
     from opensearch_tpu_torch.ops import nested
+    bsz, d_pad, n_roots, extra, card, share = NESTED_AGG_CASES[case]
     gen = torch.Generator().manual_seed(23)
-    bsz, d_pad, card = 5, 20000, 37
-    seg = _blocks(gen, d_pad, 5000)
-    mask = (torch.rand(bsz, d_pad, generator=gen) < 0.7).cuda()
+    seg = _blocks(gen, d_pad, n_roots, extra)
+    mask = (torch.rand(bsz, d_pad, generator=gen) < share).cuda()
     peff = torch.randint(-1, card, (bsz, d_pad), generator=gen,
                          dtype=torch.int32).cuda()
-    path_ord = torch.tensor([0, 1, 0, -1, 1], dtype=torch.int32).cuda()
+    path_ord = torch.tensor([0, 1, 0, -1, 1][:bsz],
+                            dtype=torch.int32).cuda()
+    before = (_build.LAUNCHES["nested_agg"],
+              _build.LAUNCHES["reverse_nested_agg"])
     got = nested.nested_agg(mask, peff, seg, path_ord, card)
+    got_r = nested.reverse_nested_agg(mask, peff, seg, card)
+    assert (_build.LAUNCHES["nested_agg"],
+            _build.LAUNCHES["reverse_nested_agg"]) == (before[0] + 1,
+                                                       before[1] + 1)
     want = nested.nested_agg_plain(mask, peff, seg["live"],
                                    seg["nested_path"], seg["parent_ptr"],
                                    path_ord, card)
-    got_r = nested.reverse_nested_agg(mask, peff, seg, card)
     want_r = nested.reverse_nested_agg_plain(mask, peff, seg["parent_ptr"],
                                              card)
     torch.cuda.synchronize()
     for g, w in zip(got + got_r, want + want_r):
         assert torch.equal(g, w)
-    assert int(got_r[2].sum()) > 0
+    assert (int(got_r[2].sum()) > 0) == (share > 0)
 
 
 def _check_scatter(lanes, total, values, needs):

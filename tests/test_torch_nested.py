@@ -5,7 +5,9 @@ before and after a refresh, `inner_hits` (size, from, name, two sections),
 the `nested` / `reverse_nested` aggregations with every kind under them,
 `_msearch`, and a 5-shard index taking the reference's route. Then the
 plain versions of K22 (nested_join), K23 (nested_aggs) and K24
-(binned_scatter) against the reference's own functions on seeded inputs.
+(binned_scatter) against the reference's own functions on seeded inputs,
+and K23's reverse_nested walk of the static root CSR (the CUDA kernel's
+steps, mirrored in numpy) against the reference's reverse_nested kind.
 
 Contract: ids, order, totals and counts exactly; scores to rtol 2e-6
 (K22 folds a root's rows in the reference's row order, so in practice they
@@ -371,6 +373,148 @@ def test_nested_aggs_plain_against_reference():
                       np.where(sel, peff[b], -1))
         np.testing.assert_array_equal(r_eff[b].numpy(), want_root[:d_pad])
         np.testing.assert_array_equal(r_own[b].numpy(), want_root[:d_pad] >= 0)
+
+
+# ------------------------- K23 reverse_nested's CSR walk, mirrored in numpy
+
+def reverse_walk_mirror(mask, peff, start, rows, card,
+                        window=nested.REVERSE_BITMAP_BUCKETS):
+    """K23's reverse_nested walk (ops/csrc/nested_aggs.cu) step by step:
+    each row d walks its CSR rows child_start[d] .. child_start[d + 1];
+    up to REVERSE_HEAVY_ROWS rows one thread does, its distinct buckets a
+    64-bit set (card <= REVERSE_BITSET_CARD) or a test of each selected
+    row's bucket against the root's earlier selected rows; a bigger root
+    the CTA does, through a bitmap of `window` buckets at a time. Returns
+    (own, root_eff, counts) and the routes' root counts."""
+    bsz, d_pad = mask.shape
+    root_eff = np.full((bsz, d_pad), -1, np.int32)
+    counts = np.zeros((bsz, card), np.int32)
+    routes = {"bitset": 0, "earlier": 0, "heavy": 0, "windows": 0}
+    for b in range(bsz):
+        for d in np.nonzero(start[1:] > start[:-1])[0]:
+            walk = rows[start[d]:start[d + 1]]
+            buckets = np.where(mask[b, walk], peff[b, walk], -1)
+            sel = buckets[buckets >= 0]
+            best = int(sel.max()) if len(sel) else -1
+            if len(walk) > nested.REVERSE_HEAVY_ROWS:
+                routes["heavy"] += 1
+                for w0 in range(0, card, window):
+                    routes["windows"] += 1
+                    bitmap = np.zeros(min(card - w0, window), bool)
+                    for e in sel:
+                        if w0 <= e < w0 + len(bitmap) and not bitmap[e - w0]:
+                            bitmap[e - w0] = True
+                            counts[b, e] += 1
+            elif card <= nested.REVERSE_BITSET_CARD:
+                routes["bitset"] += 1
+                seen = 0
+                for e in sel:
+                    if e < card and not (seen >> int(e)) & 1:
+                        seen |= 1 << int(e)
+                        counts[b, e] += 1
+            else:
+                routes["earlier"] += 1
+                for i, e in enumerate(buckets):
+                    if 0 <= e < card and not np.any(buckets[:i] == e):
+                        counts[b, e] += 1
+            root_eff[b, d] = best
+    return root_eff >= 0, root_eff, counts, routes
+
+
+def _walk_blocks(rng, d_pad, n_roots, heavy_rows):
+    """_blocks plus one root of `heavy_rows` nested rows and the walk's
+    edges: roots of REVERSE_HEAVY_ROWS rows and one more, and of 9-16 rows
+    (a second batch of the thread's walk); then whole blocks deleted."""
+    parent, paths, _live = _blocks(rng, d_pad, n_roots)
+    roots = np.nonzero((parent < 0) & (np.bincount(
+        parent[parent >= 0], minlength=d_pad) == 0))[0]
+    free = list(rng.permutation(np.nonzero((parent < 0) & ~np.isin(
+        np.arange(d_pad), parent[parent >= 0]))[0]))
+    free = [r for r in free if r not in set(roots[:4].tolist())]
+    for root, k in zip(roots[:4], (heavy_rows, nested.REVERSE_HEAVY_ROWS,
+                                   nested.REVERSE_HEAVY_ROWS + 1, 13)):
+        for _ in range(k):
+            c = free.pop()
+            parent[c] = root
+            paths[c] = int(rng.integers(0, 2))
+    # deleted blocks: a root and its rows not live
+    live = np.ones(d_pad, bool)
+    for root in rng.choice(np.unique(parent[parent >= 0]), 20,
+                           replace=False):
+        live[root] = False
+        live[parent == root] = False
+    return parent, paths, live
+
+
+@pytest.fixture(scope="module")
+def walk_layout():
+    rng = np.random.default_rng(230)
+    d_pad = 16384
+    parent, paths, live = _walk_blocks(rng, d_pad, 1200, 10000)
+    start, rows = root_child_csr(parent, d_pad)
+    return parent, paths, live, start, rows
+
+
+@pytest.mark.parametrize("card", [9, 64, 65, 300])
+@pytest.mark.parametrize("window", ["kernel", 64])
+def test_reverse_nested_walk_mirror_against_reference(walk_layout, card,
+                                                      window):
+    """K23's CSR walk, mirrored, against the reference's reverse_nested
+    kind (its counts) and its root buckets written out, exactly, on
+    blocks of two paths with a 10,000-row root, deleted blocks, roots with
+    no selected row and an all-false query; at the kernel's bitmap window
+    and at 64 buckets a window (several windows where card > 64)."""
+    parent, paths, live, start, rows = walk_layout
+    d_pad = parent.shape[0]
+    rng = np.random.default_rng(card)
+    bsz = 4
+    mask = (rng.random((bsz, d_pad)) < 0.6) & live
+    mask[3] = False                                  # an all-false query
+    peff = rng.integers(-1, card, (bsz, d_pad)).astype(np.int32)
+    win = nested.REVERSE_BITMAP_BUCKETS if window == "kernel" else window
+    own, root_eff, counts, routes = reverse_walk_mirror(
+        mask, peff, start, rows, card, win)
+    assert routes["heavy"] == 2 * bsz               # 10,000 rows and 33
+    assert routes["windows"] == 2 * bsz * -(-card // win)
+    assert routes["bitset" if card <= 64 else "earlier"] > 0
+    p_own, p_eff, p_counts = nested.reverse_nested_agg_plain(
+        torch.from_numpy(mask), torch.from_numpy(peff),
+        torch.from_numpy(parent), card)
+    np.testing.assert_array_equal(p_counts.numpy(), counts)
+    np.testing.assert_array_equal(p_eff.numpy(), root_eff)
+    np.testing.assert_array_equal(p_own.numpy(), own)
+    seg = {"live": jnp.asarray(live), "nested_path": jnp.asarray(paths),
+           "parent_ptr": jnp.asarray(parent)}
+    for b in range(bsz):
+        ctx = (jnp.asarray(peff[b]), None, card, False)
+        outs = []
+        jengine._eval_agg(jengine.AggPlan("r", "reverse_nested"), seg,
+                          [{}], [0], jnp.asarray(mask[b]), ctx, outs)
+        np.testing.assert_array_equal(counts[b],
+                                      np.asarray(outs[0]["counts"]))
+        sel = mask[b] & (peff[b] >= 0) & (parent >= 0)
+        want_root = np.full(d_pad + 1, -1)
+        np.maximum.at(want_root, np.where(sel, parent, d_pad),
+                      np.where(sel, peff[b], -1))
+        np.testing.assert_array_equal(root_eff[b], want_root[:d_pad])
+    assert not counts[3].any() and (root_eff[3] == -1).all()
+    heavy = np.argmax(np.diff(start))
+    assert np.diff(start)[heavy] == 10000 and own[:3, heavy].all()
+
+
+def test_reverse_nested_walk_thresholds_match_the_kernel():
+    """The mirror's thresholds are the kernel's own constants."""
+    import re
+    from pathlib import Path
+    src = (Path(nested.__file__).parent / "csrc" / "nested_aggs.cu") \
+        .read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("HEAVY_ROWS") == nested.REVERSE_HEAVY_ROWS
+    assert const("BITSET_CARD") == nested.REVERSE_BITSET_CARD
+    assert const("BITMAP_WORDS") * 32 == nested.REVERSE_BITMAP_BUCKETS
+    assert "key_sort.cuh" not in src
 
 
 def test_binned_scatter_plain_against_reference():
