@@ -15,7 +15,8 @@ Phases, each printing what it finds; any failure exits nonzero:
     as below): K1
     bm25_candidate, K2 score_text_clause (ids, hits and totals exactly,
     scores within SCORE_ATOL: both sides round every BM25 operation once,
-    the kernels build with --fmad=false), K3 masked_topk at Dp = 2^20 and
+    the kernels build with --fmad=false; K2 bit for bit, also on two runs,
+    with its scratch bytes), K3 masked_topk at Dp = 2^20 and
     B = 1 and 32 (bit for bit, k 10, 100 and 1,000); K4
     pairs_match, K5 binned_popcount, K6 binned_reduce at B=32 and
     NVp = Dp = 2^24 (masks, counts, min and max exactly, f32 sums within
@@ -144,7 +145,9 @@ Phase 2 also holds K10 maxsim_exact and K11 (pq_lut and maxsim_pq) at
 phase 8's shapes (bit for bit on the first 16,384 docs at B=4 and on the
 whole corpus at B=1; timed at B=1 and B=32; K11's codes uniform random u8
 [Dp, 128, 32] against a codebook trained by the port's train_pq on a
-20,000-token sample of the corpus), K12 hybrid_window at B=32, two
+20,000-token sample of the corpus; K11's scorer records carry its lookup
+floor, one 4-byte shared-memory read per (doc token, query token,
+sub-space) at 32 a cycle on each SM), K12 hybrid_window at B=32, two
 sub-queries, Dp 2^20, k 10, and K3's masked_topk_threshold at B=32, Dp
 2^20, k 20,000. Phase 3 adds a token index (exact and PQ fields), a
 hybrid index with its pipeline and a 24,000-vector index (a knn at k
@@ -257,8 +260,11 @@ aggs: phase 5; topk: phase 2's records of K3, its threshold and its keyed
 entry on their own, each with the device ms of each launch of a call;
 binned: phase 2's records of K5, K6, K23's reverse_nested and K24 on
 their own, each with the device ms of each kernel of a call, K23's and
-K24's with their scratch bytes), one JSON line each, so that one card
-compares two checkouts cell by cell.
+K24's with their scratch bytes; textpq: phase 2's records of K2 (B=1,
+B=32 and its keep entry on the block-max batches, with its scratch
+bytes) and of K11's scorer (the B=4 slice, B=1 and B=32, with its lookup
+floor), each with the device ms of each kernel of a call), one JSON line
+each, so that one card compares two checkouts cell by cell.
 
 Each record of K3's three entries also prints `full_reads`: per row, the
 passes of their radix select that read the whole input (2, unless a bin
@@ -532,36 +538,65 @@ def phase_kernels(torch, np, seg, mapper, arrays, meta, dev):
     # K2 and K3 at Dp = 2^20 on dense-path queries (20 terms)
     for bsz in (1, 32):
         plans, blk, ms = dense_batch(torch, np, seg, mapper, meta, bsz, dev)
-
-        def kern2():
-            return bm25.score_text_clause(arrays, blk)
-
-        def plain2():
-            return bm25.score_text_clause_plain(arrays, blk)
-        (ks, kh), (ps, ph) = kern2(), plain2()
-        if not torch.equal(kh, ph):
-            raise AssertionError(f"K2 B={bsz}: hits differ")
-        err = float((ks - ps).abs().max().item())
-        if err > SCORE_ATOL:
-            raise AssertionError(f"K2 B={bsz}: scores differ by {err}")
-        blocks = n_posting_blocks(blk)
-        qb = blk["ids"].shape[1]
-        nbytes = blocks * 128 * 12 + bsz * qb * 8 + bsz * d_pad * 8
-        flops = blocks * 128 * 10
-        rec = {"shape": f"B={bsz} QB={qb} Dp={d_pad} blocks={blocks}",
-               "max_abs_err": err, "ms": graph_ms(torch, kern2),
-               "call_ms": cuda_ms(torch, kern2),
-               "plain_ms": plain_ms(torch, plain2),
-               "library_ms": None,
-               "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                               flops / F32_FLOPS) * 1e3,
-               "bound_by": "bytes"}
-        results.setdefault("score_text_clause", []).append(rec)
-        log("K2", json.dumps(rec))
-
+        k2_record(torch, arrays, blk, d_pad, results)
         scores, matches = _eval_plan(plans[0], arrays, [blk], [0], bsz)
         k3_records(torch, np, scores, matches, arrays, meta, ms, results)
     return results
+
+
+def k2_record(torch, arrays, blk, d_pad: int, results, keep=None,
+              label: str = "", passes: bool = False):
+    """One record of K2 `score_text_clause` (with K20's `keep` mask: its
+    keep entry): two runs bit for bit with each other and with the plain
+    version (hits exactly); device ms (graph replay), a call's, the plain
+    version's; the byte bound (each kept block's docs, tfs and norms
+    read, the ids and weights, the dense scores and hits written); the
+    device memory a call takes beyond what it returns (its scratch, read
+    from the allocator's peak); with `passes`, each kernel's device ms a
+    call."""
+    from opensearch_tpu_torch.ops import bm25
+    bsz, qb = blk["ids"].shape
+    kept = blk if keep is None else dict(
+        blk, ids=torch.where(keep, blk["ids"], -1))
+    name = "score_text_clause" if keep is None else "score_text_clause_keep"
+
+    def kern():
+        return bm25.score_text_clause(arrays, blk, block_keep=keep)
+
+    def plain():
+        return bm25.score_text_clause_plain(arrays, kept)
+    (ks, kh), (ks2, kh2), (ps, ph) = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    if not (_same_bits(torch, ks, ks2) and torch.equal(kh, kh2)):
+        raise AssertionError(f"{name} B={bsz}{label}: two runs differ")
+    if not torch.equal(kh, ph):
+        raise AssertionError(f"{name} B={bsz}{label}: hits differ")
+    if not _same_bits(torch, ks, ps):
+        err = float((ks - ps).abs().max().item())
+        raise AssertionError(f"{name} B={bsz}{label}: scores differ by "
+                             f"{err}")
+    blocks = int((kept["ids"] >= 0).sum().item())
+    nbytes = blocks * 128 * 12 + bsz * qb * (8 if keep is None else 9) \
+        + bsz * d_pad * 8
+    bound_ms, bound_by = _bound(nbytes, blocks * 128 * 10)
+    rec = {"shape": f"B={bsz}{label} QB={qb} blocks={blocks} Dp={d_pad}",
+           "max_abs_err": 0.0, "ms": graph_ms(torch, kern),
+           "call_ms": cuda_ms(torch, kern),
+           "plain_ms": plain_ms(torch, plain), "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    outs = kern()
+    torch.cuda.synchronize()
+    rec["peak_scratch_bytes"] = torch.cuda.max_memory_allocated() - before \
+        - sum(o.numel() * o.element_size() for o in outs)
+    del outs
+    if passes:
+        rec["passes"] = launch_ms(torch, kern, by_name=True)
+    results.setdefault(name, []).append(rec)
+    log(name, json.dumps(rec))
+    return rec
 
 
 def dense_batch(torch, np, seg, mapper, meta, bsz: int, dev):
@@ -766,6 +801,46 @@ def phase_binned_cell(torch, np, dev) -> dict:
     torch.cuda.empty_cache()
     keys = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
             "max_abs_err", "peak_scratch_bytes", "passes")
+    return {name: [{k: r[k] for k in keys if k in r} for r in recs]
+            for name, recs in results.items()}
+
+
+def phase_textpq_cell(torch, np, dev) -> dict:
+    """K2's and K11's records alone, at phase 2's shapes and on its
+    corpora: K2 at B=1 and B=32 on the scale corpus' dense batches and its
+    keep entry on the block-max batches (2-4 terms, one term), K11's
+    scorer on the MaxSim corpus (the B=4 slice, B=1 and B=32; codebook as
+    phase 2 trains it; then B=1 with every code byte 0, which takes the
+    table reads' bank conflicts away), each with its kernels' device ms a
+    call (`passes`): one script's records on two checkouts compare the
+    kernels on one card."""
+    from concurrent.futures import ThreadPoolExecutor
+    from opensearch_tpu_torch.ops.device_segment import upload_segment
+    from opensearch_tpu_torch.ops.maxsim import train_pq
+    from opensearch_tpu_torch.utils.demo import build_shards_fast
+    results = {}
+    mc = maxsim_corpus(torch, np, dev)
+    pool = ThreadPoolExecutor(max_workers=1)
+    codebook_job = pool.submit(train_pq, pq_sample(np, mc), PQ_M)
+    mapper, (seg,), _terms = build_shards_fast(
+        SCALE_DOCS, 1, vocab_size=20000, avg_len=60, seed=42,
+        materialize_terms=SCALE_MATERIALIZE_TERMS)
+    arrays, meta = upload_segment(seg, dev)
+    for bsz in (1, 32):
+        _plans, blk, _ms = dense_batch(torch, np, seg, mapper, meta, bsz, dev)
+        k2_record(torch, arrays, blk, meta.d_pad, results, passes=True)
+    del arrays
+    results.update(phase_spmd_kernels(
+        torch, np, mapper, seg, sorted(t for _, t in seg.term_dict), None,
+        dev, keep_only=True, passes=True))
+    del seg
+    codebook = codebook_job.result()
+    pool.shutdown()
+    results.update(phase_maxsim_kernels(torch, np, mc, codebook, dev,
+                                        k11_only=True))
+    torch.cuda.empty_cache()
+    keys = ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+            "lookup_floor_ms", "peak_scratch_bytes", "passes")
     return {name: [{k: r[k] for k in keys if k in r} for r in recs]
             for name, recs in results.items()}
 
@@ -1797,7 +1872,8 @@ def phase_sort_kernels(torch, np, seg, four, dev):
 
 
 def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
-                       bsz: int = 32):
+                       bsz: int = 32, keep_only: bool = False,
+                       passes: bool = False):
     """K20 blockmax_keep with K1's and K2's keep entries at B=32 on phase
     4's 2-4-term queries and on one-term queries, which prune lanes
     (compiled with block-max's inputs, at least 16 lanes each; k 10),
@@ -1805,7 +1881,9 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
     lanes (k 10, 1,000, 40,960, 65,536; keys from 40 values, so ties cross
     rows) and on uneven rows with +-0.0 keys, and K21's row_value_key over
     the 10M-doc `views` column, each bit for bit against its plain
-    version."""
+    version. With `keep_only`, K2's keep records alone (K20 runs unrecorded
+    to make the masks; `agg_seg` is not read), each with its kernels'
+    device ms a call when `passes`."""
     from opensearch_tpu_torch.ops import bm25, spmd as kspmd
     from opensearch_tpu_torch.ops.device_segment import upload_segment
     from opensearch_tpu_torch.search import dsl
@@ -1871,6 +1949,12 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
         if per_query == (1,) and int(k20()[1].sum().item()) == 0:
             raise AssertionError("blockmax_keep pruned no lane of the "
                                  "one-term batch")
+        if keep_only:
+            keep, _pruned = k20()
+            k2_record(torch, arrays, blk, meta.d_pad, results, keep=keep,
+                      label=f" {label} ({real} real blocks)", passes=passes)
+            del nodes, blk
+            continue
         # per lane: id, w, tid, its bound and the keep byte; per query the
         # slice's 1,024 postings (doc, tf, norm, live, root); the bound
         # arithmetic, the slice's partials and run-sums (f32 operations)
@@ -1898,19 +1982,13 @@ def phase_spmd_kernels(torch, np, mapper, seg, terms, agg_seg, dev,
                kept_blocks * 128 * 14 + bsz * qb * 9 + bsz * (2 * k + 2) * 4,
                kept_blocks * 128 * 10)
 
-        def k2(blk=blk, keep=keep):
-            return bm25.score_text_clause(arrays, blk, block_keep=keep)
-
-        def k2_plain(kept=kept):
-            return bm25.score_text_clause_plain(arrays, kept)
-        record("score_text_clause_keep", f"B={bsz} {label} QB={qb} kept "
-               f"blocks={kept_blocks} of {real} Dp={meta.d_pad}", k2,
-               k2_plain, None,
-               kept_blocks * 128 * 12 + bsz * qb * 9 + bsz * meta.d_pad * 8,
-               kept_blocks * 128 * 10)
+        k2_record(torch, arrays, blk, meta.d_pad, results, keep=keep,
+                  label=f" {label} ({real} real blocks)")
         del nodes, blk, kept
     del arrays
     torch.cuda.empty_cache()
+    if keep_only:
+        return results
 
     # K21's merge: R rows of K3's keyed layout, each sorted in the total
     # order of its bits (K21's precondition): R of 5, 8 and 4 rows of k_r =
@@ -2654,12 +2732,20 @@ def pq_sample(np, mc):
     return np.ascontiguousarray(mc["tokens"][docs, lane])
 
 
-def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32):
+def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32,
+                         k11_only: bool = False):
     """K10 and K11 at the MaxSim cell's shapes, K12 and K3's threshold
-    entry at the serving shapes, each against its plain version."""
+    entry at the serving shapes, each against its plain version. K11's
+    scorer records carry its lookup floor (`lookup_floor_ms`: one 4-byte
+    shared-memory read per (doc token, query token, sub-space), 32 a
+    cycle on each SM at the card's top SM clock). With `k11_only`, the
+    scorer's records alone, each with its kernels' device ms a call
+    (`passes`)."""
     from opensearch_tpu_torch.index.segment import pad_bucket
     from opensearch_tpu_torch.ops import hybrid, maxsim, topk
     results = {}
+    sm_mhz = max_sm_clock_mhz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def record(name, shape, kern, plain, library, nbytes, ops, reps=15):
         """Time kern (and plain, library where given) after holding two
@@ -2723,15 +2809,16 @@ def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32):
     # K10: bit for bit on the first MAXSIM_SLICE docs at B=4, then the
     # whole corpus at B=1 (with its plain version) and B=32
     sl = slice(0, MAXSIM_SLICE)
-    record("maxsim_exact", f"B=4 Dp={MAXSIM_SLICE} T={t_bucket} Tq={tq} "
-           f"dims={dims} (slice)",
-           lambda: (maxsim.exact_maxsim_scores(
-               tokens[sl], count[sl], queries[:4].contiguous(),
-               qmask[:4].contiguous()),),
-           lambda: (maxsim.exact_maxsim_scores_plain(
-               tokens[sl], count[sl], queries[:4].contiguous(),
-               qmask[:4].contiguous()),), None, 0, 0, reps=5)
-    for b in (1, bsz):
+    if not k11_only:
+        record("maxsim_exact", f"B=4 Dp={MAXSIM_SLICE} T={t_bucket} "
+               f"Tq={tq} dims={dims} (slice)",
+               lambda: (maxsim.exact_maxsim_scores(
+                   tokens[sl], count[sl], queries[:4].contiguous(),
+                   qmask[:4].contiguous()),),
+               lambda: (maxsim.exact_maxsim_scores_plain(
+                   tokens[sl], count[sl], queries[:4].contiguous(),
+                   qmask[:4].contiguous()),), None, 0, 0, reps=5)
+    for b in () if k11_only else (1, bsz):
         q, qm = queries[:b].contiguous(), qmask[:b].contiguous()
         record("maxsim_exact", f"B={b} Dp={d_pad} T={t_bucket} Tq={tq} "
                f"dims={dims} ({real} real tokens)",
@@ -2750,35 +2837,64 @@ def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32):
                           device=dev, dtype=torch.uint8)
     codebook = torch.from_numpy(codebook_np).to(dev)
     dsub = dims // PQ_M
-    lut32 = record("pq_lut", f"B={bsz} Tq={tq} M={PQ_M} dsub={dsub}",
-                   lambda: (maxsim.pq_lut(codebook, queries),),
-                   lambda: (maxsim.pq_lut_plain(codebook, queries),),
-                   lambda: (torch.einsum("mcj,btmj->btmc", codebook,
-                                         queries.view(bsz, tq, PQ_M, dsub)),),
-                   4 * codebook.numel() + 4 * queries.numel()
-                   + 4 * bsz * tq * PQ_M * 256,
-                   2 * bsz * tq * PQ_M * 256 * dsub)[0]
-    record("maxsim_pq", f"B=4 Dp={MAXSIM_SLICE} T={t_bucket} Tq={tq} "
-           f"M={PQ_M} (slice)",
-           lambda: (maxsim.pq_maxsim_from_lut(
-               codes[sl], lut32[:4].contiguous(), count[sl],
-               qmask[:4].contiguous()),),
-           lambda: (maxsim.pq_maxsim_from_lut_plain(
-               codes[sl], lut32[:4].contiguous(), count[sl],
-               qmask[:4].contiguous()),), None, 0, 0, reps=5)
+    if k11_only:
+        lut32 = maxsim.pq_lut(codebook, queries)
+    else:
+        lut32 = record(
+            "pq_lut", f"B={bsz} Tq={tq} M={PQ_M} dsub={dsub}",
+            lambda: (maxsim.pq_lut(codebook, queries),),
+            lambda: (maxsim.pq_lut_plain(codebook, queries),),
+            lambda: (torch.einsum("mcj,btmj->btmc", codebook,
+                                  queries.view(bsz, tq, PQ_M, dsub)),),
+            4 * codebook.numel() + 4 * queries.numel()
+            + 4 * bsz * tq * PQ_M * 256,
+            2 * bsz * tq * PQ_M * 256 * dsub)[0]
+    group = f" G={maxsim.pq_group(PQ_M, tq)}"
+
+    def k11(b, n_docs, n_real, kern, plain, label):
+        record("maxsim_pq", f"B={b} Dp={n_docs} T={t_bucket} Tq={tq} "
+               f"M={PQ_M}{group} {label}", kern, plain, None,
+               n_real * PQ_M + 4 * b * tq * PQ_M * 256 + 4 * n_docs
+               + 4 * b * n_docs, b * tq * n_real * PQ_M, reps=5)
+        rec = results["maxsim_pq"][-1]
+        rec["lookup_floor_ms"] = None if sm_mhz is None else \
+            b * tq * n_real * PQ_M / (n_sm * 32 * sm_mhz * 1e6) * 1e3
+        if k11_only:
+            rec["passes"] = launch_ms(torch, kern, by_name=True)
+        log(f"maxsim_pq B={b} {label}: lookup floor "
+            f"{rec['lookup_floor_ms']} ms ({b * tq * n_real * PQ_M} "
+            f"4-byte shared reads, 32 a cycle on {n_sm} SMs at {sm_mhz} "
+            f"MHz), bound {rec['bound_ms']:.4f} ms, kernel "
+            f"{rec['ms']:.4f} ms")
+
+    lut4, qm4 = lut32[:4].contiguous(), qmask[:4].contiguous()
+    k11(4, MAXSIM_SLICE, int(count[sl].sum().item()),
+        lambda: (maxsim.pq_maxsim_from_lut(codes[sl], lut4, count[sl],
+                                           qm4),),
+        lambda: (maxsim.pq_maxsim_from_lut_plain(codes[sl], lut4, count[sl],
+                                                 qm4),), "(slice)")
     for b in (1, bsz):
         lut, qm = lut32[:b].contiguous(), qmask[:b].contiguous()
-        record("maxsim_pq", f"B={b} Dp={d_pad} T={t_bucket} Tq={tq} "
-               f"M={PQ_M} ({real} real tokens)",
-               lambda lut=lut, qm=qm: (maxsim.pq_maxsim_from_lut(
-                   codes, lut, count, qm),),
-               (lambda lut=lut, qm=qm: (maxsim.pq_maxsim_from_lut_plain(
-                   codes, lut, count, qm),)) if b == 1 else None, None,
-               real * PQ_M + 4 * lut.numel() + 4 * d_pad + 4 * b * d_pad,
-               b * tq * real * PQ_M, reps=5)
+        k11(b, d_pad, real,
+            lambda lut=lut, qm=qm: (maxsim.pq_maxsim_from_lut(
+                codes, lut, count, qm),),
+            (lambda lut=lut, qm=qm: (maxsim.pq_maxsim_from_lut_plain(
+                codes, lut, count, qm),)) if b == 1 else None,
+            f"({real} real tokens)")
+    if k11_only:
+        lut1, qm1 = lut32[:1].contiguous(), qmask[:1].contiguous()
+        # the lookups' bank conflicts: with every code byte 0 the lanes of
+        # a warp read one table row (a broadcast); B=1, the same work
+        zeros = torch.zeros_like(codes)
+        k11(1, d_pad, real, lambda: (maxsim.pq_maxsim_from_lut(
+            zeros, lut1, count, qm1),), None,
+            "(codes all 0: every lookup a broadcast)")
+        del zeros
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     del tokens, codes, live_tok
     torch.cuda.empty_cache()
+    if k11_only:
+        return results
 
     # K12 and K3's threshold at Dp 2^20, B=32
     d = 1 << 20
@@ -5770,7 +5886,7 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
 
 CELLS = ("scale", "knn", "maxsim", "hybrid", "sorted", "aggkinds",
          "relevance", "sharded", "nested", "geo", "ingest", "topk",
-         "binned", "aggs")
+         "binned", "textpq", "aggs")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -5828,6 +5944,9 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         elif cell == "binned":
             mapper = seg = None
             res = phase_binned_cell(torch, np, dev)
+        elif cell == "textpq":
+            mapper = seg = None
+            res = phase_textpq_cell(torch, np, dev)
         elif cell == "aggs":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_agg_scale(torch, np, mapper, seg, dev, out_dir)
@@ -5858,10 +5977,11 @@ def main(argv) -> int:
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
                              "4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16; knn "
-                             "is phase 6's exact cell; topk and binned phase "
-                             "2's records of K3 and of K5 / K6 / K23 / K24; "
-                             "aggs phase 5): one JSON line each, to compare "
-                             "two checkouts on one card")
+                             "is phase 6's exact cell; topk, binned and "
+                             "textpq phase 2's records of K3, of K5 / K6 / "
+                             "K23 / K24 and of K2 (both entries) / K11's "
+                             "scorer; aggs phase 5): one JSON line each, to "
+                             "compare two checkouts on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
     try:
@@ -6146,7 +6266,9 @@ def main(argv) -> int:
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"],
-                        "call_ms": rec["call_ms"], "shape": rec["shape"]})
+                        "call_ms": rec["call_ms"], "shape": rec["shape"],
+                        **{k: rec[k] for k in ("peak_scratch_bytes",)
+                           if k in rec}})
     log(f"total wall {time.perf_counter() - t_all:.3f} s; card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,15 @@ GEO_POINT = "geo_point"
 PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | NUMERIC_TYPES | DATE_TYPES
                 | BOOL_TYPES | VECTOR_TYPES | RANK_VECTOR_TYPES
                 | {GEO_POINT})
+# every type the reference maps (opensearch_tpu/index/mapper.py's known
+# set): a type in it that the port does not map yet answers the reference's
+# reason with the port's suffix, any other type the reference's reason alone
+REFERENCE_TYPES = PORTED_TYPES | {
+    "match_only_text", "search_as_you_type", "constant_keyword", "wildcard",
+    "completion", "half_float", "scaled_float", "unsigned_long",
+    "date_nanos", "ip", "geo_shape", "integer_range", "long_range",
+    "float_range", "double_range", "date_range", "ip_range", "object",
+    "binary", "percolator"}
 DEFAULT_MAPPING_LIMIT = 1000  # index.mapping.total_fields.limit default
 
 _INT_BOUNDS = {
@@ -304,10 +313,12 @@ class MapperService:
     def _put_field(self, full_name: str, spec: dict):
         ftype = spec.get("type")
         if ftype not in PORTED_TYPES:
-            raise MapperParsingError(
-                f"No handler for type [{ftype}] declared on field "
-                f"[{full_name.split('.')[-1]}]: opensearch_tpu_torch maps "
-                f"only {sorted(PORTED_TYPES)} fields so far")
+            reason = (f"No handler for type [{ftype}] declared on field "
+                      f"[{full_name.split('.')[-1]}]")
+            if ftype in REFERENCE_TYPES:
+                reason += (f": opensearch_tpu_torch maps only "
+                           f"{sorted(PORTED_TYPES)} fields so far")
+            raise MapperParsingError(reason)
         existing = self.field_types.get(full_name)
         if existing is not None and existing.type != ftype:
             raise IllegalArgumentError(

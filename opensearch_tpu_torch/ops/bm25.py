@@ -251,6 +251,17 @@ def score_text_clause_plain(seg, blk):
     return scores, hits
 
 
+# log2 of the docs one K2 CTA owns of one query (score_text_clause.cu
+# CHUNK_LOG; the kernel checks the scratch it is given against it)
+TEXT_CLAUSE_CHUNK_LOG = 13
+
+
+def text_clause_scratch_words(bsz: int, qb: int, d_pad: int) -> int:
+    """K2's scratch in 32-bit words: a bitmap over the QB lanes for every
+    (query, chunk of 2^13 docs), the blocks that reach the chunk."""
+    return bsz * (-(-d_pad >> TEXT_CLAUSE_CHUNK_LOG)) * (-(-qb // 32))
+
+
 def score_text_clause(seg, blk, block_keep=None):
     """K2: one text clause of B queries scored into dense per-doc vectors.
     Replaces opensearch_tpu/ops/bm25.py:score_text_clause.
@@ -260,7 +271,8 @@ def score_text_clause(seg, blk, block_keep=None):
     [B], avgdl / b / k1 f32 [B]. block_keep: K20's bool [B, QB] mask, or
     None; a lane it drops contributes nothing. Returns (scores f32 [B, Dp],
     hits i32 [B, Dp]); hits counts the clause terms that matched each
-    doc."""
+    doc. The kernel's scratch (`text_clause_scratch_words`) is allocated
+    here."""
     if not seg["post_docs"].is_cuda:
         if block_keep is not None:
             blk = dict(blk, ids=_kept_ids(blk, block_keep))
@@ -279,8 +291,11 @@ def score_text_clause(seg, blk, block_keep=None):
         _require(block_keep, torch.bool, (bsz, qb), dev, "block_keep")
     scores = torch.empty(bsz, d_pad, dtype=torch.float32, device=dev)
     hits = torch.empty(bsz, d_pad, dtype=torch.int32, device=dev)
+    bits = torch.empty(text_clause_scratch_words(bsz, qb, d_pad),
+                       dtype=torch.int32, device=dev)
     fn = _build.entry("score_text_clause", [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                     ctypes.c_void_p])
     code = fn(_build.ptr(ids),
               ctypes.c_void_p(0) if block_keep is None
               else _build.ptr(block_keep),
@@ -290,7 +305,8 @@ def score_text_clause(seg, blk, block_keep=None):
               _build.ptr(seg["post_tf"]), _build.ptr(seg["norms"]),
               _build.ptr(seg["length_table"]), bsz, qb, d_pad,
               seg["post_docs"].shape[0], _build.ptr(scores),
-              _build.ptr(hits), _build.stream_of(dev))
+              _build.ptr(hits), _build.ptr(bits), bits.numel(),
+              _build.stream_of(dev))
     _build.LAUNCHES["score_text_clause" if block_keep is None
                     else "score_text_clause_keep"] += 1
     _build.check("score_text_clause", code)

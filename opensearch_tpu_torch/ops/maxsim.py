@@ -52,10 +52,21 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 # query token's [M, 256] table in shared memory
 MAX_T_BUCKET = 1024
 _SMEM_LIMIT = 232448
-# query tokens a K11 CTA holds at once: as many [M, 256] tables as fit
-# in this budget, at most _PQ_MAX_TT
-_PQ_SMEM_BUDGET = 98304
-_PQ_MAX_TT = 8
+# K11's scorer: besides its table, a CTA's shared memory holds its docs'
+# totals and token counts and a counter (maxsim_pq.cu TOTALS_BYTES; the
+# kernel checks the group it is given against its own rule)
+_PQ_TOTALS_BYTES = 1040
+
+
+def pq_group(m: int, tq: int) -> int:
+    """Query tokens K11's scorer stages at once: the widest G of 8, 4, 2,
+    1 whose table [M, 256, G] f32 fits in a CTA's shared memory, and no
+    wider than Tq needs."""
+    for g in (8, 4, 2):
+        if g // 2 < tq and m * PQ_CODES * 4 * g + _PQ_TOTALS_BYTES \
+                <= _SMEM_LIMIT:
+            return g
+    return 1
 
 
 def token_mask(token_count: torch.Tensor, t_bucket: int) -> torch.Tensor:
@@ -203,13 +214,14 @@ def pq_maxsim_from_lut(codes: torch.Tensor, lut: torch.Tensor,
                        token_count: torch.Tensor,
                        qmask: torch.Tensor) -> torch.Tensor:
     """K11's second entry, `maxsim_pq`: every doc's PQ MaxSim score from
-    its codes by table gather, f32 [B, Dp]."""
+    its codes by table gather, f32 [B, Dp]. The kernel walks the query
+    tokens in groups of `pq_group(M, Tq)`, ascending."""
     if not codes.is_cuda:
         return pq_maxsim_from_lut_plain(codes, lut, token_count, qmask)
     d_pad, t_bucket, m = codes.shape
     bsz, tq = qmask.shape
     dev = codes.device
-    table = m * PQ_CODES * 4
+    table = m * PQ_CODES * 4 + _PQ_TOTALS_BYTES
     if table > _SMEM_LIMIT or t_bucket <= 0:
         raise ValueError(f"maxsim_pq keeps one query token's [M, 256] "
                          f"table in shared memory: M={m} needs {table} "
@@ -218,13 +230,12 @@ def pq_maxsim_from_lut(codes: torch.Tensor, lut: torch.Tensor,
             (lut, torch.float32, (bsz, tq, m, PQ_CODES), "lut"),
             (token_count, torch.int32, (d_pad,), "token_count"),
             (qmask, torch.float32, (bsz, tq), "qmask")), dev)
-    tt = max(1, min(tq, _PQ_MAX_TT, _PQ_SMEM_BUDGET // table))
     out = torch.empty(bsz, d_pad, dtype=torch.float32, device=dev)
     fn = _build.entry("maxsim_pq", [ctypes.c_void_p] * 4
                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     code = fn(_build.ptr(codes), _build.ptr(lut), _build.ptr(token_count),
-              _build.ptr(qmask), bsz, d_pad, t_bucket, tq, m, tt,
-              _build.ptr(out), _build.stream_of(dev))
+              _build.ptr(qmask), bsz, d_pad, t_bucket, tq, m,
+              pq_group(m, tq), _build.ptr(out), _build.stream_of(dev))
     _build.LAUNCHES["maxsim_pq"] += 1
     _build.check("maxsim_pq", code)
     return out

@@ -27,7 +27,8 @@ from opensearch_tpu.search.executor import (
 
 from opensearch_tpu_torch.index.mapper import MapperService as TMapper
 from opensearch_tpu_torch.index.segment import segment_from_arrays
-from opensearch_tpu_torch.ops.bm25 import (bm25_candidate,
+from opensearch_tpu_torch.ops.bm25 import (TEXT_CLAUSE_CHUNK_LOG,
+                                           bm25_candidate,
                                            score_text_clause)
 from opensearch_tpu_torch.ops.device_segment import upload_segment
 from opensearch_tpu_torch.ops.topk import unpack_rows
@@ -40,6 +41,7 @@ from opensearch_tpu_torch.search.executor import (pack_leaves,
                                                   unpack_leaves)
 
 from opensearch_tpu_torch.utils.demo import query_terms
+import text_clause_mirror
 from test_torch_common import MAPPING, VOCAB, corpus, segment_arrays
 
 RTOL, ATOL = 1e-6, 1e-7
@@ -153,3 +155,78 @@ def test_score_text_clause_matches_reference(env, case):
         np.testing.assert_array_equal(hits[row].numpy(), np.asarray(wh))
         np.testing.assert_allclose(scores[row].numpy(), np.asarray(ws),
                                    rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------- K2's schedule (numpy mirror)
+
+
+
+def test_k2_chunk_is_the_kernels():
+    """The wrapper sizes K2's scratch by the chunk that
+    score_text_clause.cu builds with (its CHUNK_LOG), and the scratch is
+    one bit a lane for every (query, chunk)."""
+    import re
+    from pathlib import Path
+    from opensearch_tpu_torch.ops import bm25
+    src = (Path(bm25.__file__).parent / "csrc"
+           / "score_text_clause.cu").read_text()
+    logs = re.findall(r"constexpr int CHUNK_LOG = (\d+);", src)
+    assert logs == [str(TEXT_CLAUSE_CHUNK_LOG)]
+    chunk = 1 << TEXT_CLAUSE_CHUNK_LOG
+    for bsz, qb, d_pad, nch in ((1, 1, 1, 1), (32, 1024, 1 << 20, 128),
+                                (3, 33, chunk + 1, 2), (2, 0, chunk, 1)):
+        assert bm25.text_clause_scratch_words(bsz, qb, d_pad) == \
+            bsz * nch * (-(-qb // 32))
+
+
+@pytest.mark.parametrize("case", text_clause_mirror.EDGE_CASES)
+def test_k2_schedule_mirror_equals_plain_and_reference(case):
+    """The kernel's schedule (tests/text_clause_mirror.py: chunk bitmaps,
+    lists in ascending j, staged partials added in list order) equals the
+    plain version bit for bit, and the reference per query to the
+    module's contract (hits exactly), on a block spanning three chunks, a
+    doc every term lists, QB off 128 with padding lanes, a keep mask, Dp
+    off the chunk and a chunk listing more than 1,024 blocks. The
+    reference differs from the plain version by an ulp where XLA contracts
+    `tf + k1 * c` into a multiply-add."""
+    assert text_clause_mirror.CHUNK == 1 << TEXT_CLAUSE_CHUNK_LOG
+    d_pad, (post_docs, post_tf, norms, lt), blk, keep = \
+        text_clause_mirror.edge_case(case)
+    bits = text_clause_mirror.chunk_bitmap(blk["ids"], keep, post_docs,
+                                           d_pad)
+    if case != "many_blocks":
+        # query 0's lane 0 is the three-chunk block: on chunks 0-2
+        assert [int(bits[0, c, 0]) & 1 for c in range(3)] == [1, 1, 1]
+    else:                 # the common doc's chunk lists every block
+        assert int(np.unpackbits(bits[0, 1].view(np.uint8)).sum()) == 1100
+    want_s, want_h = text_clause_mirror.text_clause_mirror(
+        blk["ids"], keep, blk["w"], blk["row"], blk["avgdl"], blk["b"],
+        blk["k1"], post_docs, post_tf, norms, lt, d_pad)
+    seg = {"post_docs": torch.from_numpy(post_docs),
+           "post_tf": torch.from_numpy(post_tf),
+           "norms": torch.from_numpy(norms),
+           "length_table": torch.from_numpy(lt),
+           "live": torch.ones(d_pad, dtype=torch.bool),
+           "root": torch.ones(d_pad, dtype=torch.bool)}
+    tblk = {k: torch.from_numpy(v) for k, v in blk.items()}
+    ps, ph = score_text_clause(
+        seg, tblk, None if keep is None else torch.from_numpy(keep))
+    np.testing.assert_array_equal(ph.numpy(), want_h)
+    assert np.array_equal(ps.numpy().view(np.int32), want_s.view(np.int32))
+    if keep is None:      # the doc every term lists (query 2 pads a lane)
+        n = 1100 if case == "many_blocks" else 5
+        assert want_h[:, text_clause_mirror.CHUNK + 1].tolist() == \
+            [n, n, n - (case == "many_blocks")]
+    jseg = {k: jnp.asarray(v.numpy()) for k, v in seg.items()}
+    jfn = jax.jit(j_score_text_clause)
+    for q in range(blk["ids"].shape[0]):
+        jblk = {"ids": jnp.asarray(blk["ids"][q]),
+                "w": jnp.asarray(blk["w"][q]),
+                "row": jnp.asarray(blk["row"][q]),
+                "avgdl": jnp.asarray(blk["avgdl"][q]),
+                "b": jnp.asarray(blk["b"][q])}
+        js, jh = jfn(jseg, jblk, jnp.float32(blk["k1"][q]),
+                     None if keep is None else jnp.asarray(keep[q]))
+        np.testing.assert_array_equal(np.asarray(jh), want_h[q])
+        np.testing.assert_allclose(np.asarray(js), want_s[q], rtol=RTOL,
+                                   atol=ATOL)

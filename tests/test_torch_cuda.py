@@ -101,6 +101,33 @@ def test_score_text_clause_kernel_equals_plain(card, bsz):
     assert torch.equal(ks, ps)
 
 
+@pytest.mark.parametrize("case", ["three_chunks", "keep", "dp_off_chunk",
+                                  "many_blocks"])
+def test_score_text_clause_edge_shapes(gpu, case):
+    """K2 on tests/text_clause_mirror.py's edge shapes (a block spanning
+    three chunks, a doc every term lists, QB off 128 with padding lanes, a
+    keep mask, Dp off the chunk, a chunk listing 1,100 blocks): bit for
+    bit with the plain version, one launch a call."""
+    from text_clause_mirror import edge_case
+    d_pad, (post_docs, post_tf, norms, lt), blk, keep = edge_case(case)
+    seg = {"post_docs": post_docs, "post_tf": post_tf, "norms": norms,
+           "length_table": lt, "live": np.ones(d_pad, bool),
+           "root": np.ones(d_pad, bool)}
+    seg = {k: torch.from_numpy(v).to(gpu) for k, v in seg.items()}
+    tblk = {k: torch.from_numpy(v).to(gpu) for k, v in blk.items()}
+    tkeep = None if keep is None else torch.from_numpy(keep).to(gpu)
+    name = "score_text_clause" if keep is None else "score_text_clause_keep"
+    before = _build.LAUNCHES[name]
+    ks, kh = bm25.score_text_clause(seg, tblk, block_keep=tkeep)
+    assert _build.LAUNCHES[name] == before + 1
+    if keep is not None:
+        tblk = dict(tblk, ids=torch.where(tkeep, tblk["ids"], -1))
+    ps, ph = bm25.score_text_clause_plain(seg, tblk)
+    torch.cuda.synchronize()
+    assert torch.equal(kh, ph)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+
+
 @pytest.mark.parametrize("k", [0, 10, 1000])
 def test_masked_topk_kernel_equals_plain(card, k):
     _m, _s, _t, arrays, meta = card
@@ -540,6 +567,64 @@ def test_maxsim_pq_kernels_equal_plain(gpu, t_bucket, dims, tq, bsz):
     torch.cuda.synchronize()
     assert torch.equal(lut.view(torch.int32), want_lut.view(torch.int32))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# (T, dims, M, Tq, B) for K11's query-token groups (ops/maxsim.py
+# pq_group): odd M = dims with Tq past 32 (G 8: groups of 8 and one of 1),
+# Tq off the group, T off 32, M = dims = 128 (G 1), B = 33 at the MaxSim
+# cell's M = 32 (G 4), and M = 24 (G 8, a 192 KiB table)
+PQ_GROUP_SHAPES = [(16, 9, 9, 33, 2), (40, 12, 3, 6, 3),
+                   (24, 128, 128, 5, 2), (128, 128, 32, 32, 33),
+                   (48, 96, 24, 17, 4)]
+
+
+@pytest.mark.parametrize("t_bucket,dims,m,tq,bsz", PQ_GROUP_SHAPES)
+def test_maxsim_pq_group_shapes(gpu, t_bucket, dims, m, tq, bsz):
+    """K11's scorer bit for bit with its plain version, one launch a call,
+    zero-token docs and padded query lanes included."""
+    from opensearch_tpu_torch.ops import maxsim
+    _tokens, count, query, qmask = _maxsim_data(700, t_bucket, dims, bsz,
+                                                tq, t_bucket + m)
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    codebook = torch.randn(m, 256, dims // m, generator=gen, device="cuda")
+    codes = torch.randint(0, 256, (700, t_bucket, m), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    lut = maxsim.pq_lut(codebook, query)
+    before = _build.LAUNCHES["maxsim_pq"]
+    got = maxsim.pq_maxsim_from_lut(codes, lut, count, qmask)
+    assert _build.LAUNCHES["maxsim_pq"] == before + 1
+    want = maxsim.pq_maxsim_from_lut_plain(codes, lut, count, qmask)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[:, count == 0] == 0).all())
+
+
+def test_maxsim_pq_refuses_a_group_not_its_own(gpu, monkeypatch):
+    """The scorer checks the wrapper's query-token group against its own
+    rule (maxsim_pq.cu group_for), so the two cannot drift apart
+    silently: a group of 8 at M = 32 (a 256 KiB table) raises."""
+    from opensearch_tpu_torch.ops import maxsim
+    monkeypatch.setattr(maxsim, "pq_group", lambda m, tq: 8)
+    codes = torch.zeros(8, 4, 32, dtype=torch.uint8, device="cuda")
+    lut = torch.zeros(1, 32, 32, 256, device="cuda")
+    with pytest.raises(_build.KernelError):
+        maxsim.pq_maxsim_from_lut(
+            codes, lut, torch.ones(8, dtype=torch.int32, device="cuda"),
+            torch.ones(1, 32, device="cuda"))
+
+
+def test_maxsim_pq_refuses_a_table_past_shared_memory(gpu):
+    """M = 230 needs 235,520 bytes of table for one query token: the
+    wrapper raises, it does not drop to the plain version."""
+    from opensearch_tpu_torch.ops import maxsim
+    codes = torch.zeros(8, 4, 230, dtype=torch.uint8, device="cuda")
+    lut = torch.zeros(1, 2, 230, 256, device="cuda")
+    before = _build.LAUNCHES["maxsim_pq"]
+    with pytest.raises(ValueError):
+        maxsim.pq_maxsim_from_lut(
+            codes, lut, torch.ones(8, dtype=torch.int32, device="cuda"),
+            torch.ones(1, 2, device="cuda"))
+    assert _build.LAUNCHES["maxsim_pq"] == before
 
 
 @pytest.mark.parametrize("bsz", [1, 33])

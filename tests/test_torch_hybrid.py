@@ -16,7 +16,38 @@ normalized score grows without bound, its absolute error does not. The
 reference is held at its single-search path: its batched hybrid pages
 differ from its own single pages by an ulp (its vmapped dot sums in
 another order). The port's batched pages equal its single pages bit for
-bit."""
+bit.
+
+The bound that the sub-query contracts imply (held on the 40
+`hyb_corpus` queries x every normalization / combination pair by
+`test_hyb_corpus_scores_hold_the_derived_bound`; `derived_bound` computes
+it). A sub-query's raw scores are held to a contract |s' - s| <= a + r|s|:
+the k-NN contract (rtol = atol = 1e-5: exact-l2 scores cancel in
+`dn - 2 dots + qn` and differ by up to ~8e-6) for a knn sub-query,
+SCORE_RTOL (atol 0) for a text one. Over a window of c scores in [mn, mx]
+every raw error is at most eps = a + r max(|mn|, |mx|).
+
+- min_max, n = (s - mn) / R with R = mx - mn: the port's n' - n =
+  (ds - (1 - n) dmn - n dmx) / R', so |n' - n| <= eta = 2 eps / (R - 2 eps)
+  (unbounded, 1, when R <= 2 eps); where n <= eta + 0.001 the 0.001 floor
+  of an exact 0 may land on one side only, and eta grows by 0.001. A
+  sub-score that both packages hold at the floor (the window's least raw
+  score on both sides) has no error: eta = 0.
+- l2, n = s / N with N = sqrt(ssq): |N' - N| <= dN = sqrt(c) eps + N (c + 1)
+  2^-24 (the raw errors, then each package's f32 sum of c squares), so
+  |n' - n| <= eta = (eps + n dN) / (N - dN).
+- arithmetic_mean, S = sum_i w_i n_i / sum w: |S' - S| <= sum_i w_i eta_i /
+  sum w over the sub-queries that list the doc.
+- geometric_mean, ln S = sum_P w_i ln n_i / W over the positive n_i:
+  |ln n' - ln n| <= eta / (n - eta), so |S' - S| <= S (e^L - 1) with L =
+  sum_P w_i eta_i / ((n_i - eta_i) W) (unbounded where some n_i <= eta_i).
+- harmonic_mean, S = W / H with H = sum_P w_i / n_i: |H' - H| <= dH =
+  sum_P w_i eta_i / (n_i (n_i - eta_i)), so |S' - S| <= W dH / (H (H - dH)).
+
+Weights absent are ones. Every combined score lies in [0, 1], so an
+unbounded term caps the bound at 1; the test asserts that no hit's bound
+is that vacuous 1 (without the floor rule, the docs at min_max's floor
+under the geometric and harmonic means would be)."""
 
 import math
 
@@ -36,7 +67,8 @@ from opensearch_tpu_torch.search import executor as texecutor
 from opensearch_tpu_torch.searchpipeline import hybrid as thyb
 
 from reference_impl import ref_hybrid_scores
-from test_torch_common import (assert_same_response, bulk_ndjson,
+from test_torch_common import (SCORE_RTOL, assert_same_response, bulk_ndjson,
+                               hyb_corpus, hybrid_body, load_hyb_index,
                                msearch_ndjson)
 
 RTOL = 1e-5
@@ -455,3 +487,154 @@ def test_fused_row_equals_the_references():
         assert abs(float(got[off + 2 * k + 3]) - ssq) <= \
             (k * 2.0 ** -24 + 2e-6) * ssq
     assert got[-1:].view(np.int32)[0] == want[-1:].view(np.int32)[0]
+
+
+# ------------------------------------- the derived bound on the hyb corpus
+
+KNN_CONTRACT = (1e-5, 1e-5)      # (atol, rtol) of a knn sub-score
+TEXT_CONTRACT = (0.0, SCORE_RTOL)  # (atol, rtol) of a BM25 sub-score
+TECHNIQUES = [(n, c) for n in ("min_max", "l2")
+              for c in ("arithmetic_mean", "geometric_mean",
+                        "harmonic_mean")]
+HYB_WEIGHTS = [0.3, 0.7]
+
+
+def normalized_bound(n, bounds, technique, contract):
+    """eta: how far the port's normalized score may lie from the
+    reference's n, for a sub-query whose raw scores keep `contract`
+    (atol, rtol) over a window with the reference's `bounds` (min, max,
+    sum of squares, count). See the module docstring."""
+    mn, mx, ssq, count = bounds
+    atol, rtol = contract
+    eps = atol + rtol * max(abs(mn), abs(mx))
+    if technique == "min_max":
+        rng = mx - mn
+        if rng <= 2 * eps:
+            return 1.0
+        eta = 2 * eps / (rng - 2 * eps)
+        return eta + 0.001 if n <= eta + 0.001 else eta
+    norm = math.sqrt(ssq)
+    d_norm = math.sqrt(count) * eps + norm * (count + 1) * 2.0 ** -24
+    if norm <= d_norm:
+        return 1.0
+    return (eps + n * d_norm) / (norm - d_norm)
+
+
+def derived_bound(subs, etas, weights, technique, combined):
+    """The bound on |S' - S| of one hit, from the reference's normalized
+    sub-scores `subs` (None where the sub-query does not list the doc),
+    their `etas`, the weights and the reference's combined score."""
+    ws = weights if weights is not None else [1.0] * len(subs)
+    live = [(w, n, e) for w, n, e in zip(ws, subs, etas) if n is not None]
+    if technique == "arithmetic_mean":
+        return sum(w * e for w, _n, e in live) / sum(ws)
+    pos = [(w, n, e) for w, n, e in live if n > 0]
+    if not pos:
+        return 0.0
+    if any(n <= e for _w, n, e in pos):
+        return 1.0
+    total_w = sum(w for w, _n, _e in pos)
+    if technique == "geometric_mean":
+        spread = sum(w * e / (n - e) for w, n, e in pos) / total_w
+        return min(1.0, combined * math.expm1(spread))
+    h = sum(w / n for w, n, _e in pos)
+    d_h = sum(w * e / (n * (n - e)) for w, n, e in pos)
+    if d_h >= h:
+        return 1.0
+    return min(1.0, total_w * d_h / (h * (h - d_h)))
+
+
+@pytest.fixture(scope="module")
+def hyb_nodes():
+    jn, tn = JNode(), TNode(device="cpu")
+    for node in (jn, tn):
+        load_hyb_index(node)
+        for norm, comb in TECHNIQUES:
+            assert node.request("PUT", f"/_search/pipeline/{norm}_{comb}", {
+                "phase_results_processors": [{"normalization-processor": {
+                    "normalization": {"technique": norm},
+                    "combination": {"technique": comb, "parameters": {
+                        "weights": HYB_WEIGHTS}}}}]})["_status"] == 200
+    return jn, tn
+
+
+def hit_bound(subs, port_subs, weights, bounds, technique, combined):
+    """The derived bound of one hit, from the reference's normalized
+    sub-scores `subs` and the port's `port_subs` of the same doc: a
+    sub-query that both packages hold at min_max's floor (MIN_SCORE, the
+    window's least raw score) carries no error, every other one its eta."""
+    norm, comb = technique
+    etas = []
+    for n, p, b, c in zip(subs, port_subs, bounds,
+                          (TEXT_CONTRACT, KNN_CONTRACT)):
+        if n is None:
+            etas.append(None)
+        elif norm == "min_max" and n == p == jhyb.MIN_SCORE:
+            etas.append(0.0)
+        else:
+            etas.append(normalized_bound(n, b, norm, c))
+    return derived_bound(subs, etas, weights, comb, combined)
+
+
+@pytest.mark.parametrize("technique", TECHNIQUES,
+                         ids=[f"{n}-{c}" for n, c in TECHNIQUES])
+@pytest.mark.parametrize("qi", range(40))
+def test_hyb_corpus_scores_hold_the_derived_bound(hyb_nodes, monkeypatch,
+                                                  technique, qi):
+    """Each of the 40 hyb_corpus queries (match + exact-l2 knn) under each
+    technique pair: ids, order and totals exactly, every `_score` within
+    the bound the sub-query contracts imply through the normalization and
+    combination (the module docstring), computed from the reference's own
+    window bounds and both packages' normalized sub-scores of the doc. No
+    hit's bound is the vacuous 1: a sub-score at min_max's floor is held
+    to the floor on both sides, and the rest of the combined score to its
+    bound."""
+    jn, tn = hyb_nodes
+    norm, comb = technique
+    text, vec = hyb_corpus()[1][qi]
+    # a page of 60 of the window's candidates: min_max's floor docs reach it
+    body = hybrid_body(text, vec, k=10 + 5 * (qi % 3), size=60)
+    calls = {"bounds": [], "want": [], "got": []}
+
+    def recorder(module, side):
+        real_norm, real_comb = module.normalize_scores, module.combine_scores
+
+        def record_norm(values, bounds, tech):
+            if side == "want":
+                calls["bounds"].append(bounds)
+            return real_norm(values, bounds, tech)
+
+        def record_comb(scores, weights, tech):
+            out = real_comb(scores, weights, tech)
+            calls[side].append((out, list(scores), weights))
+            return out
+        monkeypatch.setattr(module, "normalize_scores", record_norm)
+        monkeypatch.setattr(module, "combine_scores", record_comb)
+
+    pipeline = f"{norm}_{comb}"
+    recorder(jhyb, "want")
+    want = jn.request("POST", "/hyb/_search", body, search_pipeline=pipeline)
+    recorder(thyb, "got")
+    got = tn.request("POST", "/hyb/_search", body, search_pipeline=pipeline)
+    monkeypatch.undo()
+    assert want["_status"] == got["_status"] == 200
+    assert want["hits"]["hits"], want
+    assert got["hits"]["total"] == want["hits"]["total"]
+    assert [h["_id"] for h in got["hits"]["hits"]] == \
+        [h["_id"] for h in want["hits"]["hits"]]
+    assert len(calls["bounds"]) == 2
+    for g, w in zip(got["hits"]["hits"], want["hits"]["hits"]):
+        # a doc's sub-scores, found by its combined score on each side
+        # and listed by the same sub-queries on both (docs of equal
+        # scores: every such pairing, the widest bound)
+        pairs = [(out, subs, p, weights)
+                 for out, subs, weights in calls["want"]
+                 if out == w["_score"]
+                 for p_out, p, _w in calls["got"] if p_out == g["_score"]
+                 and [n is None for n in p] == [n is None for n in subs]]
+        assert pairs, (w["_id"], g["_score"], w["_score"])
+        bound = max(hit_bound(subs, p, weights, calls["bounds"], technique,
+                              out) for out, subs, p, weights in pairs)
+        assert bound < 1.0, (w["_id"], bound)
+        assert abs(g["_score"] - w["_score"]) <= bound * (1 + 1e-9), (
+            w["_id"], g["_score"], w["_score"], bound)

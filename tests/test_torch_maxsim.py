@@ -37,6 +37,7 @@ from opensearch_tpu_torch.ops import maxsim as tmaxsim
 from opensearch_tpu_torch.search.executor import SearchExecutor as TExecutor
 from opensearch_tpu_torch.search.executor import ShardReader as TReader
 
+from maxsim_pq_mirror import pq_scores_mirror
 from test_torch_common import (assert_same_response, bulk_ndjson,
                                msearch_ndjson, segment_arrays)
 
@@ -126,6 +127,67 @@ def test_pq_lut_and_scores_equal_the_reference(t_bucket, dims, tq, n_real):
         tokens.shape)
     bound = _abs_bound(decoded, count, query, qmask)
     assert (np.abs(got - want) <= 1e-6 * np.abs(want) + bound).all()
+
+
+# (T, dims, M, Tq, B): tests/test_torch_cuda.py's MAXSIM_SHAPES with the
+# mapping's M, then odd M = dims with Tq past 32, Tq off the group (6 with
+# G = 8), T off 32, and M = dims = 128 (one query token a group)
+PQ_SCHEDULE_SHAPES = [(8, 37, 37, 4, 1), (128, 128, 32, 32, 33),
+                      (16, 64, 16, 8, 5), (128, 13, 13, 32, 1),
+                      (16, 9, 9, 33, 2), (40, 12, 3, 6, 3),
+                      (24, 128, 128, 5, 2)]
+
+
+@pytest.mark.parametrize("t_bucket,dims,m,tq,bsz", PQ_SCHEDULE_SHAPES)
+def test_pq_schedule_mirror_equals_plain_and_reference(t_bucket, dims, m,
+                                                       tq, bsz):
+    """K11's schedule (tests/maxsim_pq_mirror.py: query-token groups of
+    pq_group(M, Tq), tables [M, 256, G], sums in m order, totals in t
+    order) equals the plain scorer bit for bit, and the reference within
+    the module's contract, with zero-token docs and padded query lanes."""
+    n_docs = 50
+    tokens, count, query, qmask = _op_data(n_docs, t_bucket, dims, bsz, tq,
+                                           tq - tq // 4, seed=dims + tq)
+    codebook = _codebook(dims, m, seed=m)
+    codes = np.random.RandomState(m + 7).randint(
+        0, 256, (n_docs, t_bucket, m)).astype(np.uint8)
+    lut = tmaxsim.pq_lut_plain(torch.from_numpy(codebook),
+                               torch.from_numpy(query))
+    g = tmaxsim.pq_group(m, tq)
+    got = pq_scores_mirror(codes, lut.numpy(), count, qmask, g)
+    plain = tmaxsim.pq_maxsim_from_lut_plain(
+        torch.from_numpy(codes), lut, torch.from_numpy(count),
+        torch.from_numpy(qmask)).numpy()
+    assert np.array_equal(got.view(np.int32), plain.view(np.int32))
+    assert (got[:, count == 0] == 0).all()
+    want = np.stack([np.asarray(jmaxsim.pq_maxsim_scores(
+        jnp.asarray(codes), jnp.asarray(codebook), jnp.asarray(count),
+        jnp.asarray(q), jnp.asarray(mk))) for q, mk in zip(query, qmask)])
+    decoded = tmaxsim.decode_pq(codes.reshape(-1, m), codebook).reshape(
+        n_docs, t_bucket, dims)
+    bound = _abs_bound(decoded, count, query, qmask)
+    assert (np.abs(got - want) <= 1e-6 * np.abs(want) + bound).all()
+
+
+def test_pq_group_is_the_kernels():
+    """The wrapper picks K11's query-token group with the shared-memory
+    sizes that maxsim_pq.cu builds with (the kernel refuses any other
+    group): the same limit, the same totals, G = 4 at the MaxSim cell's
+    M = 32."""
+    import re
+    from pathlib import Path
+    src = (Path(tmaxsim.__file__).parent / "csrc"
+           / "maxsim_pq.cu").read_text()
+
+    def const(name):
+        return re.findall(rf"constexpr int {name} = (.+?);", src)
+    assert const("SMEM_LIMIT") == [str(tmaxsim._SMEM_LIMIT)]
+    assert const("TOTALS_BYTES") == ["PQ_DOCS * 8 + 16"]
+    docs = int(const("PQ_DOCS")[0].split()[0])
+    assert tmaxsim._PQ_TOTALS_BYTES == docs * 8 + 16
+    assert [tmaxsim.pq_group(m, tq) for m, tq in
+            ((32, 32), (24, 32), (9, 33), (128, 5), (3, 6), (32, 1),
+             (32, 2), (12, 3))] == [4, 8, 8, 1, 8, 1, 2, 4]
 
 
 def test_scores_do_not_depend_on_the_batch():

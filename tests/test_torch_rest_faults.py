@@ -16,6 +16,9 @@ and compares the responses with `assert_same_response`.
    failed a partial page (or 503 "Partial shards failure" when partial
    results are refused), and a raising multi-shard program falls back to
    the per-shard host loop.
+5. A mapping type that neither package maps answers the reference's 400
+   reason byte for byte; a type that only the reference maps keeps that
+   reason with the port's suffix.
 """
 
 import json
@@ -369,3 +372,41 @@ def test_raising_multi_shard_program_takes_the_host_loop(nodes,
     assert_same_response(got, want, "fallback")
     assert got["_shards"]["failed"] == 0
     assert tspmd.HOST_FALLBACKS[0] == f0 + 1
+
+
+# ------------------------------------------------- 5. unknown mapping types
+
+UNKNOWN_TYPE_FIELDS = {
+    "top": {"x": {"type": "nope"}},
+    "under_object": {"a": {"properties": {"x": {"type": "nope"}}}},
+    "under_nested": {"a": {"type": "nested",
+                           "properties": {"x": {"type": "what_type"}}}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNKNOWN_TYPE_FIELDS))
+def test_type_neither_package_maps_answers_the_references_reason(nodes,
+                                                                 case):
+    jn, tn = nodes
+    body = {"mappings": {"properties": UNKNOWN_TYPE_FIELDS[case]}}
+    got = _same(jn, tn, "PUT", f"/unknown_{case}", body, status=400)
+    assert got["error"]["type"] == "mapper_parsing_exception"
+    assert got["error"]["reason"] == (
+        f"No handler for type [{'what_type' if case == 'under_nested' else 'nope'}]"
+        f" declared on field [x]")
+
+
+@pytest.mark.parametrize("ftype", ["ip", "scaled_float", "geo_shape",
+                                   "ip_range", "wildcard", "date_nanos"])
+def test_type_only_the_reference_maps_keeps_the_ports_suffix(nodes, ftype):
+    jn, tn = nodes
+    body = {"mappings": {"properties": {"x": {"type": ftype}}}}
+    want = jn.request("PUT", f"/only_ref_{ftype}", body)
+    got = tn.request("PUT", f"/only_ref_{ftype}", body)
+    assert want["_status"] == 200, want
+    assert got["_status"] == 400, got
+    reason = got["error"]["reason"]
+    assert got["error"]["type"] == "mapper_parsing_exception"
+    assert reason.startswith(
+        f"No handler for type [{ftype}] declared on field [x]: "
+        f"opensearch_tpu_torch maps only "), reason
