@@ -133,7 +133,8 @@ in the three spaces, at B=1 and 8 in l2 and at B=32 x 2^20 x 768 (random
 rows) in l2, with each shape's contract floor (2 B Dp dims FP32
 instructions at the card's top SM clock) beside its bound, and K8
 ivf_probe (with its block ranking launch) and K9 kmeans_step at phase 7's
-shapes, on the whole GloVe-shaped corpus,
+shapes, on the whole GloVe-shaped corpus (K9 with its contract floor, 2 n
+nlist dims FP32 instructions),
 against their plain versions bit for bit (K7 and K8 at B=32; K9 in each
 of the seal's 10 steps, whose means also lie within n * 2^-24 * sum|x|
 of the f64 means), and phase 7 seals those very centroids again. Phase 3 adds a
@@ -143,7 +144,8 @@ runs K9.
 
 Phase 2 also holds K10 maxsim_exact and K11 (pq_lut and maxsim_pq) at
 phase 8's shapes (bit for bit on the first 16,384 docs at B=4 and on the
-whole corpus at B=1; timed at B=1 and B=32; K11's codes uniform random u8
+whole corpus at B=1; timed at B=1 and B=32, K10 with its contract floor,
+2 B Tq dims FP32 instructions a real token; K11's codes uniform random u8
 [Dp, 128, 32] against a codebook trained by the port's train_pq on a
 20,000-token sample of the corpus; K11's scorer records carry its lookup
 floor, one 4-byte shared-memory read per (doc token, query token,
@@ -263,8 +265,12 @@ their own, each with the device ms of each kernel of a call, K23's and
 K24's with their scratch bytes; textpq: phase 2's records of K2 (B=1,
 B=32 and its keep entry on the block-max batches, with its scratch
 bytes) and of K11's scorer (the B=4 slice, B=1 and B=32, with its lookup
-floor), each with the device ms of each kernel of a call), one JSON line
-each, so that one card compares two checkouts cell by cell.
+floor), each with the device ms of each kernel of a call; kmeansmaxsim:
+phase 2's records of K9 (the seal's first step on the GloVe-shaped
+corpus, its 10 steps held to the plain version) and of K10 (the B=4
+slice, B=1 and B=32), each with its contract floor and the device ms of
+each kernel of a call), one JSON line each, so that one card compares
+two checkouts cell by cell.
 
 Each record of K3's three entries also prints `full_reads`: per row, the
 passes of their radix select that read the whole input (2, unless a bin
@@ -841,6 +847,28 @@ def phase_textpq_cell(torch, np, dev) -> dict:
     torch.cuda.empty_cache()
     keys = ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
             "lookup_floor_ms", "peak_scratch_bytes", "passes")
+    return {name: [{k: r[k] for k in keys if k in r} for r in recs]
+            for name, recs in results.items()}
+
+
+def phase_kmeansmaxsim_cell(torch, np, dev) -> dict:
+    """K9's and K10's records alone, at phase 2's shapes and on its
+    corpora: K9 on the GloVe-shaped corpus (nlist 256, the seal's first
+    step, then its 10 steps held to the plain version) with its launches'
+    device ms (`split_ms`, `passes`); K10 on the MaxSim corpus, the B=4
+    slice, B=1 and B=32, each with `passes`. Every record carries its
+    contract floor: one script's records on two checkouts compare the
+    kernels on one card."""
+    results = {}
+    results.update(phase_knn_kernels(torch, np,
+                                     knn_corpora(np, names=("glove",)), dev,
+                                     parts=("k9",), passes=True))
+    torch.cuda.empty_cache()
+    results.update(phase_maxsim_kernels(
+        torch, np, maxsim_corpus(torch, np, dev), None, dev, k10_only=True))
+    torch.cuda.empty_cache()
+    keys = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+            "contract_floor_ms", "max_abs_err", "split_ms", "passes")
     return {name: [{k: r[k] for k in keys if k in r} for r in recs]
             for name, recs in results.items()}
 
@@ -2086,13 +2114,17 @@ def knn_corpora(np, names=("sift", "glove")):
     return out
 
 
-def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
+def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32,
+                      parts=("k7", "k9", "k8"), passes: bool = False):
     """K7-K9 against their plain versions: K7 on B queries x the SIFT-shaped
     corpus padded to Dp = 2^20 in the three spaces (and B=1 and 8 in l2;
     B at 768 random dims in l2), its top-k mark after K3; K9's 10 seal
     steps, K8's block ranking and K8 at B queries on the whole
     GloVe-shaped corpus (cosine, nlist 256, nprobes 32), as the IVF cell
-    runs them. Leaves the sealed IVFIndex in corpora["glove_ivf"]."""
+    runs them. Leaves the sealed IVFIndex in corpora["glove_ivf"] (with
+    "k8" in `parts`). K7's and K9's records carry the bit-equality
+    contract's floor (`contract_floor_ms`); with `passes`, K9's record
+    also each kernel's device ms a call."""
     from opensearch_tpu_torch.index.segment import pad_bucket
     from opensearch_tpu_torch.ops import knn, topk
     results = {}
@@ -2120,62 +2152,68 @@ def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
                 raise AssertionError("kernel and plain version differ")
         return 0.0
 
-    # K7 on the SIFT-shaped corpus, zero rows past the 1M docs
-    vecs, queries = corpora["sift"]
-    n, dims = vecs.shape
-    d_pad = pad_bucket(n)
-    vectors = torch.zeros(d_pad, dims, device=dev)
-    vectors[:n] = torch.from_numpy(vecs).to(dev)
-    q32 = torch.from_numpy(queries[:bsz]).to(dev)
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
     sm_mhz = max_sm_clock_mhz()
+    if "k7" in parts:
+        # K7 on the SIFT-shaped corpus, zero rows past the 1M docs
+        vecs, queries = corpora["sift"]
+        n, dims = vecs.shape
+        d_pad = pad_bucket(n)
+        vectors = torch.zeros(d_pad, dims, device=dev)
+        vectors[:n] = torch.from_numpy(vecs).to(dev)
+        q32 = torch.from_numpy(queries[:bsz]).to(dev)
+        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
 
-    def k7(column, q, space):
-        b, width = q.shape[0], column.shape[1]
-        rec = record(
-            "knn_exact", f"B={b} Dp={d_pad} dims={width} {space}",
-            lambda: (knn.exact_knn_scores(column, q, space),),
-            lambda: (knn.exact_knn_scores_plain(column, q, space),),
-            lambda: torch.matmul(q, column.t()),
-            4 * d_pad * width + 4 * b * width + 4 * b * d_pad,
-            2 * b * d_pad * width + 2 * d_pad * width, same_bits)
-        # the bit-equality contract's floor: every multiply and add its own
-        # FP32 instruction, 132 SMs x 128 lanes at the card's top SM clock
-        # (beside the table's bound, which counts f32 operations at 67
-        # TFLOP/s)
-        rec["contract_floor_ms"] = None if sm_mhz is None else \
-            2 * b * d_pad * width / (132 * 128 * sm_mhz * 1e6) * 1e3
-        log(f"knn_exact B={b} dims={width} {space}: contract floor "
-            f"{rec['contract_floor_ms']} ms (2 B Dp dims FP32 instructions "
-            f"at {sm_mhz} MHz), bound {rec['bound_ms']:.4f} ms, kernel "
-            f"{rec['ms']:.4f} ms")
-    for space, q in (("l2", q32), ("cosinesimil", q32),
-                     ("innerproduct", q32), ("l2", q32[:1].contiguous()),
-                     ("l2", q32[:8].contiguous())):
-        k7(vectors, q, space)
-    # B=32 at the hybrid cell's 768 dims over Dp = 2^20 random rows
-    gen = torch.Generator(device=dev).manual_seed(7)
-    wide = torch.randn(d_pad, HYBRID_DIMS, generator=gen, device=dev)
-    k7(wide, torch.randn(bsz, HYBRID_DIMS, generator=gen, device=dev), "l2")
-    del wide
-    torch.cuda.empty_cache()
-    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        def k7(column, q, space):
+            b, width = q.shape[0], column.shape[1]
+            rec = record(
+                "knn_exact", f"B={b} Dp={d_pad} dims={width} {space}",
+                lambda: (knn.exact_knn_scores(column, q, space),),
+                lambda: (knn.exact_knn_scores_plain(column, q, space),),
+                lambda: torch.matmul(q, column.t()),
+                4 * d_pad * width + 4 * b * width + 4 * b * d_pad,
+                2 * b * d_pad * width + 2 * d_pad * width, same_bits)
+            # the bit-equality contract's floor: every multiply and add
+            # its own FP32 instruction, 132 SMs x 128 lanes at the card's
+            # top SM clock (beside the table's bound, which counts f32
+            # operations at 67 TFLOP/s)
+            rec["contract_floor_ms"] = None if sm_mhz is None else \
+                2 * b * d_pad * width / (132 * 128 * sm_mhz * 1e6) * 1e3
+            log(f"knn_exact B={b} dims={width} {space}: contract floor "
+                f"{rec['contract_floor_ms']} ms (2 B Dp dims FP32 "
+                f"instructions at {sm_mhz} MHz), bound "
+                f"{rec['bound_ms']:.4f} ms, kernel {rec['ms']:.4f} ms")
+        for space, q in (("l2", q32), ("cosinesimil", q32),
+                         ("innerproduct", q32), ("l2", q32[:1].contiguous()),
+                         ("l2", q32[:8].contiguous())):
+            k7(vectors, q, space)
+        # B=32 at the hybrid cell's 768 dims over Dp = 2^20 random rows
+        gen = torch.Generator(device=dev).manual_seed(7)
+        wide = torch.randn(d_pad, HYBRID_DIMS, generator=gen, device=dev)
+        k7(wide, torch.randn(bsz, HYBRID_DIMS, generator=gen, device=dev),
+           "l2")
+        del wide
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
-    # knn_topk_mark on K7's l2 scores after K3 (k = 10, eligible: the docs)
-    scores = knn.exact_knn_scores(vectors, q32, "l2")
-    live = torch.arange(d_pad, device=dev) < n
-    eligible = live[None, :].expand(bsz, d_pad).contiguous()
-    k = 10
-    packed = topk.masked_topk(scores, eligible, live, live, d_pad,
-                              torch.full((bsz,), float("-inf"), device=dev),
-                              k)
-    record("knn_topk_mark", f"B={bsz} Dp={d_pad} k={k}",
-           lambda: knn.knn_topk_mark(packed, scores, k),
-           lambda: knn.knn_topk_mark_plain(packed, scores, k),
-           None, 5 * bsz * d_pad + 4 * bsz * (2 * k + 1) + 4 * bsz * k, 0,
-           same_bits)
-    del scores, eligible, packed, vectors
+        # knn_topk_mark on K7's l2 scores after K3 (k = 10, eligible: the
+        # docs)
+        scores = knn.exact_knn_scores(vectors, q32, "l2")
+        live = torch.arange(d_pad, device=dev) < n
+        eligible = live[None, :].expand(bsz, d_pad).contiguous()
+        k = 10
+        packed = topk.masked_topk(
+            scores, eligible, live, live, d_pad,
+            torch.full((bsz,), float("-inf"), device=dev), k)
+        record("knn_topk_mark", f"B={bsz} Dp={d_pad} k={k}",
+               lambda: knn.knn_topk_mark(packed, scores, k),
+               lambda: knn.knn_topk_mark_plain(packed, scores, k),
+               None,
+               5 * bsz * d_pad + 4 * bsz * (2 * k + 1) + 4 * bsz * k, 0,
+               same_bits)
+        del scores, eligible, packed, vectors
+    if "k9" not in parts:
+        return results
 
     # K8 and K9 on the whole GloVe-shaped corpus, as the IVF cell runs
     # them: K9's 10 seal steps from the reference's initial centroids, then
@@ -2221,20 +2259,33 @@ def phase_knn_kernels(torch, np, corpora, dev, bsz: int = 32):
                                       lambda: knn.kmeans_step(data, init))
     log(f"kmeans_step device ms per call by launch: "
         f"{json.dumps(rec['split_ms'])}")
+    if passes:
+        rec["passes"] = launch_ms(torch, lambda: knn.kmeans_step(data, init),
+                                  by_name=True)
+    # the assignment's contract floor: 2 n nlist dims FP32 instructions
+    rec["contract_floor_ms"] = None if sm_mhz is None else \
+        2 * n * nlist * dims / (132 * 128 * sm_mhz * 1e6) * 1e3
+    log(f"kmeans_step: contract floor {rec['contract_floor_ms']} ms (2 n "
+        f"nlist dims FP32 instructions at {sm_mhz} MHz), bound "
+        f"{rec['bound_ms']:.4f} ms, kernel {rec['ms']:.4f} ms")
     cent, errs = init, []
     for _ in range(10):
         got = knn.kmeans_step(data, cent)
         errs.append(within_bound(got, knn.kmeans_step_plain(data, cent)))
         cent = got[0]
     rec["max_abs_err"] = max([rec["max_abs_err"], *errs])
+    log("kmeans_step: the seal's 10 steps equal the plain steps bit for "
+        "bit (means within the f64 bound)")
+    if "k8" not in parts:
+        del x, abs_x, data
+        torch.cuda.empty_cache()
+        return results
     ivf = knn.build_ivf(vecs, np.ones(n, bool), nlist=nlist, nprobe=32,
                         device=dev)
     if not np.array_equal(cent.cpu().numpy(), ivf.centroids):
         raise AssertionError("build_ivf's centroids are not the 10 checked "
                              "K9 steps'")
-    log(f"kmeans_step: the seal's 10 steps equal the plain steps bit for "
-        f"bit (means within the f64 bound); build_ivf sealed those "
-        f"centroids")
+    log("kmeans_step: build_ivf sealed those centroids")
     corpora["glove_ivf"] = ivf
     del x, abs_x, data
     packed_np, ids_np = knn.pack_ivf_lists(vecs, ivf.lists)
@@ -2733,14 +2784,15 @@ def pq_sample(np, mc):
 
 
 def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32,
-                         k11_only: bool = False):
+                         k11_only: bool = False, k10_only: bool = False):
     """K10 and K11 at the MaxSim cell's shapes, K12 and K3's threshold
-    entry at the serving shapes, each against its plain version. K11's
-    scorer records carry its lookup floor (`lookup_floor_ms`: one 4-byte
-    shared-memory read per (doc token, query token, sub-space), 32 a
-    cycle on each SM at the card's top SM clock). With `k11_only`, the
-    scorer's records alone, each with its kernels' device ms a call
-    (`passes`)."""
+    entry at the serving shapes, each against its plain version. K10's
+    records carry the bit-equality contract's floor (`contract_floor_ms`:
+    2 B Tq dims FP32 instructions a real token), K11's scorer records its
+    lookup floor (`lookup_floor_ms`: one 4-byte shared-memory read per
+    (doc token, query token, sub-space), 32 a cycle on each SM at the
+    card's top SM clock). With `k11_only` (`k10_only`), the scorer's (K10's)
+    records alone, each with its kernels' device ms a call (`passes`)."""
     from opensearch_tpu_torch.index.segment import pad_bucket
     from opensearch_tpu_torch.ops import hybrid, maxsim, topk
     results = {}
@@ -2809,27 +2861,49 @@ def phase_maxsim_kernels(torch, np, mc, codebook_np, dev, bsz: int = 32,
     # K10: bit for bit on the first MAXSIM_SLICE docs at B=4, then the
     # whole corpus at B=1 (with its plain version) and B=32
     sl = slice(0, MAXSIM_SLICE)
+
+    def k10_done(b, n_real, kern):
+        rec = results["maxsim_exact"][-1]
+        rec["contract_floor_ms"] = None if sm_mhz is None else \
+            2 * b * tq * n_real * dims / (n_sm * 128 * sm_mhz * 1e6) * 1e3
+        if k10_only:
+            rec["passes"] = launch_ms(torch, kern, by_name=True)
+        log(f"maxsim_exact B={b}: contract floor {rec['contract_floor_ms']}"
+            f" ms (2 B Tq dims FP32 instructions a real token at {sm_mhz} "
+            f"MHz), bound {rec['bound_ms']:.4f} ms, kernel "
+            f"{rec['ms']:.4f} ms")
+
     if not k11_only:
+        q4, qm4 = queries[:4].contiguous(), qmask[:4].contiguous()
+        n_sl = int(count[sl].sum().item())
+        kern = (lambda: (maxsim.exact_maxsim_scores(tokens[sl], count[sl],
+                                                    q4, qm4),))
         record("maxsim_exact", f"B=4 Dp={MAXSIM_SLICE} T={t_bucket} "
-               f"Tq={tq} dims={dims} (slice)",
-               lambda: (maxsim.exact_maxsim_scores(
-                   tokens[sl], count[sl], queries[:4].contiguous(),
-                   qmask[:4].contiguous()),),
+               f"Tq={tq} dims={dims} (slice)", kern,
                lambda: (maxsim.exact_maxsim_scores_plain(
-                   tokens[sl], count[sl], queries[:4].contiguous(),
-                   qmask[:4].contiguous()),), None, 0, 0, reps=5)
+                   tokens[sl], count[sl], q4, qm4),), None,
+               4 * n_sl * dims + 8 * MAXSIM_SLICE + 16 * tq * (dims + 1)
+               + 16 * MAXSIM_SLICE, 8 * tq * n_sl * dims, reps=5)
+        k10_done(4, n_sl, kern)
     for b in () if k11_only else (1, bsz):
         q, qm = queries[:b].contiguous(), qmask[:b].contiguous()
+
+        def kern(q=q, qm=qm):
+            return (maxsim.exact_maxsim_scores(tokens, count, q, qm),)
         record("maxsim_exact", f"B={b} Dp={d_pad} T={t_bucket} Tq={tq} "
-               f"dims={dims} ({real} real tokens)",
-               lambda q=q, qm=qm: (maxsim.exact_maxsim_scores(
-                   tokens, count, q, qm),),
+               f"dims={dims} ({real} real tokens)", kern,
                (lambda q=q, qm=qm: (maxsim.exact_maxsim_scores_plain(
                    tokens, count, q, qm),)) if b == 1 else None,
                lambda q=q, qm=qm, b=b: library(q, qm, d_pad if b == 1
                                                else 4096),
                4 * real * dims + 8 * d_pad + 4 * b * tq * (dims + 1)
                + 4 * b * d_pad, 2 * b * tq * real * dims, reps=5)
+        k10_done(b, real, kern)
+    if k10_only:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        del tokens, live_tok
+        torch.cuda.empty_cache()
+        return results
 
     # K11: uniform random codes [Dp, T, PQ_M] against the trained codebook
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -5886,7 +5960,7 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
 
 CELLS = ("scale", "knn", "maxsim", "hybrid", "sorted", "aggkinds",
          "relevance", "sharded", "nested", "geo", "ingest", "topk",
-         "binned", "textpq", "aggs")
+         "binned", "textpq", "kmeansmaxsim", "aggs")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -5947,6 +6021,9 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         elif cell == "textpq":
             mapper = seg = None
             res = phase_textpq_cell(torch, np, dev)
+        elif cell == "kmeansmaxsim":
+            mapper = seg = None
+            res = phase_kmeansmaxsim_cell(torch, np, dev)
         elif cell == "aggs":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_agg_scale(torch, np, mapper, seg, dev, out_dir)
@@ -5977,11 +6054,12 @@ def main(argv) -> int:
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
                              "4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16; knn "
-                             "is phase 6's exact cell; topk, binned and "
-                             "textpq phase 2's records of K3, of K5 / K6 / "
-                             "K23 / K24 and of K2 (both entries) / K11's "
-                             "scorer; aggs phase 5): one JSON line each, to "
-                             "compare two checkouts on one card")
+                             "is phase 6's exact cell; topk, binned, textpq "
+                             "and kmeansmaxsim phase 2's records of K3, of "
+                             "K5 / K6 / K23 / K24, of K2 (both entries) / "
+                             "K11's scorer and of K9 / K10; aggs phase 5): "
+                             "one JSON line each, to compare two checkouts "
+                             "on one card")
     args = parser.parse_args(argv)
     out_dir = args.out
     try:

@@ -62,35 +62,10 @@
 #include <cstdint>
 #include <math.h>
 
+#include "cp_async.cuh"
 #include "knn_score.cuh"
 
 namespace {
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int d) {
-  return d == 0 ? v.x : d == 1 ? v.y : d == 2 ? v.z : v.w;
-}
 
 constexpr int ROWS = 256;       // doc rows of a tile, and a CTA's threads
 constexpr int DC = 32;          // dims of a chunk: 128 bytes of a row

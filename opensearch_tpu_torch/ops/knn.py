@@ -47,9 +47,12 @@ _SPACE_CODE = {s: i for i, s in enumerate(SPACES)}
 # its candidate count is budget * IVF_BLOCK however imbalanced the clusters
 IVF_BLOCK = 256
 # K9's counting sort runs over tiles of KMEANS_TILE points, and its sums
-# over chunks of KMEANS_CHUNK members (kmeans_step.cu's TILE and CHUNK)
+# over chunks of KMEANS_CHUNK members (kmeans_step.cu's TILE and CHUNK);
+# its assignment reads the centroids transposed in blocks of KMEANS_BLOCK
+# (kmeans_step.cu's CB)
 KMEANS_TILE = 1024
 KMEANS_CHUNK = 256
+KMEANS_BLOCK = 256
 
 
 def _check_space(space: str):
@@ -420,7 +423,12 @@ def kmeans_step(data: torch.Tensor, centroids: torch.Tensor
             (centroids, torch.float32, (nlist, dims), "centroids")), dev)
     out = torch.empty(nlist, dims, dtype=torch.float32, device=dev)
     assign = torch.empty(n, dtype=torch.int32, device=dev)
-    cn = torch.empty(max(nlist, 1), dtype=torch.float32, device=dev)
+    # the norms and the centroids transposed, [ceil(nlist / KMEANS_BLOCK)]
+    # blocks of [dims rounded up to 4][KMEANS_BLOCK]
+    width = -(-nlist // KMEANS_BLOCK) * KMEANS_BLOCK
+    cn = torch.empty(max(width, 1), dtype=torch.float32, device=dev)
+    ct = torch.empty(max(width * (-(-dims // 4) * 4), 1), dtype=torch.float32,
+                     device=dev)
     # the CSR of points by centroid (per-tile counts; count, start and
     # chunk start per centroid; the point ids) and the chunks' sums
     hist = torch.empty(max(nlist * -(-n // KMEANS_TILE), 1),
@@ -430,11 +438,11 @@ def kmeans_step(data: torch.Tensor, centroids: torch.Tensor
     partial = torch.empty((-(-n // KMEANS_CHUNK) + nlist) * dims,
                           dtype=torch.float32, device=dev)
     fn = _build.entry("kmeans_step", [ctypes.c_void_p] * 2
-                      + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8)
+                      + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9)
     code = fn(_build.ptr(data), _build.ptr(centroids), n, nlist, dims,
-              _build.ptr(cn), _build.ptr(hist), _build.ptr(lists),
-              _build.ptr(order), _build.ptr(partial), _build.ptr(out),
-              _build.ptr(assign), _build.stream_of(dev))
+              _build.ptr(cn), _build.ptr(ct), _build.ptr(hist),
+              _build.ptr(lists), _build.ptr(order), _build.ptr(partial),
+              _build.ptr(out), _build.ptr(assign), _build.stream_of(dev))
     _build.LAUNCHES["kmeans_step"] += 1
     _build.check("kmeans_step", code)
     return out, assign

@@ -48,9 +48,11 @@ PQ_CODES = 256
 # the plain versions walk the docs in chunks whose [B, Tq, docs, T]
 # intermediates stay near this many elements
 _PLAIN_CHUNK_ELEMS = 1 << 26
-# K10 takes a doc's tokens as one CTA's threads; K11 keeps at least one
-# query token's [M, 256] table in shared memory
+# K10 takes token buckets up to MAX_T_BUCKET lanes and stages queries in
+# tiles of MAXSIM_QUERY_TILE tokens (maxsim_exact.cu's MAX_T and NQ); K11
+# keeps at least one query token's [M, 256] table in shared memory
 MAX_T_BUCKET = 1024
+MAXSIM_QUERY_TILE = 32
 _SMEM_LIMIT = 232448
 # K11's scorer: besides its table, a CTA's shared memory holds its docs'
 # totals and token counts and a counter (maxsim_pq.cu TOTALS_BYTES; the
@@ -135,11 +137,23 @@ def exact_maxsim_scores(tokens: torch.Tensor, token_count: torch.Tensor,
             (query, torch.float32, (bsz, tq, dims), "query"),
             (qmask, torch.float32, (bsz, tq), "qmask")), dev)
     out = torch.empty(bsz, d_pad, dtype=torch.float32, device=dev)
+    # the queries staged in tiles of MAXSIM_QUERY_TILE tokens, then the
+    # carried maxima of each CTA the kernel runs (it says how many)
+    ctas = ctypes.c_int(0)
+    _build.check("maxsim_exact", _build.entry(
+        "maxsim_exact_ctas", [ctypes.c_void_p],
+        lib="maxsim_exact")(ctypes.byref(ctas)))
+    tiles = bsz * -(-tq // MAXSIM_QUERY_TILE)
+    scratch = torch.empty(tiles * MAXSIM_QUERY_TILE
+                          * (-(-dims // 4) * 4 + 2 * ctas.value),
+                          dtype=torch.float32, device=dev)
     fn = _build.entry("maxsim_exact", [ctypes.c_void_p] * 4
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
+                      + [ctypes.c_void_p] * 2)
     code = fn(_build.ptr(tokens), _build.ptr(token_count), _build.ptr(query),
               _build.ptr(qmask), bsz, d_pad, t_bucket, tq, dims,
-              _build.ptr(out), _build.stream_of(dev))
+              _build.ptr(scratch), ctas.value, _build.ptr(out),
+              _build.stream_of(dev))
     _build.LAUNCHES["maxsim_exact"] += 1
     _build.check("maxsim_exact", code)
     return out

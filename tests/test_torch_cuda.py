@@ -449,12 +449,23 @@ def test_ivf_block_keys_kernel_equals_plain(gpu, bsz):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _flat_view(a: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of a, `offset` floats into a larger buffer."""
+    flat = torch.zeros(a.numel() + offset, dtype=a.dtype, device=a.device)
+    view = flat[offset:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 @pytest.mark.parametrize("n,nlist,dims", [(20000, 64, 100), (3000, 7, 33),
-                                          (5000, 1500, 8)])
+                                          (5000, 1500, 8), (3001, 600, 96),
+                                          (2049, 300, 1), (1999, 300, 37)])
 def test_kmeans_step_kernel_equals_plain(gpu, n, nlist, dims):
     """K9: assignments exactly, centroids within n * 2^-24 * sum|x| of the
     f64 means (both sides), the same bits on two runs, and an empty
-    cluster keeps its centroid."""
+    cluster keeps its centroid. nlist x dims past the resident centroids
+    (600 x 96: the streamed path over blocks of 256), n off the 96-point
+    tile, dims 1 and odd dims (4-byte copies)."""
     from opensearch_tpu_torch.ops import knn
     vecs, _qs = _knn_data(n, dims, 5)
     cent = vecs[torch.arange(nlist, device="cuda") * (n // nlist)].clone()
@@ -482,6 +493,47 @@ def test_kmeans_step_kernel_equals_plain(gpu, n, nlist, dims):
     bound = 2.0 ** -24 * abss[ok] + 2.0 ** -23 * exact.abs()
     for side in (got_c, want_c):
         assert bool(((side[ok].double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("nlist,dims,aligned", [(300, 12, True),
+                                                (700, 100, True),
+                                                (300, 12, False)])
+def test_kmeans_step_ties_and_infinite_distances(gpu, nlist, dims, aligned):
+    """K9 bit for bit with its plain version (one launch a call, the same
+    bits on two runs) where exact ties cross the kernel's lane, register
+    tile and block boundaries (duplicate centroids at 15 and 16, 0 and
+    nlist - 1, 63 and 64, 255 and 256), with points sitting on the tied
+    centroids; then with every centroid at 1e30 (|c|^2 overflows: every
+    distance +inf), where every point gets centroid 0. The data as a view
+    4 bytes past a 16-byte boundary takes the 4-byte copies."""
+    from opensearch_tpu_torch.ops import knn
+    n = 3000
+    vecs, _qs = _knn_data(n, dims, 9)
+    cent = vecs[torch.arange(nlist, device="cuda") * (n // nlist)].clone()
+    pairs = [(lo, hi) for lo, hi in ((15, 16), (0, nlist - 1), (63, 64),
+                                     (255, 256)) if hi < nlist]
+    for i, (lo, hi) in enumerate(pairs):
+        cent[hi] = cent[lo]
+        vecs[10 * i:10 * i + 10] = cent[lo]
+    if not aligned:
+        vecs = _flat_view(vecs, 1)
+        assert vecs.data_ptr() % 16 != 0 and vecs.is_contiguous()
+    far = torch.full_like(cent, 1e30)
+    for centroids in (cent, far):
+        before = _build.LAUNCHES["kmeans_step"]
+        got_c, got_a = knn.kmeans_step(vecs, centroids)
+        again_c, again_a = knn.kmeans_step(vecs, centroids)
+        assert _build.LAUNCHES["kmeans_step"] == before + 2
+        want_c, want_a = knn.kmeans_step_plain(vecs, centroids)
+        torch.cuda.synchronize()
+        assert torch.equal(got_a, want_a) and torch.equal(got_a, again_a)
+        assert torch.equal(got_c.view(torch.int32), want_c.view(torch.int32))
+        assert torch.equal(got_c.view(torch.int32), again_c.view(torch.int32))
+        if centroids is far:
+            assert bool((got_a == 0).all())
+        else:
+            for i, (lo, _hi) in enumerate(pairs):
+                assert bool((got_a[10 * i:10 * i + 10] == lo).all())
 
 
 # ------------------------------------- K3's threshold entry, MaxSim, hybrid
@@ -529,19 +581,39 @@ MAXSIM_SHAPES = [(8, 37, 4, 1), (128, 128, 32, 33), (16, 64, 8, 5),
                  (128, 13, 32, 1)]
 
 
-@pytest.mark.parametrize("t_bucket,dims,tq,bsz", MAXSIM_SHAPES)
+@pytest.mark.parametrize("t_bucket,dims,tq,bsz", MAXSIM_SHAPES + [
+    (1024, 16, 33, 2), (300, 32, 5, 3), (8, 16, 4, 1), (8, 32, 32, 1)])
 def test_maxsim_exact_kernel_equals_plain(gpu, t_bucket, dims, tq, bsz):
-    """K10 bit for bit: odd dims, T 8 and 128, Tq 4 and 32, B 1 and 33,
-    zero-token docs and padded query lanes."""
+    """K10 bit for bit, one launch a call, the same bits on two runs: odd
+    dims, T 8 to 1024 (docs across subtiles of 256 slots), Tq 4 to 33 (two
+    query tiles), B 1 to 33, docs of 0, 1, 31, 32, 33 and T tokens in the
+    first window of 32 docs, zero-token docs and padded query lanes; then
+    the query and the tokens as views 4 bytes past a 16-byte boundary. At
+    T = 8 with dims <= 32 and one query tile a window is a single item, so
+    a CTA opens a window while the one two back is still being finished;
+    40,000 docs give every resident CTA several windows."""
     from opensearch_tpu_torch.ops import maxsim
-    args = _maxsim_data(700, t_bucket, dims, bsz, tq, t_bucket + dims)
-    before = _build.LAUNCHES["maxsim_exact"]
-    got = maxsim.exact_maxsim_scores(*args)
-    assert _build.LAUNCHES["maxsim_exact"] == before + 1
-    want = maxsim.exact_maxsim_scores_plain(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert bool((got[:, args[1] == 0] == 0).all())
+    n_docs = 40_000 if t_bucket == 8 else 700
+    tokens, count, query, qmask = _maxsim_data(n_docs, t_bucket, dims, bsz,
+                                               tq, t_bucket + dims)
+    edge = torch.tensor([0, 1, 31, 32, 33, t_bucket], dtype=torch.int32,
+                        device="cuda").clamp(max=t_bucket)
+    count[1:7] = edge
+    lanes = torch.arange(t_bucket, device="cuda")[None, :]
+    tokens[lanes >= count[:, None]] = 0.0
+    for args in ((tokens, count, query, qmask),
+                 (tokens, count, _flat_view(query, 1), qmask),
+                 (_flat_view(tokens, 1), count, query, qmask)):
+        assert args[0].is_contiguous() and args[2].is_contiguous()
+        before = _build.LAUNCHES["maxsim_exact"]
+        got = maxsim.exact_maxsim_scores(*args)
+        assert _build.LAUNCHES["maxsim_exact"] == before + 1
+        again = maxsim.exact_maxsim_scores(*args)
+        want = maxsim.exact_maxsim_scores_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        assert bool((got[:, count == 0] == 0).all())
 
 
 @pytest.mark.parametrize("t_bucket,dims,tq,bsz", MAXSIM_SHAPES)

@@ -39,6 +39,7 @@ from opensearch_tpu_torch.search.executor import SearchExecutor as TExecutor
 from opensearch_tpu_torch.search.executor import ShardReader as TReader
 from opensearch_tpu_torch.utils.demo import clustered_vectors
 
+from kmeans_assign_mirror import lanes_assign, scan_assign
 from test_torch_common import (bulk_ndjson, msearch_ndjson,
                                segment_arrays)
 
@@ -675,6 +676,111 @@ def test_kmeans_step_keeps_empty_centroids_and_ties_low():
     new, assign = tknn.kmeans_step(data, cent)
     assert assign.tolist() == [0, 0, 0]
     assert torch.equal(new[2], cent[2]) and torch.equal(new[1], cent[1])
+
+
+def test_kmeans_step_ties_and_a_far_centroid_equal_the_reference():
+    """One step from initial centroids with exact duplicates at indices
+    (0, nlist - 1), (15, 16) and (63, 64) and one far centroid (a point at
+    1e18: |c|^2 near 1e37, every other distance to it far from the
+    minimum): the plain step's means equal the reference's within the f32
+    sum bound (the lower duplicate takes the tie, the upper one stays
+    empty and keeps its centroid), and its assignments are the f64
+    argmin, ties to the lowest index."""
+    nlist, far = 70, 40
+    vectors, _q = _ivf_corpus(n=900, seed=11)
+    idx = np.random.RandomState(17).choice(len(vectors), size=nlist,
+                                           replace=False)
+    for lo, hi in ((0, nlist - 1), (15, 16), (63, 64)):
+        vectors[idx[hi]] = vectors[idx[lo]]
+    vectors[idx[far]] = 1e18
+    init = vectors[idx]
+    new, assign = tknn.kmeans_step(torch.from_numpy(vectors),
+                                   torch.from_numpy(init))
+    j1 = np.asarray(jknn._kmeans(vectors, nlist, iters=1, seed=17))
+    x = vectors.astype(np.float64)
+    d2 = ((x[:, None, :] - init.astype(np.float64)[None]) ** 2).sum(axis=2)
+    want = np.argmin(d2, axis=1)
+    np.testing.assert_array_equal(assign.numpy(), want)
+    assert assign[idx[far]] == far and (want == far).sum() == 1
+    for lo, hi in ((0, nlist - 1), (15, 16), (63, 64)):
+        assert (want == lo).any() and not (want == hi).any()
+    # the assignment does not hang on rounding: distinct centroids differ
+    # by more than the f32 error of either side's distances
+    uniq = np.unique(init, axis=0, return_index=True)[1]
+    near = np.sort(d2[:, uniq], axis=1)[:, :2]
+    assert (near[:, 1] - near[:, 0] > 1e-3).all()
+    for k in range(nlist):
+        m = x[assign.numpy() == k]
+        if len(m) == 0:
+            assert np.array_equal(new.numpy()[k], init[k])
+            assert np.array_equal(j1[k], init[k])
+            continue
+        exact = m.mean(axis=0)
+        bound = 2.0 ** -24 * np.abs(m).sum(axis=0) + 2.0 ** -23 * np.abs(exact)
+        for side in (new.numpy()[k], j1[k]):
+            assert (np.abs(side - exact) <= bound).all(), k
+
+
+def _tie_distances(n, nlist, seed):
+    """f32 [n, nlist] distances with many exact ties (small integers), and
+    rows that tie across the kernel's lane, register-tile and block
+    boundaries, of +inf, of NaN and of -inf."""
+    rng = np.random.RandomState(seed)
+    dist = rng.randint(0, 6, (n, nlist)).astype(np.float32)
+    rows = [(15, 16), (0, nlist - 1), (3, 4), (63, 64), (255, 256),
+            (60, 124), (1, 257)]
+    for r, pair in enumerate(rows):
+        if max(pair) < nlist:
+            dist[r] = 9.0
+            dist[r, list(pair)] = 2.0
+    dist[8] = np.inf                            # none finite: centroid 0
+    dist[9] = np.inf
+    dist[9, nlist - 1] = 7.0                    # only the last finite
+    dist[10] = np.nan
+    dist[10, nlist // 2] = 3.0                  # NaN is never taken
+    dist[11, [5, nlist - 2]] = -np.inf          # the first -inf
+    dist[12] = np.nan                           # none taken: centroid 0
+    return dist
+
+
+def test_kmeans_constants_are_the_kernels():
+    """The wrapper's centroid block and the mirror's lane schedule are
+    kmeans_step.cu's: 16 lanes a point group, 4 points x 16 centroids a
+    lane, blocks of 256 centroids."""
+    import re
+    from pathlib import Path
+    import kmeans_assign_mirror as mirror
+    src = (Path(tknn.__file__).parent / "csrc" / "kmeans_step.cu"
+           ).read_text()
+
+    def const(name):
+        return re.findall(rf"constexpr int {name} = (\w+(?: \* \w+)?);",
+                          src)
+    assert const("RP") == [str(mirror.RP)] and const("RC") == ["16"]
+    assert const("CG") == [str(mirror.CG)] and const("CB") == ["CG * RC"]
+    assert mirror.CB == tknn.KMEANS_BLOCK == mirror.CG * 16
+    assert const("TILE") == [str(tknn.KMEANS_TILE)]
+    assert const("CHUNK") == [str(tknn.KMEANS_CHUNK)]
+
+
+@pytest.mark.parametrize("nlist", [17, 64, 256, 257, 600])
+def test_kmeans_assign_mirror_keeps_the_scan(nlist):
+    """K9's assignment schedule (tests/kmeans_assign_mirror.py: a
+    half-warp's 16 lanes over 4 rotated point slots and 16 centroids a
+    block each, scans with a strict <, then shuffle combines of (d, c))
+    equals the ascending scan with a strict <, and torch.argmin (the plain
+    version's) on every row without NaN: exact ties within a lane, across
+    lanes, register tiles and blocks of 256, a row of +inf, NaN rows, -inf,
+    and point counts off the 4-point group."""
+    dist = _tie_distances(41, nlist, seed=nlist)
+    got = lanes_assign(dist)
+    want = scan_assign(dist)
+    np.testing.assert_array_equal(got, want)
+    assert want[8] == 0 and want[9] == nlist - 1 and want[12] == 0
+    assert want[10] == nlist // 2 and want[11] == 5
+    clean = ~np.isnan(dist).any(axis=1)
+    np.testing.assert_array_equal(
+        want[clean], torch.argmin(torch.from_numpy(dist[clean]), 1).numpy())
 
 
 # ------------------------------------------------------------ the corpus

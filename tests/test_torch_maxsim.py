@@ -37,6 +37,7 @@ from opensearch_tpu_torch.ops import maxsim as tmaxsim
 from opensearch_tpu_torch.search.executor import SearchExecutor as TExecutor
 from opensearch_tpu_torch.search.executor import ShardReader as TReader
 
+from maxsim_exact_mirror import RS, ROWS, scores_mirror, window_plan
 from maxsim_pq_mirror import pq_scores_mirror
 from test_torch_common import (assert_same_response, bulk_ndjson,
                                msearch_ndjson, segment_arrays)
@@ -89,6 +90,115 @@ def test_exact_scores_equal_the_reference(t_bucket, dims, tq, n_real):
     assert (got[:, count == 0] == 0).all()
     bound = _abs_bound(tokens, count, query, qmask)
     assert (np.abs(got - want) <= 1e-6 * np.abs(want) + bound).all()
+
+
+def _edge_counts(count, t_bucket):
+    """Docs of 0, 1, 31, 32, 33 and T tokens inside the first window, and
+    counts past T and below 0 (clamped as the token mask clamps them)."""
+    edge = [0, 1, 31, 32, 33, t_bucket, t_bucket + 3, -2]
+    count = count.copy()
+    count[1:1 + len(edge)] = np.minimum(edge, t_bucket + 3)
+    return count
+
+
+# (T, dims, Tq, B, docs): tests/test_torch_cuda.py's MAXSIM_SHAPES cut
+# small, then Tq past one query tile, docs past a subtile of 256 slots (T
+# 300) and across four (T 1024)
+EXACT_SCHEDULE_SHAPES = [(8, 37, 4, 1, 70), (128, 16, 32, 3, 40),
+                         (16, 9, 33, 2, 70), (300, 5, 8, 2, 20),
+                         (1024, 4, 3, 1, 12)]
+
+
+@pytest.mark.parametrize("t_bucket,dims,tq,bsz,n_docs",
+                         EXACT_SCHEDULE_SHAPES)
+def test_exact_schedule_mirror_equals_plain_and_reference(t_bucket, dims,
+                                                          tq, bsz, n_docs):
+    """K10's schedule (tests/maxsim_exact_mirror.py: windows of 32 docs,
+    real tokens only on slots from multiples of 4, subtiles of 256 slots
+    with a doc's running max carried into the next, maxima over a row
+    thread's slots and then over the doc's, sums in t order across query
+    tiles) equals the plain version bit for bit, and the reference within
+    the module's contract, with docs of 0, 1, 31-33 and T tokens, counts
+    past T and below 0, and padded query lanes."""
+    tokens, count, query, qmask = _op_data(n_docs, t_bucket, dims, bsz, tq,
+                                           tq - tq // 4,
+                                           seed=t_bucket + dims)
+    count = _edge_counts(count, t_bucket)
+    got = scores_mirror(tokens, count, query, qmask)
+    plain = tmaxsim.exact_maxsim_scores_plain(
+        torch.from_numpy(tokens), torch.from_numpy(count),
+        torch.from_numpy(query), torch.from_numpy(qmask)).numpy()
+    assert np.array_equal(got.view(np.int32), plain.view(np.int32))
+    assert (got[:, count <= 0] == 0).all()
+    want = np.stack([np.asarray(jmaxsim.exact_maxsim_scores(
+        jnp.asarray(tokens), jnp.asarray(count), jnp.asarray(q),
+        jnp.asarray(m))) for q, m in zip(query, qmask)])
+    clamped = np.clip(count, 0, t_bucket)
+    bound = _abs_bound(tokens, clamped, query, qmask)
+    assert (np.abs(got - want) <= 1e-6 * np.abs(want) + bound).all()
+
+
+def test_exact_constants_are_the_kernels():
+    """The mirror's windows, slots, subtiles and query tiles and the
+    wrapper's limits are maxsim_exact.cu's."""
+    import re
+    from pathlib import Path
+    import maxsim_exact_mirror as mirror
+    src = (Path(tmaxsim.__file__).parent / "csrc"
+           / "maxsim_exact.cu").read_text()
+
+    def const(name):
+        return re.findall(rf"constexpr int {name} = (\w+);", src)
+    for name in ("DW", "RS", "ROWS", "NQ"):
+        assert const(name) == [str(getattr(mirror, name))], name
+    assert const("NQ") == [str(tmaxsim.MAXSIM_QUERY_TILE)]
+    assert const("MAX_T") == [str(tmaxsim.MAX_T_BUCKET)]
+
+
+@pytest.mark.parametrize("t_bucket", [1, 7, 128, 300, 1024])
+def test_exact_plan_covers_every_real_token_once(t_bucket):
+    """K10's slot plan: every real token (s < min(token_count, T)) of every
+    doc sits in exactly one subtile row, in doc order; each doc starts on
+    a multiple of 4; no subtile holds more than 256 slots or only
+    padding."""
+    rng = np.random.RandomState(t_bucket)
+    count = rng.randint(-2, t_bucket + 3, 300).astype(np.int32)
+    count[::5] = 0
+    plan = window_plan(count, t_bucket)
+    seen = [(d, s) for _d0, _sub, rows in plan for _r, d, s in rows]
+    want = [(d, s) for d in range(len(count))
+            for s in range(int(np.clip(count[d], 0, t_bucket)))]
+    assert seen == want
+    for _d0, _sub, rows in plan:
+        assert rows and all(0 <= r < ROWS for r, _d, _s in rows)
+        assert [r for r, _d, _s in rows] == sorted({r for r, _d, _s in rows})
+        assert all(r % RS == 0 for r, _d, s in rows if s == 0)
+
+
+def test_exact_edge_docs_equal_the_reference():
+    """The plain version against the reference on docs of 0, 1 and T
+    tokens, with a zeroed qmask lane in the middle of a query whose
+    token there is not zero (it adds nothing)."""
+    t_bucket, dims, tq = 16, 8, 8
+    tokens, count, query, qmask = _op_data(12, t_bucket, dims, 2, tq, tq,
+                                           seed=5)
+    count[:4] = [0, 1, t_bucket, 1]
+    qmask[:, 3] = 0.0
+    assert (query[:, 3] != 0).all()
+    got = tmaxsim.exact_maxsim_scores(
+        torch.from_numpy(tokens), torch.from_numpy(count),
+        torch.from_numpy(query), torch.from_numpy(qmask)).numpy()
+    want = np.stack([np.asarray(jmaxsim.exact_maxsim_scores(
+        jnp.asarray(tokens), jnp.asarray(count), jnp.asarray(q),
+        jnp.asarray(m))) for q, m in zip(query, qmask)])
+    assert (got[:, 0] == 0).all() and (want[:, 0] == 0).all()
+    bound = _abs_bound(tokens, count, query, qmask)
+    assert (np.abs(got - want) <= 1e-6 * np.abs(want) + bound).all()
+    masked = qmask.copy()
+    masked[:, 3] = 1.0
+    assert not np.array_equal(got, tmaxsim.exact_maxsim_scores(
+        torch.from_numpy(tokens), torch.from_numpy(count),
+        torch.from_numpy(query), torch.from_numpy(masked)).numpy())
 
 
 def _codebook(dims, m, seed):
