@@ -242,9 +242,10 @@ controller's SHARD_FAILURES) and the multi-shard program never raised and
 fell back to the per-shard host loop (spmd.HOST_FALLBACKS); else the
 phase fails.
 
-Phase 2 also holds K22 nested_join (sum, avg, max), K23 nested_aggs
-(nested under the root, reverse_nested under a monthly date_histogram,
-also with the first 10,000 nested rows moved under one root) at phase
+Phase 2 also holds K22 nested_join (sum, avg, max; sum with the first
+10,000 nested rows moved under one root), K23 nested_aggs (nested under
+the root and under 64 buckets, reverse_nested under a monthly
+date_histogram, also with the 10,000-row root) at phase
 14's shapes (B=32, Dp 2^23) and K24 binned_scatter
 (geo_centroid's sums and geo_bounds' extrema under terms country_code)
 and K25's four geo / rank_feature entries at phase 15's (B=32, Dp
@@ -269,8 +270,11 @@ floor), each with the device ms of each kernel of a call; kmeansmaxsim:
 phase 2's records of K9 (the seal's first step on the GloVe-shaped
 corpus, its 10 steps held to the plain version) and of K10 (the B=4
 slice, B=1 and B=32), each with its contract floor and the device ms of
-each kernel of a call), one JSON line each, so that one card compares
-two checkouts cell by cell.
+each kernel of a call; nestedjoin: phase 2's records of K22 (sum, avg,
+max, and sum with a 10,000-row root) and of K23's nested entry (the root
+context and 64 buckets), each with the device ms of each kernel of a
+call), one JSON line each, so that one card compares two checkouts cell
+by cell.
 
 Each record of K3's three entries also prints `full_reads`: per row, the
 passes of their radix select that read the whole input (2, unless a bin
@@ -807,6 +811,24 @@ def phase_binned_cell(torch, np, dev) -> dict:
     torch.cuda.empty_cache()
     keys = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
             "max_abs_err", "peak_scratch_bytes", "passes")
+    return {name: [{k: r[k] for k in keys if k in r} for r in recs]
+            for name, recs in results.items()}
+
+
+def phase_nestedjoin_cell(torch, np, dev) -> dict:
+    """K22's and K23 nested's records alone, at phase 2's shapes on the
+    nested cell's image (K22 sum, avg, max and sum with a 10,000-row root;
+    K23 nested under the root and under 64 buckets), each record with each
+    kernel's device ms a call (`passes`): one script's records on two
+    checkouts compare the kernels on one card."""
+    from opensearch_tpu_torch.utils.demo import qa_segment
+    _qm, qa_seg = qa_segment(NESTED_QUESTIONS)
+    results = phase_nested_geo_kernels(torch, np, qa_seg, None, dev,
+                                       parts=("k22", "k23"), passes=True)
+    del qa_seg
+    torch.cuda.empty_cache()
+    keys = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err", "passes")
     return {name: [{k: r[k] for k in keys if k in r} for r in recs]
             for name, recs in results.items()}
 
@@ -1762,6 +1784,18 @@ def _bound(nbytes: float, ops: float):
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _sector_bytes(torch, need, width: int) -> int:
+    """The bytes of the 32-byte sectors of a row-major array of
+    `width`-byte values that hold a value the function needs (need: bool
+    of the array's shape [..., n]): the least that reading those values
+    moves from device memory."""
+    per = 32 // width
+    pad = -need.shape[-1] % per
+    if pad:
+        need = torch.nn.functional.pad(need, (0, pad))
+    return 32 * int(need.reshape(-1, per).any(1).sum())
 
 
 def phase_sort_kernels(torch, np, seg, four, dev):
@@ -4781,14 +4815,18 @@ def geo_cell_bodies(np, family: str, n: int, seed: int, centres) -> list:
 
 def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
                              bsz: int = 32,
-                             parts=("k22", "k23", "k24", "k25"),
+                             parts=("k22", "k23", "k23r", "k24", "k25"),
                              passes: bool = False):
-    """K22-K25 (those in `parts`) against their plain versions at the
-    cells' shapes: K22
+    """K22-K25 (those in `parts`: k23 K23's nested entry, k23r its
+    reverse_nested entry) against their plain versions at the cells'
+    shapes: K22
     nested_join and K23 nested_aggs on the nested cell's image (2M
     questions, Dp 2^23, B=32: the child plan of bool{term answers.user,
-    range answers.date}; nested under the root and reverse_nested under a
-    monthly date_histogram of the answers), K24 binned_scatter and K25's
+    range answers.date}; K22 sum, avg, max and sum with the first 10,000
+    nested rows moved under the last root; nested under the root and under
+    64 buckets, each root's drawn from a seeded generator; reverse_nested
+    under a monthly date_histogram of the answers, and the same with the
+    10,000-row root), K24 binned_scatter and K25's
     four entries on the geo cell's image (10M places, Dp 2^24, B=32:
     geo_centroid's sums and geo_bounds' extrema under terms
     country_code, and past SCATTER_MAX_BINS bins under country_code x 64
@@ -4799,9 +4837,16 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
     exactly, K24's sums also within n * 2^-24 * sum|v| of the f64 sums.
     Each timed as a graph replay, a call, the plain version and, where one
     PyTorch call computes the same function, that call: K22 sum the
-    index_add_ of the selected child scores into the roots, K23 nested
-    the bincount of the own rows' buckets, K24 scatter_reduce_ of the
-    reduction; bound = max(bytes / 3.35 TB/s, f32 ops / 67 TFLOP/s)."""
+    index_add_ of the selected child scores into the roots, K22 max their
+    scatter_reduce_ amax, K23 nested the bincount of the own rows'
+    buckets, K24 scatter_reduce_ of the reduction; bound = max(bytes /
+    3.35 TB/s, f32 ops / 67 TFLOP/s), K22's and K23's bytes counted on
+    the image: each output written once, and of each input the 32-byte
+    sectors that hold a value the function needs (the path's live nested
+    rows' child scores where they matched, the mask of the roots they
+    read and the bucket where it is set). With `passes`, every record also
+    carries each kernel's device ms a call. geo_seg may be None when
+    neither k24 nor k25 is asked for."""
     from opensearch_tpu_torch.ops import binned, geo, nested
     from opensearch_tpu_torch.ops.device_segment import upload_segment
     from opensearch_tpu_torch.search import dsl
@@ -4839,8 +4884,8 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
             rec["peak_scratch_bytes"] = torch.cuda.max_memory_allocated() \
                 - before - sum(o.numel() * o.element_size() for o in outs)
             del outs
-            if passes:
-                rec["passes"] = launch_ms(torch, kern, by_name=True)
+        if passes:
+            rec["passes"] = launch_ms(torch, kern, by_name=True)
         results.setdefault(name, []).append(rec)
         log(name, json.dumps(rec))
 
@@ -4879,22 +4924,63 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
     log(f"nested kernels: image uploaded and the child plans run in "
         f"{time.perf_counter() - t0:.3f} s (Dp {d_pad})")
     pptr = arrays["parent_ptr"]
-    pidx = torch.where(pptr >= 0, pptr, d_pad).long()
-    sel = child_m & arrays["live"][None, :] & (arrays["nested_path"] == 0)
-    csel = torch.where(sel, child_s, 0.0)
-    for mode in (("sum", "avg", "max") if "k22" in parts else ()):
-        record("nested_join", f"B={bsz} Dp={d_pad} {mode}",
-               lambda mode=mode: nested.nested_join(
-                   child_s, child_m, arrays, path_ord, boost, mode),
-               lambda mode=mode: nested.nested_join_plain(
-                   child_s, child_m, arrays["live"], arrays["nested_path"],
-                   pptr, arrays["child_start"], arrays["child_rows"],
-                   path_ord, boost, mode),
-               (lambda: torch.zeros(bsz, d_pad + 1, device=dev).index_add_(
-                   1, pidx, csel)) if mode == "sum" else None,
-               (5 + 5) * elems + 13 * d_pad, scores_bits,
-               ops=2.0 * elems)
     roots = arrays["root"] & arrays["live"]
+    sel = child_m & arrays["live"][None, :] & (arrays["nested_path"] == 0)
+    # the same rows with a 10,000-row root: the first 10,000 nested rows
+    # moved under the last root (K22's heavy-root walk, K23 reverse_nested's
+    # CTA walk)
+    from opensearch_tpu_torch.ops.device_segment import root_child_csr
+    big_root = int(torch.nonzero(roots)[-1, 0])
+    pptr_h = pptr.clone()
+    pptr_h[torch.nonzero(pptr >= 0)[:10000, 0]] = big_root
+    start_h, rows_h = root_child_csr(pptr_h.cpu().numpy(), d_pad)
+    seg_h = dict(arrays, parent_ptr=pptr_h,
+                 child_start=torch.from_numpy(start_h).to(dev),
+                 child_rows=torch.from_numpy(rows_h).to(dev))
+    del start_h, rows_h
+
+    def k22_library(mode, pp):
+        idx = torch.where(pp >= 0, pp, d_pad).long()[None, :] \
+            .expand(bsz, -1)
+        if mode == "sum":
+            csel = torch.where(sel, child_s, 0.0)
+            return lambda: torch.zeros(bsz, d_pad + 1, device=dev) \
+                .index_add_(1, idx[0], csel)
+        if mode == "max":
+            cmax = torch.where(sel, child_s, float("-inf"))
+            return lambda: torch.full(
+                (bsz, d_pad + 1), float("-inf"), device=dev) \
+                .scatter_reduce_(1, idx, cmax, "amax")
+        return None
+    def csr_bytes(pp):
+        # the static CSR: child_start, and child_rows of the nested rows
+        return 4 * (d_pad + 1) + 4 * int((pp >= 0).sum())
+
+    def k22_bytes(seg_k):
+        # out_s and out_m for every (query, row); the CSR, then live and
+        # nested_path of its rows; child_m at the path's live rows and
+        # child_s where it matched (in the sectors that hold them)
+        rows = seg_k["parent_ptr"] >= 0
+        on_path = rows & arrays["live"] & (arrays["nested_path"] == 0)
+        return (5 * elems + csr_bytes(seg_k["parent_ptr"])
+                + _sector_bytes(torch, rows, 1)
+                + _sector_bytes(torch, rows, 4)
+                + bsz * _sector_bytes(torch, on_path, 1)
+                + _sector_bytes(torch, sel & on_path[None, :], 4))
+    for mode, seg_k, label in ((("sum", arrays, ""), ("avg", arrays, ""),
+                                ("max", arrays, ""),
+                                ("sum", seg_h, ", a 10,000-row root"))
+                               if "k22" in parts else ()):
+        record("nested_join", f"B={bsz} Dp={d_pad} {mode}{label}",
+               lambda mode=mode, seg_k=seg_k: nested.nested_join(
+                   child_s, child_m, seg_k, path_ord, boost, mode),
+               lambda mode=mode, seg_k=seg_k: nested.nested_join_plain(
+                   child_s, child_m, seg_k["live"], seg_k["nested_path"],
+                   seg_k["parent_ptr"], seg_k["child_start"],
+                   seg_k["child_rows"], path_ord, boost, mode),
+               k22_library(mode, seg_k["parent_ptr"]),
+               k22_bytes(seg_k), scores_bits,
+               ops=2.0 * elems)
     mask = roots[None, :].expand(bsz, d_pad).contiguous()
     peff = torch.where(mask, 0, -1).to(torch.int32)
     own, child_eff, _c = nested.nested_agg(mask, peff, arrays, path_ord, 1)
@@ -4931,47 +5017,71 @@ def phase_nested_geo_kernels(torch, np, qa_seg, geo_seg, dev,
                8 * bsz * n_pairs + 4 * bsz * d_pad, exact)
         del ulanes, uvals, uidx, keep
     if "k23" in parts:
-        record("nested_agg", f"B={bsz} Dp={d_pad} root context",
-               lambda: nested.nested_agg(mask, peff, arrays, path_ord, 1),
-               lambda: nested.nested_agg_plain(
-                   mask, peff, arrays["live"], arrays["nested_path"], pptr,
-                   path_ord, 1),
-               lambda: torch.bincount(torch.where(
-                   own, child_eff + torch.arange(bsz, device=dev)[:, None],
-                   bsz).reshape(-1), minlength=bsz + 1),
-               (1 + 4 + 1 + 4) * elems + 9 * d_pad, exact)
+        # the root context, then each root's bucket out of 64 (a seeded
+        # draw): the CTA's counters see 64 buckets
+        peff64 = torch.where(mask, torch.randint(
+            0, 64, (d_pad,), device=dev, dtype=torch.int32,
+            generator=torch.Generator(device=dev).manual_seed(73))[None, :],
+            -1).to(torch.int32)
+        own64, ceff64, _c = nested.nested_agg(mask, peff64, arrays,
+                                              path_ord, 64)
+        # the roots that the path's live nested rows read
+        rows = pptr >= 0
+        reads = rows & arrays["live"] & (arrays["nested_path"] == 0)
+        parents = torch.zeros(d_pad, dtype=torch.bool, device=dev)
+        parents[pptr[reads].long()] = True
+
+        def k23_bytes(card):
+            # own and child_eff for every (query, row), the counts;
+            # parent_ptr, then live and nested_path of the nested rows;
+            # mask at the roots read and parent_eff where it is set (in the
+            # sectors that hold them)
+            return (5 * elems + 4 * bsz * card + 4 * d_pad
+                    + _sector_bytes(torch, rows, 1)
+                    + _sector_bytes(torch, rows, 4)
+                    + bsz * _sector_bytes(torch, parents, 1)
+                    + _sector_bytes(torch, mask & parents[None, :], 4))
+        for card, eff, own_c, ceff_c, label in (
+                (1, peff, own, child_eff, "root context"),
+                (64, peff64, own64, ceff64, "64 buckets of the roots")):
+            record("nested_agg", f"B={bsz} Dp={d_pad} {label}",
+                   lambda eff=eff, card=card: nested.nested_agg(
+                       mask, eff, arrays, path_ord, card),
+                   lambda eff=eff, card=card: nested.nested_agg_plain(
+                       mask, eff, arrays["live"], arrays["nested_path"],
+                       pptr, path_ord, card),
+                   lambda own_c=own_c, ceff_c=ceff_c, card=card:
+                   torch.bincount(torch.where(
+                       own_c, ceff_c + card * torch.arange(
+                           bsz, device=dev)[:, None], bsz * card)
+                       .reshape(-1), minlength=bsz * card + 1),
+                   k23_bytes(card), exact)
+        del peff64, own64, ceff64, rows, reads, parents
     # reverse_nested under a monthly date_histogram of the answers
     rev_eff = torch.where(own, month[None, :], -1).to(torch.int32)
-    if "k23" in parts or "k23r" in parts:
-        record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
-               f"buckets",
-               lambda: nested.reverse_nested_agg(own, rev_eff, arrays,
-                                                 months),
-               lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr,
-                                                       months),
-               None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
-        # the same rows with a 10,000-row root: the first 10,000 nested
-        # rows moved under the last root (the CTA's walk of a big root)
-        from opensearch_tpu_torch.ops.device_segment import root_child_csr
-        big_root = int(torch.nonzero(roots)[-1, 0])
-        moved = torch.nonzero(pptr >= 0)[:10000, 0]
-        pptr_h = pptr.clone()
-        pptr_h[moved] = big_root
-        start_h, rows_h = root_child_csr(pptr_h.cpu().numpy(), d_pad)
-        seg_h = dict(arrays, parent_ptr=pptr_h,
-                     child_start=torch.from_numpy(start_h).to(dev),
-                     child_rows=torch.from_numpy(rows_h).to(dev))
-        record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} monthly "
-               f"buckets, a 10,000-row root",
-               lambda: nested.reverse_nested_agg(own, rev_eff, seg_h,
-                                                 months),
-               lambda: nested.reverse_nested_agg_plain(own, rev_eff, pptr_h,
-                                                       months),
-               None, (1 + 4 + 1 + 4) * elems + 4 * d_pad, exact)
-        del seg_h, pptr_h, moved
-    del arrays, nodes, child_s, child_m, sel, csel, mask, peff, own
-    del child_eff, rev_eff, pidx
+
+    def rev_bytes(pp):
+        # own and root_eff for every (query, row), the counts; the CSR;
+        # the mask at the nested rows and parent_eff where it is set (in
+        # the sectors that hold them)
+        rows = pp >= 0
+        return (5 * elems + 4 * bsz * months + csr_bytes(pp)
+                + bsz * _sector_bytes(torch, rows, 1)
+                + _sector_bytes(torch, own & rows[None, :], 4))
+    if "k23r" in parts:
+        for seg_k, label in ((arrays, ""), (seg_h, ", a 10,000-row root")):
+            record("reverse_nested_agg", f"B={bsz} Dp={d_pad} {months} "
+                   f"monthly buckets{label}",
+                   lambda seg_k=seg_k: nested.reverse_nested_agg(
+                       own, rev_eff, seg_k, months),
+                   lambda seg_k=seg_k: nested.reverse_nested_agg_plain(
+                       own, rev_eff, seg_k["parent_ptr"], months),
+                   None, rev_bytes(seg_k["parent_ptr"]), exact)
+    del arrays, nodes, child_s, child_m, sel, mask, peff, own, seg_h, pptr_h
+    del child_eff, rev_eff
     torch.cuda.empty_cache()
+    if "k24" not in parts and "k25" not in parts:
+        return results
 
     # ---- K24 / K25 on the geo cell
     t0 = time.perf_counter()
@@ -5960,7 +6070,7 @@ def profile_waves(torch, ex, bodies, out_dir, name: str, waves: int = 6):
 
 CELLS = ("scale", "knn", "maxsim", "hybrid", "sorted", "aggkinds",
          "relevance", "sharded", "nested", "geo", "ingest", "topk",
-         "binned", "textpq", "kmeansmaxsim", "aggs")
+         "binned", "textpq", "kmeansmaxsim", "nestedjoin", "aggs")
 
 
 def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
@@ -6024,6 +6134,9 @@ def run_cells(torch, np, cells, card: str, out_dir=None) -> int:
         elif cell == "kmeansmaxsim":
             mapper = seg = None
             res = phase_kmeansmaxsim_cell(torch, np, dev)
+        elif cell == "nestedjoin":
+            mapper = seg = None
+            res = phase_nestedjoin_cell(torch, np, dev)
         elif cell == "aggs":
             mapper, seg = agg_segment(np, AGG_SCALE_DOCS)
             res = phase_agg_scale(torch, np, mapper, seg, dev, out_dir)
@@ -6054,10 +6167,12 @@ def main(argv) -> int:
                         help="run only these cells after the build, comma "
                              "separated: " + ", ".join(CELLS) + " (phases "
                              "4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16; knn "
-                             "is phase 6's exact cell; topk, binned, textpq "
-                             "and kmeansmaxsim phase 2's records of K3, of "
-                             "K5 / K6 / K23 / K24, of K2 (both entries) / "
-                             "K11's scorer and of K9 / K10; aggs phase 5): "
+                             "is phase 6's exact cell; topk, binned, "
+                             "textpq, kmeansmaxsim and nestedjoin phase "
+                             "2's records of K3, of K5 / K6 / K23's "
+                             "reverse_nested / K24, of K2 (both entries) / "
+                             "K11's scorer, of K9 / K10 and of K22 / K23's "
+                             "nested; aggs phase 5): "
                              "one JSON line each, to compare two checkouts "
                              "on one card")
     args = parser.parse_args(argv)

@@ -1,13 +1,14 @@
-// The cp.async helpers of the kernels that stage rows of f32 through a
-// ring in shared memory (knn_exact.cu, kmeans_step.cu, maxsim_exact.cu):
-// 16- and 4-byte copies from device memory, a group's commit and its wait.
+// The cp.async helpers of the kernels that stage rows through a ring in
+// shared memory (knn_exact.cu, kmeans_step.cu, maxsim_exact.cu,
+// nested_join.cu, nested_aggs.cu): 16- and 4-byte copies from device
+// memory, a group's commit and its wait.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src) : "memory");

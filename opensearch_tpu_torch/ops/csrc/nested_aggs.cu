@@ -15,16 +15,39 @@
 // int32 [B, card], and each root's bucket root_eff int32 [B, Dp] (the
 // largest of its rows' buckets, -1 for none; own = root_eff >= 0).
 //
-// What bounds it on an H100: bytes. nested: a gather of the root's mask
-// and bucket per nested row, 14 B a (query, row) in and out.
-// reverse_nested: each (query, row) writes root_eff and own (5 B); each
-// nested row's mask byte is read, its bucket only where the mask is set;
-// the static CSR (child_start, child_rows: 8 B a row) is shared by the B
-// queries in L2.
+// What bounds it on an H100: bytes. nested: each (query, row) reads the
+// mask and bucket of its root and writes own and child_eff (5 B in, 5 B
+// out), and the static doc blocks (parent_ptr, nested_path, live: 9 B a
+// row) are read once. reverse_nested: each (query, row) writes root_eff
+// and own (5 B); each nested row's mask byte is read, its bucket only
+// where the mask is set; the static CSR (child_start, child_rows: 8 B a
+// row) is shared by the B queries in L2.
 //
-// Design. Counts are integer atomics (exact, order-free). nested: one
-// thread a (query, nested row), one atomic per distinct bucket of a warp
-// (__match_any_sync). reverse_nested walks K22's static root CSR
+// Design of nested_agg. A CTA takes a tile of AGG_TILE_ROWS rows, two
+// quads of 4 rows a thread, for a group of up to AGG_QUERY_GROUP queries,
+// and reads the tile's parent_ptr, live and nested_path once, into
+// registers, for every query of the group. The tile's parent window (the
+// roots of its live nested rows: in the blocked layout the tile itself
+// and the root of a block that crosses its end) is the same for every
+// query; where it spans at most AGG_STAGE_ROWS rows, each query's window
+// of mask and parent_eff is copied into shared memory with 16-byte
+// cp.async copies, the next query's ahead of the current one's walk (a
+// ring of two), and each row reads its root's byte and bucket from there.
+// A tile whose window is wider (roots far from their rows) gathers each
+// row's root directly. own and child_eff are written for every row of the
+// tile, 4 rows a store. Counts: a warp whose rows all took one bucket
+// (the root context's single bucket, a skewed context) adds its count
+// with one warp reduction; otherwise each thread adds its runs of equal
+// buckets. Up to CNT_CAP buckets the adds go to the CTA's counters in
+// shared memory and the CTA makes one global atomic per (query, nonzero
+// bucket); past it they are global atomics. A query with path_ord < 0
+// reads nothing. A misaligned view or a Dp off 16 takes the same walk
+// with element loads and stores (block_reduce.cuh's load4 / store4): the
+// aggregation path never does (Dp is a power of two from 128, the tensors
+// whole), the card tests' Dp 30,001 does.
+//
+// Design of reverse_nested_agg. Counts are integer atomics (exact,
+// order-free). It walks K22's static root CSR
 // (child_start [Dp + 1], child_rows: a root's nested rows in row order),
 // which groups each root's rows, so no sort is needed. A CTA takes a
 // range of rows for one query and copies the range's child_start to
@@ -50,7 +73,11 @@
 // fewer where B and Dp are small.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
+
+#include "block_reduce.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -63,42 +90,20 @@ constexpr int CAP = STAGE * THREADS;  // positions staged a window (2,048)
 constexpr int RANGE_ROWS = 8 * THREADS;  // rows a CTA, at most (2,048)
 constexpr int CNT_CAP = 4096;       // CTA-private bucket counters up to it
 constexpr int BITMAP_WORDS = 1024;  // a heavy root's window: 32,768 buckets
+// nested_agg's tile
+constexpr int AGG_TILE_ROWS = 2048;    // rows a CTA: two quads of 4 a thread
+constexpr int AGG_STAGE_ROWS = 2304;   // a query's parent window, staged
+constexpr int AGG_QUERY_GROUP = 32;    // queries a CTA
+constexpr int QUAD_ROWS = 4 * THREADS;  // rows of one quad across the CTA
+static_assert(AGG_TILE_ROWS == 2 * QUAD_ROWS, "two quads a thread");
+static_assert(AGG_STAGE_ROWS % 16 == 0, "16-byte copies");
 
-__global__ void __launch_bounds__(THREADS)
-nested_kernel(const uint8_t* __restrict__ mask,
-              const int* __restrict__ parent_eff,
-              const uint8_t* __restrict__ live,
-              const int* __restrict__ nested_path,
-              const int* __restrict__ parent_ptr,
-              const int* __restrict__ path_ord, int Dp, int card,
-              uint8_t* __restrict__ own, int* __restrict__ child_eff,
-              int* __restrict__ counts) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int b = blockIdx.y;
-  const size_t base = (size_t)b * Dp;
-  int ce = -1;
-  if (d < Dp) {
-    const int po = path_ord[b];
-    const int p = parent_ptr[d];
-    if (p >= 0 && po >= 0 && live[d] != 0 && nested_path[d] == po &&
-        mask[base + p] != 0) {
-      const int pe = parent_eff[base + p];
-      if (pe >= 0 && pe < card) ce = pe;
-    }
-    own[base + d] = ce >= 0 ? 1 : 0;
-    child_eff[base + d] = ce;
-  }
-  // one atomic per distinct bucket of a warp (every lane takes part)
-  const unsigned peers = __match_any_sync(FULL, ce);
-  if (ce >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&counts[(size_t)b * card + ce], __popc(peers));
-}
-
-// one distinct (bucket, root): 1 to the CTA's counter of its bucket (or,
-// past CNT_CAP, to the query's row of counts)
-__device__ __forceinline__ void add_fresh(int e, int* s_cnt, int* gcnt) {
-  if (s_cnt != nullptr) atomicAdd(&s_cnt[e], 1);
-  else atomicAdd(&gcnt[e], 1);
+// one bucket's count: to the CTA's counter (s_cnt) or, past CNT_CAP, to
+// the query's row of counts
+__device__ __forceinline__ void add_count(int e, int n, int* s_cnt,
+                                          int* gcnt) {
+  if (s_cnt != nullptr) atomicAdd(&s_cnt[e], n);
+  else atomicAdd(&gcnt[e], n);
 }
 
 // the buckets of CSR positions p0 + tid + k * THREADS (k < STAGE) below
@@ -121,19 +126,6 @@ __device__ __forceinline__ void gather_buckets(
   for (int k = 0; k < STAGE; ++k) e[k] = m[k] ? __ldg(erow + r[k]) : -1;
 }
 
-// v's minimum (max: the largest) over the CTA; s_red [THREADS / 32]
-template <bool MAX>
-__device__ __forceinline__ int block_reduce(int v, int* s_red) {
-  v = MAX ? __reduce_max_sync(FULL, v) : __reduce_min_sync(FULL, v);
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int out = s_red[0];
-  for (int w = 1; w < THREADS / 32; ++w)
-    out = MAX ? max(out, s_red[w]) : min(out, s_red[w]);
-  __syncthreads();
-  return out;
-}
-
 // the exclusive prefix sum of v over the CTA's threads, in thread order;
 // *total gets the sum. s_red [THREADS / 32]
 __device__ __forceinline__ int block_scan(int v, int* s_red, int* total) {
@@ -154,6 +146,159 @@ __device__ __forceinline__ int block_scan(int v, int* s_red, int* total) {
   __syncthreads();
   *total = all;
   return before + inc - v;
+}
+
+// nested_agg: block (tile of AGG_TILE_ROWS rows, group of queries). Thread
+// t's rows are d0 + g * QUAD_ROWS + 4 t + c (quad g < 2, c < 4). VEC: Dp
+// a multiple of 16 and every pointer 16-byte aligned (vector loads,
+// stores and copies); else element by element.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+nested_kernel(const uint8_t* __restrict__ mask,
+              const int* __restrict__ parent_eff,
+              const uint8_t* __restrict__ live,
+              const int* __restrict__ nested_path,
+              const int* __restrict__ parent_ptr,
+              const int* __restrict__ path_ord, int B, int Dp, int card,
+              uint8_t* __restrict__ own, int* __restrict__ child_eff,
+              int* __restrict__ counts) {
+  extern __shared__ int s_cnt_dyn[];      // [card] where card <= CNT_CAP
+  __shared__ __align__(16) uint8_t s_m[2][AGG_STAGE_ROWS];
+  __shared__ __align__(16) int s_e[2][AGG_STAGE_ROWS];
+  __shared__ int s_red[THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int d0 = blockIdx.x * AGG_TILE_ROWS;
+  const int q0 = blockIdx.y * AGG_QUERY_GROUP;
+  const int nq = min(AGG_QUERY_GROUP, B - q0);
+  int* s_cnt = card <= CNT_CAP ? s_cnt_dyn : nullptr;
+  // the tile's static rows, once for all the group's queries: the root
+  // (-1: none, not live or past Dp) and the path of each row
+  int p[8], path[8];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int r = d0 + g * QUAD_ROWS + 4 * tid;
+    int pp[4], pa[4];
+    bool lv[4];
+    load4<VEC>(parent_ptr, r, Dp, -1, pp);
+    load4<VEC>(nested_path, r, Dp, -1, pa);
+    load4<VEC>(live, r, Dp, lv);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      p[4 * g + c] = lv[c] ? pp[c] : -1;
+      path[4 * g + c] = pa[c];
+    }
+  }
+  // the parent window, the same for every query
+  int lo = INT_MAX, hi = -1;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (p[k] >= 0) {
+      lo = min(lo, p[k]);
+      hi = max(hi, p[k]);
+    }
+  lo = block_reduce<THREADS, false>(lo, s_red);
+  hi = block_reduce<THREADS, true>(hi, s_red);
+  const int a0 = VEC ? (lo & ~15) : lo;
+  const int span = hi < 0 ? 0 : (VEC ? ((hi + 16) & ~15) : hi + 1) - a0;
+  const bool staged = hi >= 0 && span <= AGG_STAGE_ROWS;
+  if (s_cnt != nullptr)
+    for (int i = tid; i < card; i += THREADS) s_cnt[i] = 0;
+
+  // query q's window of mask and parent_eff into ring slot q & 1 (nothing
+  // for a query off every path)
+  auto stage = [&](int q) {
+    const int b = q0 + q;
+    if (__ldg(path_ord + b) < 0) return;
+    const size_t at = (size_t)b * Dp + a0;
+    uint8_t* sm = s_m[q & 1];
+    int* se = s_e[q & 1];
+    if (VEC) {
+      const int nm = span >> 4, ne = span >> 2;
+      for (int i = tid; i < nm + ne; i += THREADS) {
+        if (i < nm) cp_async16(sm + 16 * i, mask + at + 16 * i);
+        else cp_async16(se + 4 * (i - nm), parent_eff + at + 4 * (i - nm));
+      }
+    } else {
+      for (int i = tid; i < span; i += THREADS) {
+        sm[i] = __ldg(mask + at + i);
+        se[i] = __ldg(parent_eff + at + i);
+      }
+    }
+  };
+  if (staged) stage(0);
+  cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    const int b = q0 + q;
+    const int po = __ldg(path_ord + b);
+    const size_t base = (size_t)b * Dp;
+    if (staged && q + 1 < nq) stage(q + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();          // query q's window is in slot q & 1
+    const uint8_t* sm = s_m[q & 1];
+    const int* se = s_e[q & 1];
+    int ce[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      ce[k] = -1;
+      if (po >= 0 && p[k] >= 0 && path[k] == po) {
+        int pe = -1;
+        if (staged) {
+          if (sm[p[k] - a0] != 0) pe = se[p[k] - a0];
+        } else if (__ldg(mask + base + p[k]) != 0) {
+          pe = __ldg(parent_eff + base + p[k]);
+        }
+        if (pe >= 0 && pe < card) ce[k] = pe;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int r = d0 + g * QUAD_ROWS + 4 * tid;
+      const int e[4] = {ce[4 * g], ce[4 * g + 1], ce[4 * g + 2],
+                        ce[4 * g + 3]};
+      const bool o[4] = {e[0] >= 0, e[1] >= 0, e[2] >= 0, e[3] >= 0};
+      store4<VEC>(own + base, r, Dp, o);
+      store4<VEC>(child_eff + base, r, Dp, e);
+    }
+    // counts: one reduction where the warp's rows took one bucket, else
+    // each thread's runs of equal buckets
+    int emin = INT_MAX, emax = -1, n = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (ce[k] >= 0) {
+        emin = min(emin, ce[k]);
+        emax = max(emax, ce[k]);
+        ++n;
+      }
+    int* gcnt = counts + (size_t)b * card;
+    const int wmin = __reduce_min_sync(FULL, emin);
+    const int wmax = __reduce_max_sync(FULL, emax);
+    if (wmax >= 0 && wmin == wmax) {
+      const int tot = __reduce_add_sync(FULL, n);
+      if (lane == 0) add_count(wmax, tot, s_cnt, gcnt);
+    } else if (n > 0) {
+      int cur = -1, run = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (ce[k] != cur) {
+          if (cur >= 0) add_count(cur, run, s_cnt, gcnt);
+          cur = ce[k];
+          run = 0;
+        }
+        ++run;
+      }
+      if (cur >= 0) add_count(cur, run, s_cnt, gcnt);
+    }
+    __syncthreads();          // counters complete; slot q & 1 free
+    if (s_cnt != nullptr)
+      for (int i = tid; i < card; i += THREADS) {
+        const int v = s_cnt[i];
+        if (v != 0) {
+          atomicAdd(&gcnt[i], v);
+          s_cnt[i] = 0;
+        }
+      }
+  }
 }
 
 // a root of more than HEAVY_ROWS rows (positions lo .. hi of the CSR), by
@@ -183,12 +328,12 @@ __device__ __forceinline__ void heavy_root(
         if (o < 0 || o >= span) continue;
         const unsigned bit = 1u << (o & 31);
         if ((atomicOr(&s_bm[o >> 5], bit) & bit) == 0u)
-          add_fresh(e[k], s_cnt, gcnt);
+          add_count(e[k], 1, s_cnt, gcnt);
       }
     }
     __syncthreads();
   }
-  best = block_reduce<true>(best, s_red);
+  best = block_reduce<THREADS, true>(best, s_red);
   if (threadIdx.x == 0) {
     rrow[d] = best;
     orow[d] = best >= 0 ? 1 : 0;
@@ -242,7 +387,7 @@ reverse_walk_kernel(const uint8_t* __restrict__ mask,
         break;
       }
     }
-    stop = block_reduce<false>(stop, s_red);
+    stop = block_reduce<THREADS, false>(stop, s_red);
     if (stop == a) {           // row a is heavy: the CTA walks it
       heavy_root(d0 + a, s_cs[a], s_cs[a + 1], child_rows, mrow, erow, card,
                  s_cnt, gcnt, s_bm, s_red, orow, rrow);
@@ -298,7 +443,7 @@ reverse_walk_kernel(const uint8_t* __restrict__ mask,
           for (int q = 0; q < j && !dup; ++q) dup = s_e[lo + q] == e;
           if (dup) continue;
         }
-        add_fresh(e, s_cnt, gcnt);
+        add_count(e, 1, s_cnt, gcnt);
       }
       rrow[d0 + i] = best;
       orow[d0 + i] = best >= 0 ? 1 : 0;
@@ -326,8 +471,6 @@ int sm_count() {
   return sms;
 }
 
-unsigned blocks_of(size_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
-
 }  // namespace
 
 // mask bool, parent_eff int32 [B, Dp]; live bool, nested_path, parent_ptr
@@ -338,11 +481,26 @@ extern "C" int nested_agg(const uint8_t* mask, const int* parent_eff,
                           const int* parent_ptr, const int* path_ord, int B,
                           int Dp, int card, uint8_t* own, int* child_eff,
                           int* counts, void* stream) {
+  if (card <= 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Dp == 0) return 0;
-  nested_kernel<<<dim3(blocks_of(Dp), B), THREADS, 0,
-                  (cudaStream_t)stream>>>(mask, parent_eff, live,
-                                          nested_path, parent_ptr, path_ord,
-                                          Dp, card, own, child_eff, counts);
+  const long long tiles = ((long long)Dp + AGG_TILE_ROWS - 1) / AGG_TILE_ROWS;
+  const int groups = (B + AGG_QUERY_GROUP - 1) / AGG_QUERY_GROUP;
+  if (tiles > 0x7fffffffLL || groups > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const bool vec = Dp % 16 == 0 &&
+                   aligned16(mask, parent_eff, live, nested_path, parent_ptr,
+                             own, child_eff);
+  const dim3 grid((unsigned)tiles, (unsigned)groups);
+  const size_t smem = card <= CNT_CAP ? (size_t)card * 4 : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    nested_kernel<true><<<grid, THREADS, smem, st>>>(
+        mask, parent_eff, live, nested_path, parent_ptr, path_ord, B, Dp,
+        card, own, child_eff, counts);
+  else
+    nested_kernel<false><<<grid, THREADS, smem, st>>>(
+        mask, parent_eff, live, nested_path, parent_ptr, path_ord, B, Dp,
+        card, own, child_eff, counts);
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,20 @@ plain PyTorch version beside its wrapper:
 
 - K22 `nested_join` (csrc/nested_join.cu): the `nested` query's join of
   its child plan's (scores, matches) to the root rows, in one of the
-  score modes avg / sum / max / min / none, times the boost;
+  score modes avg / sum / max / min / none, times the boost; on the card
+  a CTA a tile of JOIN_TILE_ROWS roots for JOIN_QUERY_GROUP queries, the
+  tile's CSR positions staged once, each query's window of child rows
+  (at most JOIN_STAGE_ROWS) staged ahead, one thread a root folding in
+  CSR order; a tile of more than JOIN_POS_CAP positions or with a root of
+  more than JOIN_HEAVY_ROWS walks its heavy roots by the CTA, JOIN_CHUNK
+  positions a step for every query;
 - K23 `nested_aggs` (csrc/nested_aggs.cu), two entries: `nested_agg`
   (the `nested` aggregation: each nested row of the path whose root is in
-  a bucket takes its root's bucket; the per-bucket row counts) and
+  a bucket takes its root's bucket; the per-bucket row counts; on the
+  card a CTA a tile of NESTED_TILE_ROWS rows for NESTED_QUERY_GROUP
+  queries, the tile's doc blocks read once, each query's parent window
+  (at most NESTED_STAGE_ROWS rows) staged ahead, counts in the CTA's
+  shared counters up to NESTED_CNT_CAP buckets) and
   `reverse_nested_agg` (back to the roots: the distinct (bucket, root)
   counts and each root's bucket, the largest of its rows' buckets; on the
   card a walk of each root's rows in the static CSR below: a root of at
@@ -42,6 +52,19 @@ SCORE_MODES = ("avg", "sum", "max", "min", "none")
 REVERSE_HEAVY_ROWS = 32
 REVERSE_BITSET_CARD = 64
 REVERSE_BITMAP_BUCKETS = 32768
+# K23 nested's tile (csrc/nested_aggs.cu AGG_TILE_ROWS, AGG_STAGE_ROWS,
+# AGG_QUERY_GROUP and CNT_CAP, the CTA-private counters' cap)
+NESTED_TILE_ROWS = 2048
+NESTED_STAGE_ROWS = 2304
+NESTED_QUERY_GROUP = 32
+NESTED_CNT_CAP = 4096
+# K22's tile (csrc/nested_join.cu JOIN_*)
+JOIN_TILE_ROWS = 2048
+JOIN_STAGE_ROWS = 2304
+JOIN_POS_CAP = 2304
+JOIN_HEAVY_ROWS = 64
+JOIN_CHUNK = 128
+JOIN_QUERY_GROUP = 32
 NEG_INF = float("-inf")
 POS_INF = float("inf")
 

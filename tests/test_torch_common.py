@@ -1666,3 +1666,34 @@ def centroid_tol(resp: dict, path: str = "", out=None) -> Dict[str, float]:
         for i, v in enumerate(resp):
             centroid_tol(v, f"{path}[{i}]", out)
     return out
+
+
+def blocked_layout(rng, d_pad: int, heavy: int = 0, far: int = 0,
+                   pad: int = 64):
+    """The doc-block layout SegmentBuilder.add writes: each document's 0-6
+    nested rows (two paths) just before its root, block after block (some
+    across a kernel tile's end), the last `pad` rows padding; document 40
+    has `heavy` nested rows; `far` nested rows of the first 1,024 moved
+    under the last root (their windows past a tile's stage); about one
+    block in twenty deleted. Returns numpy (parent_ptr, nested_path, live,
+    root)."""
+    parent = np.full(d_pad, -1, np.int32)
+    paths = np.full(d_pad, -1, np.int32)
+    live = np.zeros(d_pad, bool)
+    root = np.zeros(d_pad, bool)
+    r = docs = 0
+    while True:
+        k = heavy if heavy and docs == 40 else int(rng.integers(0, 7))
+        if r + k + 1 > d_pad - pad:
+            break
+        parent[r:r + k] = r + k
+        paths[r:r + k] = rng.integers(0, 2, k)
+        live[r:r + k + 1] = rng.random() < 0.95
+        root[r + k] = True
+        r, docs = r + k + 1, docs + 1
+    if far:
+        last = int(np.nonzero(root)[0][-1])
+        kids = np.nonzero(parent[:1024] >= 0)[0][:far]
+        parent[kids] = last
+        live[kids] = live[last] = True
+    return parent, paths, live, root

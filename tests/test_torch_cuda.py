@@ -49,6 +49,8 @@ from opensearch_tpu_torch.search.executor import (pack_leaves,
                                                   unpack_leaves)
 from opensearch_tpu_torch.utils.demo import build_shards_fast, fast_query_terms
 
+from test_torch_common import blocked_layout
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1526,24 +1528,64 @@ def _blocks(gen, d_pad, n_roots, extra=()):
     for root, k in zip(roots.tolist(), extra):
         for _ in range(k):
             parent[free.pop()] = root
-    from opensearch_tpu_torch.ops.device_segment import root_child_csr
-    start, rows = root_child_csr(parent.numpy(), d_pad)
     live = torch.rand(d_pad, generator=gen) < 0.9
+    root = torch.zeros(d_pad, dtype=torch.bool)
+    root[roots] = True
+    return _on_card(parent, paths, live, root)
+
+
+def _on_card(parent, paths, live, root):
+    """The image's doc-block arrays of a layout, on the card, with its CSR
+    and its roots."""
+    from opensearch_tpu_torch.ops.device_segment import root_child_csr
+    start, rows = root_child_csr(parent.numpy(), parent.shape[0])
     return {"parent_ptr": parent.cuda(), "nested_path": paths.cuda(),
             "child_start": torch.from_numpy(start).cuda(),
-            "child_rows": torch.from_numpy(rows).cuda(), "live": live.cuda()}
+            "child_rows": torch.from_numpy(rows).cuda(), "live": live.cuda(),
+            "root": root.cuda()}
 
 
+def _blocked(gen, d_pad, heavy=0, far=0):
+    """test_torch_common.blocked_layout on the card, drawn from a seed of
+    gen: blocks one after another over several kernel tiles (some across a
+    tile's end), a `heavy`-row document, `far` rows moved under the last
+    root (their windows past the stage)."""
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,),
+                                                  generator=gen)))
+    return _on_card(*(torch.from_numpy(x) for x in blocked_layout(
+        rng, d_pad, heavy=heavy, far=far)))
+
+
+# K22's layouts, (B, Dp, the layout from a generator): the scattered one
+# (rows anywhere before their root: every tile gathers; Dp off 16: element
+# loads), the blocked
+# one over several tiles (windows staged) at B=1, 6 and 33 (a query group
+# of one), a 10,000-row root (a heavy tile: the CTA's chunked fold), rows
+# moved far from their root (their tiles gather)
+NESTED_JOIN_CASES = {
+    "scattered": (6, 9000, lambda g: _blocks(g, 9000, 2000)),
+    "blocked": (6, 5 * 2048 + 96, lambda g: _blocked(g, 5 * 2048 + 96)),
+    "blocked_b1": (1, 5 * 2048, lambda g: _blocked(g, 5 * 2048)),
+    "blocked_b33": (33, 3 * 2048 + 16, lambda g: _blocked(g, 3 * 2048 + 16)),
+    "heavy_10000": (6, 12 * 2048, lambda g: _blocked(g, 12 * 2048,
+                                                      heavy=10000)),
+    "far": (6, 4 * 2048, lambda g: _blocked(g, 4 * 2048, far=20)),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(NESTED_JOIN_CASES))
 @pytest.mark.parametrize("mode", ["avg", "sum", "max", "min", "none"])
-def test_nested_join_kernel_equals_plain(gpu, mode):
-    """K22 bit for bit: a root's selected rows folded in row order."""
+def test_nested_join_kernel_equals_plain(gpu, mode, layout):
+    """K22 bit for bit: a root's selected rows folded in row order; one
+    launch a call."""
     from opensearch_tpu_torch.ops import nested
     gen = torch.Generator().manual_seed(22)
-    bsz, d_pad = 6, 9000
-    seg = _blocks(gen, d_pad, 2000)
+    bsz, d_pad, build = NESTED_JOIN_CASES[layout]
+    seg = build(gen)
     child_s = (torch.rand(bsz, d_pad, generator=gen) * 9).cuda()
     child_m = (torch.rand(bsz, d_pad, generator=gen) < 0.6).cuda()
-    path_ord = torch.tensor([0, 1, -1, 0, 1, 0], dtype=torch.int32).cuda()
+    path_ord = torch.tensor([0, 1, -1, 0, 1, 0] * 6,
+                            dtype=torch.int32)[:bsz].cuda()
     boost = (torch.rand(bsz, generator=gen) + 0.5).cuda()
     before = _build.LAUNCHES["nested_join"]
     got = nested.nested_join(child_s, child_m, seg, path_ord, boost, mode)
@@ -1553,19 +1595,61 @@ def test_nested_join_kernel_equals_plain(gpu, mode):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["nested_join"] == before + 1
     assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[1].any())
+    if layout == "heavy_10000":
+        assert int(seg["child_start"].diff().max()) == 10000
 
 
-# K23's cases: (B, Dp, roots, extra rows of the first roots, card, mask
-# share): the walk's bitset (card <= 64) and earlier-rows test (a 26-row
-# root: four batches), the CTA's path of a 10,000-row root and of 33 and
-# 43 rows (bitmap windows past 65,536 buckets), B=1, no row selected
-NESTED_AGG_CASES = {"mixed": (5, 20000, 5000, (), 37, 0.7),
-                    "heavy_root": (4, 30000, 3000, (10000, 27), 64, 0.7),
-                    "card65": (3, 30000, 3000, (40, 20), 65, 0.7),
-                    "card300_heavy": (3, 30000, 3000, (10000, 20), 300, 0.7),
-                    "many_buckets": (2, 30000, 3000, (10000,), 70000, 0.7),
-                    "b1": (1, 30000, 3000, (40, 20), 37, 0.7),
-                    "all_false": (3, 30000, 3000, (10000,), 37, 0.0)}
+def test_nested_join_unaligned_views(gpu):
+    """Views off a 16-byte boundary take the element path, bit for bit."""
+    from opensearch_tpu_torch.ops import nested
+    gen = torch.Generator().manual_seed(221)
+    d_pad = 3 * 2048
+    seg = _blocked(gen, d_pad)
+    child_s = (torch.rand(5 * d_pad + 1, generator=gen) * 9).cuda()[1:] \
+        .view(5, d_pad)
+    child_m = (torch.rand(5 * d_pad + 1, generator=gen) < 0.6).cuda()[1:] \
+        .view(5, d_pad)
+    path_ord = torch.tensor([0, 1, 0, 1, 0], dtype=torch.int32).cuda()
+    boost = torch.ones(5).cuda()
+    for mode in ("sum", "max"):
+        got = nested.nested_join(child_s, child_m, seg, path_ord, boost, mode)
+        want = nested.nested_join_plain(
+            child_s, child_m, seg["live"], seg["nested_path"],
+            seg["parent_ptr"], seg["child_start"], seg["child_rows"],
+            path_ord, boost, mode)
+        torch.cuda.synchronize()
+        assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# K23's cases: (B, Dp, layout, card, mask share, context): the scattered
+# layout's (B, Dp, roots, extra rows of the first roots): the walk's
+# bitset (card <= 64) and earlier-rows test (a 26-row root: four
+# batches), the CTA's path of a 10,000-row root and of 33 and 43 rows
+# (bitmap windows past 65,536 buckets), B=1, no row selected, Dp off 16;
+# the blocked layout over several tiles (nested: each tile's parent window
+# staged; "far": rows moved under a far root, their tile gathering) at
+# B=1, 5 and 33, the root context's single bucket (card 1: one warp
+# reduction) and a card past the CTA-private counters' cap. Context
+# "random": each row's own bucket; "roots": every live root's mask set,
+# its bucket drawn once (the aggregation's parent context)
+NESTED_AGG_CASES = {
+    "mixed": (5, 20000, (5000, ()), 37, 0.7, "random"),
+    "heavy_root": (4, 30000, (3000, (10000, 27)), 64, 0.7, "random"),
+    "card65": (3, 30000, (3000, (40, 20)), 65, 0.7, "random"),
+    "card300_heavy": (3, 30000, (3000, (10000, 20)), 300, 0.7, "random"),
+    "many_buckets": (2, 30000, (3000, (10000,)), 70000, 0.7, "random"),
+    "b1": (1, 30000, (3000, (40, 20)), 37, 0.7, "random"),
+    "all_false": (3, 30000, (3000, (10000,)), 37, 0.0, "random"),
+    "dp_off16": (3, 30001, (3000, ()), 37, 0.7, "random"),
+    "blocked": (5, 5 * 2048 + 96, "blocked", 37, 0.7, "random"),
+    "blocked_card1": (5, 5 * 2048 + 96, "blocked", 1, 1.0, "roots"),
+    "blocked_card64": (5, 5 * 2048, "blocked", 64, 0.9, "roots"),
+    "blocked_past_cap": (3, 5 * 2048, "blocked", 5000, 0.9, "roots"),
+    "blocked_b1": (1, 5 * 2048, "blocked", 1, 1.0, "roots"),
+    "blocked_b33": (33, 3 * 2048 + 16, "blocked", 64, 0.8, "roots"),
+    "far": (5, 4 * 2048, "far", 37, 0.8, "roots"),
+}
 
 
 @pytest.mark.parametrize("case", sorted(NESTED_AGG_CASES))
@@ -1573,14 +1657,25 @@ def test_nested_aggs_kernels_equal_plain(gpu, case):
     """K23 nested and reverse_nested: own rows, buckets and counts
     exactly, one launch of each a call."""
     from opensearch_tpu_torch.ops import nested
-    bsz, d_pad, n_roots, extra, card, share = NESTED_AGG_CASES[case]
+    bsz, d_pad, layout, card, share, context = NESTED_AGG_CASES[case]
     gen = torch.Generator().manual_seed(23)
-    seg = _blocks(gen, d_pad, n_roots, extra)
+    if layout == "blocked":
+        seg = _blocked(gen, d_pad)
+    elif layout == "far":
+        seg = _blocked(gen, d_pad, far=20)
+    else:
+        seg = _blocks(gen, d_pad, *layout)
     mask = (torch.rand(bsz, d_pad, generator=gen) < share).cuda()
     peff = torch.randint(-1, card, (bsz, d_pad), generator=gen,
                          dtype=torch.int32).cuda()
-    path_ord = torch.tensor([0, 1, 0, -1, 1][:bsz],
-                            dtype=torch.int32).cuda()
+    if context == "roots":
+        roots = seg["root"] & seg["live"]
+        mask &= roots[None, :]
+        bucket = torch.randint(0, card, (d_pad,), generator=gen,
+                               dtype=torch.int32).cuda()
+        peff = torch.where(mask, bucket[None, :], -1).to(torch.int32)
+    path_ord = torch.tensor([0, 1, 0, -1, 1] * 7,
+                            dtype=torch.int32)[:bsz].cuda()
     before = (_build.LAUNCHES["nested_agg"],
               _build.LAUNCHES["reverse_nested_agg"])
     got = nested.nested_agg(mask, peff, seg, path_ord, card)
@@ -1596,7 +1691,9 @@ def test_nested_aggs_kernels_equal_plain(gpu, case):
     torch.cuda.synchronize()
     for g, w in zip(got + got_r, want + want_r):
         assert torch.equal(g, w)
-    assert (int(got_r[2].sum()) > 0) == (share > 0)
+    assert (int(got[2].sum()) > 0) == (share > 0)
+    if context == "random":
+        assert (int(got_r[2].sum()) > 0) == (share > 0)
 
 
 def _check_scatter(lanes, total, values, needs):
